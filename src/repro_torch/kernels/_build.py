@@ -30,6 +30,8 @@ SIGNATURES = {
     "ragged_paged_attention_launch":
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
          _P],
+    "paged_attention_launch":
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
     "kv_append_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _P],
     "swap_pack_launch": [_P, _P, _P, _I, _I, _I, _LL, _P],
     "swap_unpack_launch": [_P, _P, _P, _I, _I, _I, _LL, _P],

@@ -7,6 +7,8 @@ anything it does not take. There is no fallback from one to the other.
 from __future__ import annotations
 
 from repro_torch.kernels.kv_append import kv_append, kv_append_ref
+from repro_torch.kernels.paged_attention import (paged_attention,
+                                                 paged_attention_ref)
 from repro_torch.kernels.ragged_paged_attention import (
     ragged_paged_attention, ragged_paged_attention_ref)
 from repro_torch.kernels.swap_pack import (swap_pack, swap_pack_ref,
@@ -15,6 +17,18 @@ from repro_torch.kernels.swap_pack import (swap_pack, swap_pack_ref,
 
 def _on_cpu(t) -> bool:
     return t.device.type == "cpu"
+
+
+def paged_attention_op(q, k_pool, v_pool, block_tables, ctx_lens, *,
+                       k_scale=None, v_scale=None, softcap=None,
+                       window=None):
+    """Decode attention, one query token per sequence, over paged pools."""
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError("quantized pools (k/v scales) are not "
+                                  "ported yet")
+    fn = paged_attention_ref if _on_cpu(q) else paged_attention
+    return fn(q, k_pool, v_pool, block_tables, ctx_lens, softcap=softcap,
+              window=window)
 
 
 def ragged_paged_attention_op(q, k_pool, v_pool, block_tables, tok_seq,

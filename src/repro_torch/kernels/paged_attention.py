@@ -1,0 +1,118 @@
+"""Paged decode attention, the per-call decode path's attention core: the
+CUDA kernel's launcher and its plain PyTorch version.
+
+Counterpart of ``repro.kernels.paged_attention``. One new query token per
+sequence: row b's G grouped query heads attend over the first
+``ctx_lens[b]`` positions of its pages ``block_tables[b, i]`` (the last
+``window`` of them when a window is set). Rows with ``ctx_lens == 0`` are
+padding and get zeros.
+
+Layout: q (B, Hkv, G, hd); pools (n_pages, page, Hkv, hd);
+block_tables (B, max_pages) int32; ctx_lens (B,) int32. The kernel
+source is ``csrc/paged_attention.cu``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+
+NEG_INF = -1e30
+HEAD_DIMS = (32, 64, 128)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+SMEM_LIMIT = 48 * 1024      # bytes of shared memory without an opt-in
+
+
+def paged_attention_ref(q, k_pool, v_pool, block_tables, ctx_lens, *,
+                        softcap=None, window=None):
+    """The plain version, in the op order of the reference's jnp mirror
+    inside ``repro.models.attention.gqa_decode_paged``: gather the block
+    table, f32 einsum divided by sqrt(hd), softcap, mask, softmax,
+    einsum. Rows with ``ctx_lens == 0`` are zeroed, the kernel's
+    contract."""
+    B, Hkv, G, hd = q.shape
+    page = k_pool.shape[1]
+    S = block_tables.shape[1] * page
+    bt = block_tables.long()
+    k_cache = k_pool[bt].reshape(B, S, Hkv, hd)
+    v_cache = v_pool[bt].reshape(B, S, Hkv, hd)
+    s = torch.einsum("bhgk,bshk->bhgs", q.float(),
+                     k_cache.float()) / math.sqrt(hd)
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    j = torch.arange(S, device=q.device)[None, :]
+    live = j < ctx_lens[:, None]
+    if window is not None:
+        live &= j > ctx_lens[:, None] - 1 - window
+    s = s.masked_fill(~live[:, None, None, :], NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgs,bshk->bhgk", w, v_cache.float())
+    out = out.masked_fill((ctx_lens <= 0)[:, None, None, None], 0.0)
+    return out.to(q.dtype)
+
+
+def _smem_bytes(G: int, page: int, hd: int) -> int:
+    return 4 * (2 * G * hd + page * (hd + 1) + page * hd + G * page + 3 * G)
+
+
+def _check(q, k_pool, v_pool, block_tables, ctx_lens):
+    if not q.is_cuda:
+        raise ValueError("paged_attention launches a CUDA kernel; got a "
+                         f"tensor on {q.device}")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"paged_attention takes float32 or bfloat16, got "
+                        f"{q.dtype}")
+    B, Hkv, G, hd = q.shape
+    n_pages, page, pool_hkv, pool_hd = k_pool.shape
+    if hd not in HEAD_DIMS or (pool_hkv, pool_hd) != (Hkv, hd) \
+            or v_pool.shape != k_pool.shape:
+        raise ValueError(f"shapes q {tuple(q.shape)} / pools "
+                         f"{tuple(k_pool.shape)} {tuple(v_pool.shape)} not "
+                         f"taken (head_dim in {HEAD_DIMS})")
+    if block_tables.dim() != 2 or block_tables.shape[0] != B \
+            or ctx_lens.shape != (B,):
+        raise ValueError("block_tables must be (B, max_pages) and ctx_lens "
+                         "(B,)")
+    for t in (k_pool, v_pool):
+        if t.dtype != q.dtype:
+            raise TypeError("q and the pools must share a dtype")
+    for t in (block_tables, ctx_lens):
+        if t.dtype != torch.int32:
+            raise TypeError("block_tables and ctx_lens must be int32")
+    for t in (q, k_pool, v_pool, block_tables, ctx_lens):
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError("all operands must be contiguous on one device")
+    # the K/V tiles are staged with 16-byte loads
+    for t in (k_pool, v_pool):
+        if t.data_ptr() % 16:
+            raise ValueError("the pools must start on a 16-byte boundary")
+    smem = _smem_bytes(G, page, hd)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"G={G}, page={page}, hd={hd} needs {smem} bytes "
+                         f"of shared memory, above {SMEM_LIMIT}")
+
+
+def paged_attention(q, k_pool, v_pool, block_tables, ctx_lens, *,
+                    softcap=None, window=None):
+    """Launch the CUDA kernel on the current stream; returns
+    (B, Hkv, G, hd) in q's dtype. Raises on any operand the kernel does
+    not take, a CPU tensor included."""
+    _check(q, k_pool, v_pool, block_tables, ctx_lens)
+    B, Hkv, G, hd = q.shape
+    page = k_pool.shape[1]
+    out = torch.empty_like(q)
+    err = _build.lib().paged_attention_launch(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        block_tables.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),
+        B, Hkv, G, hd, page, block_tables.shape[1],
+        0 if window is None else int(window),
+        0.0 if softcap is None else float(softcap), 1.0 / math.sqrt(hd),
+        DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "paged_attention")
+    paged_attention.launches += 1
+    return out
+
+
+paged_attention.launches = 0

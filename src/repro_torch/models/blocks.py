@@ -1,7 +1,8 @@
-"""Residual blocks on the fused paged path, counterpart of the
-``init_block`` / ``block_mixed_paged`` slice of ``repro.models.blocks``:
-attention plus a dense FFN. MoE, post-norms and SSM blocks are not
-ported yet and raise."""
+"""Residual blocks on the paged paths, counterpart of the ``init_block`` /
+``block_mixed_paged`` / ``block_decode_paged`` / ``block_extend_paged``
+slice of ``repro.models.blocks``: attention plus a dense FFN. MoE,
+post-norms and SSM blocks are not ported yet and raise, so the extend's
+auxiliary (MoE balance) loss is always 0 and is not returned."""
 from __future__ import annotations
 
 import torch
@@ -41,6 +42,36 @@ def block_mixed_paged(p, cfg: ModelConfig, blk: BlockCfg, x, pool, ctx):
     h = attention.gqa_mixed_paged(
         p["attn"], blk.attn, rms_norm(x, p["norm1"], eps), pool,
         ctx["block_tables"], ctx["tok_seq"], ctx["tok_pos"],
+        window_override=ctx.get("window_override", "cfg"))
+    x = x + h.to(x.dtype)
+    h = mlp.mlp_forward(p["mlp"], blk.ffn, rms_norm(x, p["norm2"], eps))
+    return x + h.to(x.dtype)
+
+
+def block_decode_paged(p, cfg: ModelConfig, blk: BlockCfg, x, pool, ctx):
+    """Single-token pass over this block's paged pool, which it writes in
+    place. x: (B, d), one row per sequence, routed through
+    ctx["block_tables"] / ctx["ctx_lens"]. Returns x (B, d)."""
+    _check_ported(blk)
+    eps = cfg.norm_eps
+    h = attention.gqa_decode_paged(
+        p["attn"], blk.attn, rms_norm(x, p["norm1"], eps), pool,
+        ctx["block_tables"], ctx["ctx_lens"],
+        window_override=ctx.get("window_override", "cfg"))
+    x = x + h.to(x.dtype)
+    h = mlp.mlp_forward(p["mlp"], blk.ffn, rms_norm(x, p["norm2"], eps))
+    return x + h.to(x.dtype)
+
+
+def block_extend_paged(p, cfg: ModelConfig, blk: BlockCfg, x, pool, ctx):
+    """Chunked-prefill pass writing this block's pool pages in place.
+    x: (B, T, d) at positions ctx["start"][b] + t; only the first
+    ctx["n_new"][b] tokens of each row are real. Returns x (B, T, d)."""
+    _check_ported(blk)
+    eps = cfg.norm_eps
+    h = attention.gqa_extend_paged(
+        p["attn"], blk.attn, rms_norm(x, p["norm1"], eps), pool,
+        ctx["block_tables"], ctx["start"], ctx["n_new"],
         window_override=ctx.get("window_override", "cfg"))
     x = x + h.to(x.dtype)
     h = mlp.mlp_forward(p["mlp"], blk.ffn, rms_norm(x, p["norm2"], eps))

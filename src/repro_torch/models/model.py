@@ -1,4 +1,5 @@
-"""The language model on the fused paged path, counterpart of
+"""The language model on the paged paths — the fused mixed-batch
+iteration and the per-call decode and chunked prefill — counterpart of
 ``repro.models.model.LM``.
 
 Parameter tree, the JAX layout:
@@ -58,7 +59,7 @@ class LM:
     # Embedding / head
     # ------------------------------------------------------------------
     def embed(self, params, tokens):
-        """tokens: (N,) int -> (N, d)."""
+        """tokens: (...) int -> (..., d)."""
         return params["embed"][tokens.long()]
 
     def logits(self, params, hidden):
@@ -100,10 +101,60 @@ class LM:
         if sampling is not None:
             raise NotImplementedError("stochastic sampling is not ported "
                                       "yet; only greedy (sampling=None)")
-        cfg = self.cfg
         x = self.embed(params, tokens)
         ctx = {"block_tables": block_tables, "tok_seq": tok_seq,
                "tok_pos": tok_pos, "window_override": window_override}
+        x = self._layers(params, pools, B.block_mixed_paged, x, ctx)
+        x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+        logits = self.logits(params, x[q_last.long()])
+        sampled = torch.argmax(logits, dim=-1).to(torch.int32)
+        return sampled, logits, pools
+
+    def decode_step_paged(self, params, tokens, ctx_lens, pools,
+                          block_tables, *, window_override="cfg"):
+        """In-place paged decode (DESIGN.md §9): one new token per
+        sequence, written into the pools and attended through the block
+        tables with the ``paged_attention`` kernel.
+
+        tokens (B,) int32; ctx_lens (B,) int32 context length including
+        the new token (0 marks a padded row: nothing is written, its
+        logits are garbage); pools as from init_cache, written in place;
+        block_tables (B, max_pages) int32. Returns (logits (B, V),
+        pools)."""
+        x = self.embed(params, tokens)
+        ctx = {"block_tables": block_tables, "ctx_lens": ctx_lens,
+               "window_override": window_override}
+        x = self._layers(params, pools, B.block_decode_paged, x, ctx)
+        x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+        return self.logits(params, x), pools
+
+    def extend_step_paged(self, params, tokens, start, n_new, pools,
+                          block_tables, *, window_override="cfg",
+                          logits_index=None):
+        """In-place paged chunked prefill: the chunk's K/V pages are
+        written as they are computed; tokens past n_new[b] are bucket
+        padding whose writes are dropped. tokens (B, T) int32 at
+        positions start[b] + t; all written positions must fit the block
+        table (start + T <= max_pages * page). Returns (logits (B, V) at
+        logits_index (B,) — default the last position — and the
+        pools)."""
+        x = self.embed(params, tokens)
+        ctx = {"block_tables": block_tables, "start": start, "n_new": n_new,
+               "window_override": window_override}
+        x = self._layers(params, pools, B.block_extend_paged, x, ctx)
+        x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+        if logits_index is None:
+            last = x[:, -1]
+        else:
+            last = x[torch.arange(x.shape[0], device=x.device),
+                     logits_index.long()]
+        return self.logits(params, last), pools
+
+    def _layers(self, params, pools, block_fn, x, ctx):
+        """Run ``block_fn`` over every layer in order: a Python loop over
+        each group's periods takes the place of ``lax.scan``, and each
+        layer's pool is a view of its group's stacked pool tensor."""
+        cfg = self.cfg
         for gi, g in enumerate(cfg.groups):
             scan = params["groups"][gi]["scan"]
             for layer in range(g.n_periods):
@@ -111,8 +162,5 @@ class LM:
                     pj = tree_map(lambda t: t[layer], scan[f"b{j}"])
                     pool = {k: v[layer]
                             for k, v in pools[gi][f"b{j}"].items()}
-                    x = B.block_mixed_paged(pj, cfg, blk, x, pool, ctx)
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        logits = self.logits(params, x[q_last.long()])
-        sampled = torch.argmax(logits, dim=-1).to(torch.int32)
-        return sampled, logits, pools
+                    x = block_fn(pj, cfg, blk, x, pool, ctx)
+        return x

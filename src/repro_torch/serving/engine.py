@@ -1,5 +1,5 @@
 """The continuous-batching serving engine on PyTorch: the port of
-``repro.serving.engine`` for the fused paged path.
+``repro.serving.engine`` for the paged paths.
 
 Executes the InferCept scheduler's per-iteration plans on the model with
 paged KV storage:
@@ -13,6 +13,11 @@ paged KV storage:
                     layer covering every new token, one ragged
                     paged-attention pass, greedy argmax ON DEVICE so only B
                     int32 ids cross to the host (DESIGN.md §10).
+                    fused=False keeps the per-call paths as the
+                    differential oracle: one LM.extend_step_paged call per
+                    prefill chunk and one bucketed LM.decode_step_paged
+                    call for the decodes (the paged_attention kernel),
+                    their logits fetched and sampled on the host at commit.
   * swap_out/in   — page-granular device<->host movement staged through ONE
                     contiguous slab per request (the §4.1 coalesced
                     transfer): swap_pack gathers on the compute stream, the
@@ -27,6 +32,11 @@ paged KV storage:
                     shared pages are copy-on-write, and LRU eviction
                     reclaims cache-only pages under page pressure
                     (DESIGN.md §8).
+  * speculation   — optional (speculate=True with a predictor): at an
+                    interception the request's pages are COW-forked and
+                    the fork prefills the predictor's guess at the tool
+                    return and decodes ahead; an exact match at resume
+                    grafts the fork, any mismatch frees it (DESIGN.md §14).
 
 Two lifecycles drive the same iteration machinery (DESIGN.md §11): the
 closed loop (scripted requests, ``run``) and caller-driven sessions
@@ -46,9 +56,8 @@ launches the port's hand-written kernels (``repro_torch.kernels``); on
 the CPU it runs their plain PyTorch versions, which follow the JAX
 reference's CPU math op for op. Sampling is greedy argmax.
 
-Not ported yet, and refused at construction: the unfused and gather
-oracles (``fused=False``, ``paged=False``), speculative resume,
-quantized pools (``kv_dtype``) and the sanitizer.
+Not ported yet, and refused at construction: the gather oracle
+(``paged=False``), quantized pools (``kv_dtype``) and the sanitizer.
 """
 from __future__ import annotations
 
@@ -76,6 +85,7 @@ from repro_torch.obs.metrics import ENGINE_COUNTER_SCHEMA, MetricsRegistry
 from repro_torch.obs.trace import NullTracer, SpanTracer
 from repro_torch.serving.api_executor import (AsyncToolRuntime,
                                               ScriptedToolRuntime, ToolError,
+                                              ToolResultPredictor,
                                               prompt_token_ids)
 from repro_torch.serving.session import (CancelledEvent, FailedEvent,
                                          FinishEvent, InterceptEvent,
@@ -89,6 +99,26 @@ class ReqKV:
     tokens: List[int]                       # all known token ids
     pages: List[object]                     # ("dev", pid) | ("host", tree)
     computed: int = 0                       # KV tokens materialized (prefix)
+
+
+@dataclasses.dataclass
+class SpecFork:
+    """A speculative continuation past an intercept (DESIGN.md §14): a
+    refcounted COW fork of the paused request's pages taken at the
+    intercept boundary, seeded with the predictor's guess at the tool's
+    returned ids and decoded ahead while the real tool runs. Validated at
+    resume: exact match grafts ``st`` onto the request (re-prefill
+    skipped); any mismatch frees the pages and the baseline resume path
+    runs untouched."""
+    req: Request
+    st: ReqKV                  # fork-private tokens / pages / computed
+    kind: str                  # interception kind (telemetry key)
+    base: int                  # parent context size at the fork (tokens)
+    predicted: List[int]       # predicted returned ids (validation key)
+    max_emit: int              # sampled-token budget past the prefill
+    emitted: int = 0           # sampled tokens produced so far
+    byte_seconds: float = 0.0  # extra occupancy, charged on reject/kill
+    dead: bool = False         # killed by page pressure; rejects at resume
 
 
 @dataclasses.dataclass
@@ -169,6 +199,8 @@ class Engine:
                  fused: bool = True,
                  overlap: bool = True,
                  speculate: bool = False,
+                 predictor: Optional[ToolResultPredictor] = None,
+                 spec_tokens: int = 32,
                  max_queued: Optional[int] = None,
                  tracer: Optional[SpanTracer] = None,
                  sanitize: bool = False,
@@ -180,8 +212,7 @@ class Engine:
         for blk in cfg.blocks:
             assert blk.kind in ("attn", "shared_attn"), \
                 "paged engine serves attention-cache architectures"
-        unported = {"paged=False": not paged, "fused=False": not fused,
-                    "speculate=True": speculate,
+        unported = {"paged=False": not paged,
                     "kv_dtype": kv_dtype is not None,
                     "sanitize=True": sanitize}
         for mode, asked in unported.items():
@@ -246,6 +277,12 @@ class Engine:
         # resume) instead of after the engine drains
         self.event_sink = None
         self._prefill_emits: List[Tuple[Request, int]] = []
+        self._decode_ids: List[int] = []
+        # unfused oracle paths: logits fetches + host-side sampling issued
+        # at dispatch are parked here and resolved at the commit phase's
+        # single sync point (entries: ("chunk", req, st, logits) /
+        # ("decode", reqs, logits))
+        self._pending_oracle: List[tuple] = []
         # kept sorted by DESCENDING arrival: the next request to admit is
         # at the tail, so intake is one bisect + shift and admission is an
         # O(1) pop(); _pending_rids mirrors the queue for O(1) rid-collision
@@ -281,10 +318,21 @@ class Engine:
         # pipelined step (DESIGN.md §12): dispatch-phase swap-outs staged
         # through the SwapStager and collected at commit; overlap=False is
         # the serial execute-then-sync oracle
+        self.fused = bool(fused)
         self.overlap = overlap
         self.stager = SwapStager()
-        # the session API reads per-intercept speculation outcomes here;
-        # speculation is not ported, so it stays empty
+        # speculative resume past intercepts (DESIGN.md §14): at an
+        # interception, COW-fork the sequence pages and keep decoding
+        # against the predictor's guess at the tool return; validate at
+        # resume. speculate=False (the default) never forks — streams,
+        # counters and the ledger are identical to the baseline. Requires
+        # the paged path (forks ARE page refcounts) and a predictor.
+        self.speculate = bool(speculate and paged and predictor is not None)
+        self.predictor = predictor
+        self.spec_tokens = int(spec_tokens)
+        self._spec_forks: Dict[int, SpecFork] = {}
+        # rid -> per-intercept speculation outcomes, surfaced by the
+        # session API (SessionHandle.speculation)
         self.spec_log: Dict[int, List[dict]] = {}
         # off-thread caller-side tool execution; completions are injected
         # at the plan phase through resume_request (attach one directly or
@@ -648,7 +696,7 @@ class Engine:
     def _teardown_session(self, req: Request, t: float, cause: str):
         """Shared teardown for cancellation and terminal tool failure:
         abandon every in-flight completion path, close the open pause
-        accounting, release pages and
+        accounting, free the speculative fork, release pages and
         scheduler structures, and charge the accrued byte-seconds to the
         ledger's ``cancelled``/``tool_failed`` cause — the session ends;
         the engine and every co-resident session are untouched."""
@@ -680,13 +728,24 @@ class Engine:
             self.tracer.async_end("tool", rid, rec.kind, t,
                                   {"branch": rec.branch, "outcome": cause})
         self._close_wait_mark(req, t)
+        # a live speculative fork dies with the session; its accrued
+        # occupancy joins the teardown charge (not speculation_wasted —
+        # the fork didn't mispredict, its session went away)
+        fork = self._spec_forks.pop(rid, None)
+        fork_bs = 0.0
+        if fork is not None:
+            fork.dead = True
+            fork_bs = fork.byte_seconds
+            self._spec_free(fork)
+            self.counters["spec_killed"] += 1
+            self._spec_note(req, fork, cause, 0, t)
         # release scheduler structures + pages (notify_cancelled zeroes
         # host retention BEFORE on_discard, so _on_discard frees every
         # device page and drops host payloads: kv ends empty, no leaks)
         self.sched.notify_cancelled(
             req, t, cause="cancelled" if cause == "cancelled"
             else "tool_failed")
-        bs = self._accrued_bs.pop(rid, 0.0)
+        bs = self._accrued_bs.pop(rid, 0.0) + fork_bs
         self.ledger.charge_abandoned(cause, bs)
         if self.tracer.enabled:
             self.tracer.instant(("req", rid), cause, t,
@@ -729,6 +788,7 @@ class Engine:
                             returned_tokens=act.returned_tokens or 0)
         req.close_segment(intc)
         c_before, gpu_before = req.device_tokens, self.sched.gpu_used()
+        self._maybe_fork(req, intc, end)   # before pages are freed/swapped
         self.sched.notify_intercepted(req, intc, end)
         self._note_intercept(req, intc, end, c_before, gpu_before)
         timeout_s, retries, backoff = self._fault_policy(req, act)
@@ -818,6 +878,12 @@ class Engine:
             tr.span(("req", req.rid), "swap_in", start, end,
                     {"tokens": n})
 
+    def _sample_row(self, req: Request, flat_row: np.ndarray) -> int:
+        """Sample one token from a host-fetched logits row on the per-call
+        paths: greedy argmax, as the fused path's on-device argmax (only
+        greedy requests are ported)."""
+        return int(np.argmax(flat_row))
+
     # ------------------------------------------------------------------
     # page plumbing
     # ------------------------------------------------------------------
@@ -829,6 +895,15 @@ class Engine:
             got = self.blocks.allocate(n)
         return got
 
+    def _sacrifice_fork(self) -> bool:
+        """Page pressure last resort: kill one live speculative fork
+        (lowest rid — deterministic) so real work can allocate. Pure
+        speculation must never block or crash the real workload."""
+        if not self._spec_forks:
+            return False
+        self._spec_kill(self._spec_forks[min(self._spec_forks)], "pool")
+        return True
+
     def _try_ensure_pages(self, st: ReqKV, upto_tokens: int) -> bool:
         # request the whole shortfall in one _allocate_pages call: a single
         # cache-eviction pass covers the lot, instead of one page (and
@@ -837,6 +912,8 @@ class Engine:
         if short <= 0:
             return True
         got = self._allocate_pages(short)
+        while got is None and self._sacrifice_fork():
+            got = self._allocate_pages(short)
         if got is None:
             return False
         st.pages.extend(("dev", pid) for pid in got)
@@ -851,15 +928,17 @@ class Engine:
 
     def _try_ensure_writable(self, st: ReqKV, pos: int) -> bool:
         """Copy-on-write: the page holding token position ``pos`` is about
-        to be written. Shared pages (prefix-cache hits, or pages the cache
-        adopted from this request) are immutable — take a private copy of
-        the payload first, an index copy on the pools in place. Exclusive
-        pages are written in place. Without a cache no page is ever
-        shared, so the early-out skips the lookup. Under
-        exhaustion the copy target is reclaimed by evicting cold cache
-        pages one at a time; False only when the pool genuinely cannot
-        back the copy."""
-        if self.cache is None:
+        to be written. Shared pages (prefix-cache hits, pages the cache
+        adopted from this request, or pages a speculative fork holds) are
+        immutable — take a private copy of the payload first, an index
+        copy on the pools in place, on the compute stream before the
+        model call that writes it. Exclusive pages are written in place.
+        Without a cache or speculation no page is ever shared, so the
+        early-out skips the lookup. Under exhaustion the copy target is
+        reclaimed by evicting cold cache pages one at a time, then
+        sacrificing speculative forks; False only when the pool genuinely
+        cannot back the copy."""
+        if self.cache is None and not self.speculate:
             return True
         pidx = pos // self.page
         if pidx >= len(st.pages):
@@ -869,16 +948,25 @@ class Engine:
             return True
         new, copied = self.blocks.cow_target(pid)
         while new is None:
-            if self.cache.evict(1) > 0:
+            if self.cache is not None and self.cache.evict(1) > 0:
+                new, copied = self.blocks.cow_target(pid)
+                continue
+            if self._sacrifice_fork():
                 new, copied = self.blocks.cow_target(pid)
                 continue
             return False
         if copied:
-            for leaf in tree_leaves(self.pools):
-                leaf[:, new] = leaf[:, pid]
-            self.counters["cow_bytes"] += self.page * self.kv_token_bytes
+            self._copy_page(pid, new)
         st.pages[pidx] = ("dev", new)
         return True
+
+    def _copy_page(self, src: int, dst: int):
+        """The COW payload copy: page ``src`` of every layer's pools into
+        page ``dst``, in place on the compute stream, so the model call
+        issued after it reads and writes the private copy in order."""
+        for leaf in tree_leaves(self.pools):
+            leaf[:, dst] = leaf[:, src]
+        self.counters["cow_bytes"] += self.page * self.kv_token_bytes
 
     def _ensure_writable(self, st: ReqKV, pos: int):
         # backstop, same contract as _ensure_pages: unreachable for
@@ -1164,6 +1252,108 @@ class Engine:
         st.pages = []
         st.computed = 0
 
+    def _to_device(self, *arrays: np.ndarray) -> List[torch.Tensor]:
+        """A call's int32 routing arrays as one host buffer that crosses
+        to the device in one pinned, non-blocking copy; returns device
+        views shaped like ``arrays``."""
+        dev = torch.from_numpy(np.concatenate([a.ravel() for a in arrays]))
+        if dev.device != self.device:
+            dev = dev.pin_memory().to(self.device, non_blocking=True)
+        parts = torch.split(dev, [a.size for a in arrays])
+        return [t.view(a.shape) for t, a in zip(parts, arrays)]
+
+    def _block_table(self, sts: Sequence[ReqKV], rows: int) -> np.ndarray:
+        """(rows, max_pages) int32 block tables of ``sts``, padded with
+        the scratch page."""
+        bt = np.full((rows, self.max_pages), self.scratch_page, np.int32)
+        for b, st in enumerate(sts):
+            ids = self._device_page_ids(st, len(st.pages))
+            bt[b, :len(ids)] = ids
+        return bt
+
+    def _extend_call(self, st: ReqKV, start: int, n: int) -> torch.Tensor:
+        """Issue one LM.extend_step_paged call over positions
+        [start, start + n) of ``st``'s context. The chunk is padded to a
+        bucketed length as in the reference; padding tokens sit past the
+        real range, causally invisible, and their pool writes are
+        dropped. Returns the last real token's logits (1, V), still on
+        the device."""
+        n_pad = max(n, min(self._bucket(n),
+                           self.max_pages * self.page - start))
+        toks = np.zeros((1, n_pad), np.int32)
+        toks[0, :n] = st.tokens[start:start + n]
+        toks_d, meta_d, bt_d = self._to_device(
+            toks, np.array([start, n, n - 1], np.int32),
+            self._block_table([st], 1))
+        logits, _ = self.model.extend_step_paged(
+            self.params, toks_d, meta_d[0:1], meta_d[1:2], self.pools, bt_d,
+            logits_index=meta_d[2:3])
+        return logits
+
+    def _decode_call(self, sts: Sequence[ReqKV],
+                     pos: Sequence[int]) -> torch.Tensor:
+        """Issue one LM.decode_step_paged call over a bucketed batch: row b
+        feeds ``sts[b].tokens[pos[b]]`` at position pos[b]; padded rows
+        carry ctx_lens 0, so nothing is written for them. Returns logits
+        (B_pad, V), still on the device."""
+        B_pad = self._bucket(len(sts))
+        feed = np.zeros(B_pad, np.int32)
+        ctx_lens = np.zeros(B_pad, np.int32)   # counts the new token
+        for b, (st, p) in enumerate(zip(sts, pos)):
+            feed[b] = st.tokens[p]
+            ctx_lens[b] = p + 1
+        feed_d, cl_d, bt_d = self._to_device(
+            feed, ctx_lens, self._block_table(sts, B_pad))
+        logits, _ = self.model.decode_step_paged(self.params, feed_d, cl_d,
+                                                 self.pools, bt_d)
+        return logits
+
+    def _exec_chunk(self, req: Request, n: int):
+        """Unfused prefill chunk: one extend call, issue-only. The final
+        chunk of a fresh prefill emits the first generated token, but its
+        logits fetch and host-side sampling are deferred to the commit
+        phase (DESIGN.md §12): nothing reads st.tokens / _prefill_emits
+        before commit."""
+        st = self.kv[req.rid]
+        assert req.host_tokens == 0, "chunks require device-resident prefix"
+        start = st.computed
+        self._ensure_pages(st, start + n)
+        # only the first page of the chunk range can be shared (a matched
+        # COW tail); pages past it were freshly allocated above
+        self._ensure_writable(st, start)
+        logits = self._extend_call(st, start, n)
+        self.counters["prefill_bytes"] += n * self.kv_token_bytes
+        self.counters["prefill_tokens"] += n
+        self.counters["device_dispatches"] += 1
+        st.computed = start + n
+        if st.computed == req.target_ctx and len(st.tokens) == req.target_ctx:
+            self._pending_oracle.append(("chunk", req, st, logits))
+        if st.computed == req.target_ctx:
+            # prefill/recompute complete: publish the context so concurrent
+            # same-prefix requests can hit before this one even finishes
+            self._register_in_cache(st)
+
+    def _exec_decode(self, reqs: List[Request]):
+        """Unfused decode: one bucketed paged decode call for every
+        decoding request, issue-only. The full B_pad x vocab logits cross
+        to the host at commit (the per-step cost the fused path's
+        on-device sampling removes)."""
+        if not reqs:
+            return
+        sts = [self.kv[r.rid] for r in reqs]
+        for r, st in zip(reqs, sts):
+            self._ensure_pages(st, r.target_ctx + 1)
+            self._ensure_writable(st, r.target_ctx)
+        pos = [r.target_ctx for r in reqs]
+        logits = self._decode_call(sts, pos)
+        # O(1) appends per generated token
+        self.counters["decode_bytes"] += len(reqs) * self.kv_token_bytes
+        self.counters["decode_tokens"] += len(reqs)
+        self.counters["device_dispatches"] += 1
+        self._pending_oracle.append(("decode", list(reqs), logits))
+        for st, p in zip(sts, pos):
+            st.computed = p + 1
+
     def _dispatch_mixed(self, plan):
         """Fused mixed-batch iteration (DESIGN.md §10): flatten every chunk
         and every decode of this plan into one ragged token batch —
@@ -1199,31 +1389,22 @@ class Engine:
         B_pad = self._bucket(B)
         total = sum(n for _, _, _, n, _ in entries)
         N_pad = self._bucket(total)
-        # every routing array of the call in one int32 host buffer, so it
-        # crosses to the device as one copy: tokens, tok_seq, tok_pos
-        # (N_pad each), q_last (B_pad), then the block tables
-        sizes = [N_pad, N_pad, N_pad, B_pad, B_pad * self.max_pages]
-        host = np.zeros(sum(sizes), np.int32)
-        toks, tseq, tpos, qlast, bt = np.split(host, np.cumsum(sizes)[:-1])
-        tpos[:] = -1                          # -1 marks a padded token row
-        bt = bt.reshape(B_pad, self.max_pages)
-        bt[:] = self.scratch_page
+        toks = np.zeros(N_pad, np.int32)
+        tseq = np.zeros(N_pad, np.int32)      # pad rows: masked via tok_pos
+        tpos = np.full(N_pad, -1, np.int32)   # -1 marks a padded token row
+        qlast = np.zeros(B_pad, np.int32)
         off = 0
         for b, (req, st, start, n, _) in enumerate(entries):
-            ids = self._device_page_ids(st, len(st.pages))
-            bt[b, :len(ids)] = ids
             toks[off:off + n] = st.tokens[start:start + n]
             tseq[off:off + n] = b
             tpos[off:off + n] = np.arange(start, start + n)
             qlast[b] = off + n - 1
             off += n
-        dev = torch.from_numpy(host)
-        if dev.device != self.device:
-            dev = dev.pin_memory().to(self.device, non_blocking=True)
-        toks_d, tseq_d, tpos_d, qlast_d, bt_d = torch.split(dev, sizes)
+        toks_d, tseq_d, tpos_d, qlast_d, bt_d = self._to_device(
+            toks, tseq, tpos, qlast,
+            self._block_table([e[1] for e in entries], B_pad))
         sampled, _logits, _ = self.model.forward_mixed_paged(
-            self.params, toks_d, tseq_d, tpos_d, qlast_d, self.pools,
-            bt_d.view(B_pad, self.max_pages))
+            self.params, toks_d, tseq_d, tpos_d, qlast_d, self.pools, bt_d)
 
         n_chunk = sum(n for _, _, _, n, c in entries if c)
         n_dec = B - len(plan.chunks)
@@ -1260,6 +1441,290 @@ class Engine:
             else:
                 st.computed = start + 1
                 self._decode_ids.append(ids[b])
+
+    def _fetch_logits(self, logits: torch.Tensor) -> np.ndarray:
+        """Fetch an unfused call's logits to the host (a sync), counted in
+        ``logit_bytes`` at the fetched array's size; float32 numpy for
+        host-side sampling."""
+        host = logits.cpu()
+        self.counters["logit_bytes"] += host.numel() * host.element_size()
+        return host.float().numpy()
+
+    def _commit_oracle(self):
+        """Resolve the unfused paths' deferred logits fetches at the
+        commit sync point, in dispatch order (chunks before decode — a
+        request never has both in one plan)."""
+        pending, self._pending_oracle = self._pending_oracle, []
+        for entry in pending:
+            if entry[0] == "chunk":
+                _, req, st, logits = entry
+                tid = self._sample_row(req, self._fetch_logits(logits[0]))
+                st.tokens.append(tid)
+                self._prefill_emits.append((req, tid))
+            else:
+                _, reqs, logits = entry
+                rows = self._fetch_logits(logits)
+                self._decode_ids = [self._sample_row(r, rows[b])
+                                    for b, r in enumerate(reqs)]
+
+    # ------------------------------------------------------------------
+    # speculative resume (DESIGN.md §14)
+    # ------------------------------------------------------------------
+    def _maybe_fork(self, req: Request, intc: Interception, t: float):
+        """Fork the sequence at an intercept boundary, BEFORE the
+        scheduler's pause decision frees or swaps its pages. The fork
+        bumps page refcounts, so whatever Eq. 5 does to the parent —
+        preserve, swap, discard — the forked KV survives under the fork's
+        own references, and the parent's state is never touched: a
+        rejected fork falls back bit-identically."""
+        if not self.speculate:
+            return
+        st = self.kv.get(req.rid)
+        seg_next = req.seg_idx + 1   # segment_done has not run yet; this
+        if (st is None                # is the index completions() will use
+                or req.rid in self._spec_forks
+                or seg_next >= len(req.segments)):
+            return
+        # fork only a clean, fully device-resident context: the pages ARE
+        # the state being forked (at an intercept boundary the trigger
+        # token is consumed, so tokens == computed == target_ctx)
+        if (req.host_tokens or st.computed != req.device_tokens
+                or req.device_tokens != req.target_ctx
+                or len(st.tokens) != req.target_ctx
+                or any(e is None or e[0] != "dev" for e in st.pages)):
+            return
+        nxt = req.segments[seg_next]
+        if not nxt.open and (nxt.gen_tokens or 0) < 1:
+            return
+        pred = self.predictor.predict(req.rid, intc.kind, seg_next,
+                                      intc.returned_tokens)
+        if not pred:
+            return
+        predicted = [int(p) % self.cfg.vocab_size for p in pred]
+        # emit budget: stop short of the next segment's boundary so the
+        # segment-completing token (interception/finish consult) always
+        # goes through the normal decode path; open (session) segments
+        # get exactly the seed emit — their controller is consulted at
+        # graft time before the token is ever fed onward
+        max_emit = 1 if nxt.open else min(self.spec_tokens, nxt.gen_tokens)
+        pids = [e[1] for e in st.pages]
+        self.blocks.fork(pids)
+        fork = SpecFork(
+            req=req, kind=intc.kind,
+            st=ReqKV(tokens=list(st.tokens) + predicted,
+                     pages=[("dev", pid) for pid in pids],
+                     computed=st.computed),
+            base=req.target_ctx, predicted=predicted, max_emit=max_emit)
+        self._spec_forks[req.rid] = fork
+        self.counters["spec_forks"] += 1
+        if self.tracer.enabled:
+            self.tracer.async_begin(
+                "spec", req.rid, intc.kind, t,
+                {"predicted_tokens": len(predicted),
+                 "max_emit": max_emit})
+
+    def _spec_free(self, fork: SpecFork):
+        """Release the fork's page references. Every model call that read
+        or wrote them was issued before on the one compute stream, so a
+        later write into a recycled page is stream-ordered after them."""
+        self.blocks.free([e[1] for e in fork.st.pages
+                          if e is not None and e[0] == "dev"])
+        fork.st.pages = []
+
+    def _spec_kill(self, fork: SpecFork, why: str):
+        """Page pressure killed the fork mid-flight: release its pages
+        and charge the occupancy it wasted. The parent never knew the
+        fork existed, so the baseline path is untouched — the resume
+        simply finds no fork and runs normally."""
+        fork.dead = True
+        self._spec_forks.pop(fork.req.rid, None)
+        self._spec_free(fork)
+        self.ledger.charge_speculation(fork.byte_seconds)
+        self.counters["spec_killed"] += 1
+        self._spec_note(fork.req, fork, "killed", 0, self.now)
+
+    def _spec_note(self, req: Request, fork: SpecFork, outcome: str,
+                   grafted: int, t: float):
+        self.spec_log.setdefault(req.rid, []).append(
+            {"kind": fork.kind, "accepted": outcome == "accepted",
+             "outcome": outcome, "predicted_tokens": len(fork.predicted),
+             "emitted_tokens": fork.emitted, "grafted_tokens": grafted,
+             "time": t})
+        if self.tracer.enabled:
+            self.tracer.async_end(
+                "spec", req.rid, fork.kind, t,
+                {"outcome": outcome, "grafted_tokens": grafted,
+                 "wasted_byte_seconds": fork.byte_seconds
+                 if outcome != "accepted" else 0.0})
+
+    def _spec_pages(self, fork: SpecFork, upto_tokens: int) -> bool:
+        short = -(-upto_tokens // self.page) - len(fork.st.pages)
+        if short <= 0:
+            return True
+        got = self._allocate_pages(short)
+        if got is None:
+            return False
+        fork.st.pages.extend(("dev", pid) for pid in got)
+        return True
+
+    def _spec_cow(self, fork: SpecFork, pos: int) -> bool:
+        """COW for fork writes: the fork's tail page is shared with the
+        parent (and possibly the prefix cache) — take a private copy
+        before the fork appends into it. Same mechanics as
+        _try_ensure_writable, but failure kills the fork instead of
+        raising: speculation must never crash the real workload."""
+        st = fork.st
+        pidx = pos // self.page
+        if pidx >= len(st.pages):
+            return True
+        kind, pid = st.pages[pidx]
+        if kind != "dev" or not self.blocks.is_shared(pid):
+            return True
+        new, copied = self.blocks.cow_target(pid)
+        if new is None and self.cache is not None:
+            self.cache.evict(1)
+            new, copied = self.blocks.cow_target(pid)
+        if new is None:
+            return False
+        if copied:
+            self._copy_page(pid, new)
+        st.pages[pidx] = ("dev", new)
+        return True
+
+    def _spec_advance(self, fork: SpecFork) -> bool:
+        """One speculative step, issued and fetched in the commit phase.
+        The first call prefills the predicted returned tokens and emits
+        the fork's first sampled token — exactly the chunk-end emit the
+        real resume path would produce; later calls decode one token each
+        through the paged decode. Greedy sampling depends only on the
+        context, so an ACCEPTED fork's tokens are the ones the baseline
+        would decode after the real resume: speculation moves them
+        earlier in virtual time, it cannot change them."""
+        if fork.dead or fork.emitted >= fork.max_emit:
+            return False
+        req, st = fork.req, fork.st
+        if fork.emitted == 0:
+            # predicted-return prefill: positions [base, base + P)
+            start, n = st.computed, len(fork.predicted)
+            if not self._spec_pages(fork, start + n) \
+                    or not self._spec_cow(fork, start):
+                self._spec_kill(fork, "pages")
+                return False
+            logits = self._extend_call(st, start, n)
+            st.computed = start + n
+            st.tokens.append(self._sample_row(
+                req, logits[0].cpu().float().numpy()))
+            fork.emitted = 1
+            self.counters["spec_prefill_tokens"] += n
+            return True
+        pos = st.computed
+        if not self._spec_pages(fork, pos + 1) \
+                or not self._spec_cow(fork, pos):
+            self._spec_kill(fork, "pages")
+            return False
+        logits = self._decode_call([st], [pos])
+        st.computed = pos + 1
+        st.tokens.append(self._sample_row(
+            req, logits[0].cpu().float().numpy()))
+        fork.emitted += 1
+        self.counters["spec_decode_tokens"] += 1
+        return True
+
+    def _spec_step_forks(self, iter_time: float):
+        """Commit-phase fork stepping: every live fork accrues the extra
+        occupancy it pinned over this iteration and advances one step —
+        bounded piggyback on the batch's memory-bound window; the virtual
+        clock is untouched, so baseline requests are unperturbed."""
+        for fork in list(self._spec_forks.values()):
+            self._spec_advance(fork)
+            # accrue AFTER the step so the iteration that materialized the
+            # predicted prefill already pays for its residency — a fork
+            # rejected at the very next resume still shows up in the ledger
+            fork.byte_seconds += (fork.st.computed - fork.base) \
+                * self.cost.m_bytes * iter_time
+
+    def _spec_idle(self, gap: float):
+        """Idle-gap fork stepping: the device is otherwise parked, so fork
+        steps are budgeted against the gap's cost-model-priced virtual
+        time instead of piggybacking on a batch window."""
+        for fork in list(self._spec_forks.values()):
+            budget = gap
+            while not fork.dead and fork.emitted < fork.max_emit:
+                q = len(fork.predicted) if fork.emitted == 0 else 1
+                t = self.cost.t_fwd(q, fork.st.computed + q)
+                if t > budget:
+                    break
+                if not self._spec_advance(fork):
+                    break
+                budget -= t
+            # post-step accrual, same reasoning as _spec_step_forks
+            fork.byte_seconds += (fork.st.computed - fork.base) \
+                * self.cost.m_bytes * gap
+
+    def _spec_validate(self, req: Request, toks, t_done: float) -> bool:
+        """Resume-time validation. Exact-match accept: the fork's pages
+        and tokens replace the parent's context and the request decodes
+        immediately — the returned-token re-prefill is skipped entirely
+        (the recompute debt / host payload a mid-pause discard or swap
+        left behind is voided by notify_spec_graft). Any mismatch frees
+        the fork, charges ``speculation_wasted``, and returns False: the
+        baseline resume path runs bit-identically."""
+        fork = self._spec_forks.pop(req.rid, None)
+        if fork is None:
+            return False
+        actual = [int(t) % self.cfg.vocab_size for t in toks]
+        if fork.dead or fork.emitted < 1 or actual != fork.predicted:
+            self._spec_free(fork)
+            self.ledger.charge_speculation(fork.byte_seconds)
+            self.counters["spec_rejected"] += 1
+            self._spec_note(req, fork, "rejected", 0, t_done)
+            return False
+        st = self.kv[req.rid]
+        # the fork's context supersedes the parent's: release the
+        # parent's device refs; host-payload entries just disappear
+        self.blocks.free([e[1] for e in st.pages
+                          if e is not None and e[0] == "dev"])
+        st.tokens = fork.st.tokens
+        st.pages = fork.st.pages
+        st.computed = fork.st.computed
+        self._match_seen.pop(req.rid, None)
+        k = fork.emitted
+        self.sched.notify_spec_graft(req, fork.base + len(fork.predicted))
+        self.sched.notify_resumed(req, self.now, n_returned=len(actual))
+        assert req.phase == Phase.RUNNING, "grafted resume must be ready"
+        # graft the fork's decoded tokens past the first (seed) emit:
+        # advance_decode's accounting, k - 1 tokens at once. max_emit
+        # stops short of the segment boundary, so no interception or
+        # finish can fall inside the graft.
+        for _ in range(k - 1):
+            req.target_ctx += 1
+            req.device_tokens += 1
+            req.gen_in_seg += 1
+            req.output_tokens += 1
+        if k > 1 and req.first_token_time is None:
+            req.first_token_time = self.now
+        self.counters["spec_accepted"] += 1
+        self.counters["spec_grafted_tokens"] += k
+        self._spec_note(req, fork, "accepted", k, t_done)
+        self._close_wait_mark(req, self.now)
+        if req.controller is not None:
+            # session seed token: consult the controller NOW, before the
+            # scheduler can feed the token to a decode — the same
+            # consult-before-use order the prefill-emit path guarantees
+            tid = st.tokens[-1]
+            local = {"intercepted": [], "finished": []}
+            if self._boundary_action(req, tid, self.now, local, set(),
+                                     set(), pop_on_fire=True):
+                for fin in local["finished"]:
+                    self._finish_request(fin, self.now)
+            else:
+                self._emit_token(req, tid, len(st.tokens) - 1, self.now)
+        else:
+            base_idx = len(st.tokens) - k
+            for i in range(k):
+                self._emit_token(req, st.tokens[base_idx + i],
+                                 base_idx + i, self.now)
+        return True
 
     # ------------------------------------------------------------------
     # main loop
@@ -1323,6 +1788,8 @@ class Engine:
                      "predicted_waste": rec.predicted_waste,
                      "realized_waste": rec.realized_waste})
                 self.tracer.instant(("req", req.rid), "resume", t_done)
+            if self._spec_validate(req, toks, t_done):
+                continue   # accepted fork grafted; re-prefill skipped
             self.kv[req.rid].tokens.extend(
                 int(t) % self.cfg.vocab_size for t in toks)
             self.sched.notify_resumed(req, self.now, n_returned=len(toks))
@@ -1381,6 +1848,8 @@ class Engine:
                         self._accrued_bs[r.rid] = \
                             self._accrued_bs.get(r.rid, 0.0) \
                             + r.device_tokens * m_bytes * gap
+                if self._spec_forks:
+                    self._spec_idle(gap)
                 if self.tracer.enabled:
                     self.tracer.span(
                         ("engine", "step"), "idle", self.now, target,
@@ -1426,10 +1895,18 @@ class Engine:
         self._back_plan(plan)
         if plan.chunks or plan.decode:
             self.counters["mixed_iterations"] += 1
-        inflight.mixed = self._dispatch_mixed(plan)
-        if not self.overlap and inflight.mixed is not None:
-            self._commit_mixed(*inflight.mixed)  # lint: allow(dispatch-host-sync): serial oracle (overlap=False) syncs inline
-            inflight.mixed = None
+        if self.fused:
+            inflight.mixed = self._dispatch_mixed(plan)
+            if not self.overlap and inflight.mixed is not None:
+                self._commit_mixed(*inflight.mixed)  # lint: allow(dispatch-host-sync): serial oracle (overlap=False) syncs inline
+                inflight.mixed = None
+        else:
+            # per-call oracle paths sample host-side: their logits fetch
+            # is inherent, but it is deferred to commit, so staged
+            # swap-out copies still drain behind the model calls
+            for req, n in plan.chunks:
+                self._exec_chunk(req, n)
+            self._exec_decode(plan.decode)
         return inflight
 
     def _commit_phase(self, plan, inflight: StepInflight):
@@ -1443,6 +1920,8 @@ class Engine:
         two paths are bit-identical."""
         if inflight.mixed is not None:
             self._commit_mixed(*inflight.mixed)
+        if self._pending_oracle:
+            self._commit_oracle()
         for req, ticket in inflight.swap_out:
             self._complete_swap_out(req, ticket)
 
@@ -1526,6 +2005,7 @@ class Engine:
             self._emit_token(req, tid, len(st.tokens) - 1, end)
         for req, intc in events["intercepted"]:
             c_before, gpu_before = req.device_tokens, self.sched.gpu_used()
+            self._maybe_fork(req, intc, end)   # before pages are freed
             self.sched.notify_intercepted(req, intc, end)
             self._note_intercept(req, intc, end, c_before, gpu_before)
             sp = req.sampling
@@ -1544,9 +2024,15 @@ class Engine:
                 caller_owned=False, time=end))
         for req in events["finished"]:
             self._finish_request(req, end)
+        # step forks LAST so one created by this iteration's intercepts
+        # still piggybacks on this iteration (a tool returning within a
+        # single iteration would otherwise always reject at emitted==0)
+        if self._spec_forks:
+            self._spec_step_forks(iter_time)
 
     def _finish_request(self, req: Request, end: float):
-        """Engine-side finish bookkeeping at the commit loop."""
+        """Engine-side finish bookkeeping, shared by the commit loop and
+        the speculative graft's inline seed-token consult."""
         self.finished.append(req)
         self._wait_marks.pop(req.rid, None)
         self._accrued_bs.pop(req.rid, None)   # produced output: not waste

@@ -1,14 +1,16 @@
 """The port's model slice against the JAX reference: ``from_jax_params``
-bridges the ``repro`` ``LM.init`` weights, and ``forward_mixed_paged``
-runs the same pools, block tables and routing — padded token and
-sequence rows included — through both, float32 on the CPU.
+bridges the ``repro`` ``LM.init`` weights, and ``forward_mixed_paged``,
+``decode_step_paged`` and ``extend_step_paged`` run the same pools,
+block tables and routing — padded token and sequence rows included —
+through both, float32 on the CPU.
 
 Tolerances: logits atol 1e-4 (float32 products summed in another order
 by XLA and by PyTorch, through 2 layers); pools atol 2e-5 of each
 leaf's largest magnitude — the appended K/V rows reach magnitude ~10
 under the JAX init (its fan-in over the kv heads), and every element of
 a row carries the rounding of the row's 256-term products; sampled ids
-exactly equal."""
+exactly equal. Logits of padded rows (ctx_lens 0 in a decode) are
+garbage on both sides and are not compared."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -142,3 +144,73 @@ def test_init_cache_layout(tiny):
     tp = LM(cfg).init_cache(10, 16, dtype=torch.float32, device="cpu")
     assert [tuple(x.shape) for x in jax.tree.leaves(jp)] == \
         [tuple(x.shape) for x in tree_leaves(tp)]
+
+
+def _check_pools(j_pools, t_pools, before, n_written):
+    for jl, tl, b in zip(jax.tree.leaves(j_pools), tree_leaves(t_pools),
+                         jax.tree.leaves(before)):
+        want = np.asarray(jl)
+        np.testing.assert_allclose(tl.numpy(), want, rtol=0,
+                                   atol=2e-5 * np.abs(want).max())
+        changed = np.any(tl.numpy() != b, axis=(3, 4))
+        assert changed.sum() == n_written * tl.shape[0]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_decode_step_paged_matches_jax(tiny, seed):
+    """A bucket of 4 decodes: deep, on a page boundary, the first token,
+    and a padded row (ctx_lens 0, nothing written)."""
+    jcfg, cfg, jm, jparams = tiny
+    rng = np.random.default_rng(seed)
+    n_pages, page, max_pages = 48, 16, 8
+    bt = rng.permutation(n_pages)[:4 * max_pages].reshape(
+        4, max_pages).astype(np.int32)
+    tokens = rng.integers(0, cfg.vocab_size, 4).astype(np.int32)
+    ctx_lens = np.array([77, 16, 1, 0], np.int32)
+    pools = _pools(rng, jm, n_pages, page)
+    j_logits, j_pools = jm.decode_step_paged(
+        jparams, jnp.asarray(tokens), jnp.asarray(ctx_lens),
+        jax.tree.map(jnp.asarray, pools), jnp.asarray(bt))
+    params = from_jax_params(jax.tree.map(np.asarray, jparams), cfg)
+    t_pools = tree_map(lambda a: torch.from_numpy(a.copy()), pools)
+    t_logits, t_out = LM(cfg).decode_step_paged(
+        params, *map(torch.from_numpy, (tokens, ctx_lens)), t_pools,
+        torch.from_numpy(bt))
+    assert t_out is t_pools                      # updated in place
+    assert t_logits.shape == (4, cfg.vocab_size)
+    np.testing.assert_allclose(t_logits[:3].numpy(),
+                               np.asarray(j_logits)[:3], atol=1e-4, rtol=0)
+    np.testing.assert_array_equal(t_logits[:3].argmax(-1).numpy(),
+                                  np.asarray(j_logits)[:3].argmax(-1))
+    _check_pools(j_pools, t_pools, pools, n_written=3)
+
+
+@pytest.mark.parametrize("logits_index", [None, [4, 7]])
+def test_extend_step_paged_matches_jax(tiny, logits_index):
+    """Two chunks bucketed to T = 8 — one of 5 real tokens from position
+    29 (across a page edge), one prefill of 8 from 0 — with the logits
+    taken at the last position or at each row's last real token."""
+    jcfg, cfg, jm, jparams = tiny
+    rng = np.random.default_rng(3)
+    n_pages, page, max_pages = 48, 16, 8
+    bt = rng.permutation(n_pages)[:2 * max_pages].reshape(
+        2, max_pages).astype(np.int32)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 8)).astype(np.int32)
+    start = np.array([29, 0], np.int32)
+    n_new = np.array([5, 8], np.int32)
+    pools = _pools(rng, jm, n_pages, page)
+    li = None if logits_index is None else np.array(logits_index, np.int32)
+    j_logits, j_pools = jm.extend_step_paged(
+        jparams, *map(jnp.asarray, (tokens, start, n_new)),
+        jax.tree.map(jnp.asarray, pools), jnp.asarray(bt),
+        logits_index=None if li is None else jnp.asarray(li))
+    params = from_jax_params(jax.tree.map(np.asarray, jparams), cfg)
+    t_pools = tree_map(lambda a: torch.from_numpy(a.copy()), pools)
+    t_logits, t_out = LM(cfg).extend_step_paged(
+        params, *map(torch.from_numpy, (tokens, start, n_new)), t_pools,
+        torch.from_numpy(bt),
+        logits_index=None if li is None else torch.from_numpy(li))
+    assert t_out is t_pools
+    np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits),
+                               atol=1e-4, rtol=0)
+    _check_pools(j_pools, t_pools, pools, n_written=13)
