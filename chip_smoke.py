@@ -12,10 +12,15 @@ Phases; any failure ends the run with a non-zero exit and no result line:
   2. build         — nvcc every csrc/*.cu for sm_90a, load the library
   3. kernels       — each kernel against its plain version on the card, at
                      llama3.2-1b's widths (Hkv 8, G 4, hd 64, page 16) in
-                     bf16 and f32, plus edge cases
+                     bf16 and f32, plus edge cases; the quantized pools'
+                     kernels (page_requant, the kv_append_quant composite,
+                     the scaled attention kernels) for int8, float8_e4m3
+                     and float8_e5m2, and a SwapStager round trip of a
+                     quantized pool tree
   4. tiny          — tiny-config f32 forward_mixed_paged, decode_step_paged
                      and extend_step_paged, kernels on the card against
-                     plain versions on the CPU, same weights and pools
+                     plain versions on the CPU, same weights and pools,
+                     over float pools and over int8 pools
   5. decode_parity — full width on the card: the fused and per-call paths
                      against each other, prefill (forward_mixed_paged vs
                      extend_step_paged) and one decode step on equal pools
@@ -34,10 +39,15 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      a session's segments are open and a fork past an open
                      segment emits only its seed token, so only the closed
                      loop's scripted segments give forks decode steps
- 10. timing        — each kernel, its plain version and the one-call PyTorch
+ 10. quant         — the serve run with int8 KV pools
+                     (Engine(kv_dtype="int8")): page_requant, kv_append and
+                     the scaled ragged kernel
+ 11. quant_unfused — the same with fused=False: the scaled paged decode
+                     kernel
+ 12. timing        — each kernel, its plain version and the one-call PyTorch
                      yardstick, timed with CUDA events on the inputs the
                      serve runs gave it; bound from those inputs
- 11. profile       — torch.profiler over a window of serve steps: device
+ 13. profile       — torch.profiler over a window of serve steps: device
                      busy share and device time by kernel
 
 Launch counts are read from the kernel wrappers: set to 0 just before
@@ -57,17 +67,32 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("kernels", "tiny", "decode_parity", "serve", "swap", "unfused",
-          "spec", "timing", "profile")
+          "spec", "quant", "quant_unfused", "timing", "profile")
 SERVE_PHASES = {"serve": ("infercept", {}), "swap": ("swap", {}),
                 "unfused": ("infercept", {"fused": False}),
                 "spec": ("infercept", {"speculate": True,
-                                       "closed_loop": True})}
+                                       "closed_loop": True}),
+                "quant": ("infercept", {"kv_dtype": "int8"}),
+                "quant_unfused": ("infercept", {"kv_dtype": "int8",
+                                                "fused": False})}
+# the rows of the kernels line: an attention kernel over int8 pools is a
+# row of its own beside its wrapper's
 KERNELS = ("ragged_paged_attention", "paged_attention", "kv_append",
-           "swap_pack", "swap_unpack")
+           "swap_pack", "swap_unpack", "page_requant",
+           "ragged_paged_attention_int8", "paged_attention_int8")
 
 # NVIDIA H100 SXM data sheet peaks (dense), used for the bounds
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
+
+
+def row_key(kernel: str, kv_dtype) -> str:
+    """The kernels-line row of a wrapper's launches: the attention kernels
+    over int8 pools count apart."""
+    if kv_dtype is not None and kernel in ("ragged_paged_attention",
+                                           "paged_attention"):
+        return f"{kernel}_int8"
+    return kernel
 
 
 def log(msg: str) -> None:
@@ -280,26 +305,199 @@ def check_kernels() -> dict:
             assert err_p == err_u == err_r == 0.0, shape
             worst["swap_pack"] = max(worst["swap_pack"], err_p)
             worst["swap_unpack"] = max(worst["swap_unpack"], err_u, err_r)
+    check_quant_kernels(gen, worst)
     return worst
+
+
+def same_bytes(a, b) -> bool:
+    """Bit-for-bit equality, a 1-byte payload through a uint8 view."""
+    import torch
+    view = (lambda t: t.view(torch.uint8) if t.element_size() == 1  # noqa
+            else t)
+    return a.shape == b.shape and bool(torch.equal(view(a), view(b)))
+
+
+def quant_pools(gen, name, *, n_pages, page, Hkv, hd, device):
+    """Random K and V quantized at one scale per (page, kv head): payload
+    and scales as kv_append_quant would leave them."""
+    import torch
+    from repro_torch.kernels.kv_quant import (kv_quant_dtype, kv_quant_qmax,
+                                              quantize_rows)
+    qd = kv_quant_dtype(name)
+    out = []
+    for _ in range(2):
+        f = torch.randn((n_pages, page, Hkv, hd), generator=gen,
+                        device=device)
+        scale = f.abs().amax(dim=(1, 3)) / kv_quant_qmax(qd)
+        out += [quantize_rows(f, scale[:, None], qd), scale]
+    kq, ks, vq, vs = out
+    return kq, vq, ks, vs
+
+
+def check_quant_kernels(gen, worst) -> None:
+    """The quantized pools' kernels on the card: page_requant and the
+    kv_append_quant composite bit for bit against their plain versions
+    (the same float32 multiply, round-half-to-even and clip, and a
+    round-to-nearest-even float8 cast); the attention kernels over int8,
+    float8_e4m3 and float8_e5m2 pools within the float pools' tolerances
+    (1e-4 for float32 q, 3e-2 for bf16 q: the same sums, the dequantizing
+    multiply exact in both); a SwapStager round trip of a quantized pool
+    tree, exact."""
+    import torch
+    from repro_torch.kernels.kv_quant import (KV_QUANT_DTYPES,
+                                              kv_append_quant,
+                                              kv_append_quant_ref,
+                                              page_requant, page_requant_ref)
+    from repro_torch.kernels.paged_attention import (
+        paged_attention, paged_attention_quant_ref)
+    from repro_torch.kernels.ragged_paged_attention import (
+        ragged_paged_attention, ragged_paged_attention_quant_ref)
+    from repro_torch.kernels.swap_pack import SwapStager
+    dev = torch.device("cuda")
+    i32 = dict(dtype=torch.int32, device=dev)
+    tol = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+    n_pages, page, Hkv, hd = 256, 16, 8, 64
+    for name in sorted(KV_QUANT_DTYPES):
+        # page_requant: 512 rows over 256 pages, so most pages are named
+        # more than once, some ids out of range (invalid rows)
+        kq, vq, ks, vs = quant_pools(gen, name, n_pages=n_pages, page=page,
+                                     Hkv=Hkv, hd=hd, device=dev)
+        N = 512
+        pids = torch.randint(0, n_pages + 16, (N,), generator=gen, **i32)
+        kr = torch.rand((N, Hkv), generator=gen, device=dev)
+        vr = torch.rand((N, Hkv), generator=gen, device=dev)
+        kr[:8] = 1.0                                  # the identity
+        want = page_requant_ref(kq.clone(), vq.clone(), kr, vr, pids)
+        got = page_requant(kq.clone(), vq.clone(), kr, vr, pids)
+        torch.cuda.synchronize()
+        ok = all(same_bytes(a, b) for a, b in zip(got, want))
+        log(f"  page_requant {name} N={N}: bit-exact {ok}")
+        assert ok, name
+        # kv_append_quant: rows of the main path's sizes in bf16 and f32,
+        # duplicate pages, invalid rows, rows 8x larger than the pool's
+        for rdtype in (torch.bfloat16, torch.float32):
+            for n, mag in ((512, 8.0), (7, 0.5)):
+                slots = torch.randperm(n_pages * page, generator=gen,
+                                       device=dev)[:n]
+                rows = [(torch.randn((n, Hkv, hd), generator=gen,
+                                     device=dev) * mag).to(rdtype)
+                        for _ in range(2)]
+                valid = (torch.rand(n, generator=gen, device=dev)
+                         > 0.1).to(torch.int32)
+                args = (*rows, (slots // page).to(torch.int32),
+                        (slots % page).to(torch.int32), valid)
+                want = kv_append_quant_ref(kq.clone(), vq.clone(),
+                                           ks.clone(), vs.clone(), *args)
+                got = kv_append_quant(kq.clone(), vq.clone(), ks.clone(),
+                                      vs.clone(), *args)
+                torch.cuda.synchronize()
+                ok = all(same_bytes(a, b) for a, b in zip(got, want))
+                log(f"  kv_append_quant {name} rows {str(rdtype)[6:]} "
+                    f"N={n}: payload and scales bit-exact {ok}")
+                assert ok, (name, rdtype, n)
+        # the scaled attention kernels
+        kq, vq, ks, vs = quant_pools(gen, name, n_pages=2048, page=page,
+                                     Hkv=Hkv, hd=hd, device=dev)
+        for qdtype in (torch.bfloat16, torch.float32):
+            label = f"{name} pools, q {str(qdtype)[6:]}"
+            for ctx in (1, 16, 17, 64 * 16):
+                for G in (1, 4):
+                    q = torch.randn((3, Hkv, G, hd), generator=gen,
+                                    device=dev).to(qdtype)
+                    bt = torch.randint(0, 2048, (3, 64), generator=gen, **i32)
+                    ctx_lens = torch.tensor([ctx, max(1, ctx - 1), 0], **i32)
+                    for kernel, plain, extra, key in (
+                            (paged_attention, paged_attention_quant_ref,
+                             (ctx_lens,), "paged_attention_int8"),
+                            (ragged_paged_attention,
+                             ragged_paged_attention_quant_ref,
+                             (torch.arange(3, **i32), ctx_lens - 1),
+                             "ragged_paged_attention_int8")):
+                        got = kernel(q, kq, vq, bt, *extra, k_scale=ks,
+                                     v_scale=vs)
+                        want = plain(q, kq, vq, ks, vs, bt, *extra)
+                        torch.cuda.synchronize()
+                        err = max_err(got, want)
+                        zero = bool((got[2] == 0).all())
+                        assert err <= tol[qdtype] and zero, (label, ctx, G,
+                                                             key)
+                        if name == "int8":
+                            worst[key] = max(worst[key], err)
+            for window, softcap in ((7, None), (None, 30.0), (9, 25.0)):
+                q = torch.randn((5, Hkv, 4, hd), generator=gen,
+                                device=dev).to(qdtype)
+                bt = torch.randint(0, 2048, (5, 64), generator=gen, **i32)
+                ctx_lens = torch.randint(1, 1025, (5,), generator=gen, **i32)
+                kw = dict(window=window, softcap=softcap)
+                errs = (
+                    max_err(paged_attention(q, kq, vq, bt, ctx_lens,
+                                            k_scale=ks, v_scale=vs, **kw),
+                            paged_attention_quant_ref(q, kq, vq, ks, vs, bt,
+                                                      ctx_lens, **kw)),
+                    max_err(ragged_paged_attention(
+                        q, kq, vq, bt, torch.arange(5, **i32), ctx_lens - 1,
+                        k_scale=ks, v_scale=vs, **kw),
+                        ragged_paged_attention_quant_ref(
+                            q, kq, vq, ks, vs, bt, torch.arange(5, **i32),
+                            ctx_lens - 1, **kw)))
+                assert max(errs) <= tol[qdtype], (label, window, softcap)
+            log(f"  scaled paged/ragged attention, {label}: ctx {{1, 16, "
+                f"17, 1024}} x G {{1, 4}}, window and softcap within "
+                f"{tol[qdtype]:g}, padded rows zero")
+    # the stager moves a quantized pool tree's scale leaves with its
+    # payload: pack, collect, clobber, unpack, compare
+    kq, vq, ks, vs = quant_pools(gen, "int8", n_pages=128, page=page,
+                                 Hkv=Hkv, hd=hd, device=dev)
+    pools = ({"b0": {"k": kq.expand(4, *kq.shape).contiguous(),
+                     "k_scale": ks.expand(4, *ks.shape).contiguous(),
+                     "v": vq.expand(4, *vq.shape).contiguous(),
+                     "v_scale": vs.expand(4, *vs.shape).contiguous()}},)
+    want = {k: v.clone() for k, v in pools[0]["b0"].items()}
+    st = SwapStager()
+    ids = [5, 77, 3, 120]
+    slab = st.collect(st.pack(pools, ids))
+    for leaf in pools[0]["b0"].values():
+        leaf[:, ids] = 0
+    st.unpack(pools, ids, slab)
+    torch.cuda.synchronize()
+    ok = all(same_bytes(pools[0]["b0"][k], want[k]) for k in want)
+    log(f"  SwapStager round trip of int8 pools and their scale leaves "
+        f"(slab leaves {[tuple(t.shape) for t in slab[0]['b0'].values()]}): "
+        f"exact {ok}")
+    assert ok
 
 
 # ---------------------------------------------------------------------------
 # phase 4: tiny config, kernels on the card vs plain versions on the CPU
 # ---------------------------------------------------------------------------
 def check_close(label, card_out, cpu_out, card_pools, cpu_pools) -> None:
-    """Card logits within 1e-3 of the CPU plain path's; pools within
+    """Card logits within 1e-3 of the CPU plain path's; float pools within
     1e-4 of the pools' largest magnitude (the appended K/V come from
-    float32 products summed in another order on the card)."""
+    float32 products summed in another order on the card). int8 pools:
+    scales within 1e-4 relative (the amax of those K/V rows), the
+    payload within one quantization step (a value on a rounding edge may
+    land on either side)."""
     import torch
     from repro_torch.utils.tree import tree_leaves
     err = max_err(card_out.cpu(), cpu_out)
-    pool_err, pool_tol = 0.0, 0.0
+    pool_err, pool_tol, steps, scale_rel = 0.0, 0.0, 0.0, 0.0
     for g, c in zip(tree_leaves(card_pools), tree_leaves(cpu_pools)):
-        pool_err = max(pool_err, max_err(g.cpu(), c))
-        pool_tol = max(pool_tol, 1e-4 * float(c.abs().max()))
+        g = g.cpu()
+        if c.dtype == torch.int8:
+            steps = max(steps, max_err(g, c))
+        elif c.dim() == 3:               # (periods, n_pages, Hkv) scales
+            scale_rel = max(scale_rel, float(((g - c).abs()
+                                              / c.abs().clamp(min=1e-30))
+                                             .max()))
+        else:
+            pool_err = max(pool_err, max_err(g, c))
+            pool_tol = max(pool_tol, 1e-4 * float(c.abs().max()))
     log(f"  tiny {label}: logits max_abs_err {err:.3g} (tol 1e-3), pools "
-        f"{pool_err:.3g} (tol {pool_tol:.3g})")
+        f"{pool_err:.3g} (tol {pool_tol:.3g}), quantized payload "
+        f"{steps:.3g} steps (tol 1), scales {scale_rel:.3g} relative (tol "
+        "1e-4)")
     assert err <= 1e-3 and pool_err <= pool_tol, label
+    assert steps <= 1 and scale_rel <= 1e-4, label
     assert bool(torch.isfinite(card_out).all()), label
 
 
@@ -322,16 +520,16 @@ def check_tiny() -> None:
                            dtype=torch.int32)
     tok_pos = torch.tensor(list(range(20, 26)) + list(range(5)) + [77]
                            + [-1] * 4, dtype=torch.int32)
-    tokens = torch.randint(0, cfg.vocab_size, (16,), generator=gen,
-                           dtype=torch.int32)
+    tokens16 = torch.randint(0, cfg.vocab_size, (16,), generator=gen,
+                             dtype=torch.int32)
     q_last = torch.tensor([5, 10, 11, 0], dtype=torch.int32)
     cuda = lambda t: t.cuda()                                   # noqa: E731
     ids_c, logits_c, pools_c = lm.forward_mixed_paged(
-        params, tokens, tok_seq, tok_pos, q_last, tree_map(torch.clone,
-                                                           pools), bt)
+        params, tokens16, tok_seq, tok_pos, q_last, tree_map(torch.clone,
+                                                             pools), bt)
     ids_g, logits_g, pools_g = lm.forward_mixed_paged(
-        tree_map(cuda, params), cuda(tokens), cuda(tok_seq), cuda(tok_pos),
-        cuda(q_last), tree_map(cuda, pools), cuda(bt))
+        tree_map(cuda, params), cuda(tokens16), cuda(tok_seq),
+        cuda(tok_pos), cuda(q_last), tree_map(cuda, pools), cuda(bt))
     torch.cuda.synchronize()
     err = max_err(logits_g.cpu(), logits_c)
     pool_err = max(max_err(pools_g[0]["b0"][k].cpu(), pools_c[0]["b0"][k])
@@ -374,6 +572,33 @@ def check_tiny() -> None:
         tree_map(cuda, pools), cuda(bt[:2]), logits_index=cuda(index))
     torch.cuda.synchronize()
     check_close("extend_step_paged", logits_g, logits_c, pools_g, pools_c)
+
+    # the three calls again over int8 pools: random payload and per-page
+    # scales below the new rows' amax / 127, so the appends requantize
+    def fill(z):
+        if z.dtype == torch.int8:
+            return torch.randint(-127, 128, z.shape, generator=gen,
+                                 dtype=torch.int8)
+        return torch.rand(z.shape, generator=gen) * 0.08 + 0.02
+    pools = tree_map(fill, lm.init_cache(n_pages, page, dtype=torch.float32,
+                                         device="cpu", kv_dtype="int8"))
+    calls = (
+        ("forward_mixed_paged int8", lambda f, P: lm.forward_mixed_paged(
+            f(params), *map(f, (tokens16, tok_seq, tok_pos, q_last)), P,
+            f(bt))[1:]),
+        ("decode_step_paged int8", lambda f, P: lm.decode_step_paged(
+            f(params), f(tokens), f(ctx_lens), P, f(bt))),
+        ("extend_step_paged int8", lambda f, P: lm.extend_step_paged(
+            f(params), f(chunk), f(start), f(n_new), P, f(bt[:2]),
+            logits_index=f(index))))
+    rows = {"decode_step_paged int8": slice(0, 3)}
+    for label, call in calls:
+        logits_c, pools_c = call(lambda t: t, tree_map(torch.clone, pools))
+        logits_g, pools_g = call(lambda t: tree_map(cuda, t),
+                                 tree_map(cuda, pools))
+        torch.cuda.synchronize()
+        keep = rows.get(label, slice(None))
+        check_close(label, logits_g[keep], logits_c[keep], pools_g, pools_c)
 
 
 # ---------------------------------------------------------------------------
@@ -546,9 +771,20 @@ def check_decode_parity(*, tiny: bool = False, device: str = "cuda") -> None:
 # phases 6-9: full-width serve through the session API
 # ---------------------------------------------------------------------------
 class Recorder:
-    """Keeps a copy of the inputs of each kernel's largest call on the
-    main path, for the timing phase: wraps the ops that the model and the
-    stager call, and adds nothing to the launch counts."""
+    """Keeps the inputs of each kernel's largest call on the main path,
+    for the timing phase: wraps the ops that the model and the stager
+    call, and adds nothing to the launch counts. Small inputs (routing,
+    rows, q, scales) are copied on the device at the call; the pools,
+    which the run keeps alive anyway, are kept by reference, so they
+    carry their contents at the end of the run. On leaving, the run's
+    records move to host memory, outside the run's timed region, so the
+    records add no device memory to a serve run's
+    ``max_memory_allocated``. An attention call over quantized pools is
+    kept under its own key (``..._int8``); the quantized append's inputs
+    are kept as ``kv_append_quant``, from which the timing phase rebuilds
+    the page_requant call."""
+
+    COPY_BYTES = 8 << 20       # inputs up to this size are copied at once
 
     def __init__(self):
         import repro_torch.kernels.ops as ops
@@ -563,6 +799,7 @@ class Recorder:
              "ragged_paged_attention", 0, False),
             (attention, "paged_attention_op", "paged_attention", 0, True),
             (attention, "kv_append_op", "kv_append", 2, False),
+            (attention, "kv_append_quant_op", "kv_append_quant", 4, False),
             (ops, "swap_pack_op", "swap_pack", 1, False),
             (ops, "swap_unpack_op", "swap_unpack", 2, False)]
         self._orig = {}
@@ -573,29 +810,52 @@ class Recorder:
 
             def wrapped(*args, _orig=orig, _key=key, _size=size_arg,
                         _later=later, **kw):
+                if kw.get("k_scale") is not None:
+                    _key += "_int8"
                 size = args[_size].shape[0]
                 best = self.calls.get(_key, (-1,))[0]
                 if size > best or (_later and size == best):
-                    self.calls[_key] = (size, [a.clone() for a in args], kw)
+                    self.calls[_key] = (size, self._keep(args),
+                                        self._keep(kw))
                 return _orig(*args, **kw)
             setattr(mod, name, wrapped)
         return self
 
+    def _keep(self, tree):
+        from repro_torch.utils.tree import tree_map
+        return tree_map(
+            lambda t: t.clone() if hasattr(t, "clone") and t.numel()
+            * t.element_size() <= self.COPY_BYTES else t, tree)
+
     def __exit__(self, *exc):
+        from repro_torch.utils.tree import tree_map
         for (mod, name), orig in self._orig.items():
             setattr(mod, name, orig)
+        for key, (size, args, kw) in self.calls.items():
+            self.calls[key] = (size, *tree_map(
+                lambda t: t.to("cpu") if hasattr(t, "to") else t,
+                (args, kw)))
+
+    def call(self, key: str, device="cuda"):
+        """The recorded (args, kw) of ``key``'s largest call, on
+        ``device``."""
+        from repro_torch.utils.tree import tree_map
+        _, args, kw = self.calls[key]
+        return tree_map(lambda t: t.to(device) if hasattr(t, "to") else t,
+                        (args, kw))
 
 
 def kernel_wrappers() -> dict:
     """Each kernel's launching wrapper, which carries its launch count."""
-    from repro_torch.kernels import (kv_append, paged_attention,
+    from repro_torch.kernels import (kv_append, kv_quant, paged_attention,
                                      ragged_paged_attention)
     from repro_torch.kernels import swap_pack as sp
     return {"ragged_paged_attention":
             ragged_paged_attention.ragged_paged_attention,
             "paged_attention": paged_attention.paged_attention,
             "kv_append": kv_append.kv_append,
-            "swap_pack": sp.swap_pack, "swap_unpack": sp.swap_unpack}
+            "swap_pack": sp.swap_pack, "swap_unpack": sp.swap_unpack,
+            "page_requant": kv_quant.page_requant}
 
 
 def launch_counts() -> dict:
@@ -612,8 +872,8 @@ def agent_engine(policy: str, *, tiny: bool, device: str,
     """A fresh engine (llama3.2-1b, random weights from seed 0) with the
     agent workload submitted through a ScriptedClient, or straight to the
     engine with ``closed_loop``. ``engine_kw`` selects the path
-    (``fused=False``, or ``speculate=True``, which gets the oracle
-    tool-result predictor). Returns (engine, client or None, handles or
+    (``fused=False``, ``kv_dtype="int8"``, or ``speculate=True``, which
+    gets the oracle tool-result predictor). Returns (engine, client or None, handles or
     requests)."""
     import torch
     from repro_torch.configs import get_config
@@ -655,12 +915,18 @@ def serve(policy: str, recorder: Recorder, *, tiny: bool = False,
     smoke run uses the defaults; ``tiny`` and ``device="cpu"`` rehearse
     the same control flow without a card."""
     import torch
+    from repro_torch.utils.tree import tree_leaves
     on_card = device == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     eng, client, handles = agent_engine(policy, tiny=tiny, device=device,
                                         **engine_kw)
     cfg = eng.cfg
     sync()
+    # the engine's construction (weights made in float32, then cast) sets
+    # its own peak; the run's peak is taken apart from it
+    init_peak = torch.cuda.max_memory_allocated() if on_card else 0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
     with recorder:
@@ -672,7 +938,7 @@ def serve(policy: str, recorder: Recorder, *, tiny: bool = False,
             drained, finished = batch.drained, sum(h.finished
                                                    for h in handles)
         sync()
-    wall = time.perf_counter() - t0
+        wall = time.perf_counter() - t0
     counts = launch_counts()
     st = eng.sched.stats
     reqs = [getattr(h, "request", h) for h in handles]
@@ -682,12 +948,19 @@ def serve(policy: str, recorder: Recorder, *, tiny: bool = False,
            "requests": len(handles), "steps": eng.counters[
                "mixed_iterations"], "output_tokens": out_tokens,
            "wall_s": wall, "tokens_per_s": out_tokens / wall,
-           "max_memory_allocated":
+           "max_memory_allocated": max(
+               init_peak, torch.cuda.max_memory_allocated())
+           if on_card else None,
+           "run_peak_bytes":
                torch.cuda.max_memory_allocated() if on_card else None,
            "swapped_out_tokens": st.swapped_out_tokens,
            "swapped_in_tokens": st.swapped_in_tokens,
            "free_pages": eng.blocks.num_free, "n_pages": eng.blocks.n_pages,
            "fused": eng.fused, "speculate": eng.speculate,
+           "kv_dtype": eng.kv_dtype, "kv_token_bytes": eng.kv_token_bytes,
+           "kv_pool_bytes": sum(t.numel() * t.element_size()
+                                for t in tree_leaves(eng.pools)),
+           "stale_scale_pages": eng._stale_scale_pages(),
            "spec": {k: eng.counters[k] for k in (
                "spec_forks", "spec_accepted", "spec_rejected",
                "spec_killed", "spec_grafted_tokens")},
@@ -705,7 +978,12 @@ def serve(policy: str, recorder: Recorder, *, tiny: bool = False,
                 and counts["paged_attention"] > 0, counts
         if eng.speculate:
             assert counts["paged_attention"] > 0, counts
+        # quantized pools run the page_requant kernel on every append;
+        # float pools never do
+        assert (counts["page_requant"] > 0) == (eng.kv_dtype is not None), \
+            counts
     assert eng.blocks.num_free == eng.blocks.n_pages - 1, "leaked pages"
+    assert res["stale_scale_pages"] == [], "freed pages kept their scales"
     eng.close()
     return res
 
@@ -716,26 +994,34 @@ def serve(policy: str, recorder: Recorder, *, tiny: bool = False,
 def time_kernels(recorder: Recorder, worst: dict, launches: dict) -> list:
     import torch
     from repro_torch.kernels.kv_append import kv_append, kv_append_ref
-    from repro_torch.kernels.paged_attention import (paged_attention,
-                                                     paged_attention_ref)
+    from repro_torch.kernels.kv_quant import (page_requant, page_requant_ref,
+                                              updated_page_scales,
+                                              kv_quant_qmax)
+    from repro_torch.kernels.paged_attention import (
+        paged_attention, paged_attention_quant_ref, paged_attention_ref)
     from repro_torch.kernels.ragged_paged_attention import (
-        ragged_paged_attention, ragged_paged_attention_ref)
+        ragged_paged_attention, ragged_paged_attention_quant_ref,
+        ragged_paged_attention_ref)
     from repro_torch.kernels.swap_pack import (swap_pack, swap_pack_ref,
                                                swap_unpack, swap_unpack_ref)
     rows = []
+    ragged_src = ("src/repro_torch/kernels/csrc/ragged_paged_attention.cu",
+                  "src/repro/kernels/ragged_paged_attention.py:105")
+    paged_src = ("src/repro_torch/kernels/csrc/paged_attention.cu",
+                 "src/repro/kernels/paged_attention.py:93")
     meta = {
-        "ragged_paged_attention": (
-            "src/repro_torch/kernels/csrc/ragged_paged_attention.cu",
-            "src/repro/kernels/ragged_paged_attention.py:105"),
-        "paged_attention": (
-            "src/repro_torch/kernels/csrc/paged_attention.cu",
-            "src/repro/kernels/paged_attention.py:93"),
+        "ragged_paged_attention": ragged_src,
+        "ragged_paged_attention_int8": ragged_src,
+        "paged_attention": paged_src,
+        "paged_attention_int8": paged_src,
         "kv_append": ("src/repro_torch/kernels/csrc/kv_append.cu",
                       "src/repro/kernels/kv_append.py:60"),
         "swap_pack": ("src/repro_torch/kernels/csrc/swap_pack.cu",
                       "src/repro/kernels/swap_pack.py:35"),
         "swap_unpack": ("src/repro_torch/kernels/csrc/swap_pack.cu",
                         "src/repro/kernels/swap_pack.py:74"),
+        "page_requant": ("src/repro_torch/kernels/csrc/page_requant.cu",
+                         "src/repro/kernels/kv_quant.py:140"),
     }
 
     def row(name, ms, plain_ms, lib_ms, nbytes, ops, dtype, err, shape):
@@ -753,75 +1039,95 @@ def time_kernels(recorder: Recorder, worst: dict, launches: dict) -> list:
             f"ms, library {lib_ms} ms, bound {max(by_bytes, by_ops):.4f} "
             f"ms, main-path max_abs_err {err:.3g}")
 
+    def main_path_err(name, got, want):
+        """Both round one float32 result to the working type once: within
+        one bf16 unit in the last place at the output's largest magnitude
+        (in float32, 2^-16 of it for the different order of the sums)."""
+        ulp = {torch.bfloat16: 2.0 ** -7, torch.float32: 2.0 ** -16}[
+            want.dtype]
+        err = max_err(got, want)
+        tol = ulp * float(want.float().abs().max())
+        log(f"  {name} main-path call: max_abs_err {err:.3g} (tol "
+            f"{tol:.3g})")
+        assert err <= tol, name
+        return max(worst[name], err)
+
+    def attention_bytes(q, kp, n_pages_read, n_idx):
+        """Each live page of K and V read once (and its two scales for a
+        quantized pool), q read and out written once, the int32 routing
+        read once."""
+        page, Hkv, hd = kp.shape[1:]
+        scales = 2 * n_pages_read * Hkv * 4 if kp.element_size() == 1 else 0
+        return (2 * n_pages_read * page * Hkv * hd * kp.element_size()
+                + scales + 2 * q.numel() * q.element_size() + 4 * n_idx)
+
     # ragged paged attention: no single PyTorch call computes it
-    _, args, kw = recorder.calls["ragged_paged_attention"]
-    q, kp, vp, bt, tok_seq, tok_pos = args
-    got = ragged_paged_attention(*args, **kw)
-    want = ragged_paged_attention_ref(*args, **kw)
-    main_err = max_err(got, want)
-    # both round one float32 result to the working type once: within one
-    # bf16 unit in the last place at the output's largest magnitude (in
-    # float32, 2^-16 of it for the different order of the sums)
-    ulp = {torch.bfloat16: 2.0 ** -7, torch.float32: 2.0 ** -16}[q.dtype]
-    tol = ulp * float(want.float().abs().max())
-    log(f"  ragged_paged_attention main-path call: max_abs_err "
-        f"{main_err:.3g} (tol {tol:.3g})")
-    assert main_err <= tol
-    err = max(worst["ragged_paged_attention"], main_err)
-    ms, plain_ms = in_turns(lambda: ragged_paged_attention_ref(*args, **kw),
-                            lambda: ragged_paged_attention(*args, **kw), 5)
-    N, Hkv, G, hd = q.shape
-    page = kp.shape[1]
-    pos, seqs, table = tok_pos.tolist(), tok_seq.tolist(), bt.tolist()
-    window = kw.get("window")
-    pages, visible = set(), 0
-    for p, s in zip(pos, seqs):
-        if p < 0:
-            continue
-        lo = 0 if window is None else max(0, p + 1 - window)
-        visible += p + 1 - lo
-        pages.update(table[s][i] for i in range(lo // page, p // page + 1))
-    elem = q.element_size()
-    nbytes = (2 * len(pages) * page * Hkv * hd * elem + 2 * q.numel() * elem
-              + 4 * (bt.numel() + 2 * N))
-    ops = 4 * visible * Hkv * G * hd
-    row("ragged_paged_attention", ms, plain_ms, None, nbytes, ops,
-        str(q.dtype)[6:], err, list(q.shape))
+    for name, plain in (("ragged_paged_attention",
+                         ragged_paged_attention_ref),
+                        ("ragged_paged_attention_int8",
+                         ragged_paged_attention_quant_ref)):
+        args, kw = recorder.call(name)
+        q, kp, vp, bt, tok_seq, tok_pos = args
+        scales = {k: kw.pop(k) for k in ("k_scale", "v_scale") if k in kw}
+        plain_args = (q, kp, vp, *scales.values(), bt, tok_seq, tok_pos)
+
+        def kernel_fn():
+            return ragged_paged_attention(*args, **scales, **kw)
+
+        def plain_fn():
+            return plain(*plain_args, **kw)
+        err = main_path_err(name, kernel_fn(), plain_fn())
+        ms, plain_ms = in_turns(plain_fn, kernel_fn, 5)
+        N, Hkv, G, hd = q.shape
+        page = kp.shape[1]
+        pos, seqs, table = tok_pos.tolist(), tok_seq.tolist(), bt.tolist()
+        window = kw.get("window")
+        pages, visible = set(), 0
+        for p, sq in zip(pos, seqs):
+            if p < 0:
+                continue
+            lo = 0 if window is None else max(0, p + 1 - window)
+            visible += p + 1 - lo
+            pages.update(table[sq][i] for i in range(lo // page,
+                                                     p // page + 1))
+        row(name, ms, plain_ms, None,
+            attention_bytes(q, kp, len(pages), bt.numel() + 2 * N),
+            4 * visible * Hkv * G * hd, str(q.dtype)[6:], err, list(q.shape))
 
     # paged decode attention: no single PyTorch call computes it either
-    _, args, kw = recorder.calls["paged_attention"]
-    q, kp, vp, bt, ctx_lens = args
-    got = paged_attention(*args, **kw)
-    want = paged_attention_ref(*args, **kw)
-    main_err = max_err(got, want)
-    tol = ulp * float(want.float().abs().max())
-    log(f"  paged_attention main-path call: max_abs_err {main_err:.3g} "
-        f"(tol {tol:.3g})")
-    assert main_err <= tol
-    err = max(worst["paged_attention"], main_err)
-    ms, plain_ms = in_turns(lambda: paged_attention_ref(*args, **kw),
-                            lambda: paged_attention(*args, **kw), 20)
-    B, Hkv, G, hd = q.shape
-    page = kp.shape[1]
-    table = bt.tolist()
-    window = kw.get("window")
-    pages, visible = set(), 0
-    for b, ctx in enumerate(ctx_lens.tolist()):
-        if ctx <= 0:
-            continue
-        lo = 0 if window is None else max(0, ctx - window)
-        visible += ctx - lo
-        pages.update(table[b][i] for i in range(lo // page,
-                                                (ctx - 1) // page + 1))
-    elem = q.element_size()
-    nbytes = (2 * len(pages) * page * Hkv * hd * elem + 2 * q.numel() * elem
-              + 4 * (bt.numel() + B))
-    row("paged_attention", ms, plain_ms, None, nbytes,
-        4 * visible * Hkv * G * hd, str(q.dtype)[6:], err,
-        list(q.shape) + [f"ctx {ctx_lens.tolist()}"])
+    for name, plain in (("paged_attention", paged_attention_ref),
+                        ("paged_attention_int8", paged_attention_quant_ref)):
+        args, kw = recorder.call(name)
+        q, kp, vp, bt, ctx_lens = args
+        scales = {k: kw.pop(k) for k in ("k_scale", "v_scale") if k in kw}
+        plain_args = (q, kp, vp, *scales.values(), bt, ctx_lens)
+
+        def kernel_fn():
+            return paged_attention(*args, **scales, **kw)
+
+        def plain_fn():
+            return plain(*plain_args, **kw)
+        err = main_path_err(name, kernel_fn(), plain_fn())
+        ms, plain_ms = in_turns(plain_fn, kernel_fn, 20)
+        B, Hkv, G, hd = q.shape
+        page = kp.shape[1]
+        table = bt.tolist()
+        window = kw.get("window")
+        pages, visible = set(), 0
+        for b, ctx in enumerate(ctx_lens.tolist()):
+            if ctx <= 0:
+                continue
+            lo = 0 if window is None else max(0, ctx - window)
+            visible += ctx - lo
+            pages.update(table[b][i] for i in range(lo // page,
+                                                    (ctx - 1) // page + 1))
+        row(name, ms, plain_ms, None,
+            attention_bytes(q, kp, len(pages), bt.numel() + B),
+            4 * visible * Hkv * G * hd, str(q.dtype)[6:], err,
+            list(q.shape) + [f"ctx {ctx_lens.tolist()}"])
 
     # kv_append: two pools and a validity mask, no single PyTorch call
-    _, args, _ = recorder.calls["kv_append"]
+    args, _ = recorder.call("kv_append")
     kp, vp, kn, vn, ids, offs, valid = args
     want_k, want_v = kv_append_ref(kp.clone(), vp.clone(), kn, vn, ids, offs,
                                    valid)
@@ -839,7 +1145,7 @@ def time_kernels(recorder: Recorder, worst: dict, launches: dict) -> list:
         list(kn.shape))
 
     # swap pack: the yardstick is index_select over the page axis
-    _, args, _ = recorder.calls["swap_pack"]
+    args, _ = recorder.call("swap_pack")
     pool, ids = args
     err = max(worst["swap_pack"],
               max_err(swap_pack(pool, ids), swap_pack_ref(pool, ids)))
@@ -854,7 +1160,7 @@ def time_kernels(recorder: Recorder, worst: dict, launches: dict) -> list:
         + list(pool.shape[2:]))
 
     # swap unpack: the yardstick is index_copy_ over the page axis
-    _, args, _ = recorder.calls["swap_unpack"]
+    args, _ = recorder.call("swap_unpack")
     pool, staging, ids = args
     want = swap_unpack_ref(pool.clone(), staging, ids)
     err = max(worst["swap_unpack"],
@@ -866,6 +1172,35 @@ def time_kernels(recorder: Recorder, worst: dict, launches: dict) -> list:
     moved = staging.numel() * staging.element_size()
     row("swap_unpack", ms, plain_ms, lib_ms, 2 * moved + 4 * ids.numel(), 0,
         str(pool.dtype)[6:], err, list(staging.shape))
+
+    # page_requant: its call inside the largest quantized append, rebuilt
+    # from that append's inputs (phase A on copies gives the ratios); no
+    # single PyTorch call requantizes pages by per-head ratios
+    args, _ = recorder.call("kv_append_quant")
+    kp, vp, ks, vs, kn, vn, page_ids, offs, valid = args
+    n_pages = kp.shape[0]
+    pids = torch.where(valid != 0, page_ids, n_pages).to(torch.int32)
+    gidx = pids.clamp(max=n_pages - 1).long()
+    old = ks[gidx], vs[gidx]
+    updated_page_scales(ks, vs, kn, vn, pids, kv_quant_qmax(kp.dtype))
+    k_ratio, v_ratio = (torch.where(s[gidx] > 0, o / torch.where(
+        s[gidx] > 0, s[gidx], 1.0), 0.0) for o, s in zip(old, (ks, vs)))
+    rq = (k_ratio, v_ratio, pids)
+    want = page_requant_ref(kp.clone(), vp.clone(), *rq)
+    got = page_requant(kp.clone(), vp.clone(), *rq)
+    torch.cuda.synchronize()
+    assert all(same_bytes(a, b) for a, b in zip(got, want)), \
+        "page_requant disagrees on the main path's inputs"
+    kc, vc = kp.clone(), vp.clone()
+    ms, plain_ms = in_turns(lambda: page_requant_ref(kc, vc, *rq),
+                            lambda: page_requant(kc, vc, *rq), 20)
+    touched = len(set(pids[pids < n_pages].tolist()))
+    page_bytes = kp[0].numel() * kp.element_size()
+    nbytes = 2 * 2 * touched * page_bytes + 2 * k_ratio.numel() * 4 \
+        + 4 * pids.numel()
+    row("page_requant", ms, plain_ms, None, nbytes,
+        2 * touched * kp[0].numel(), "float32", 0.0,
+        [pids.numel(), f"{touched} pages"] + list(kp.shape[1:]))
     torch.cuda.synchronize()
     return rows
 
@@ -905,7 +1240,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma list of {PHASES} (card and build always "
-                         "run; timing needs serve, swap, unfused and spec)")
+                         "run; timing needs every serve phase)")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     t_start = time.perf_counter()
@@ -954,7 +1289,7 @@ def main() -> int:
             f"{''.join(f', {k}={v}' for k, v in engine_kw.items())}")
         res = results[phase] = serve(policy, recorder, **engine_kw)
         for k, v in res["launches"].items():
-            total[k] += v
+            total[row_key(k, res["kv_dtype"])] += v
         if phase == "swap":
             assert res["swapped_out_tokens"] > 0, "nothing was swapped"
             assert res["swapped_in_tokens"] == res["swapped_out_tokens"]
@@ -963,6 +1298,17 @@ def main() -> int:
         if phase == "spec":
             assert res["spec"]["spec_accepted"] > 0, res["spec"]
             assert res["launches"]["ragged_paged_attention"] > 0
+        if phase == "quant":
+            # the stager moved the scale leaves with the payload
+            assert res["swapped_out_tokens"] > 0, "nothing was swapped"
+            if "serve" in results:
+                bf16 = results["serve"]
+                log(f"  kv_token_bytes {res['kv_token_bytes']} (bf16 serve "
+                    f"{bf16['kv_token_bytes']}), run peak "
+                    f"{res['run_peak_bytes']} B (bf16 serve "
+                    f"{bf16['run_peak_bytes']}), max_memory_allocated "
+                    f"{res['max_memory_allocated']} (bf16 serve "
+                    f"{bf16['max_memory_allocated']})")
         if phase in ("unfused", "spec") and "serve" in results:
             # bf16 at full width with random weights: the paths can part
             # at a near-tie of the argmax, so the share is reported, and
@@ -976,7 +1322,7 @@ def main() -> int:
         log("[timing] CUDA events on the inputs of each kernel's largest "
             "main-path call")
         rows = time_kernels(recorder, worst, total)
-        assert [r["name"] for r in rows] == list(KERNELS), rows
+        assert sorted(r["name"] for r in rows) == sorted(KERNELS), rows
     if "profile" in phases:
         log("[profile] torch.profiler over serve steps, InferCept policy")
         profile_serve()

@@ -3,10 +3,10 @@
 Each ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
 together, for ``sm_90a``; the objects are linked into one shared library
 with a plain C interface under ``build/kernels/`` at the repository root.
-The library's name carries a digest of the sources and flags, so an edit
-rebuilds and an unchanged tree loads what it built before. Nothing is
-built when this module is imported: the first kernel launch calls
-``lib()``.
+The library's name carries a digest of the sources, the headers they
+share (``csrc/*.cuh``) and the flags, so an edit rebuilds and an
+unchanged tree loads what it built before. Nothing is built when this
+module is imported: the first kernel launch calls ``lib()``.
 """
 from __future__ import annotations
 
@@ -28,10 +28,10 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # C signatures of csrc/*.cu, in declaration order
 SIGNATURES = {
     "ragged_paged_attention_launch":
-        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
-         _P],
+        [_P] * 9 + [_I] * 7 + [_F, _F, _I, _I, _P],
     "paged_attention_launch":
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
+        [_P] * 8 + [_I] * 7 + [_F, _F, _I, _I, _P],
+    "page_requant_launch": [_P] * 5 + [_I] * 6 + [_P],
     "kv_append_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _P],
     "swap_pack_launch": [_P, _P, _P, _I, _I, _I, _LL, _P],
     "swap_unpack_launch": [_P, _P, _P, _I, _I, _I, _LL, _P],
@@ -56,7 +56,7 @@ def sources() -> list:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libinfercept_kernels_{h.hexdigest()[:16]}.so"

@@ -7,22 +7,27 @@
 // its own sequence, masked to kv position <= tok_pos[n] (and to the last
 // `window` positions when window > 0), with an online softmax and float32
 // accumulators. tok_pos[n] == -1 marks a padded row, whose output is zeros.
+// The pools hold q's type, or a quantized 1-byte payload (int8, float8 e4m3
+// or e5m2) with one float32 scale per (page, kv head) in k_scale / v_scale,
+// dequantized in-register as the TPU kernel's quant mode does.
 //
 // Bound on the H100: bytes. Each live KV page of a sequence is read from HBM
 // (3.35 TB/s); the arithmetic per byte is G * 2 flops per element, far below
-// the ~295 flop/byte ridge of the bf16 tensor cores.
+// the ~295 flop/byte ridge of the bf16 tensor cores. A 1-byte payload
+// halves the bytes of a bf16 pool.
 //
 // Design: one block per (token n, kv head h). The block loads its own
 // tok_seq[n] / tok_pos[n] and block-table row from global memory, which
 // takes the place of the TPU's scalar prefetch. Instead of the TPU grid's
 // full max_pages sweep with pl.when, it loops only over the live pages,
 // from the window's first page to (ctx - 1) / page. Each page's K and V tile
-// for head h is staged through shared memory (K rows padded by one float so
-// the score loop is free of bank conflicts); each of the G query rows keeps
+// for head h is staged through shared memory with 16-byte loads (16 /
+// sizeof(payload) elements each, converted to float32 and multiplied by the
+// page's scale as they are stored; K rows padded by one float so the score
+// loop is free of bank conflicts); each of the G query rows keeps
 // its running max, sum and head_dim-wide accumulator in float32 shared
 // memory. Simple and right first: no tensor cores, no TMA, no split-KV.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "payload.cuh"
 
 namespace {
 
@@ -30,32 +35,32 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+struct Params {
+  const void* q;                  // (N, Hkv, G, HD), T
+  const void* k_pool;             // (n_pages, page, Hkv, HD), P
+  const void* v_pool;             // (n_pages, page, Hkv, HD), P
+  const float* k_scale;           // (n_pages, Hkv), or null: not quantized
+  const float* v_scale;
+  const int* block_tables;        // (B, max_pages)
+  const int* tok_seq;             // (N,)
+  const int* tok_pos;             // (N,)
+  void* out;                      // (N, Hkv, G, HD), T
+  int Hkv, G, page, max_pages, window;
+  float softcap, scale;
+};
 
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch does
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads) ragged_kernel(
-    const T* __restrict__ q,              // (N, Hkv, G, HD)
-    const T* __restrict__ k_pool,         // (n_pages, page, Hkv, HD)
-    const T* __restrict__ v_pool,         // (n_pages, page, Hkv, HD)
-    const int* __restrict__ block_tables, // (B, max_pages)
-    const int* __restrict__ tok_seq,      // (N,)
-    const int* __restrict__ tok_pos,      // (N,)
-    T* __restrict__ out,                  // (N, Hkv, G, HD)
-    int Hkv, int G, int page, int max_pages, int window, float softcap,
-    float scale) {
-  constexpr int KS = HD + 1;  // padded K row stride in shared memory
+template <typename T, typename P, int HD>
+__global__ void __launch_bounds__(kThreads) ragged_kernel(const Params prm) {
+  constexpr int KS = HD + 1;                  // padded K row stride
+  constexpr int VEC = 16 / sizeof(P);         // elements per 16-byte load
+  constexpr int ROW_VECS = HD / VEC;          // 16-byte loads per row
+  const T* __restrict__ q = static_cast<const T*>(prm.q);
+  const P* __restrict__ k_pool = static_cast<const P*>(prm.k_pool);
+  const P* __restrict__ v_pool = static_cast<const P*>(prm.v_pool);
+  T* __restrict__ out = static_cast<T*>(prm.out);
+  const int Hkv = prm.Hkv, G = prm.G, page = prm.page;
+  const int window = prm.window;
+  const float softcap = prm.softcap;
   extern __shared__ float smem[];
   float* q_s = smem;                 // G * HD
   float* acc = q_s + G * HD;         // G * HD
@@ -71,7 +76,7 @@ __global__ void __launch_bounds__(kThreads) ragged_kernel(
   const int tid = threadIdx.x;
   const int gh = G * HD;
   const long long qo = ((long long)n * Hkv + h) * gh;
-  const int ctx = tok_pos[n] + 1;  // this token sees positions < ctx
+  const int ctx = prm.tok_pos[n] + 1;  // this token sees positions < ctx
   if (ctx <= 0) {
     for (int i = tid; i < gh; i += kThreads) out[qo + i] = from_float<T>(0.f);
     return;
@@ -86,22 +91,33 @@ __global__ void __launch_bounds__(kThreads) ragged_kernel(
   }
   const int lo = window > 0 ? max(0, ctx - window) : 0;  // first visible pos
   const int first = lo / page;
-  const int last = min((ctx - 1) / page, max_pages - 1);
-  const int* bt = block_tables + (long long)tok_seq[n] * max_pages;
+  const int last = min((ctx - 1) / page, prm.max_pages - 1);
+  const int* bt = prm.block_tables + (long long)prm.tok_seq[n] * prm.max_pages;
   const long long slot_stride = (long long)Hkv * HD;  // elements per slot
   const int warp = tid / 32;
   const int lane = tid % 32;
 
   for (int pi = first; pi <= last; ++pi) {
-    const long long base =
-        (long long)bt[pi] * page * slot_stride + (long long)h * HD;
+    const int pid = bt[pi];
+    const long long base = (long long)pid * page * slot_stride +
+                           (long long)h * HD;
+    // a quantized page's per-head scales; 1 (exact) for a float pool
+    const float ks = prm.k_scale ? prm.k_scale[(long long)pid * Hkv + h] : 1.f;
+    const float vs = prm.v_scale ? prm.v_scale[(long long)pid * Hkv + h] : 1.f;
     __syncthreads();  // the previous page's tiles are fully consumed
-    for (int i = tid; i < page * HD; i += kThreads) {
-      const int t = i / HD;
-      const int d = i - t * HD;
-      const long long o = base + t * slot_stride + d;
-      k_s[t * KS + d] = to_float(k_pool[o]);
-      v_s[i] = to_float(v_pool[o]);
+    for (int i = tid; i < page * ROW_VECS; i += kThreads) {
+      const int t = i / ROW_VECS;
+      const int d0 = (i - t * ROW_VECS) * VEC;
+      const long long o = base + t * slot_stride + d0;
+      const uint4 kw = *reinterpret_cast<const uint4*>(k_pool + o);
+      const uint4 vw = *reinterpret_cast<const uint4*>(v_pool + o);
+      const P* ke = reinterpret_cast<const P*>(&kw);
+      const P* ve = reinterpret_cast<const P*>(&vw);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        k_s[t * KS + d0 + j] = to_float(ke[j]) * ks;
+        v_s[t * HD + d0 + j] = to_float(ve[j]) * vs;
+      }
     }
     __syncthreads();
     for (int i = tid; i < G * page; i += kThreads) {
@@ -112,7 +128,7 @@ __global__ void __launch_bounds__(kThreads) ragged_kernel(
       float dot = 0.f;
 #pragma unroll 16
       for (int d = 0; d < HD; ++d) dot += qr[d] * kr[d];
-      float s = dot * scale;
+      float s = dot * prm.scale;
       if (softcap > 0.f) s = softcap * tanhf(s / softcap);
       const int pos = pi * page + t;
       if (pos >= ctx || pos < lo) s = kNegInf;
@@ -160,62 +176,59 @@ __global__ void __launch_bounds__(kThreads) ragged_kernel(
   }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k_pool, const void* v_pool,
-           const int* block_tables, const int* tok_seq, const int* tok_pos,
-           void* out, int N, int Hkv, int G, int page, int max_pages,
-           int window, float softcap, float scale, cudaStream_t stream) {
+template <typename T, typename P, int HD>
+int launch(const Params& prm, int N, cudaStream_t stream) {
   const size_t smem = sizeof(float) *
-      (2 * G * HD + page * (HD + 1) + page * HD + G * page + 3 * G);
-  dim3 grid(N, Hkv);
-  ragged_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), block_tables, tok_seq, tok_pos,
-      static_cast<T*>(out), Hkv, G, page, max_pages, window, softcap, scale);
+      (2 * prm.G * HD + prm.page * (HD + 1) + prm.page * HD +
+       prm.G * prm.page + 3 * prm.G);
+  ragged_kernel<T, P, HD><<<dim3(N, prm.Hkv), kThreads, smem, stream>>>(prm);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_hd(int hd, const void* q, const void* k_pool, const void* v_pool,
-              const int* block_tables, const int* tok_seq, const int* tok_pos,
-              void* out, int N, int Hkv, int G, int page, int max_pages,
-              int window, float softcap, float scale, cudaStream_t stream) {
+template <typename T, typename P>
+int launch_hd(int hd, const Params& prm, int N, cudaStream_t stream) {
   switch (hd) {
-    case 32:
-      return launch<T, 32>(q, k_pool, v_pool, block_tables, tok_seq, tok_pos,
-                           out, N, Hkv, G, page, max_pages, window, softcap,
-                           scale, stream);
-    case 64:
-      return launch<T, 64>(q, k_pool, v_pool, block_tables, tok_seq, tok_pos,
-                           out, N, Hkv, G, page, max_pages, window, softcap,
-                           scale, stream);
-    case 128:
-      return launch<T, 128>(q, k_pool, v_pool, block_tables, tok_seq, tok_pos,
-                            out, N, Hkv, G, page, max_pages, window, softcap,
-                            scale, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case 32: return launch<T, P, 32>(prm, N, stream);
+    case 64: return launch<T, P, 64>(prm, N, stream);
+    case 128: return launch<T, P, 128>(prm, N, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// pool_dtype: 0 = q's type, 1 = int8, 2 = float8 e4m3, 3 = float8 e5m2
+template <typename T>
+int launch_pool(int pool_dtype, int hd, const Params& prm, int N,
+                cudaStream_t stream) {
+  switch (pool_dtype) {
+    case 0: return launch_hd<T, T>(hd, prm, N, stream);
+    case 1: return launch_hd<T, int8_t>(hd, prm, N, stream);
+    case 2: return launch_hd<T, fp8e4m3>(hd, prm, N, stream);
+    case 3: return launch_hd<T, fp8e5m2>(hd, prm, N, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. window <= 0 and softcap <= 0 mean none.
-// Returns the cudaError_t of the launch.
+// dtype (q and out): 0 = float32, 1 = bfloat16. pool_dtype: 0 = q's type
+// (k_scale and v_scale null), 1 = int8, 2 = float8 e4m3, 3 = float8 e5m2
+// (both scales set). window <= 0 and softcap <= 0 mean none. Returns the
+// cudaError_t of the launch.
 extern "C" int ragged_paged_attention_launch(
     const void* q, const void* k_pool, const void* v_pool,
-    const int* block_tables, const int* tok_seq, const int* tok_pos,
-    void* out, int N, int Hkv, int G, int hd, int page, int max_pages,
-    int window, float softcap, float scale, int dtype, void* stream) {
+    const float* k_scale, const float* v_scale, const int* block_tables,
+    const int* tok_seq, const int* tok_pos, void* out, int N, int Hkv, int G,
+    int hd, int page, int max_pages, int window, float softcap, float scale,
+    int dtype, int pool_dtype, void* stream) {
   if (N == 0) return 0;
+  if ((pool_dtype == 0) != (k_scale == nullptr) ||
+      (k_scale == nullptr) != (v_scale == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Params prm{q, k_pool, v_pool, k_scale, v_scale, block_tables,
+                   tok_seq, tok_pos, out, Hkv, G, page, max_pages, window,
+                   softcap, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_hd<float>(hd, q, k_pool, v_pool, block_tables, tok_seq,
-                            tok_pos, out, N, Hkv, G, page, max_pages, window,
-                            softcap, scale, s);
-  if (dtype == 1)
-    return launch_hd<__nv_bfloat16>(hd, q, k_pool, v_pool, block_tables,
-                                    tok_seq, tok_pos, out, N, Hkv, G, page,
-                                    max_pages, window, softcap, scale, s);
+  if (dtype == 0) return launch_pool<float>(pool_dtype, hd, prm, N, s);
+  if (dtype == 1) return launch_pool<__nv_bfloat16>(pool_dtype, hd, prm, N, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -7,10 +7,13 @@ anything it does not take. There is no fallback from one to the other.
 from __future__ import annotations
 
 from repro_torch.kernels.kv_append import kv_append, kv_append_ref
+from repro_torch.kernels.kv_quant import kv_append_quant, kv_append_quant_ref
 from repro_torch.kernels.paged_attention import (paged_attention,
+                                                 paged_attention_quant_ref,
                                                  paged_attention_ref)
 from repro_torch.kernels.ragged_paged_attention import (
-    ragged_paged_attention, ragged_paged_attention_ref)
+    ragged_paged_attention, ragged_paged_attention_quant_ref,
+    ragged_paged_attention_ref)
 from repro_torch.kernels.swap_pack import (swap_pack, swap_pack_ref,
                                            swap_unpack, swap_unpack_ref)
 
@@ -22,31 +25,53 @@ def _on_cpu(t) -> bool:
 def paged_attention_op(q, k_pool, v_pool, block_tables, ctx_lens, *,
                        k_scale=None, v_scale=None, softcap=None,
                        window=None):
-    """Decode attention, one query token per sequence, over paged pools."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError("quantized pools (k/v scales) are not "
-                                  "ported yet")
-    fn = paged_attention_ref if _on_cpu(q) else paged_attention
-    return fn(q, k_pool, v_pool, block_tables, ctx_lens, softcap=softcap,
-              window=window)
+    """Decode attention, one query token per sequence, over paged pools;
+    quantized pools come with their (n_pages, Hkv) scales."""
+    if not _on_cpu(q):
+        return paged_attention(q, k_pool, v_pool, block_tables, ctx_lens,
+                               k_scale=k_scale, v_scale=v_scale,
+                               softcap=softcap, window=window)
+    if k_scale is not None:
+        return paged_attention_quant_ref(q, k_pool, v_pool, k_scale,
+                                         v_scale, block_tables, ctx_lens,
+                                         softcap=softcap, window=window)
+    return paged_attention_ref(q, k_pool, v_pool, block_tables, ctx_lens,
+                               softcap=softcap, window=window)
 
 
 def ragged_paged_attention_op(q, k_pool, v_pool, block_tables, tok_seq,
                               tok_pos, *, k_scale=None, v_scale=None,
                               softcap=None, window=None):
-    """Mixed-batch ragged-query attention over paged pools."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError("quantized pools (k/v scales) are not "
-                                  "ported yet")
-    fn = ragged_paged_attention_ref if _on_cpu(q) else ragged_paged_attention
-    return fn(q, k_pool, v_pool, block_tables, tok_seq, tok_pos,
-              softcap=softcap, window=window)
+    """Mixed-batch ragged-query attention over paged pools; quantized
+    pools come with their (n_pages, Hkv) scales."""
+    if not _on_cpu(q):
+        return ragged_paged_attention(q, k_pool, v_pool, block_tables,
+                                      tok_seq, tok_pos, k_scale=k_scale,
+                                      v_scale=v_scale, softcap=softcap,
+                                      window=window)
+    if k_scale is not None:
+        return ragged_paged_attention_quant_ref(
+            q, k_pool, v_pool, k_scale, v_scale, block_tables, tok_seq,
+            tok_pos, softcap=softcap, window=window)
+    return ragged_paged_attention_ref(q, k_pool, v_pool, block_tables,
+                                      tok_seq, tok_pos, softcap=softcap,
+                                      window=window)
 
 
 def kv_append_op(k_pool, v_pool, k_new, v_new, page_ids, offsets, valid):
     """In-place scatter of new token K/V rows into pool page slots."""
     fn = kv_append_ref if _on_cpu(k_pool) else kv_append
     return fn(k_pool, v_pool, k_new, v_new, page_ids, offsets, valid)
+
+
+def kv_append_quant_op(k_pool, v_pool, k_scale, v_scale, k_new, v_new,
+                       page_ids, offsets, valid, *, discard_pid=None):
+    """Quantized in-place scatter of new K/V rows with the per-page scale
+    update (requantize-on-append, DESIGN.md §17). ``discard_pid`` is
+    kept for the reference's signature; no path here writes to it."""
+    fn = kv_append_quant_ref if _on_cpu(k_pool) else kv_append_quant
+    return fn(k_pool, v_pool, k_scale, v_scale, k_new, v_new, page_ids,
+              offsets, valid, discard_pid)
 
 
 def swap_pack_op(pool, page_ids):

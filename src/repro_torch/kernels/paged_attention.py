@@ -8,8 +8,10 @@ sequence: row b's G grouped query heads attend over the first
 padding and get zeros.
 
 Layout: q (B, Hkv, G, hd); pools (n_pages, page, Hkv, hd);
-block_tables (B, max_pages) int32; ctx_lens (B,) int32. The kernel
-source is ``csrc/paged_attention.cu``.
+block_tables (B, max_pages) int32; ctx_lens (B,) int32. Pools are in
+q's dtype, or quantized (int8, float8_e4m3fn, float8_e5m2) with
+``k_scale``/``v_scale`` (n_pages, Hkv) float32, dequantized in-register.
+The kernel source is ``csrc/paged_attention.cu``.
 """
 from __future__ import annotations
 
@@ -18,6 +20,8 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.kv_quant import (attention_pool_code,
+                                          dequant_gathered, gather_pages)
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
@@ -25,19 +29,12 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 48 * 1024      # bytes of shared memory without an opt-in
 
 
-def paged_attention_ref(q, k_pool, v_pool, block_tables, ctx_lens, *,
-                        softcap=None, window=None):
-    """The plain version, in the op order of the reference's jnp mirror
-    inside ``repro.models.attention.gqa_decode_paged``: gather the block
-    table, f32 einsum divided by sqrt(hd), softcap, mask, softmax,
-    einsum. Rows with ``ctx_lens == 0`` are zeroed, the kernel's
-    contract."""
-    B, Hkv, G, hd = q.shape
-    page = k_pool.shape[1]
-    S = block_tables.shape[1] * page
-    bt = block_tables.long()
-    k_cache = k_pool[bt].reshape(B, S, Hkv, hd)
-    v_cache = v_pool[bt].reshape(B, S, Hkv, hd)
+def _attend(q, k_cache, v_cache, ctx_lens, softcap, window):
+    """f32 einsum divided by sqrt(hd), softcap, mask, softmax, einsum over
+    caches gathered per sequence, (B, S, Hkv, hd); rows with
+    ``ctx_lens == 0`` are zeroed, the kernel's contract."""
+    hd = q.shape[-1]
+    S = k_cache.shape[1]
     s = torch.einsum("bhgk,bshk->bhgs", q.float(),
                      k_cache.float()) / math.sqrt(hd)
     if softcap is not None:
@@ -53,11 +50,46 @@ def paged_attention_ref(q, k_pool, v_pool, block_tables, ctx_lens, *,
     return out.to(q.dtype)
 
 
+def paged_attention_ref(q, k_pool, v_pool, block_tables, ctx_lens, *,
+                        softcap=None, window=None):
+    """The plain version, in the op order of the reference's jnp mirror
+    inside ``repro.models.attention.gqa_decode_paged``: gather the block
+    table, f32 einsum divided by sqrt(hd), softcap, mask, softmax,
+    einsum. Rows with ``ctx_lens == 0`` are zeroed, the kernel's
+    contract."""
+    B, Hkv, G, hd = q.shape
+    S = block_tables.shape[1] * k_pool.shape[1]
+    bt = block_tables.long()
+    return _attend(q, k_pool[bt].reshape(B, S, Hkv, hd),
+                   v_pool[bt].reshape(B, S, Hkv, hd), ctx_lens, softcap,
+                   window)
+
+
+def paged_attention_quant_ref(q, k_pool, v_pool, k_scale, v_scale,
+                              block_tables, ctx_lens, *, softcap=None,
+                              window=None):
+    """The plain version over quantized pools, as the reference's
+    ``paged_attention_quant_ref``: gather pages and their scales through
+    the block table, dequantize in f32, then the same math."""
+    B, Hkv, G, hd = q.shape
+    S = block_tables.shape[1] * k_pool.shape[1]
+    bt = block_tables.long()
+    k = dequant_gathered(gather_pages(k_pool, bt), k_scale[bt])
+    v = dequant_gathered(gather_pages(v_pool, bt), v_scale[bt])
+    return _attend(q, k.reshape(B, S, Hkv, hd), v.reshape(B, S, Hkv, hd),
+                   ctx_lens, softcap, window)
+
+
 def _smem_bytes(G: int, page: int, hd: int) -> int:
+    # the staged tiles are float32 whatever the payload: a 16-byte load
+    # carries 16 / element size elements, dequantized as they are stored
     return 4 * (2 * G * hd + page * (hd + 1) + page * hd + G * page + 3 * G)
 
 
-def _check(q, k_pool, v_pool, block_tables, ctx_lens):
+def _check(q, k_pool, v_pool, k_scale, v_scale, block_tables,
+           ctx_lens) -> int:
+    """Raise on any operand the kernel does not take; returns the pool
+    code."""
     if not q.is_cuda:
         raise ValueError("paged_attention launches a CUDA kernel; got a "
                          f"tensor on {q.device}")
@@ -75,9 +107,8 @@ def _check(q, k_pool, v_pool, block_tables, ctx_lens):
             or ctx_lens.shape != (B,):
         raise ValueError("block_tables must be (B, max_pages) and ctx_lens "
                          "(B,)")
-    for t in (k_pool, v_pool):
-        if t.dtype != q.dtype:
-            raise TypeError("q and the pools must share a dtype")
+    pool_code = attention_pool_code("paged_attention", q, k_pool, v_pool,
+                                    k_scale, v_scale)
     for t in (block_tables, ctx_lens):
         if t.dtype != torch.int32:
             raise TypeError("block_tables and ctx_lens must be int32")
@@ -92,24 +123,30 @@ def _check(q, k_pool, v_pool, block_tables, ctx_lens):
     if smem > SMEM_LIMIT:
         raise ValueError(f"G={G}, page={page}, hd={hd} needs {smem} bytes "
                          f"of shared memory, above {SMEM_LIMIT}")
+    return pool_code
 
 
 def paged_attention(q, k_pool, v_pool, block_tables, ctx_lens, *,
-                    softcap=None, window=None):
+                    k_scale=None, v_scale=None, softcap=None, window=None):
     """Launch the CUDA kernel on the current stream; returns
-    (B, Hkv, G, hd) in q's dtype. Raises on any operand the kernel does
-    not take, a CPU tensor included."""
-    _check(q, k_pool, v_pool, block_tables, ctx_lens)
+    (B, Hkv, G, hd) in q's dtype. Quantized pools need ``k_scale`` and
+    ``v_scale``. Raises on any operand the kernel does not take, a CPU
+    tensor included."""
+    pool_code = _check(q, k_pool, v_pool, k_scale, v_scale, block_tables,
+                       ctx_lens)
     B, Hkv, G, hd = q.shape
     page = k_pool.shape[1]
     out = torch.empty_like(q)
     err = _build.lib().paged_attention_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        None if k_scale is None else k_scale.data_ptr(),
+        None if v_scale is None else v_scale.data_ptr(),
         block_tables.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),
         B, Hkv, G, hd, page, block_tables.shape[1],
         0 if window is None else int(window),
         0.0 if softcap is None else float(softcap), 1.0 / math.sqrt(hd),
-        DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        DTYPES[q.dtype], pool_code,
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged_attention")
     paged_attention.launches += 1
     return out

@@ -10,8 +10,10 @@ that sequence's pages through ``block_tables[tok_seq[n]]`` under the mask
 zeros.
 
 Layout: q (N, Hkv, G, hd); pools (n_pages, page, Hkv, hd);
-block_tables (B, max_pages) int32; tok_seq/tok_pos (N,) int32. The kernel
-source is ``csrc/ragged_paged_attention.cu``.
+block_tables (B, max_pages) int32; tok_seq/tok_pos (N,) int32. Pools are
+in q's dtype, or quantized (int8, float8_e4m3fn, float8_e5m2) with
+``k_scale``/``v_scale`` (n_pages, Hkv) float32, dequantized in-register.
+The kernel source is ``csrc/ragged_paged_attention.cu``.
 """
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.kv_quant import (attention_pool_code,
+                                          dequant_gathered, gather_pages)
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
@@ -27,18 +31,12 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 48 * 1024      # bytes of shared memory without an opt-in
 
 
-def ragged_paged_attention_ref(q, k_pool, v_pool, block_tables, tok_seq,
-                               tok_pos, *, softcap=None, window=None):
-    """The plain version, in the op order of the reference's jnp mirror
-    (``repro.models.attention.gqa_mixed_paged``): gather the block table,
-    f32 einsum divided by sqrt(hd), softcap, mask, softmax, einsum. Rows
-    with ``tok_pos < 0`` are zeroed, the kernel's contract."""
-    N, Hkv, G, hd = q.shape
-    page = k_pool.shape[1]
-    S = block_tables.shape[1] * page
-    bt_tok = block_tables[tok_seq.long()].long()          # (N, max_pages)
-    k_cache = k_pool[bt_tok].reshape(N, S, Hkv, hd)
-    v_cache = v_pool[bt_tok].reshape(N, S, Hkv, hd)
+def _attend(q, k_cache, v_cache, tok_pos, softcap, window):
+    """f32 einsum divided by sqrt(hd), softcap, mask, softmax, einsum over
+    caches gathered per token, (N, S, Hkv, hd); rows with ``tok_pos < 0``
+    are zeroed, the kernel's contract."""
+    hd = q.shape[-1]
+    S = k_cache.shape[1]
     s = torch.einsum("bhgk,bshk->bhgs", q.float(),
                      k_cache.float()) / math.sqrt(hd)
     if softcap is not None:
@@ -54,7 +52,39 @@ def ragged_paged_attention_ref(q, k_pool, v_pool, block_tables, tok_seq,
     return out.to(q.dtype)
 
 
-def _check(q, k_pool, v_pool, block_tables, tok_seq, tok_pos):
+def ragged_paged_attention_ref(q, k_pool, v_pool, block_tables, tok_seq,
+                               tok_pos, *, softcap=None, window=None):
+    """The plain version, in the op order of the reference's jnp mirror
+    (``repro.models.attention.gqa_mixed_paged``): gather the block table,
+    f32 einsum divided by sqrt(hd), softcap, mask, softmax, einsum. Rows
+    with ``tok_pos < 0`` are zeroed, the kernel's contract."""
+    N, Hkv, G, hd = q.shape
+    S = block_tables.shape[1] * k_pool.shape[1]
+    bt_tok = block_tables[tok_seq.long()].long()          # (N, max_pages)
+    return _attend(q, k_pool[bt_tok].reshape(N, S, Hkv, hd),
+                   v_pool[bt_tok].reshape(N, S, Hkv, hd), tok_pos, softcap,
+                   window)
+
+
+def ragged_paged_attention_quant_ref(q, k_pool, v_pool, k_scale, v_scale,
+                                     block_tables, tok_seq, tok_pos, *,
+                                     softcap=None, window=None):
+    """The plain version over quantized pools, as the reference's
+    ``ragged_paged_attention_quant_ref``: gather pages and their scales
+    through the block table, dequantize in f32, then the same math."""
+    N, Hkv, G, hd = q.shape
+    S = block_tables.shape[1] * k_pool.shape[1]
+    bt_tok = block_tables[tok_seq.long()].long()
+    k = dequant_gathered(gather_pages(k_pool, bt_tok), k_scale[bt_tok])
+    v = dequant_gathered(gather_pages(v_pool, bt_tok), v_scale[bt_tok])
+    return _attend(q, k.reshape(N, S, Hkv, hd), v.reshape(N, S, Hkv, hd),
+                   tok_pos, softcap, window)
+
+
+def _check(q, k_pool, v_pool, k_scale, v_scale, block_tables, tok_seq,
+           tok_pos) -> int:
+    """Raise on any operand the kernel does not take; returns the pool
+    code."""
     if not q.is_cuda:
         raise ValueError("ragged_paged_attention launches a CUDA kernel; "
                          f"got a tensor on {q.device}")
@@ -72,37 +102,49 @@ def _check(q, k_pool, v_pool, block_tables, tok_seq, tok_pos):
             or tok_pos.shape != (N,):
         raise ValueError("block_tables must be (B, max_pages), tok_seq and "
                          "tok_pos (N,)")
-    for t in (k_pool, v_pool):
-        if t.dtype != q.dtype:
-            raise TypeError("q and the pools must share a dtype")
+    pool_code = attention_pool_code("ragged_paged_attention", q, k_pool,
+                                    v_pool, k_scale, v_scale)
     for t in (block_tables, tok_seq, tok_pos):
         if t.dtype != torch.int32:
             raise TypeError("block_tables, tok_seq and tok_pos must be int32")
     for t in (q, k_pool, v_pool, block_tables, tok_seq, tok_pos):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError("all operands must be contiguous on one device")
+    # the K/V tiles are staged with 16-byte loads
+    for t in (k_pool, v_pool):
+        if t.data_ptr() % 16:
+            raise ValueError("the pools must start on a 16-byte boundary")
+    # the staged tiles are float32 whatever the payload: a 16-byte load
+    # carries 16 / element size elements, dequantized as they are stored
     smem = 4 * (2 * G * hd + page * (hd + 1) + page * hd + G * page + 3 * G)
     if smem > SMEM_LIMIT:
         raise ValueError(f"G={G}, page={page}, hd={hd} needs {smem} bytes "
                          f"of shared memory, above {SMEM_LIMIT}")
+    return pool_code
 
 
 def ragged_paged_attention(q, k_pool, v_pool, block_tables, tok_seq,
-                           tok_pos, *, softcap=None, window=None):
+                           tok_pos, *, k_scale=None, v_scale=None,
+                           softcap=None, window=None):
     """Launch the CUDA kernel on the current stream; returns
-    (N, Hkv, G, hd) in q's dtype. Raises on any operand the kernel does
-    not take, a CPU tensor included."""
-    _check(q, k_pool, v_pool, block_tables, tok_seq, tok_pos)
+    (N, Hkv, G, hd) in q's dtype. Quantized pools need ``k_scale`` and
+    ``v_scale``. Raises on any operand the kernel does not take, a CPU
+    tensor included."""
+    pool_code = _check(q, k_pool, v_pool, k_scale, v_scale, block_tables,
+                       tok_seq, tok_pos)
     N, Hkv, G, hd = q.shape
     page = k_pool.shape[1]
     out = torch.empty_like(q)
     err = _build.lib().ragged_paged_attention_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        None if k_scale is None else k_scale.data_ptr(),
+        None if v_scale is None else v_scale.data_ptr(),
         block_tables.data_ptr(), tok_seq.data_ptr(), tok_pos.data_ptr(),
         out.data_ptr(), N, Hkv, G, hd, page, block_tables.shape[1],
         0 if window is None else int(window),
         0.0 if softcap is None else float(softcap), 1.0 / math.sqrt(hd),
-        DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        DTYPES[q.dtype], pool_code,
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "ragged_paged_attention")
     ragged_paged_attention.launches += 1
     return out

@@ -2,11 +2,14 @@
 per-call decode and chunked-prefill paths.
 
 Counterpart of the ``init_gqa`` / ``gqa_mixed_paged`` /
-``gqa_decode_paged`` / ``gqa_extend_paged`` slice of
-``repro.models.attention``. The per-layer pools are updated in place:
-every new token's K/V is appended (``kv_append``) before attention reads
-the pools, so one mask ``kv position <= token position`` gives both
-decode tokens and chunk-internal causality.
+``gqa_decode_paged`` / ``gqa_extend_paged`` / ``init_cache_shapes``
+slice of ``repro.models.attention``. The per-layer pools are updated in
+place: every new token's K/V is appended (``kv_append``) before attention
+reads the pools, so one mask ``kv position <= token position`` gives both
+decode tokens and chunk-internal causality. A quantized pool (DESIGN.md
+§17) carries ``k_scale``/``v_scale`` (n_pages, Hkv) float32 beside its
+1-byte payload: the append is ``kv_append_quant`` and attention
+dequantizes with the scales.
 """
 from __future__ import annotations
 
@@ -16,7 +19,10 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import AttentionCfg
-from repro_torch.kernels.ops import (kv_append_op, paged_attention_op,
+from repro_torch.kernels.kv_quant import (dequant_gathered, gather_pages,
+                                          kv_quant_dtype)
+from repro_torch.kernels.ops import (kv_append_op, kv_append_quant_op,
+                                     paged_attention_op,
                                      ragged_paged_attention_op)
 from repro_torch.models.common import apply_rope, dense_init, softcap
 
@@ -58,6 +64,30 @@ def _project(x, w):
     return (x @ w.reshape(w.shape[0], -1)).reshape(x.shape[0], *w.shape[1:])
 
 
+def _append(pool, k, v, pids, offs, valid):
+    """Write rows k/v (N, Hkv, hd) into ``pool`` in place, through the
+    quantized append when the pool carries scales; returns the scale
+    keywords for attention (none for a float pool)."""
+    i32 = torch.int32
+    args = (k.contiguous(), v.contiguous(), pids.to(i32), offs.to(i32),
+            valid.to(i32))
+    if "k_scale" not in pool:
+        kv_append_op(pool["k"], pool["v"], *args)
+        return {}
+    kv_append_quant_op(pool["k"], pool["v"], pool["k_scale"],
+                       pool["v_scale"], *args)
+    return {"k_scale": pool["k_scale"], "v_scale": pool["v_scale"]}
+
+
+def _gather_cache(pool, name, bt):
+    """Block-table gather of pool ``name``, dequantized to float32 with
+    its per-(page, head) scales when the pool is quantized."""
+    if f"{name}_scale" not in pool:
+        return pool[name][bt]
+    return dequant_gathered(gather_pages(pool[name], bt),
+                            pool[f"{name}_scale"][bt])
+
+
 def gqa_mixed_paged(p, a: AttentionCfg, x, pool, block_tables, tok_seq,
                     tok_pos, *, window_override="cfg"):
     """x: (N, d) flat mixed-batch tokens; pool {"k","v"}: this layer's
@@ -81,13 +111,11 @@ def gqa_mixed_paged(p, a: AttentionCfg, x, pool, block_tables, tok_seq,
     k = apply_rope(k[:, None], pos[:, None], a.rope_theta)[:, 0]
 
     pids = block_tables[tok_seq.long(), (pos // page).long()]
-    i32 = torch.int32
-    kv_append_op(pool["k"], pool["v"], k.contiguous(), v.contiguous(),
-                 pids.to(i32), (pos % page).to(i32), valid.to(i32))
+    scales = _append(pool, k, v, pids, pos % page, valid)
     G = a.n_heads // Hkv
     out = ragged_paged_attention_op(
         q.reshape(N, Hkv, G, hd), pool["k"], pool["v"], block_tables,
-        tok_seq, tok_pos, softcap=a.logit_softcap, window=window)
+        tok_seq, tok_pos, softcap=a.logit_softcap, window=window, **scales)
     out = out.reshape(N, a.n_heads * hd).to(x.dtype)
     return out @ p["wo"].reshape(a.n_heads * hd, d)
 
@@ -118,13 +146,12 @@ def gqa_decode_paged(p, a: AttentionCfg, x, pool, block_tables, ctx_lens, *,
 
     bidx = torch.arange(B, device=x.device)
     pids = block_tables[bidx, (pos // page).long()]
-    i32 = torch.int32
-    kv_append_op(pool["k"], pool["v"], k.contiguous(), v.contiguous(),
-                 pids.to(i32), (pos % page).to(i32), valid.to(i32))
+    scales = _append(pool, k, v, pids, pos % page, valid)
     G = a.n_heads // Hkv
     out = paged_attention_op(
         q.reshape(B, Hkv, G, hd).contiguous(), pool["k"], pool["v"],
-        block_tables, ctx_lens, softcap=a.logit_softcap, window=window)
+        block_tables, ctx_lens, softcap=a.logit_softcap, window=window,
+        **scales)
     out = out.reshape(B, a.n_heads * hd).to(x.dtype)
     return out @ p["wo"].reshape(a.n_heads * hd, d)
 
@@ -138,8 +165,9 @@ def gqa_extend_paged(p, a: AttentionCfg, x, pool, block_tables, start,
     whose K/V writes are dropped (their outputs are garbage and ignored
     by the caller). All written positions must fit the block table
     (start + T <= max_pages * page). The attention is plain PyTorch, a
-    block-table gather then einsum and softmax in the reference's op
-    order, as the reference leaves it to XLA. Returns out (B, T, d)."""
+    block-table gather (dequantized for a quantized pool) then einsum and
+    softmax in the reference's op order, as the reference leaves it to
+    XLA. Returns out (B, T, d)."""
     if a.kind != "gqa":
         raise NotImplementedError(f"{a.kind} attention is not ported yet")
     window = effective_window(a, window_override)
@@ -158,15 +186,13 @@ def gqa_extend_paged(p, a: AttentionCfg, x, pool, block_tables, start,
     k = apply_rope(k, positions, a.rope_theta)
     t_valid = t_idx[None, :] < n_new[:, None]
     pids = torch.gather(block_tables, 1, (positions // page).long())
-    i32 = torch.int32
-    kv_append_op(pool["k"], pool["v"], k.reshape(B * T, Hkv, hd),
-                 v.reshape(B * T, Hkv, hd), pids.reshape(-1).to(i32),
-                 (positions % page).reshape(-1).to(i32),
-                 t_valid.reshape(-1).to(i32))
+    _append(pool, k.reshape(B * T, Hkv, hd), v.reshape(B * T, Hkv, hd),
+            pids.reshape(-1), (positions % page).reshape(-1),
+            t_valid.reshape(-1))
 
     bt = block_tables.long()
-    k_cache = pool["k"][bt].reshape(B, S, Hkv, hd)
-    v_cache = pool["v"][bt].reshape(B, S, Hkv, hd)
+    k_cache = _gather_cache(pool, "k", bt).reshape(B, S, Hkv, hd)
+    v_cache = _gather_cache(pool, "v", bt).reshape(B, S, Hkv, hd)
     G = a.n_heads // Hkv
     qh = q.reshape(B, T, Hkv, G, hd).float()
     s = torch.einsum("bthgk,bshk->bhgts", qh,
@@ -186,11 +212,22 @@ def gqa_extend_paged(p, a: AttentionCfg, x, pool, block_tables, start,
 
 
 def init_pool(a: AttentionCfg, n_pages: int, page: int, *,
-              dtype: torch.dtype, device, periods: int):
+              dtype: torch.dtype, device, periods: int, kv_dtype=None):
     """Zeroed paged K/V pools of one attention block, stacked over the
-    group's layer periods: {"k","v"}: (periods, n_pages, page, Hkv, hd)."""
+    group's layer periods: {"k","v"}: (periods, n_pages, page, Hkv, hd).
+    ``kv_dtype`` (a name of ``kernels.kv_quant.KV_QUANT_DTYPES``) stores
+    the payload low-bit, with {"k_scale","v_scale"}: (periods, n_pages,
+    Hkv) float32, one scale per (page, kv head); the keys are in the JAX
+    tree's sorted order."""
     if a.kind != "gqa":
         raise NotImplementedError(f"{a.kind} attention is not ported yet")
     shape = (periods, n_pages, page, a.n_kv_heads, a.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if kv_dtype is None:
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    qd = kv_quant_dtype(kv_dtype)
+    scale = (periods, n_pages, a.n_kv_heads)
+    return {"k": torch.zeros(shape, dtype=qd, device=device),
+            "k_scale": torch.zeros(scale, dtype=torch.float32, device=device),
+            "v": torch.zeros(shape, dtype=qd, device=device),
+            "v_scale": torch.zeros(scale, dtype=torch.float32, device=device)}

@@ -71,12 +71,15 @@ class LM:
     # Paged pools and the fused iteration
     # ------------------------------------------------------------------
     def init_cache(self, n_pages: int, page_size: int, *,
-                   dtype: torch.dtype, device):
+                   dtype: torch.dtype, device, kv_dtype=None):
         """Zeroed page pools: per group {"b<j>": {"k","v"}}, each leaf
-        (n_periods, n_pages, page, Hkv, hd) — the JAX layout."""
+        (n_periods, n_pages, page, Hkv, hd) — the JAX layout. ``kv_dtype``
+        stores K/V low-bit with (n_periods, n_pages, Hkv) float32
+        ``k_scale``/``v_scale`` leaves beside them (DESIGN.md §17)."""
         return tuple(
             {f"b{j}": init_pool(blk.attn, n_pages, page_size, dtype=dtype,
-                                device=device, periods=g.n_periods)
+                                device=device, periods=g.n_periods,
+                                kv_dtype=kv_dtype)
              for j, blk in enumerate(g.period)}
             for g in self.cfg.groups)
 

@@ -56,8 +56,13 @@ launches the port's hand-written kernels (``repro_torch.kernels``); on
 the CPU it runs their plain PyTorch versions, which follow the JAX
 reference's CPU math op for op. Sampling is greedy argmax.
 
+Quantized pools (``kv_dtype="int8" | "float8_e4m3" | "float8_e5m2"``,
+DESIGN.md §17) keep one float32 scale per (page, kv head) in the same
+pool tree, so COW copies and swap slabs carry scales with the payload;
+a page's scales are zeroed when its refcount reaches 0.
+
 Not ported yet, and refused at construction: the gather oracle
-(``paged=False``), quantized pools (``kv_dtype``) and the sanitizer.
+(``paged=False``) and the sanitizer.
 """
 from __future__ import annotations
 
@@ -77,6 +82,7 @@ from repro_torch.core.estimator import DurationEstimator
 from repro_torch.core.policy import PolicyConfig
 from repro_torch.core.request import Interception, Phase, Request
 from repro_torch.core.scheduler import Scheduler
+from repro_torch.kernels.kv_quant import KV_QUANT_DTYPES
 from repro_torch.kernels.swap_pack import SwapStager
 from repro_torch.memory.block_manager import BlockManager
 from repro_torch.models.model import LM
@@ -212,12 +218,24 @@ class Engine:
         for blk in cfg.blocks:
             assert blk.kind in ("attn", "shared_attn"), \
                 "paged engine serves attention-cache architectures"
-        unported = {"paged=False": not paged,
-                    "kv_dtype": kv_dtype is not None,
-                    "sanitize=True": sanitize}
+        # quantized KV pools (DESIGN.md §17): low-bit payload + per-page
+        # fp32 scales owned by the same BlockManager pages. Only the
+        # paged path can host them — the gather/scatter oracle
+        # round-trips pools through a slotted (periods, B, S, ...) view
+        # that has no slot axis for a scale leaf.
+        if kv_dtype is not None:
+            if kv_dtype not in KV_QUANT_DTYPES:
+                raise ValueError(
+                    f"unsupported kv_dtype {kv_dtype!r}; "
+                    f"choose from {sorted(KV_QUANT_DTYPES)}")
+            if not paged:
+                raise ValueError("kv_dtype requires the paged engine "
+                                 "(paged=True)")
+        unported = {"paged=False": not paged, "sanitize=True": sanitize}
         for mode, asked in unported.items():
             if asked:
                 raise NotImplementedError(f"{mode} is not ported yet")
+        self.kv_dtype = kv_dtype
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = LM(cfg)
@@ -230,10 +248,18 @@ class Engine:
         # fixed per-request page-table width
         self.max_pages = -(-max_model_len // page_size)
         self.pools = self.model.init_cache(n_pages, page_size, dtype=dtype,
-                                           device=self.device)
+                                           device=self.device,
+                                           kv_dtype=kv_dtype)
         self.blocks = BlockManager(n_pages, page_size)
         self.scratch_page = self.blocks.allocate(1)[0]  # block-table padding
-        self.cost = CostModel(cfg=cfg, chip=chip, n_chips=1)
+        # scale lifetime == page lifetime: zero a page's scales the moment
+        # its refcount drops to 0, so a recycled page never inherits its
+        # prior occupant's (coarser) scale. Installed before the prefix
+        # cache below captures ``blocks.free`` as its release callback.
+        if kv_dtype is not None:
+            self._wrap_free_for_quant()
+        self.cost = CostModel(cfg=cfg, chip=chip, n_chips=1,
+                              kv_dtype=kv_dtype)
         cap = max(page_size, (n_pages - 8) * page_size)
         # telemetry (DESIGN.md §13): one registry spans engine + scheduler
         # + ledger; the tracer defaults to the allocation-free NullTracer
@@ -963,10 +989,58 @@ class Engine:
     def _copy_page(self, src: int, dst: int):
         """The COW payload copy: page ``src`` of every layer's pools into
         page ``dst``, in place on the compute stream, so the model call
-        issued after it reads and writes the private copy in order."""
+        issued after it reads and writes the private copy in order. A
+        quantized pool's scale leaves are among the leaves: scales travel
+        with the payload on every fork."""
         for leaf in tree_leaves(self.pools):
             leaf[:, dst] = leaf[:, src]
         self.counters["cow_bytes"] += self.page * self.kv_token_bytes
+        if self.kv_dtype is not None:
+            self.counters["kv_quant_scale_cow_pages"] += 1
+
+    # ------------------------------------------------------------------
+    # quantized pools: scale lifetime == page lifetime (DESIGN.md §17)
+    # ------------------------------------------------------------------
+    def _wrap_free_for_quant(self) -> None:
+        """Chain onto ``blocks.free``: zero the scales of every page whose
+        refcount drops to 0. Eager, at free time: swap-out packs its slab
+        before freeing, and COW / swap-in allocate an already-zeroed page
+        and then overwrite payload and scales together."""
+        inner = self.blocks.free
+
+        def free(pages) -> None:
+            recycled = [int(p) for p in pages
+                        if self.blocks.ref_count(p) == 1]
+            inner(pages)
+            if recycled:
+                self._zero_page_scales(recycled)
+
+        self.blocks.free = free
+
+    def _scale_leaves(self) -> List[torch.Tensor]:
+        return [pool[key] for entry in self.pools for pool in entry.values()
+                for key in ("k_scale", "v_scale") if key in pool]
+
+    def _zero_page_scales(self, pages: List[int]) -> None:
+        """An in-place zero of the pages' scales on the compute stream, so
+        it is ordered after the in-flight model call and after the
+        swap-out pack that preceded the free; the ids cross in one pinned,
+        non-blocking copy."""
+        ids = self._to_device(np.asarray(pages, np.int32))[0].long()
+        for leaf in self._scale_leaves():
+            leaf.index_fill_(1, ids, 0.0)
+        self.counters["kv_quant_scale_reset_pages"] += len(pages)
+
+    def _stale_scale_pages(self) -> List[int]:
+        """Pages violating the freed => zero-scales invariant. Reads the
+        scales to the host: for checks at the end of a run."""
+        if self.kv_dtype is None:
+            return []
+        mx = torch.zeros(self.blocks.n_pages)
+        for leaf in self._scale_leaves():
+            mx = torch.maximum(mx, leaf.abs().amax(dim=(0, 2)).cpu())
+        return [p for p in range(self.blocks.n_pages)
+                if self.blocks.ref_count(p) == 0 and mx[p] > 0.0]
 
     def _ensure_writable(self, st: ReqKV, pos: int):
         # backstop, same contract as _ensure_pages: unreachable for

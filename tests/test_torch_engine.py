@@ -141,8 +141,7 @@ def test_default_chip_is_h100(setup):
     assert eng.pools[0]["b0"]["k"].device.type == "cpu"
 
 
-@pytest.mark.parametrize("mode", [dict(paged=False), dict(kv_dtype="int8"),
-                                  dict(sanitize=True)])
+@pytest.mark.parametrize("mode", [dict(paged=False), dict(sanitize=True)])
 def test_unported_modes_raise(setup, mode):
     _, cfg, params, _ = setup
     with pytest.raises(NotImplementedError):

@@ -115,6 +115,6 @@ def test_kernel_modules_import_without_a_toolchain():
     from repro_torch.kernels import _build
     assert _build.lib.cache_info().currsize == 0
     assert sorted(p.name for p in _build.sources()) == [
-        "kv_append.cu", "paged_attention.cu", "ragged_paged_attention.cu",
-        "swap_pack.cu"]
+        "kv_append.cu", "page_requant.cu", "paged_attention.cu",
+        "ragged_paged_attention.cu", "swap_pack.cu"]
     assert _build.library_path().parent == ROOT / "build" / "kernels"

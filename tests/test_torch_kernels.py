@@ -21,7 +21,8 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.kv_append import kv_append, kv_append_ref
 from repro_torch.kernels.ragged_paged_attention import (
-    ragged_paged_attention, ragged_paged_attention_ref)
+    ragged_paged_attention, ragged_paged_attention_quant_ref,
+    ragged_paged_attention_ref)
 from repro_torch.kernels.swap_pack import (SwapStager, swap_pack,
                                            swap_pack_ref, swap_unpack,
                                            swap_unpack_ref)
@@ -272,9 +273,15 @@ def test_ops_dispatch_cpu_to_plain_versions():
     out = ops.ragged_paged_attention_op(q, kp, vp, bt, ts, tp)
     assert torch.equal(out, ragged_paged_attention_ref(q, kp, vp, bt, ts, tp))
     assert ragged_paged_attention.launches == before
-    with pytest.raises(NotImplementedError):
-        ops.ragged_paged_attention_op(q, kp, vp, bt, ts, tp,
-                                      k_scale=kp, v_scale=vp)
+    # quantized pools with their scales take the dequantizing plain version
+    kq, vq = kp.clamp(-1, 1).mul(127).round().to(torch.int8), \
+        kp.mul(100).round().to(torch.int8)
+    ks = torch.rand(kp.shape[0], kp.shape[2])
+    out = ops.ragged_paged_attention_op(q, kq, vq, bt, ts, tp, k_scale=ks,
+                                        v_scale=ks)
+    assert torch.equal(out, ragged_paged_attention_quant_ref(
+        q, kq, vq, ks, ks, bt, ts, tp))
+    assert ragged_paged_attention.launches == before
 
 
 @pytest.mark.parametrize("launcher", ["ragged", "kv_append", "swap_pack",

@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.paged_attention import (paged_attention,
+                                                 paged_attention_quant_ref,
                                                  paged_attention_ref)
 
 
@@ -153,8 +154,15 @@ def test_op_dispatches_cpu_to_plain_version():
     assert torch.equal(out, paged_attention_ref(q, kp, vp, bt, lens,
                                                 window=5))
     assert paged_attention.launches == before
-    with pytest.raises(NotImplementedError):
-        ops.paged_attention_op(q, kp, vp, bt, lens, k_scale=kp, v_scale=vp)
+    # quantized pools with their scales take the dequantizing plain version
+    kq, vq = kp.mul(40).round().to(torch.int8), vp.mul(40).round().to(
+        torch.int8)
+    ks = torch.rand(kp.shape[0], kp.shape[2])
+    out = ops.paged_attention_op(q, kq, vq, bt, lens, k_scale=ks,
+                                 v_scale=ks)
+    assert torch.equal(out, paged_attention_quant_ref(q, kq, vq, ks, ks, bt,
+                                                      lens))
+    assert paged_attention.launches == before
 
 
 def test_launcher_refuses_cpu_tensors():
