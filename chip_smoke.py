@@ -16,43 +16,58 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      kernels (page_requant, the kv_append_quant composite,
                      the scaled attention kernels) for int8, float8_e4m3
                      and float8_e5m2, and a SwapStager round trip of a
-                     quantized pool tree
+                     quantized pool tree; the flash attention forward and
+                     backward at T {1, 63, 64, 1000, 2048}, Tq < Tk,
+                     G {1, 4}, window, softcap and no causal mask
   4. tiny          — tiny-config f32 forward_mixed_paged, decode_step_paged
                      and extend_step_paged, kernels on the card against
                      plain versions on the CPU, same weights and pools,
                      over float pools and over int8 pools
-  5. decode_parity — full width on the card: the fused and per-call paths
+  5. tiny_train    — one tiny-config f32 make_train_step, kernels on the
+                     card against plain versions on the CPU: loss,
+                     gradients, grad_norm
+  6. decode_parity — full width on the card: the fused and per-call paths
                      against each other, prefill (forward_mixed_paged vs
                      extend_step_paged) and one decode step on equal pools
                      (the ragged kernel vs the paged decode kernel); held
                      in f32, the prefill on weights conditioned for soft
                      attention; reported with the reference's init
-  6. serve         — full-width llama3.2-1b in bf16, random weights from a
+  7. train_parity  — full width in f32, B 1 x T 512: loss and gradients
+                     with the flash kernels against the plain attention on
+                     the card; held on conditioned weights, reported with
+                     the reference's init
+  8. serve         — full-width llama3.2-1b in bf16, random weights from a
                      seed, agent sessions through ScriptedClient under
                      InferCept
-  7. swap          — the same under the swap policy, so pages cross to the
+  9. swap          — the same under the swap policy, so pages cross to the
                      host
-  8. unfused       — the same under InferCept with Engine(fused=False): the
+ 10. unfused       — the same under InferCept with Engine(fused=False): the
                      per-call extend and paged decode paths
-  9. spec          — the same under InferCept with speculative resume and
+ 11. spec          — the same under InferCept with speculative resume and
                      the oracle tool-result predictor, driven by Engine.run:
                      a session's segments are open and a fork past an open
                      segment emits only its seed token, so only the closed
                      loop's scripted segments give forks decode steps
- 10. quant         — the serve run with int8 KV pools
+ 12. quant         — the serve run with int8 KV pools
                      (Engine(kv_dtype="int8")): page_requant, kv_append and
                      the scaled ragged kernel
- 11. quant_unfused — the same with fused=False: the scaled paged decode
+ 13. quant_unfused — the same with fused=False: the scaled paged decode
                      kernel
- 12. timing        — each kernel, its plain version and the one-call PyTorch
+ 14. train         — full-width llama3.2-1b training through
+                     make_train_step: bf16 params, f32 AdamW, remat,
+                     SyntheticLM batches of 4 x 2048, 2 warm-up and 8
+                     timed steps; finite, falling loss
+ 15. timing        — each kernel, its plain version and the one-call PyTorch
                      yardstick, timed with CUDA events on the inputs the
-                     serve runs gave it; bound from those inputs
- 13. profile       — torch.profiler over a window of serve steps: device
-                     busy share and device time by kernel
+                     serve and train runs gave it; bound from those inputs
+ 16. profile       — torch.profiler over a window of serve steps and over
+                     one train step: device busy share and device time by
+                     kernel
 
 Launch counts are read from the kernel wrappers: set to 0 just before
-each serve run and read just after it. The second-to-last line is the
-kernels JSON; the last is {"ok": true, "device": {...}}.
+each serve run and before the train run, and read just after each. The
+last three lines are the kernels JSON, the card's name and power limit,
+and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -66,8 +81,9 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("kernels", "tiny", "decode_parity", "serve", "swap", "unfused",
-          "spec", "quant", "quant_unfused", "timing", "profile")
+PHASES = ("kernels", "tiny", "tiny_train", "decode_parity", "train_parity",
+          "serve", "swap", "unfused", "spec", "quant", "quant_unfused",
+          "train", "timing", "profile")
 SERVE_PHASES = {"serve": ("infercept", {}), "swap": ("swap", {}),
                 "unfused": ("infercept", {"fused": False}),
                 "spec": ("infercept", {"speculate": True,
@@ -79,7 +95,14 @@ SERVE_PHASES = {"serve": ("infercept", {}), "swap": ("swap", {}),
 # row of its own beside its wrapper's
 KERNELS = ("ragged_paged_attention", "paged_attention", "kv_append",
            "swap_pack", "swap_unpack", "page_requant",
-           "ragged_paged_attention_int8", "paged_attention_int8")
+           "ragged_paged_attention_int8", "paged_attention_int8",
+           "flash_attention", "flash_attention_bwd")
+# the TPU kernel of each flash row; the backward has none: the reference
+# differentiates its XLA blocked_attention
+FLASH_REPLACES = {
+    "flash_attention": "src/repro/kernels/flash_attention.py:97",
+    "flash_attention_bwd": "src/repro/models/attention.py:54 (no TPU "
+                           "kernel: XLA's autodiff of blocked_attention)"}
 
 # NVIDIA H100 SXM data sheet peaks (dense), used for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -602,8 +625,22 @@ def check_tiny() -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the two attention kernels against each other, full width, f32
+# phase 6: the two attention kernels against each other, full width, f32
 # ---------------------------------------------------------------------------
+def condition_attention(params) -> None:
+    """Rescale the attention projections, in place, to a fan-in over
+    d_model (the reference's init takes it over the heads, which at full
+    width gives attention logits of standard deviation ~128 and a softmax
+    that is a hard max)."""
+    for group in params["groups"]:
+        for blk in group["scan"].values():       # leaves stacked by layer
+            attn = blk["attn"]
+            d, H, hd = attn["wq"].shape[1:]
+            for name in ("wq", "wk", "wv"):
+                attn[name] *= math.sqrt(attn[name].shape[2] / d)
+            attn["wo"] *= 1.0 / math.sqrt(hd)
+
+
 def paths_parity(dtype, *, conditioned: bool, tiny: bool = False,
                  device: str = "cuda") -> dict:
     """The fused and the per-call paths against each other, from the same
@@ -635,13 +672,7 @@ def paths_parity(dtype, *, conditioned: bool, tiny: bool = False,
     gen = torch.Generator(device=dev).manual_seed(0)
     params = lm.init(gen, dtype=dtype, device=dev)
     if conditioned:
-        for group in params["groups"]:
-            for blk in group["scan"].values():   # leaves stacked by layer
-                attn = blk["attn"]
-                d, H, hd = attn["wq"].shape[1:]
-                for name in ("wq", "wk", "wv"):
-                    attn[name] *= math.sqrt(attn[name].shape[2] / d)
-                attn["wo"] *= 1.0 / math.sqrt(hd)
+        condition_attention(params)
     page, max_pages, n_pages = 16, 64, 512
     pools = lm.init_cache(n_pages, page, dtype=dtype, device=dev)
     pools_u = lm.init_cache(n_pages, page, dtype=dtype, device=dev)
@@ -768,7 +799,7 @@ def check_decode_parity(*, tiny: bool = False, device: str = "cuda") -> None:
 
 
 # ---------------------------------------------------------------------------
-# phases 6-9: full-width serve through the session API
+# phases 8-13: full-width serve through the session API
 # ---------------------------------------------------------------------------
 class Recorder:
     """Keeps the inputs of each kernel's largest call on the main path,
@@ -849,8 +880,11 @@ def kernel_wrappers() -> dict:
     """Each kernel's launching wrapper, which carries its launch count."""
     from repro_torch.kernels import (kv_append, kv_quant, paged_attention,
                                      ragged_paged_attention)
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import swap_pack as sp
-    return {"ragged_paged_attention":
+    return {"flash_attention": fa.flash_attention_fwd,
+            "flash_attention_bwd": fa.flash_attention_bwd,
+            "ragged_paged_attention":
             ragged_paged_attention.ragged_paged_attention,
             "paged_attention": paged_attention.paged_attention,
             "kv_append": kv_append.kv_append,
@@ -989,7 +1023,7 @@ def serve(policy: str, recorder: Recorder, *, tiny: bool = False,
 
 
 # ---------------------------------------------------------------------------
-# phase 7: timing on the main path's inputs
+# phase 15: timing on the main path's inputs
 # ---------------------------------------------------------------------------
 def time_kernels(recorder: Recorder, worst: dict, launches: dict) -> list:
     import torch
@@ -1220,11 +1254,343 @@ def profile_serve(warm_steps: int = 100, steps: int = 100) -> None:
         client.poll(steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    log_device_time(prof, wall, f"{steps} serve steps")
+    eng.close()
+
+
+# ---------------------------------------------------------------------------
+# phase 3 (continued): the flash attention kernels
+# ---------------------------------------------------------------------------
+def check_flash_kernels(gen, worst) -> None:
+    """The flash forward (out and lse) and backward (dq, dk, dv) kernels
+    against their plain versions on the card: llama3.2-1b's widths (Hkv 8,
+    G 4, hd 64) at T {1, 63, 64, 1000, 2048}, Tq < Tk, G {1, 4} with a
+    window, a softcap and no causal mask, hd 32 and 128, in float32 and
+    bf16. Tolerances: out 1e-4 (float32) and 3e-2 (bf16: both round one
+    float32 result once); lse 1e-4 (float32 sums in another order);
+    gradients 1e-4 (float32) and 2^-6 (bf16, two units in the last place)
+    of the largest magnitude among dq, dk and dv (not each one's own: at
+    T = 1 one key takes the whole softmax, and dq and dk cancel to
+    rounding noise around 0)."""
+    import torch
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_ref, flash_attention_fwd,
+        flash_attention_fwd_ref)
+    dev = torch.device("cuda")
+    tol = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+    rel = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
+    cases = [(f"T={t}", dict(B=2 if t < 1000 else 1, Hkv=8, G=4, Tq=t, Tk=t,
+                            hd=64), {}) for t in (1, 63, 64, 1000, 2048)]
+    cases += [
+        ("Tq=100 Tk=300", dict(B=2, Hkv=8, G=4, Tq=100, Tk=300, hd=64), {}),
+        ("G=1 window=33", dict(B=2, Hkv=8, G=1, Tq=200, Tk=200, hd=64),
+         dict(window=33)),
+        ("G=4 window=100 Tq<Tk", dict(B=1, Hkv=8, G=4, Tq=150, Tk=500,
+                                      hd=64), dict(window=100)),
+        ("G=4 softcap=30", dict(B=2, Hkv=8, G=4, Tq=130, Tk=130, hd=64),
+         dict(softcap=30.0)),
+        ("G=1 non-causal", dict(B=2, Hkv=8, G=1, Tq=90, Tk=130, hd=64),
+         dict(causal=False)),
+        ("G=4 window=17 softcap=20", dict(B=1, Hkv=8, G=4, Tq=257, Tk=257,
+                                          hd=64),
+         dict(window=17, softcap=20.0)),
+        ("hd=32 G=4", dict(B=2, Hkv=2, G=4, Tq=100, Tk=100, hd=32), {}),
+        ("hd=128 G=8", dict(B=1, Hkv=2, G=8, Tq=100, Tk=100, hd=128), {})]
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, shape, kw in cases:
+            B, Hkv, G, Tq, Tk, hd = (shape[k] for k in ("B", "Hkv", "G",
+                                                        "Tq", "Tk", "hd"))
+            q, do = (torch.randn((B, Hkv, G, Tq, hd), generator=gen,
+                                 device=dev).to(dtype) for _ in range(2))
+            k, v = (torch.randn((B, Hkv, Tk, hd), generator=gen,
+                                device=dev).to(dtype) for _ in range(2))
+            out, lse = flash_attention_fwd(q, k, v, **kw)
+            want, want_lse = flash_attention_fwd_ref(q, k, v, **kw)
+            grads = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+            want_grads = flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
+            torch.cuda.synchronize()
+            err, lse_err = max_err(out, want), max_err(lse, want_lse)
+            g_abs = [max_err(g, w) for g, w in zip(grads, want_grads)]
+            g_rel = max(g_abs) / max(float(w.float().abs().max())
+                                     for w in want_grads)
+            log(f"  flash_attention {label} {str(dtype)[6:]}: out "
+                f"max_abs_err {err:.3g} (tol {tol[dtype]:g}), lse "
+                f"{lse_err:.3g} (tol 1e-4); backward dq/dk/dv max_abs_err "
+                f"{g_rel:.3g} of their max (tol {rel[dtype]:.3g})")
+            assert err <= tol[dtype] and lse_err <= 1e-4, label
+            assert g_rel <= rel[dtype], label
+            worst["flash_attention"] = max(worst["flash_attention"], err)
+            worst["flash_attention_bwd"] = max(worst["flash_attention_bwd"],
+                                               *g_abs)
+            del q, k, v, do, out, lse, want, want_lse, grads, want_grads
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 5: one train step at the tiny config, card against CPU
+# ---------------------------------------------------------------------------
+def check_tiny_train(device: str = "cuda") -> None:
+    """One make_train_step of the tiny config in float32, remat on, on
+    ``device`` (the kernels) and on the CPU (the plain versions), from
+    the same weights and batch. Held on weights conditioned for soft
+    attention (as decode_parity): loss within 1e-4, every gradient within
+    1e-4 of its leaf's largest magnitude (float32 products summed in
+    another order), grad_norm within 1e-4 relative and lr equal. With the
+    reference's init, whose attention is close to a hard max even at the
+    tiny widths (float32 rounding alone moves its gradients ~5e-4 of a
+    leaf's magnitude, tests/test_torch_training.py), the same comparison
+    is reported, not held."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.training.train_loop import (loss_and_grads,
+                                                 make_train_step)
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    cfg = get_config("llama3.2-1b", tiny=True)
+    lm = LM(cfg)
+    batch = [torch.as_tensor(a) for a in next(SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=100, global_batch=4,
+        seed=0)).batches())]
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    for conditioned in (True, False):
+        params = lm.init(torch.Generator().manual_seed(0),
+                         dtype=torch.float32, device="cpu")
+        if conditioned:
+            condition_attention(params)
+        res = {}
+        for where in ("cpu", device):
+            p = tree_map(lambda t: t.to(where), params)
+            b = [t.to(where) for t in batch]
+            loss, _, grads = loss_and_grads(lm, p, *b)
+            _, _, met = make_train_step(lm, opt_cfg)(p, adamw_init(p), *b)
+            res[where] = (loss, tree_leaves(grads), met)
+        (lc, gc_, mc), (lg, gg, mg) = res["cpu"], res[device]
+        loss_err = abs(float(lg) - float(lc))
+        g_rel = max(max_err(a.cpu(), b) / max(float(b.abs().max()), 1e-30)
+                    for a, b in zip(gg, gc_))
+        norm_rel = abs(float(mg["grad_norm"]) / float(mc["grad_norm"]) - 1)
+        name = "conditioned" if conditioned else "reference"
+        log(f"  {name} init, train step on {device} vs cpu: loss "
+            f"{float(lg):.6f} vs {float(lc):.6f} (err {loss_err:.3g}), "
+            f"gradients {g_rel:.3g} of each leaf's max, grad_norm "
+            f"{float(mg['grad_norm']):.6f} vs {float(mc['grad_norm']):.6f} "
+            f"({norm_rel:.3g} relative), lr {float(mg['lr']):.3g}"
+            f"{' (held: 1e-4 each)' if conditioned else ' (reported)'}")
+        assert math.isfinite(float(lg)) and float(mg["lr"]) == float(mc["lr"])
+        if conditioned:
+            assert loss_err <= 1e-4 and g_rel <= 1e-4 and norm_rel <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# phase 7: full-width loss and gradients, kernels against plain versions
+# ---------------------------------------------------------------------------
+def plain_attention():
+    """A stand-in for ``flash_attention_op`` that runs the plain forward
+    under autograd on any device: the oracle of the train path."""
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+
+    def op(q, k, v, *, causal=True, window=None, softcap=None):
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   softcap=softcap)
+    return op
+
+
+def train_grads(lm, params, batch, *, plain: bool):
+    """loss_and_grads with the kernels, or with the plain attention put in
+    their place for the call."""
+    import repro_torch.models.attention as attention
+    from repro_torch.training.train_loop import loss_and_grads
+    orig = attention.flash_attention_op
+    if plain:
+        attention.flash_attention_op = plain_attention()
+    try:
+        return loss_and_grads(lm, params, *batch)
+    finally:
+        attention.flash_attention_op = orig
+
+
+def check_train_parity(*, tiny: bool = False, device: str = "cuda") -> None:
+    """Full-width llama3.2-1b in float32, B 1 x T 512, remat on: the loss
+    and every gradient of the kernel path against the plain path on the
+    same device. Held on weights conditioned for soft attention (as
+    decode_parity): loss within 1e-4, each gradient within 1e-3 of its
+    leaf's largest magnitude (16 layers of float32 sums in other orders).
+    With the reference's init, whose attention is a hard max that
+    rounding alone can flip, the same comparison is reported, not held.
+    ``tiny`` and ``device="cpu"`` rehearse it."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.optimizer import global_norm
+    from repro_torch.utils.tree import tree_leaves
+    dev = torch.device(device)
+    cfg = get_config("llama3.2-1b", tiny=tiny)
+    lm = LM(cfg)
+    batch = [torch.as_tensor(a, device=dev) for a in next(SyntheticLM(
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=512, global_batch=1,
+                   seed=1)).batches())]
+    for conditioned in (True, False):
+        params = lm.init(torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.float32, device=dev)
+        if conditioned:
+            condition_attention(params)
+        lk, _, gk = train_grads(lm, params, batch, plain=False)
+        lp, _, gp = train_grads(lm, params, batch, plain=True)
+        loss_err = abs(float(lk) - float(lp))
+        g_rel = max(max_err(a, b) / max(float(b.abs().max()), 1e-30)
+                    for a, b in zip(tree_leaves(gk), tree_leaves(gp)))
+        finite = all(bool(torch.isfinite(g).all()) for g in tree_leaves(gk))
+        name = "conditioned" if conditioned else "reference"
+        log(f"  {name} init: loss kernel {float(lk):.6f} vs plain "
+            f"{float(lp):.6f} (err {loss_err:.3g}), gradients "
+            f"{g_rel:.3g} of each leaf's max"
+            f"{' (held: 1e-4, 1e-3)' if conditioned else ' (reported)'}; "
+            f"global gradient norm kernel {float(global_norm(gk)):.4g}, "
+            f"plain {float(global_norm(gp)):.4g}")
+        assert finite and math.isfinite(float(lk)), name
+        if conditioned:
+            assert loss_err <= 1e-4 and g_rel <= 1e-3, name
+        del params, gk, gp
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 14: full-width training steps
+# ---------------------------------------------------------------------------
+class FlashRecorder:
+    """Keeps, for the timing phase, the q, k and v of the first flash call
+    of a train step and the gradient that reaches its output. Wraps the
+    op the model calls and adds nothing to the launch counts."""
+
+    def __enter__(self):
+        import repro_torch.models.attention as attention
+        self.args, self.dout = None, None
+        self._orig = orig = attention.flash_attention_op
+
+        def wrapped(q, k, v, **kw):
+            out = orig(q, k, v, **kw)
+            if self.args is None and out.requires_grad:
+                self.args = (q.detach().clone(), k.detach().clone(),
+                             v.detach().clone(), kw)
+
+                def keep(g):
+                    if self.dout is None:
+                        self.dout = g.detach().contiguous().clone()
+                out.register_hook(keep)
+            return out
+        attention.flash_attention_op = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        import repro_torch.models.attention as attention
+        attention.flash_attention_op = self._orig
+
+
+def train(recorder: FlashRecorder, *, tiny: bool = False,
+          device: str = "cuda", warm: int = 2, timed: int = 8,
+          batch: int = 4, seq: int = 2048, lr: float = 3e-3,
+          profile: bool = False) -> dict:
+    """Full-width llama3.2-1b through make_train_step: bf16 params from
+    seed 0 (the reference's init), float32 AdamW state (peak lr 3e-3 after
+    2 warm-up steps, cosine over the run: on the H100, 1e-3 moved the loss
+    by ~0.1 in 8 steps, within the batch-to-batch spread, 3e-3 by ~2.7
+    and 1e-2 unsteadily), remat on, SyntheticLM(seed=0) batches of
+    ``batch`` x ``seq``; ``warm``
+    warm-up steps, then ``timed`` timed ones, each ending in a
+    synchronize. Fails unless every loss is finite and the last timed
+    loss is below the first. Launch counts are set to 0 before the first
+    step and read after the last. ``profile`` adds one more step under
+    torch.profiler (not counted). ``tiny`` and ``device="cpu"`` rehearse
+    it in float32."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.training.train_loop import make_train_step
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cfg = get_config("llama3.2-1b", tiny=tiny)
+    lm = LM(cfg)
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    params = lm.init(torch.Generator(device=dev).manual_seed(0),
+                     dtype=torch.bfloat16 if on_card else torch.float32,
+                     device=dev)
+    opt = adamw_init(params)
+    steps = warm + timed
+    step_fn = make_train_step(lm, AdamWConfig(lr=lr, warmup_steps=2,
+                                              total_steps=steps))
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                  global_batch=batch, seed=0)).batches()
+    batches = [[torch.as_tensor(a, device=dev) for a in next(data)]
+               for _ in range(steps + int(profile))]
+    sync()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    log_rows = []
+    with recorder:
+        for i in range(steps):
+            t0 = time.perf_counter()
+            params, opt, met = step_fn(params, opt, *batches[i])
+            sync()
+            dt = time.perf_counter() - t0
+            row = {"step": i, "timed": i >= warm, "loss": float(met["loss"]),
+                   "grad_norm": float(met["grad_norm"]),
+                   "lr": float(met["lr"]), "step_ms": dt * 1e3,
+                   "tokens_per_s": batch * seq / dt}
+            log_rows.append(row)
+            log(f"  {json.dumps(row)}")
+    counts = launch_counts()
+    timed_rows = [r for r in log_rows if r["timed"]]
+    ms = sum(r["step_ms"] for r in timed_rows) / len(timed_rows)
+    res = {"steps": steps, "batch": batch, "seq": seq,
+           "losses": [r["loss"] for r in log_rows],
+           "step_ms_mean": ms, "tokens_per_s": batch * seq / ms * 1e3,
+           "max_memory_allocated":
+               torch.cuda.max_memory_allocated() if on_card else None,
+           "launches": counts}
+    log(f"  {json.dumps(res)}")
+    assert all(math.isfinite(x) for x in res["losses"]), res["losses"]
+    assert timed_rows[-1]["loss"] < timed_rows[0]["loss"], res["losses"]
+    if on_card:
+        # remat: every layer's forward runs twice a step, its backward once
+        n_layers = sum(g.n_periods * len(g.period) for g in cfg.groups)
+        assert counts["flash_attention"] == 2 * n_layers * steps, counts
+        assert counts["flash_attention_bwd"] == n_layers * steps, counts
+        assert recorder.args is not None and recorder.dout is not None
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+        with prof_ctx(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            params, opt, met = step_fn(params, opt, *batches[steps])
+            sync()
+            wall = time.perf_counter() - t0
+        log_device_time(prof, wall, "1 train step")
+    del params, opt, batches
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return res
+
+
+def log_device_time(prof, wall: float, window: str) -> None:
+    """Device busy share of a profiled window and device time by
+    kernel."""
     rows = [e for e in prof.key_averages()
             if str(e.device_type).endswith("CUDA")]
     dev_us = {e.key: (e.self_device_time_total, e.count) for e in rows}
     total = sum(us for us, _ in dev_us.values())
-    log(f"  window: {steps} steps, wall {wall * 1e3:.1f} ms, device busy "
+    log(f"  window: {window}, wall {wall * 1e3:.1f} ms, device busy "
         f"{total / 1e3:.1f} ms = {total / 1e6 / wall:.3f} of the window "
         f"(sum of kernel times; streams may overlap)")
     for name, (us, n) in sorted(dev_us.items(), key=lambda kv: -kv[1][0]
@@ -1233,14 +1599,107 @@ def profile_serve(warm_steps: int = 100, steps: int = 100) -> None:
             f"{name[:90]}")
     if total == 0:
         log("  the profiler saw no device time: not measured")
-    eng.close()
+
+
+def time_flash(recorder: FlashRecorder, worst: dict, launches: dict) -> list:
+    """The flash rows: forward and backward kernels, their plain versions
+    and the library yardstick (scaled_dot_product_attention with
+    is_causal and enable_gqa, forward, and its backward; timed here and
+    never on the path), on the inputs of the train step's first attention
+    call and the gradient that reached its output. Bound: the visible
+    (query, key) pairs' operations (4 hd per pair forward, 10 hd
+    backward: five products) at the bf16 tensor-core peak, against each
+    operand read and each result written once."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_ref, flash_attention_fwd,
+        flash_attention_fwd_ref)
+    q, k, v, kw = recorder.args
+    do = recorder.dout
+    B, Hkv, G, T, hd = q.shape
+    dtype = str(q.dtype)[6:]
+    Tk = k.shape[2]
+    mask = torch.ones((T, Tk), dtype=torch.bool, device=q.device).tril(
+        Tk - T)
+    window = kw.get("window")
+    if window is not None:
+        mask &= ~torch.ones_like(mask).tril(Tk - T - window)
+    pairs = int(mask.sum()) * B * Hkv * G
+    esz = q.element_size()
+    rows = []
+
+    def row(name, ms, plain_ms, lib_ms, nbytes, ops, err):
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        by_ops = ops / PEAK_OPS[dtype] * 1e3
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/"
+                               "flash_attention.cu",
+                     "replaces": FLASH_REPLACES[name],
+                     "launches": launches[name], "max_abs_err": err,
+                     "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": max(by_bytes, by_ops),
+                     "bound_by": "bytes" if by_bytes >= by_ops
+                     else "operations", "library_ms": lib_ms,
+                     "shape": [B, Hkv, G, T, hd]})
+        log(f"  {name} {[B, Hkv, G, T, hd]} {dtype}: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+            f"{max(by_bytes, by_ops):.4f} ms, main-path max_abs_err "
+            f"{err:.3g}")
+
+    def ulp_check(name, got, want):
+        # both round one float32 result once: one unit in the last place
+        # at the largest magnitude (2^-16 of it in float32)
+        ulp = {"bfloat16": 2.0 ** -7, "float32": 2.0 ** -16}[dtype]
+        err = max_err(got, want)
+        t = ulp * float(want.float().abs().max())
+        log(f"  {name} main-path call: max_abs_err {err:.3g} (tol {t:.3g})")
+        assert err <= t, name
+        return err
+
+    fwd = lambda: flash_attention_fwd(q, k, v, **kw)          # noqa: E731
+    fwd_plain = lambda: flash_attention_fwd_ref(q, k, v, **kw)  # noqa: E731
+    out, lse = fwd()
+    err = max(worst["flash_attention"],
+              ulp_check("flash_attention", out, fwd_plain()[0]))
+    ms, plain_ms = in_turns(fwd_plain, fwd, 3)
+    q4 = q.reshape(B, Hkv * G, T, hd)
+    assert kw.get("window") is None and kw.get("softcap") is None
+    lib = lambda: F.scaled_dot_product_attention(              # noqa: E731
+        q4, k, v, is_causal=True, enable_gqa=True)
+    lib_ms = cuda_ms(lib, 3)
+    row("flash_attention", ms, plain_ms, lib_ms,
+        (2 * q.numel() + 2 * k.numel()) * esz + lse.numel() * 4,
+        4 * hd * pairs, err)
+
+    bwd = lambda: flash_attention_bwd(q, k, v, out, lse, do, **kw)  # noqa
+    bwd_plain = lambda: flash_attention_bwd_ref(                 # noqa: E731
+        q, k, v, out, lse, do, **kw)
+    err = max(worst["flash_attention_bwd"],
+              *(ulp_check("flash_attention_bwd", g, w)
+                for g, w in zip(bwd(), bwd_plain())))
+    ms, plain_ms = in_turns(bwd_plain, bwd, 3)
+    q4r, kr, vr = (t.detach().clone().requires_grad_(True)
+                   for t in (q4, k, v))
+    out4 = F.scaled_dot_product_attention(q4r, kr, vr, is_causal=True,
+                                          enable_gqa=True)
+    do4 = do.reshape(out4.shape)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(
+        out4, (q4r, kr, vr), do4, retain_graph=True), 3)
+    row("flash_attention_bwd", ms, plain_ms, lib_ms,
+        (4 * q.numel() + 4 * k.numel()) * esz + lse.numel() * 4,
+        10 * hd * pairs, err)
+    del out4, q4r, kr, vr
+    torch.cuda.empty_cache()
+    return rows
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma list of {PHASES} (card and build always "
-                         "run; timing needs every serve phase)")
+                         "run; timing needs every serve phase for rows "
+                         "1-6 and the train phase for the flash rows)")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     t_start = time.perf_counter()
@@ -1271,14 +1730,24 @@ def main() -> int:
     if "kernels" in phases:
         log("[kernels] each kernel against its plain version on the card")
         worst = check_kernels()
+        check_flash_kernels(torch.Generator(device="cuda").manual_seed(0),
+                            worst)
     if "tiny" in phases:
         log("[tiny] forward_mixed_paged, decode_step_paged and "
             "extend_step_paged, card kernels vs CPU plain versions")
         check_tiny()
+    if "tiny_train" in phases:
+        log("[tiny_train] one train step of the tiny config in f32, card "
+            "kernels vs CPU plain versions")
+        check_tiny_train()
     if "decode_parity" in phases:
         log("[decode_parity] full width: fused vs per-call prefill, and "
             "ragged_paged_attention vs paged_attention on one decode step")
         check_decode_parity()
+    if "train_parity" in phases:
+        log("[train_parity] full width f32, B 1 x T 512: loss and gradients "
+            "of the flash kernels vs the plain attention on the card")
+        check_train_parity()
     recorder = Recorder()
     total = {k: 0 for k in KERNELS}
     results = {}
@@ -1317,11 +1786,23 @@ def main() -> int:
                                               results["serve"]["streams"]))
             log(f"  streams identical to the serve run: {same} of "
                 f"{len(res['streams'])}")
+    flash_rec = FlashRecorder()
+    if "train" in phases:
+        log("[train] llama3.2-1b full width, bf16 params, f32 AdamW, remat, "
+            "SyntheticLM B 4 x T 2048")
+        res = train(flash_rec, profile="profile" in phases)
+        for k in ("flash_attention", "flash_attention_bwd"):
+            total[k] = res["launches"][k]
     rows = []
     if "timing" in phases and set(SERVE_PHASES) <= phases:
         log("[timing] CUDA events on the inputs of each kernel's largest "
             "main-path call")
         rows = time_kernels(recorder, worst, total)
+    if "timing" in phases and "train" in phases:
+        log("[timing] flash attention on the train step's first attention "
+            "call")
+        rows += time_flash(flash_rec, worst, total)
+    if "timing" in phases and set(SERVE_PHASES) | {"train"} <= phases:
         assert sorted(r["name"] for r in rows) == sorted(KERNELS), rows
     if "profile" in phases:
         log("[profile] torch.profiler over serve steps, InferCept policy")

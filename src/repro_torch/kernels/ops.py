@@ -6,6 +6,7 @@ anything it does not take. There is no fallback from one to the other.
 """
 from __future__ import annotations
 
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.kv_append import kv_append, kv_append_ref
 from repro_torch.kernels.kv_quant import kv_append_quant, kv_append_quant_ref
 from repro_torch.kernels.paged_attention import (paged_attention,
@@ -20,6 +21,15 @@ from repro_torch.kernels.swap_pack import (swap_pack, swap_pack_ref,
 
 def _on_cpu(t) -> bool:
     return t.device.type == "cpu"
+
+
+def flash_attention_op(q, k, v, *, causal=True, window=None, softcap=None):
+    """Dense GQA attention over full sequences, differentiable: q
+    (B, Hkv, G, Tq, hd), k and v (B, Hkv, Tk, hd). The autograd Function
+    runs the plain versions, forward and backward, for CPU tensors and
+    launches the kernels for CUDA tensors."""
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           softcap=softcap)
 
 
 def paged_attention_op(q, k_pool, v_pool, block_tables, ctx_lens, *,

@@ -1,9 +1,11 @@
-"""GQA attention over paged KV pools: the fused mixed-batch path and the
-per-call decode and chunked-prefill paths.
+"""GQA attention: the full-sequence forward (training) over the flash
+kernels, and paged KV pools' fused mixed-batch path and per-call decode
+and chunked-prefill paths.
 
-Counterpart of the ``init_gqa`` / ``gqa_mixed_paged`` /
-``gqa_decode_paged`` / ``gqa_extend_paged`` / ``init_cache_shapes``
-slice of ``repro.models.attention``. The per-layer pools are updated in
+Counterpart of the ``init_gqa`` / ``gqa_qkv`` / ``gqa_forward`` /
+``attention_forward`` / ``gqa_mixed_paged`` / ``gqa_decode_paged`` /
+``gqa_extend_paged`` / ``init_cache_shapes`` slice of
+``repro.models.attention``. The per-layer pools are updated in
 place: every new token's K/V is appended (``kv_append``) before attention
 reads the pools, so one mask ``kv position <= token position`` gives both
 decode tokens and chunk-internal causality. A quantized pool (DESIGN.md
@@ -21,8 +23,8 @@ import torch
 from repro_torch.configs.base import AttentionCfg
 from repro_torch.kernels.kv_quant import (dequant_gathered, gather_pages,
                                           kv_quant_dtype)
-from repro_torch.kernels.ops import (kv_append_op, kv_append_quant_op,
-                                     paged_attention_op,
+from repro_torch.kernels.ops import (flash_attention_op, kv_append_op,
+                                     kv_append_quant_op, paged_attention_op,
                                      ragged_paged_attention_op)
 from repro_torch.models.common import apply_rope, dense_init, softcap
 
@@ -62,6 +64,52 @@ def init_gqa(generator: torch.Generator, d_model: int, a: AttentionCfg, *,
 def _project(x, w):
     """x (N, d) @ w (d, heads, hd) -> (N, heads, hd)."""
     return (x @ w.reshape(w.shape[0], -1)).reshape(x.shape[0], *w.shape[1:])
+
+
+def gqa_qkv(p, a: AttentionCfg, x, positions):
+    """x: (B, T, d); positions (T,) or (B, T). Returns roped q
+    (B, T, Hq, hd), k and v (B, T, Hkv, hd)."""
+    B, T, d = x.shape
+    xf = x.reshape(B * T, d)
+    q = _project(xf, p["wq"]).reshape(B, T, *p["wq"].shape[1:])
+    k = _project(xf, p["wk"]).reshape(B, T, *p["wk"].shape[1:])
+    v = _project(xf, p["wv"]).reshape(B, T, *p["wv"].shape[1:])
+    if a.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    q = apply_rope(q, positions, a.rope_theta)
+    k = apply_rope(k, positions, a.rope_theta)
+    return q, k, v
+
+
+def gqa_forward(p, a: AttentionCfg, x, positions, *, window_override="cfg"):
+    """Causal self-attention over the whole sequence, x (B, T, d) at
+    positions 0..T-1: the flash kernels where the reference runs its XLA
+    ``blocked_attention`` (the same function; the reference scales q
+    before the product, the kernel scales the product, so the two agree
+    within rounding). q, k and v are made contiguous once in the kernels'
+    (B, Hkv, G, T, hd) layout. Returns (out (B, T, d), {"k", "v"})."""
+    if a.kind != "gqa":
+        raise NotImplementedError(f"{a.kind} attention is not ported yet")
+    window = effective_window(a, window_override)
+    q, k, v = gqa_qkv(p, a, x, positions)
+    B, T, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    out = flash_attention_op(
+        q.reshape(B, T, Hkv, Hq // Hkv, hd).permute(0, 2, 3, 1, 4)
+        .contiguous(),
+        k.permute(0, 2, 1, 3).contiguous(), v.permute(0, 2, 1, 3).contiguous(),
+        causal=True, window=window, softcap=a.logit_softcap)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B * T, Hq * hd).to(x.dtype)
+    out = out @ p["wo"].reshape(Hq * hd, -1)
+    return out.reshape(B, T, -1), {"k": k, "v": v}
+
+
+def attention_forward(p, a, x, positions, *, window_override="cfg"):
+    if a.kind == "mla":
+        raise NotImplementedError("MLA attention is not ported yet")
+    return gqa_forward(p, a, x, positions, window_override=window_override)
 
 
 def _append(pool, k, v, pids, offs, valid):

@@ -1,6 +1,7 @@
-"""Residual blocks on the paged paths, counterpart of the ``init_block`` /
-``block_mixed_paged`` / ``block_decode_paged`` / ``block_extend_paged``
-slice of ``repro.models.blocks``: attention plus a dense FFN. MoE,
+"""Residual blocks, counterpart of the ``init_block`` / ``block_forward``
+/ ``block_mixed_paged`` / ``block_decode_paged`` / ``block_extend_paged``
+slice of ``repro.models.blocks``: attention plus a dense FFN, over the
+full sequence (training) and on the paged paths. MoE,
 post-norms and SSM blocks are not ported yet and raise, so the extend's
 auxiliary (MoE balance) loss is always 0 and is not returned."""
 from __future__ import annotations
@@ -30,6 +31,19 @@ def init_block(generator: torch.Generator, cfg: ModelConfig, blk: BlockCfg,
             "norm2": torch.zeros((d,), dtype=dtype, device=device),
             "mlp": mlp.init_mlp(generator, d, blk.ffn, dtype=dtype,
                                 device=device)}
+
+
+def block_forward(p, cfg: ModelConfig, blk: BlockCfg, x, ctx):
+    """Full-sequence pass over x (B, T, d) at ctx["positions"]. Returns
+    (x, cache entry {"k", "v"}, aux loss 0: no MoE here)."""
+    _check_ported(blk)
+    eps = cfg.norm_eps
+    h, kv = attention.attention_forward(
+        p["attn"], blk.attn, rms_norm(x, p["norm1"], eps), ctx["positions"],
+        window_override=ctx.get("window_override", "cfg"))
+    x = x + h.to(x.dtype)
+    h = mlp.mlp_forward(p["mlp"], blk.ffn, rms_norm(x, p["norm2"], eps))
+    return x + h.to(x.dtype), kv, torch.zeros((), device=x.device)
 
 
 def block_mixed_paged(p, cfg: ModelConfig, blk: BlockCfg, x, pool, ctx):

@@ -1,5 +1,6 @@
-"""The language model on the paged paths — the fused mixed-batch
-iteration and the per-call decode and chunked prefill — counterpart of
+"""The language model: the full-sequence forward and its loss
+(training), and the paged paths — the fused mixed-batch iteration and the
+per-call decode and chunked prefill — counterpart of
 ``repro.models.model.LM``.
 
 Parameter tree, the JAX layout:
@@ -12,13 +13,26 @@ is updated in place.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Any, Optional
+
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks as B
 from repro_torch.models.attention import init_pool
-from repro_torch.models.common import embed_init, rms_norm, softcap
+from repro_torch.models.common import (chunked_cross_entropy,
+                                       cross_entropy_logits, embed_init,
+                                       rms_norm, softcap)
 from repro_torch.utils.tree import tree_map
+
+
+@dataclasses.dataclass
+class ForwardOut:
+    hidden: Any            # (B, T, d) final hidden states (pre-head)
+    aux_loss: Any          # scalar (MoE load balance): 0 for dense FFNs
+    cache: Any             # decode cache: always None here
 
 
 class LM:
@@ -62,10 +76,82 @@ class LM:
         """tokens: (...) int -> (..., d)."""
         return params["embed"][tokens.long()]
 
-    def logits(self, params, hidden):
-        w = params["embed"].T if self.cfg.tie_embeddings \
+    def head_matrix(self, params):
+        """(d, V): the tied embedding's transpose, or the lm_head."""
+        return params["embed"].T if self.cfg.tie_embeddings \
             else params["lm_head"]
-        return softcap(hidden @ w, self.cfg.final_logit_softcap)
+
+    def logits(self, params, hidden):
+        return softcap(hidden @ self.head_matrix(params),
+                       self.cfg.final_logit_softcap)
+
+    # ------------------------------------------------------------------
+    # Full-sequence forward and loss (training)
+    # ------------------------------------------------------------------
+    def forward(self, params, tokens=None, embeds=None, *, x=None,
+                positions=None, remat=False, window_override="cfg",
+                return_cache_len: Optional[int] = None) -> ForwardOut:
+        """Every layer over the whole sequence, tokens (B, T) (or hidden
+        x (B, T, d)) at positions 0..T-1; a Python loop over each group's
+        periods takes the place of ``lax.scan``. ``remat`` recomputes
+        each period in the backward (``torch.utils.checkpoint``,
+        non-reentrant), as ``jax.checkpoint`` on the scan body does, so
+        only the periods' inputs are kept. Slotted decode caches
+        (``return_cache_len``), embedding prefixes and other positions
+        are not ported yet."""
+        if return_cache_len is not None:
+            raise NotImplementedError(
+                "return_cache_len: slotted decode caches come with the "
+                "gather-path slice (prefill_step, ROADMAP)")
+        if embeds is not None:
+            raise NotImplementedError(
+                "embeds: embedding prefixes come with the other "
+                "architectures (ROADMAP)")
+        if positions is not None:
+            raise NotImplementedError(
+                "positions: the forward runs at positions 0..T-1")
+        cfg = self.cfg
+        if x is None:
+            x = self.embed(params, tokens)
+        ctx = {"positions": torch.arange(x.shape[1], dtype=torch.int32,
+                                         device=x.device),
+               "window_override": window_override}
+        for gi, g in enumerate(cfg.groups):
+            scan = params["groups"][gi]["scan"]
+
+            def period(xx, pp, g=g):
+                for j, blk in enumerate(g.period):
+                    xx = B.block_forward(pp[f"b{j}"], cfg, blk, xx, ctx)[0]
+                return xx
+
+            for layer in range(g.n_periods):
+                pp = tree_map(lambda t: t[layer], scan)
+                if remat:
+                    x = torch.utils.checkpoint.checkpoint(
+                        period, x, pp, use_reentrant=False)
+                else:
+                    x = period(x, pp)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return ForwardOut(hidden=x, aux_loss=torch.zeros((), device=x.device),
+                          cache=None)
+
+    def loss(self, params, tokens=None, labels=None, embeds=None,
+             label_mask=None, *, remat=True, window_override="cfg"):
+        """Next-token CE (labels already shifted by the data pipeline):
+        the streaming vocab-chunked CE for large vocabularies, so the
+        (B, T, V) logits are never materialized. Returns (loss,
+        {"ce", "aux"})."""
+        cfg = self.cfg
+        out = self.forward(params, tokens, embeds, remat=remat,
+                           window_override=window_override)
+        h = out.hidden
+        w = self.head_matrix(params)
+        if cfg.vocab_size >= 65536 and cfg.final_logit_softcap is None:
+            ce = chunked_cross_entropy(h, w, labels, label_mask=label_mask)
+        else:
+            ce = cross_entropy_logits(softcap(h @ w, cfg.final_logit_softcap),
+                                      labels, label_mask)
+        return ce + out.aux_loss, {"ce": ce, "aux": out.aux_loss}
 
     # ------------------------------------------------------------------
     # Paged pools and the fused iteration

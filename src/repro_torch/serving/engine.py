@@ -96,6 +96,7 @@ from repro_torch.serving.api_executor import (AsyncToolRuntime,
 from repro_torch.serving.session import (CancelledEvent, FailedEvent,
                                          FinishEvent, InterceptEvent,
                                          RejectedEvent, TokenEvent)
+from repro_torch.utils.device import resolve_device
 from repro_torch.utils.hw import H100, ChipSpec
 from repro_torch.utils.tree import tree_leaves, tree_map
 
@@ -181,17 +182,6 @@ class EventBatch(list):
     def __init__(self, events: Sequence[object], drained: bool = True):
         super().__init__(events)
         self.drained = drained
-
-
-def resolve_device(device) -> torch.device:
-    """None means the CUDA card; with none present this raises rather than
-    fall back, so a run on the CPU is always one the caller asked for."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device is available; pass "
-                               "device='cpu' to run on the CPU")
-        device = "cuda"
-    return torch.device(device)
 
 
 class Engine:

@@ -32,7 +32,7 @@ COPIED = [
     "cache/__init__.py", "cache/prefix_tree.py", "obs/__init__.py",
     "obs/metrics.py", "obs/ledger.py", "obs/trace.py", "obs/export.py",
     "serving/api_executor.py", "serving/session.py",
-    "serving/workloads.py",
+    "serving/workloads.py", "training/data.py",
 ]
 # the one allowed difference: lines inserted into utils/hw.py that
 # define the H100 spec
@@ -104,6 +104,13 @@ def test_engine_without_device_needs_cuda(monkeypatch):
         Engine(get_config("llama3.2-1b", tiny=True), POLICIES["infercept"])
     with pytest.raises(RuntimeError):
         resolve_device(None)
+    # an explicit CUDA device, as launch/serve.py's and launch/train.py's
+    # default --device cuda passes it, raises the same way
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(get_config("llama3.2-1b", tiny=True), POLICIES["infercept"],
+               device="cuda")
     assert resolve_device("cpu") == torch.device("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert resolve_device(None) == torch.device("cuda")
@@ -115,6 +122,7 @@ def test_kernel_modules_import_without_a_toolchain():
     from repro_torch.kernels import _build
     assert _build.lib.cache_info().currsize == 0
     assert sorted(p.name for p in _build.sources()) == [
-        "kv_append.cu", "page_requant.cu", "paged_attention.cu",
+        "flash_attention.cu", "kv_append.cu", "page_requant.cu",
+        "paged_attention.cu",
         "ragged_paged_attention.cu", "swap_pack.cu"]
     assert _build.library_path().parent == ROOT / "build" / "kernels"
