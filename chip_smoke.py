@@ -18,7 +18,10 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      and float8_e5m2, and a SwapStager round trip of a
                      quantized pool tree; the flash attention forward and
                      backward at T {1, 63, 64, 1000, 2048}, Tq < Tk,
-                     G {1, 4}, window, softcap and no causal mask
+                     G {1, 4}, window, softcap and no causal mask;
+                     gla_scan over the reference grid, the tiny and the
+                     full-width mLSTM shapes, a Mamba2 call (stride-0 q
+                     and k) and a carried initial state
   4. tiny          — tiny-config f32 forward_mixed_paged, decode_step_paged
                      and extend_step_paged, kernels on the card against
                      plain versions on the CPU, same weights and pools,
@@ -26,46 +29,59 @@ Phases; any failure ends the run with a non-zero exit and no result line:
   5. tiny_train    — one tiny-config f32 make_train_step, kernels on the
                      card against plain versions on the CPU: loss,
                      gradients, grad_norm
-  6. decode_parity — full width on the card: the fused and per-call paths
+  6. tiny_ssm      — tiny xlstm-350m in f32: prefill_step and 8 greedy
+                     serve_step calls, the kernel on the card against the
+                     plain version on the CPU: logits, cache, tokens
+  7. decode_parity — full width on the card: the fused and per-call paths
                      against each other, prefill (forward_mixed_paged vs
                      extend_step_paged) and one decode step on equal pools
                      (the ragged kernel vs the paged decode kernel); held
                      in f32, the prefill on weights conditioned for soft
                      attention; reported with the reference's init
-  7. train_parity  — full width in f32, B 1 x T 512: loss and gradients
+  8. train_parity  — full width in f32, B 1 x T 512: loss and gradients
                      with the flash kernels against the plain attention on
                      the card; held on conditioned weights, reported with
                      the reference's init
-  8. serve         — full-width llama3.2-1b in bf16, random weights from a
+  9. ssm_parity    — full-width xlstm-350m in f32, B 2 x T 520: prefill
+                     logits and final states with gla_scan against the
+                     plain chunked_gla_ref on the card, and serve_step at
+                     T against a T+1 prefill
+ 10. serve         — full-width llama3.2-1b in bf16, random weights from a
                      seed, agent sessions through ScriptedClient under
                      InferCept
-  9. swap          — the same under the swap policy, so pages cross to the
+ 11. swap          — the same under the swap policy, so pages cross to the
                      host
- 10. unfused       — the same under InferCept with Engine(fused=False): the
+ 12. unfused       — the same under InferCept with Engine(fused=False): the
                      per-call extend and paged decode paths
- 11. spec          — the same under InferCept with speculative resume and
+ 13. spec          — the same under InferCept with speculative resume and
                      the oracle tool-result predictor, driven by Engine.run:
                      a session's segments are open and a fork past an open
                      segment emits only its seed token, so only the closed
                      loop's scripted segments give forks decode steps
- 12. quant         — the serve run with int8 KV pools
+ 14. quant         — the serve run with int8 KV pools
                      (Engine(kv_dtype="int8")): page_requant, kv_append and
                      the scaled ragged kernel
- 13. quant_unfused — the same with fused=False: the scaled paged decode
+ 15. quant_unfused — the same with fused=False: the scaled paged decode
                      kernel
- 14. train         — full-width llama3.2-1b training through
+ 16. train         — full-width llama3.2-1b training through
                      make_train_step: bf16 params, f32 AdamW, remat,
                      SyntheticLM batches of 4 x 2048, 2 warm-up and 8
                      timed steps; finite, falling loss
- 15. timing        — each kernel, its plain version and the one-call PyTorch
+ 17. ssm_serve     — full-width xlstm-350m in bf16 (seed-0 port init)
+                     through prefill_step of 8 x 2000 random tokens and 64
+                     greedy serve_step calls: tok/s of each, peak memory,
+                     21 gla_scan launches, finite logits
+ 18. timing        — each kernel, its plain version and the one-call PyTorch
                      yardstick, timed with CUDA events on the inputs the
-                     serve and train runs gave it; bound from those inputs
- 16. profile       — torch.profiler over a window of serve steps and over
-                     one train step: device busy share and device time by
-                     kernel
+                     serve, train and ssm_serve runs gave it; bound from
+                     those inputs
+ 19. profile       — torch.profiler over a window of serve steps, over one
+                     train step and over one xlstm prefill: device busy
+                     share and device time by kernel
 
 Launch counts are read from the kernel wrappers: set to 0 just before
-each serve run and before the train run, and read just after each. The
+each serve run, the train run and the timed xlstm run, and read just
+after each. The
 last three lines are the kernels JSON, the card's name and power limit,
 and {"ok": true, "device": {...}}.
 """
@@ -81,9 +97,11 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("kernels", "tiny", "tiny_train", "decode_parity", "train_parity",
-          "serve", "swap", "unfused", "spec", "quant", "quant_unfused",
-          "train", "timing", "profile")
+T_START = time.perf_counter()
+PHASES = ("kernels", "tiny", "tiny_train", "tiny_ssm", "decode_parity",
+          "train_parity", "ssm_parity", "serve", "swap", "unfused", "spec",
+          "quant", "quant_unfused", "train", "ssm_serve", "timing",
+          "profile")
 SERVE_PHASES = {"serve": ("infercept", {}), "swap": ("swap", {}),
                 "unfused": ("infercept", {"fused": False}),
                 "spec": ("infercept", {"speculate": True,
@@ -96,7 +114,7 @@ SERVE_PHASES = {"serve": ("infercept", {}), "swap": ("swap", {}),
 KERNELS = ("ragged_paged_attention", "paged_attention", "kv_append",
            "swap_pack", "swap_unpack", "page_requant",
            "ragged_paged_attention_int8", "paged_attention_int8",
-           "flash_attention", "flash_attention_bwd")
+           "flash_attention", "flash_attention_bwd", "gla_scan")
 # the TPU kernel of each flash row; the backward has none: the reference
 # differentiates its XLA blocked_attention
 FLASH_REPLACES = {
@@ -119,6 +137,10 @@ def row_key(kernel: str, kv_dtype) -> str:
 
 
 def log(msg: str) -> None:
+    """Print a line; a phase's header line ("[...") gets the seconds since
+    the run started."""
+    if msg.startswith("["):
+        msg = f"{msg} (at {time.perf_counter() - T_START:.1f} s)"
     print(msg, flush=True)
 
 
@@ -881,9 +903,11 @@ def kernel_wrappers() -> dict:
     from repro_torch.kernels import (kv_append, kv_quant, paged_attention,
                                      ragged_paged_attention)
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gla_scan as gs
     from repro_torch.kernels import swap_pack as sp
     return {"flash_attention": fa.flash_attention_fwd,
             "flash_attention_bwd": fa.flash_attention_bwd,
+            "gla_scan": gs.gla_scan_fwd,
             "ragged_paged_attention":
             ragged_paged_attention.ragged_paged_attention,
             "paged_attention": paged_attention.paged_attention,
@@ -1694,12 +1718,425 @@ def time_flash(recorder: FlashRecorder, worst: dict, launches: dict) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the SSM slice: gla_scan, and xlstm-350m through prefill_step/serve_step
+# ---------------------------------------------------------------------------
+GLA_REPLACES = "src/repro/kernels/gla_scan.py:69"
+
+
+def gla_inputs(gen, *, B, H, T, dk, dv, dtype, mixed=False,
+               broadcast=False, state=False, device="cuda"):
+    """q, k, v, log_a (and an initial state) for gla_scan: q, v normal,
+    k normal / sqrt(dk), log_a = -|normal| * 0.2 (tests/test_kernels.py's
+    decay). ``mixed``: k float32 beside q and v in ``dtype``, as an mLSTM
+    call (k times the float32 input gate); ``broadcast``: q and k shared
+    by the H heads with stride 0 and v float32, as a Mamba2 call."""
+    import torch
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+    if broadcast:
+        q = randn(B, 1, T, dk).to(dtype).expand(B, H, T, dk)
+        k = (randn(B, 1, T, dk) / math.sqrt(dk)).to(dtype).expand(
+            B, H, T, dk)
+        v = randn(B, H, T, dv)
+    else:
+        q = randn(B, H, T, dk).to(dtype)
+        k = (randn(B, H, T, dk) / math.sqrt(dk)).to(
+            torch.float32 if mixed else dtype)
+        v = randn(B, H, T, dv).to(dtype)
+    la = -randn(B, H, T).abs() * 0.2
+    s0 = randn(B, H, dk, dv) if state else None
+    return q, k, v, la, s0
+
+
+def gla_rel_err(y, s, want_y, want_s):
+    """The largest error of y and of the state, each over its reference's
+    largest magnitude."""
+    return (max_err(y, want_y) / max(float(want_y.float().abs().max()),
+                                     1e-30),
+            max_err(s, want_s) / max(float(want_s.abs().max()), 1e-30))
+
+
+def check_gla_kernels(gen, worst) -> None:
+    """gla_scan against chunked_gla_ref on the card: the reference grid
+    (tests/test_kernels.py's shapes and chunks) in float32 and bf16, the
+    tiny xLSTM's mLSTM shape (dk 256, dv 257, chunk 64) and the full-width
+    one (B 2, H 4, T 2000, dk 512, dv 513, chunk 256) with float32 k
+    beside bf16 q and v, a Mamba2 call (zamba2's widths: H 8, dk 64, dv
+    512, stride-0 q and k, float32 v), and a carried initial state. Held
+    relative to the largest |y| and |S|: 1e-4 for float32 results
+    (float32 sums in another order), 2^-7 for a bf16 y (both round one
+    float32 result once: a unit in the last place)."""
+    import torch
+    from repro_torch.kernels.gla_scan import chunked_gla_ref, gla_scan_fwd
+    grid = [(2, 2, 64, 16, 16, 16), (1, 4, 128, 32, 64, 32),
+            (2, 1, 256, 64, 64, 128), (1, 2, 96, 16, 16, 32)]
+    cases = [(f"grid B{b} H{h} T{t} dk{dk} dv{dv} c{c}", dtype,
+              dict(B=b, H=h, T=t, dk=dk, dv=dv), c, {})
+             for dtype in (torch.bfloat16, torch.float32)
+             for b, h, t, dk, dv, c in grid]
+    bf16 = torch.bfloat16
+    cases += [
+        ("tiny mLSTM", bf16, dict(B=2, H=2, T=130, dk=256, dv=257), 64,
+         dict(mixed=True)),
+        ("mLSTM full width", bf16, dict(B=2, H=4, T=2000, dk=512, dv=513),
+         256, dict(mixed=True)),
+        ("mLSTM full width, initial state", bf16,
+         dict(B=2, H=4, T=700, dk=512, dv=513), 256,
+         dict(mixed=True, state=True)),
+        ("Mamba2 zamba2 widths", bf16, dict(B=2, H=8, T=1000, dk=64,
+                                            dv=512), 256,
+         dict(broadcast=True)),
+        ("float32 T off the chunk, initial state", torch.float32,
+         dict(B=2, H=2, T=333, dk=64, dv=40), 128, dict(state=True))]
+    for label, dtype, shape, c, kw in cases:
+        q, k, v, la, s0 = gla_inputs(gen, dtype=dtype, **shape, **kw)
+        y, s = gla_scan_fwd(q, k, v, la, chunk=c, initial_state=s0)
+        want_y, want_s = chunked_gla_ref(q, k, v, la, c, s0)
+        torch.cuda.synchronize()
+        ey, es = gla_rel_err(y, s, want_y, want_s)
+        tol_y = 2.0 ** -7 if y.dtype == bf16 else 1e-4
+        log(f"  gla_scan {label} ({str(dtype)[6:]}): y max_abs_err "
+            f"{ey:.3g} of its max (tol {tol_y:.3g}), state {es:.3g} (tol "
+            f"1e-4)")
+        assert y.dtype == v.dtype and s.dtype == torch.float32, label
+        assert ey <= tol_y and es <= 1e-4, label
+        worst["gla_scan"] = max(worst["gla_scan"], max_err(y, want_y),
+                                max_err(s, want_s))
+        del q, k, v, la, s0, y, s, want_y, want_s
+    torch.cuda.empty_cache()
+
+
+def ssm_steps(cfg, params, tokens, n_steps: int):
+    """prefill_step over tokens (B, T), then ``n_steps`` greedy serve_step
+    calls, the first fed the prefill's argmax at position T. Returns
+    (prefill logits, its cache, [each step's logits], the fed tokens
+    (B, n_steps + 1), the last cache)."""
+    import torch
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+    T = tokens.shape[1]
+    _, prefill = build_prefill_step(cfg, T)
+    _, serve_step = build_serve_step(cfg)
+    logits, cache = prefill(params, tokens)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    fed, step_logits, last = [tok], [], cache
+    for i in range(n_steps):
+        pos = torch.full_like(tok, T + i)
+        lg, tok, last = serve_step(params, last, tok, pos)
+        step_logits.append(lg)
+        fed.append(tok)
+    return logits, cache, step_logits, torch.stack(fed, dim=1), last
+
+
+def cache_rel_err(got, want) -> float:
+    """The largest error of any cache leaf over that leaf's largest
+    magnitude."""
+    from repro_torch.utils.tree import tree_leaves
+    return max(max_err(a.cpu(), b.cpu()) / max(float(b.float().abs().max()),
+                                                1e-30)
+               for a, b in zip(tree_leaves(got), tree_leaves(want)))
+
+
+def check_tiny_ssm(device: str = "cuda") -> None:
+    """Tiny xlstm-350m in float32, seed-0 port init: prefill_step over
+    B 2 x T 100 (the chunk of 64 padded) and 8 greedy serve_step calls on
+    ``device`` (the kernel) and on the CPU (the plain version), from the
+    same weights and tokens. Held: logits within 1e-4 of the largest
+    |logit| and every cache leaf within 1e-4 of its largest magnitude
+    (float32 sums in another order), greedy tokens equal."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+    from repro_torch.utils.tree import tree_map
+    cfg = get_config("xlstm-350m", tiny=True)
+    gen = torch.Generator().manual_seed(0)
+    params = LM(cfg).init(gen, dtype=torch.float32, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 100), generator=gen,
+                           dtype=torch.int32)
+    to_dev = lambda t: t.to(device)                            # noqa: E731
+    reset_counts()
+    dev_out = ssm_steps(cfg, tree_map(to_dev, params), to_dev(tokens), 8)
+    launches = launch_counts()["gla_scan"]
+    cpu_out = ssm_steps(cfg, params, tokens, 8)
+    scale = float(cpu_out[0].abs().max())
+    err = max(max_err(a.cpu(), b) for a, b in zip(
+        [dev_out[0]] + dev_out[2], [cpu_out[0]] + cpu_out[2])) / scale
+    c_err = max(cache_rel_err(dev_out[1], cpu_out[1]),
+                cache_rel_err(dev_out[4], cpu_out[4]))
+    same = bool(torch.equal(dev_out[3].cpu(), cpu_out[3]))
+    log(f"  tiny xlstm prefill + 8 serve steps on {device}: logits "
+        f"max_abs_err {err:.3g} of their max (tol 1e-4), cache leaves "
+        f"{c_err:.3g} (tol 1e-4), greedy tokens equal: {same}; gla_scan "
+        f"launches {launches}")
+    assert err <= 1e-4 and c_err <= 1e-4 and same
+    if device == "cuda":
+        assert launches == 1, launches
+
+
+def ssm_prefill(cfg, params, tokens, *, plain: bool):
+    """prefill_step with the kernel, or with the plain GLA (the oracle of
+    the SSM prefill, on any device) in its place for the call."""
+    import repro_torch.models.ssm as ssm
+    from repro_torch.kernels.gla_scan import chunked_gla_ref
+    from repro_torch.launch.steps import build_prefill_step
+    _, prefill = build_prefill_step(cfg, tokens.shape[1])
+    orig = ssm.chunked_gla
+    if plain:
+        ssm.chunked_gla = chunked_gla_ref
+    try:
+        return prefill(params, tokens)
+    finally:
+        ssm.chunked_gla = orig
+
+
+def check_ssm_parity(*, tiny: bool = False, device: str = "cuda",
+                     batch: int = 2, seq: int = 520) -> None:
+    """Full-width xlstm-350m in float32 (seed-0 port init), B 2 x T 520,
+    on the card: the prefill's logits and every final state with the
+    gla_scan kernel against the same with the plain chunked_gla_ref in its
+    place, held within 1e-3 of the largest |logit| and of each leaf's
+    largest magnitude (21 mLSTM and 3 sLSTM layers of float32 sums in
+    other orders); then decode continuation: serve_step at position T
+    after the T-prefill against the last logits of a T+1 prefill, held
+    within 1e-3 of the largest |logit| (a step recurrence against the
+    chunked form). ``tiny`` and ``device="cpu"`` rehearse it."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import build_serve_step
+    from repro_torch.models.model import LM
+    dev = torch.device(device)
+    cfg = get_config("xlstm-350m", tiny=tiny)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = LM(cfg).init(gen, dtype=torch.float32, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1),
+                           generator=gen, device=dev, dtype=torch.int32)
+    n_mlstm = sum(g.n_periods * sum(b.kind == "mlstm" for b in g.period)
+                  for g in cfg.groups)
+    reset_counts()
+    lk, ck = ssm_prefill(cfg, params, tokens[:, :seq], plain=False)
+    launches = launch_counts()["gla_scan"]
+    lp, cp = ssm_prefill(cfg, params, tokens[:, :seq], plain=True)
+    scale = float(lp.abs().max())
+    err, c_err = max_err(lk, lp) / scale, cache_rel_err(ck, cp)
+    _, serve_step = build_serve_step(cfg)
+    step_logits, _, _ = serve_step(params, ck, tokens[:, seq],
+                                   torch.full((batch,), seq, device=dev,
+                                              dtype=torch.int32))
+    l_next, _ = ssm_prefill(cfg, params, tokens, plain=False)
+    c_gap = max_err(step_logits, l_next) / float(l_next.abs().max())
+    finite = bool(torch.isfinite(lk).all() and torch.isfinite(lp).all())
+    log(f"  prefill B {batch} x T {seq}: logits kernel vs plain "
+        f"{err:.3g} of their max {scale:.4g} (tol 1e-3), states "
+        f"{c_err:.3g} of each leaf's max (tol 1e-3); decode at T vs a "
+        f"T+1 prefill {c_gap:.3g} of the max logit (tol 1e-3); gla_scan "
+        f"launches {launches} ({n_mlstm} mLSTM layers)")
+    assert finite and err <= 1e-3 and c_err <= 1e-3 and c_gap <= 1e-3
+    if dev.type == "cuda":
+        assert launches == n_mlstm, launches
+    del params, ck, cp
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+class GLARecorder:
+    """Keeps, for the timing phase, the inputs of the first gla_scan call
+    of a prefill (the first mLSTM layer's): wraps the op the model calls
+    and adds nothing to the launch counts. The inputs are kept by
+    reference (nothing writes them after the call) and move to host
+    memory on leaving."""
+
+    def __enter__(self):
+        import repro_torch.kernels.ops as ops
+        self.args = None
+        self._orig = orig = ops.gla_scan_op
+
+        def wrapped(q, k, v, log_a, **kw):
+            if self.args is None:
+                self.args = (q, k, v, log_a, kw)
+            return orig(q, k, v, log_a, **kw)
+        ops.gla_scan_op = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        import repro_torch.kernels.ops as ops
+        from repro_torch.utils.tree import tree_map
+        ops.gla_scan_op = self._orig
+        self.args = tree_map(lambda t: t.cpu() if hasattr(t, "cpu") else t,
+                             self.args)
+
+
+def ssm_serve(recorder: GLARecorder, *, tiny: bool = False,
+              device: str = "cuda", batch: int = 8, seq: int = 2000,
+              steps: int = 64, profile: bool = False) -> dict:
+    """xlstm-350m served through prefill_step and greedy serve_step: bf16
+    weights from the port's seed-0 init, ``batch`` prompts of ``seq``
+    random tokens (seed 0). A warm-up prefill (which the recorder
+    watches) and serve step, then the timed prefill and ``steps`` serve
+    steps, each timed to a synchronize. Launch counts are set to 0 before
+    the timed prefill and read after the last step: every mLSTM layer
+    launches gla_scan once per prefill, and decode never. Fails unless
+    every logit is finite. ``profile`` adds one more prefill under
+    torch.profiler. ``tiny`` and ``device="cpu"`` rehearse it in
+    float32."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+    from repro_torch.models.model import LM
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cfg = get_config("xlstm-350m", tiny=tiny)
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = LM(cfg).init(gen, dtype=torch.bfloat16 if on_card
+                          else torch.float32, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                           device=dev, dtype=torch.int32)
+    n_mlstm = sum(g.n_periods * sum(b.kind == "mlstm" for b in g.period)
+                  for g in cfg.groups)
+    _, prefill = build_prefill_step(cfg, seq)
+    _, serve_step = build_serve_step(cfg)
+    pos = torch.full((batch,), seq, device=dev, dtype=torch.int32)
+    with recorder:
+        logits, cache = prefill(params, tokens)
+    serve_step(params, cache, torch.argmax(logits, dim=-1).to(torch.int32),
+               pos)
+    del logits, cache
+    sync()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, tokens)
+    sync()
+    t1 = time.perf_counter()
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    fed, step_logits = [tok], []
+    for i in range(steps):
+        lg, tok, cache = serve_step(params, cache, tok, pos + i)
+        step_logits.append(lg)
+        fed.append(tok)
+    sync()
+    t2 = time.perf_counter()
+    counts = launch_counts()
+    fed = torch.stack(fed, dim=1)
+    finite = bool(torch.isfinite(logits).all()) and all(
+        bool(torch.isfinite(lg).all()) for lg in step_logits)
+    prefill_s, decode_s = t1 - t0, t2 - t1
+    res = {"model": cfg.name, "batch": batch, "seq": seq, "steps": steps,
+           "prefill_s": prefill_s,
+           "prefill_tokens_per_s": batch * seq / prefill_s,
+           "decode_s": decode_s,
+           "decode_ms_per_step": decode_s / max(steps, 1) * 1e3,
+           "decode_tokens_per_s": batch * steps / max(decode_s, 1e-9),
+           "max_memory_allocated":
+               torch.cuda.max_memory_allocated() if on_card else None,
+           "finite": finite, "first_tokens": fed[0, :8].tolist(),
+           "launches": counts}
+    log(f"  {json.dumps(res)}")
+    assert finite, "non-finite logits"
+    assert fed.shape == (batch, steps + 1)
+    assert 0 <= int(fed.min()) and int(fed.max()) < cfg.vocab_size
+    assert recorder.args is not None
+    if on_card:
+        assert counts["gla_scan"] == n_mlstm, counts
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+        with prof_ctx(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            prefill(params, tokens)
+            sync()
+            wall = time.perf_counter() - t0
+        log_device_time(prof, wall, f"1 prefill of {batch} x {seq}")
+    del params, cache, logits, step_logits
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return res
+
+
+def gla_ops(shape, dv: int, chunk: int, with_state: bool) -> int:
+    """The operations the chunked GLA must do on inputs of ``shape``
+    (B, H, T, dk): per (b, h) and chunk of r real steps, the causal half
+    of the intra-chunk scores, r (r + 1) / 2 pairs at dk multiply-adds
+    each and as many at dv for the scores times v, then r dk dv each for
+    q S (none on the first chunk when the state starts at zero) and for
+    the state update; two operations per multiply-add."""
+    B, H, T, dk = shape
+    ops = 0
+    for t0 in range(0, T, chunk):
+        r = min(chunk, T - t0)
+        inter = 0 if (t0 == 0 and not with_state) else r * dk * dv
+        ops += 2 * B * H * (r * (r + 1) // 2 * (dk + dv) + inter
+                            + r * dk * dv)
+    return ops
+
+
+def time_gla(recorder: GLARecorder, worst: dict, launches: dict) -> list:
+    """The gla_scan row: the kernel's launcher (its float32 casts
+    included: the main path pays them) and the plain version, timed on
+    the inputs of the first mLSTM call of ssm_serve's prefill. No single
+    PyTorch call computes chunked gated linear attention, so there is no
+    library yardstick."""
+    import torch
+    from repro_torch.kernels.gla_scan import chunked_gla_ref, gla_scan_fwd
+    from repro_torch.utils.tree import tree_map
+    q, k, v, la, kw = tree_map(
+        lambda t: t.cuda() if hasattr(t, "cuda") else t, recorder.args)
+    chunk, s0 = kw["chunk"], kw.get("initial_state")
+
+    def kernel():
+        return gla_scan_fwd(q, k, v, la, chunk=chunk, initial_state=s0)
+
+    def plain():
+        return chunked_gla_ref(q, k, v, la, chunk, s0)
+    y, s = kernel()
+    want_y, want_s = plain()
+    ey, es = gla_rel_err(y, s, want_y, want_s)
+    tol_y = 2.0 ** -7 if y.dtype == torch.bfloat16 else 1e-4
+    log(f"  gla_scan main-path call: y max_abs_err {ey:.3g} of its max "
+        f"(tol {tol_y:.3g}), state {es:.3g} (tol 1e-4)")
+    assert ey <= tol_y and es <= 1e-4
+    err = max(worst["gla_scan"], max_err(y, want_y), max_err(s, want_s))
+    ms, plain_ms = in_turns(plain, kernel, 3)
+    dv = v.shape[-1]
+    # each input read once in its dtype, y written in v's, the state in
+    # float32
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, la)) \
+        + y.numel() * y.element_size() + s.numel() * 4 \
+        + (0 if s0 is None else s0.numel() * 4)
+    ops = gla_ops(tuple(q.shape), dv, min(chunk, q.shape[2]),
+                  s0 is not None)
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_OPS["float32"] * 1e3
+    shape = list(q.shape) + [dv, f"chunk {chunk}",
+                             " ".join(str(t.dtype)[6:] for t in (q, k, v))]
+    log(f"  gla_scan {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"library none, bound {max(by_bytes, by_ops):.4f} ms ({nbytes} B, "
+        f"{ops} float32 operations), main-path max_abs_err {err:.3g}")
+    del y, s, want_y, want_s
+    torch.cuda.empty_cache()
+    return [{"name": "gla_scan", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/gla_scan.cu",
+             "replaces": GLA_REPLACES, "launches": launches["gla_scan"],
+             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": max(by_bytes, by_ops),
+             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+             "library_ms": None, "shape": shape}]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma list of {PHASES} (card and build always "
                          "run; timing needs every serve phase for rows "
-                         "1-6 and the train phase for the flash rows)")
+                         "1-6, the train phase for the flash rows and "
+                         "ssm_serve for the gla_scan row)")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     t_start = time.perf_counter()
@@ -1732,6 +2169,8 @@ def main() -> int:
         worst = check_kernels()
         check_flash_kernels(torch.Generator(device="cuda").manual_seed(0),
                             worst)
+        check_gla_kernels(torch.Generator(device="cuda").manual_seed(0),
+                          worst)
     if "tiny" in phases:
         log("[tiny] forward_mixed_paged, decode_step_paged and "
             "extend_step_paged, card kernels vs CPU plain versions")
@@ -1740,6 +2179,10 @@ def main() -> int:
         log("[tiny_train] one train step of the tiny config in f32, card "
             "kernels vs CPU plain versions")
         check_tiny_train()
+    if "tiny_ssm" in phases:
+        log("[tiny_ssm] tiny xlstm in f32: prefill_step and 8 serve_step "
+            "calls, card kernel vs CPU plain version")
+        check_tiny_ssm()
     if "decode_parity" in phases:
         log("[decode_parity] full width: fused vs per-call prefill, and "
             "ragged_paged_attention vs paged_attention on one decode step")
@@ -1748,6 +2191,11 @@ def main() -> int:
         log("[train_parity] full width f32, B 1 x T 512: loss and gradients "
             "of the flash kernels vs the plain attention on the card")
         check_train_parity()
+    if "ssm_parity" in phases:
+        log("[ssm_parity] xlstm-350m full width f32, B 2 x T 520: prefill "
+            "with gla_scan vs the plain chunked_gla_ref on the card, and "
+            "decode continuation")
+        check_ssm_parity()
     recorder = Recorder()
     total = {k: 0 for k in KERNELS}
     results = {}
@@ -1793,6 +2241,15 @@ def main() -> int:
         res = train(flash_rec, profile="profile" in phases)
         for k in ("flash_attention", "flash_attention_bwd"):
             total[k] = res["launches"][k]
+    gla_rec = GLARecorder()
+    if "ssm_serve" in phases:
+        log("[ssm_serve] xlstm-350m full width, bf16, seed-0 port init: "
+            "prefill_step of 8 x 2000, then 64 greedy serve_step calls")
+        res = ssm_serve(gla_rec, profile="profile" in phases)
+        total["gla_scan"] = res["launches"]["gla_scan"]
+        log(f"  {smi}: prefill {res['prefill_tokens_per_s']:.1f} tok/s, "
+            f"decode {res['decode_tokens_per_s']:.1f} tok/s, "
+            f"max_memory_allocated {res['max_memory_allocated']} B")
     rows = []
     if "timing" in phases and set(SERVE_PHASES) <= phases:
         log("[timing] CUDA events on the inputs of each kernel's largest "
@@ -1802,7 +2259,12 @@ def main() -> int:
         log("[timing] flash attention on the train step's first attention "
             "call")
         rows += time_flash(flash_rec, worst, total)
-    if "timing" in phases and set(SERVE_PHASES) | {"train"} <= phases:
+    if "timing" in phases and "ssm_serve" in phases:
+        log("[timing] gla_scan on the first mLSTM call of the xlstm "
+            "prefill")
+        rows += time_gla(gla_rec, worst, total)
+    if "timing" in phases and \
+            set(SERVE_PHASES) | {"train", "ssm_serve"} <= phases:
         assert sorted(r["name"] for r in rows) == sorted(KERNELS), rows
     if "profile" in phases:
         log("[profile] torch.profiler over serve steps, InferCept policy")

@@ -7,6 +7,7 @@ anything it does not take. There is no fallback from one to the other.
 from __future__ import annotations
 
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.gla_scan import chunked_gla_ref, gla_scan
 from repro_torch.kernels.kv_append import kv_append, kv_append_ref
 from repro_torch.kernels.kv_quant import kv_append_quant, kv_append_quant_ref
 from repro_torch.kernels.paged_attention import (paged_attention,
@@ -30,6 +31,18 @@ def flash_attention_op(q, k, v, *, causal=True, window=None, softcap=None):
     launches the kernels for CUDA tensors."""
     return flash_attention(q, k, v, causal=causal, window=window,
                            softcap=softcap)
+
+
+def gla_scan_op(q, k, v, log_a, *, chunk=128, initial_state=None):
+    """Chunked gated linear attention, the SSM blocks' core: q, k
+    (B, H, T, dk), v (B, H, T, dv), log_a (B, H, T), optional initial
+    state (B, H, dk, dv). Returns (y like v, final state float32). The
+    plain version (differentiable by autograd) for CPU tensors; the
+    kernel for CUDA tensors, whose backward raises: there is no gradient
+    kernel yet."""
+    if _on_cpu(q):
+        return chunked_gla_ref(q, k, v, log_a, chunk, initial_state)
+    return gla_scan(q, k, v, log_a, chunk=chunk, initial_state=initial_state)
 
 
 def paged_attention_op(q, k_pool, v_pool, block_tables, ctx_lens, *,

@@ -1,8 +1,12 @@
-"""The production train step of an architecture, counterpart of
-``repro.launch.steps.build_train_step``. (``prefill_step`` and
-``serve_step`` feed the slotted gather-path caches and come with that
-slice.)"""
+"""The production step functions of an architecture, counterpart of
+``repro.launch.steps``: train_step, prefill_step and serve_step
+(single-token greedy decode). The serve steps run under
+``torch.no_grad``; prefill_step and serve_step take SSM models (their
+caches are the blocks' states), while attention blocks' slotted caches
+come with the gather-path slice and raise."""
 from __future__ import annotations
+
+import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import LM
@@ -18,3 +22,35 @@ def build_train_step(cfg: ModelConfig, remat: bool = True):
         return step(params, opt_state, tokens, labels, mask, embeds=embeds)
 
     return model, train_step
+
+
+def build_prefill_step(cfg: ModelConfig, seq_len: int, window_override="cfg"):
+    model = LM(cfg)
+
+    @torch.no_grad()
+    def prefill_step(params, tokens, embeds=None):
+        """tokens (B, T) -> (logits (B, V) at the last position, the
+        decode cache)."""
+        out = model.forward(params, tokens, embeds, remat=False,
+                            window_override=window_override,
+                            return_cache_len=seq_len)
+        logits = model.logits(params, out.hidden[:, -1])
+        return logits, out.cache
+
+    return model, prefill_step
+
+
+def build_serve_step(cfg: ModelConfig, window_override="cfg"):
+    model = LM(cfg)
+
+    @torch.no_grad()
+    def serve_step(params, cache, tokens, pos):
+        """tokens (B,) at positions pos (B,) -> (logits (B, V), the greedy
+        next tokens (B,) int32, the new cache)."""
+        logits, new_cache = model.decode_step(
+            params, tokens, pos, cache, window_override=window_override)
+        # greedy next token on-device (production decode loop shape)
+        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        return logits, next_tok, new_cache
+
+    return model, serve_step

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.ssm import FLOAT32_PARAMS
 from repro_torch.utils.tree import tree_map
 
 
@@ -22,17 +23,32 @@ def _to_tensor(arr) -> torch.Tensor:
     return torch.from_numpy(arr.copy())
 
 
+def _cast_params(params: dict, cfg: ModelConfig, dtype) -> dict:
+    """A new tree with every leaf cast to ``dtype`` but those the
+    reference's init keeps float32 at any model dtype — the SSM cells'
+    gate and decay parameters (``models.ssm.FLOAT32_PARAMS``) — which
+    come out float32."""
+    out = tree_map(lambda t: t.to(dtype), params)
+    for gi, g in enumerate(cfg.groups):
+        for j, blk in enumerate(g.period):
+            src = params["groups"][gi]["scan"][f"b{j}"].get("cell", {})
+            dst = out["groups"][gi]["scan"][f"b{j}"].get("cell", {})
+            for name in FLOAT32_PARAMS.get(blk.kind, ()):
+                dst[name] = src[name].to(torch.float32)
+    return out
+
+
 def from_jax_params(np_tree, cfg: ModelConfig, *, dtype=None,
                     device="cpu") -> dict:
     """Numpy-leaved JAX params -> port params (same nesting: dicts, and
-    the ``groups`` tuple). ``dtype`` casts every leaf; None keeps each
+    the ``groups`` tuple). ``dtype`` casts the leaves as ``_cast_params``
+    does, keeping the reference's float32 leaves float32; None keeps each
     leaf's own."""
     if tuple(np.shape(np_tree["embed"])) != (cfg.vocab_size, cfg.d_model):
         raise ValueError(f"embed {np.shape(np_tree['embed'])} does not fit "
                          f"{cfg.name}")
     if len(np_tree["groups"]) != len(cfg.groups):
         raise ValueError("param groups do not match the config's groups")
-    out = tree_map(lambda a: _to_tensor(a).to(device=device, dtype=dtype),
-                   dict(np_tree))
+    out = tree_map(lambda a: _to_tensor(a).to(device=device), dict(np_tree))
     out["groups"] = tuple(out["groups"])
-    return out
+    return out if dtype is None else _cast_params(out, cfg, dtype)

@@ -1,5 +1,6 @@
 """The language model: the full-sequence forward and its loss
-(training), and the paged paths — the fused mixed-batch iteration and the
+(training), the prefill's decode-ready caches and single-token decode of
+SSM models, and the paged paths — the fused mixed-batch iteration and the
 per-call decode and chunked prefill — counterpart of
 ``repro.models.model.LM``.
 
@@ -9,7 +10,9 @@ Parameter tree, the JAX layout:
 Each group gi = {"scan": {"b<j>": params stacked over n_periods}}. A
 Python loop over the periods takes the place of ``lax.scan``; each
 layer's pool is a contiguous slice of its group's stacked pool tensor and
-is updated in place.
+is updated in place. SSM states (``init_cache``, ``forward``'s
+``return_cache_len``, ``decode_step``) are stacked over the periods the
+same way, and ``decode_step`` returns new ones.
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ from repro_torch.utils.tree import tree_map
 class ForwardOut:
     hidden: Any            # (B, T, d) final hidden states (pre-head)
     aux_loss: Any          # scalar (MoE load balance): 0 for dense FFNs
-    cache: Any             # decode cache: always None here
+    cache: Any             # decode cache (SSM states) or None
 
 
 class LM:
@@ -96,13 +99,14 @@ class LM:
         periods takes the place of ``lax.scan``. ``remat`` recomputes
         each period in the backward (``torch.utils.checkpoint``,
         non-reentrant), as ``jax.checkpoint`` on the scan body does, so
-        only the periods' inputs are kept. Slotted decode caches
-        (``return_cache_len``), embedding prefixes and other positions
-        are not ported yet."""
+        only the periods' inputs are kept. ``return_cache_len`` returns
+        the decode cache in ``out.cache``: each SSM block's final state,
+        stacked over the periods (its length matters only to attention
+        blocks' slotted caches, which come with the gather-path slice and
+        raise). Embedding prefixes and other positions are not ported
+        yet."""
         if return_cache_len is not None:
-            raise NotImplementedError(
-                "return_cache_len: slotted decode caches come with the "
-                "gather-path slice (prefill_step, ROADMAP)")
+            self._check_ssm_only("return_cache_len")
         if embeds is not None:
             raise NotImplementedError(
                 "embeds: embedding prefixes come with the other "
@@ -116,24 +120,47 @@ class LM:
         ctx = {"positions": torch.arange(x.shape[1], dtype=torch.int32,
                                          device=x.device),
                "window_override": window_override}
+        caches = []
         for gi, g in enumerate(cfg.groups):
             scan = params["groups"][gi]["scan"]
 
             def period(xx, pp, g=g):
+                entries = {}
                 for j, blk in enumerate(g.period):
-                    xx = B.block_forward(pp[f"b{j}"], cfg, blk, xx, ctx)[0]
-                return xx
+                    xx, entries[f"b{j}"], _ = B.block_forward(
+                        pp[f"b{j}"], cfg, blk, xx, ctx)
+                return xx, entries
 
+            per = []
             for layer in range(g.n_periods):
                 pp = tree_map(lambda t: t[layer], scan)
                 if remat:
-                    x = torch.utils.checkpoint.checkpoint(
+                    x, entries = torch.utils.checkpoint.checkpoint(
                         period, x, pp, use_reentrant=False)
                 else:
-                    x = period(x, pp)
+                    x, entries = period(x, pp)
+                if return_cache_len is not None:
+                    per.append(entries)
+            caches.append(per)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        cache = None
+        if return_cache_len is not None:
+            cache = self._materialize_cache(caches)
         return ForwardOut(hidden=x, aux_loss=torch.zeros((), device=x.device),
-                          cache=None)
+                          cache=cache)
+
+    def _check_ssm_only(self, what: str) -> None:
+        if any(blk.kind not in B.SSM_KINDS for blk in self.cfg.blocks):
+            raise NotImplementedError(f"{what} with attention blocks: "
+                                      f"{B.GATHER_SLICE}")
+
+    def _materialize_cache(self, raw_caches):
+        """Per-block forward outputs, a list over the periods per group,
+        into the decode cache: an SSM block's final state is ready as it
+        is, and is stacked over the periods. (Attention blocks' K/V would
+        go into slotted caches: the gather-path slice.)"""
+        self._check_ssm_only("slotted decode caches")
+        return tuple(_stack_periods(per) for per in raw_caches)
 
     def loss(self, params, tokens=None, labels=None, embeds=None,
              label_mask=None, *, remat=True, window_override="cfg"):
@@ -156,18 +183,56 @@ class LM:
     # ------------------------------------------------------------------
     # Paged pools and the fused iteration
     # ------------------------------------------------------------------
-    def init_cache(self, n_pages: int, page_size: int, *,
+    def init_cache(self, batch: int, cache_len: int, *,
                    dtype: torch.dtype, device, kv_dtype=None):
-        """Zeroed page pools: per group {"b<j>": {"k","v"}}, each leaf
-        (n_periods, n_pages, page, Hkv, hd) — the JAX layout. ``kv_dtype``
+        """Zeroed decode cache, per group {"b<j>": leaves stacked over the
+        n_periods}, the JAX layout. An attention block's entry is its page
+        pool (``batch`` pages of ``cache_len`` slots, as the engine calls
+        it): {"k","v"} (n_periods, n_pages, page, Hkv, hd); ``kv_dtype``
         stores K/V low-bit with (n_periods, n_pages, Hkv) float32
-        ``k_scale``/``v_scale`` leaves beside them (DESIGN.md §17)."""
-        return tuple(
-            {f"b{j}": init_pool(blk.attn, n_pages, page_size, dtype=dtype,
-                                device=device, periods=g.n_periods,
-                                kv_dtype=kv_dtype)
-             for j, blk in enumerate(g.period)}
-            for g in self.cfg.groups)
+        ``k_scale``/``v_scale`` leaves beside them (DESIGN.md §17). An SSM
+        block's entry is its zero state for ``batch`` sequences
+        (``cache_len`` does not apply)."""
+        def entry(g, blk):
+            if blk.kind in B.SSM_KINDS:
+                state = B.init_block_cache(self.cfg, blk, batch, dtype=dtype,
+                                           device=device)
+                return tree_map(lambda z: torch.stack([z] * g.n_periods),
+                                state)
+            return init_pool(blk.attn, batch, cache_len, dtype=dtype,
+                             device=device, periods=g.n_periods,
+                             kv_dtype=kv_dtype)
+        return tuple({f"b{j}": entry(g, blk) for j, blk in enumerate(g.period)}
+                     for g in self.cfg.groups)
+
+    def decode_step(self, params, tokens, pos, cache, *,
+                    window_override="cfg"):
+        """One token per sequence through every layer. tokens (B,) int32;
+        pos (B,) absolute position of the new token (SSM blocks do not
+        read it); cache as from init_cache or a prefill's
+        ``out.cache``. Returns (logits (B, V), the new cache: states
+        stacked over the periods, the input left as it was). SSM blocks
+        only: attention blocks' slotted caches come with the gather-path
+        slice and raise."""
+        self._check_ssm_only("decode_step")
+        cfg = self.cfg
+        x = self.embed(params, tokens)
+        ctx = {"pos": pos, "window_override": window_override}
+        new_caches = []
+        for gi, g in enumerate(cfg.groups):
+            scan = params["groups"][gi]["scan"]
+            per = []
+            for layer in range(g.n_periods):
+                entries = {}
+                for j, blk in enumerate(g.period):
+                    pj = tree_map(lambda t: t[layer], scan[f"b{j}"])
+                    cj = tree_map(lambda t: t[layer], cache[gi][f"b{j}"])
+                    x, entries[f"b{j}"] = B.block_decode(pj, cfg, blk, x, cj,
+                                                         ctx)
+                per.append(entries)
+            new_caches.append(_stack_periods(per))
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return self.logits(params, x), tuple(new_caches)
 
     def forward_mixed_paged(self, params, tokens, tok_seq, tok_pos, q_last,
                             pools, block_tables, sampling=None, *,
@@ -253,3 +318,10 @@ class LM:
                             for k, v in pools[gi][f"b{j}"].items()}
                     x = block_fn(pj, cfg, blk, x, pool, ctx)
         return x
+
+
+def _stack_periods(per):
+    """[{"b<j>": tree} for each period] -> {"b<j>": tree stacked over the
+    periods}."""
+    return {k: tree_map(lambda *xs: torch.stack(xs), *[e[k] for e in per])
+            for k in per[0]}

@@ -122,7 +122,7 @@ def test_kernel_modules_import_without_a_toolchain():
     from repro_torch.kernels import _build
     assert _build.lib.cache_info().currsize == 0
     assert sorted(p.name for p in _build.sources()) == [
-        "flash_attention.cu", "kv_append.cu", "page_requant.cu",
-        "paged_attention.cu",
+        "flash_attention.cu", "gla_scan.cu", "kv_append.cu",
+        "page_requant.cu", "paged_attention.cu",
         "ragged_paged_attention.cu", "swap_pack.cu"]
     assert _build.library_path().parent == ROOT / "build" / "kernels"
