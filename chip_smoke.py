@@ -163,6 +163,23 @@ def card() -> str:
 # ---------------------------------------------------------------------------
 # helpers
 # ---------------------------------------------------------------------------
+def ptxas_report(text: str) -> list:
+    """One line per kernel from nvcc's ``ptxas -v`` report (its mangled
+    name, registers and spills), and every error line."""
+    out, name, spill = [], None, ""
+    for line in text.splitlines():
+        if "error" in line:
+            out.append(line.strip())
+        elif "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and "spill" in line:
+            spill = line.strip()
+        elif name and "registers" in line:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+            name = None
+    return out
+
+
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
 
@@ -1288,9 +1305,11 @@ def profile_serve(warm_steps: int = 100, steps: int = 100) -> None:
 def check_flash_kernels(gen, worst) -> None:
     """The flash forward (out and lse) and backward (dq, dk, dv) kernels
     against their plain versions on the card: llama3.2-1b's widths (Hkv 8,
-    G 4, hd 64) at T {1, 63, 64, 1000, 2048}, Tq < Tk, G {1, 4} with a
-    window, a softcap and no causal mask, hd 32 and 128, in float32 and
-    bf16. Tolerances: out 1e-4 (float32) and 3e-2 (bf16: both round one
+    G 4, hd 64) at T {1, 63, 64, 65, 127, 129, 1000, 2048}, Tq < Tk (an
+    offset that is not a multiple of the bf16 kernels' 64-row tiles too),
+    G {1, 4, 16} with a window (ending on and one past a tile boundary), a
+    softcap and no causal mask, hd 32 and 128, in float32 and bf16.
+    Tolerances: out 1e-4 (float32) and 3e-2 (bf16: both round one
     float32 result once); lse 1e-4 (float32 sums in another order);
     gradients 1e-4 (float32) and 2^-6 (bf16, two units in the last place)
     of the largest magnitude among dq, dk and dv (not each one's own: at
@@ -1304,7 +1323,8 @@ def check_flash_kernels(gen, worst) -> None:
     tol = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
     rel = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
     cases = [(f"T={t}", dict(B=2 if t < 1000 else 1, Hkv=8, G=4, Tq=t, Tk=t,
-                            hd=64), {}) for t in (1, 63, 64, 1000, 2048)]
+                            hd=64), {})
+             for t in (1, 63, 64, 65, 127, 129, 1000, 2048)]
     cases += [
         ("Tq=100 Tk=300", dict(B=2, Hkv=8, G=4, Tq=100, Tk=300, hd=64), {}),
         ("G=1 window=33", dict(B=2, Hkv=8, G=1, Tq=200, Tk=200, hd=64),
@@ -1319,7 +1339,22 @@ def check_flash_kernels(gen, worst) -> None:
                                           hd=64),
          dict(window=17, softcap=20.0)),
         ("hd=32 G=4", dict(B=2, Hkv=2, G=4, Tq=100, Tk=100, hd=32), {}),
-        ("hd=128 G=8", dict(B=1, Hkv=2, G=8, Tq=100, Tk=100, hd=128), {})]
+        ("hd=128 G=8", dict(B=1, Hkv=2, G=8, Tq=100, Tk=100, hd=128), {}),
+        ("Tq=100 Tk=163", dict(B=2, Hkv=8, G=4, Tq=100, Tk=163, hd=64), {}),
+        ("G=4 window=64", dict(B=1, Hkv=8, G=4, Tq=200, Tk=200, hd=64),
+         dict(window=64)),
+        ("G=4 window=65", dict(B=1, Hkv=8, G=4, Tq=200, Tk=200, hd=64),
+         dict(window=65)),
+        ("G=1 T=129", dict(B=2, Hkv=8, G=1, Tq=129, Tk=129, hd=64), {}),
+        ("G=16 T=130", dict(B=1, Hkv=2, G=16, Tq=130, Tk=130, hd=64), {}),
+        ("hd=32 T=129", dict(B=2, Hkv=2, G=4, Tq=129, Tk=129, hd=32), {}),
+        ("hd=32 Tq=100 Tk=163 window=65", dict(B=1, Hkv=2, G=4, Tq=100,
+                                               Tk=163, hd=32),
+         dict(window=65)),
+        ("hd=128 T=129", dict(B=1, Hkv=2, G=4, Tq=129, Tk=129, hd=128), {}),
+        ("hd=128 Tq=100 Tk=163 softcap=20", dict(B=1, Hkv=2, G=2, Tq=100,
+                                                 Tk=163, hd=128),
+         dict(softcap=20.0))]
     for dtype in (torch.bfloat16, torch.float32):
         for label, shape, kw in cases:
             B, Hkv, G, Tq, Tk, hd = (shape[k] for k in ("B", "Hkv", "G",
@@ -1599,7 +1634,10 @@ def train(recorder: FlashRecorder, *, tiny: bool = False,
             params, opt, met = step_fn(params, opt, *batches[steps])
             sync()
             wall = time.perf_counter() - t0
-        log_device_time(prof, wall, "1 train step")
+        dev_us, total = log_device_time(prof, wall, "1 train step")
+        flash = sum(us for key, (us, _) in dev_us.items() if "flash_" in key)
+        log(f"  flash kernels: {flash / 1e3:.2f} ms = "
+            f"{flash / max(total, 1e-9):.3f} of device time")
     del params, opt, batches
     gc.collect()
     if on_card:
@@ -1607,9 +1645,9 @@ def train(recorder: FlashRecorder, *, tiny: bool = False,
     return res
 
 
-def log_device_time(prof, wall: float, window: str) -> None:
-    """Device busy share of a profiled window and device time by
-    kernel."""
+def log_device_time(prof, wall: float, window: str) -> tuple:
+    """Device busy share of a profiled window and device time by kernel;
+    returns ({kernel: (us, launches)}, total us)."""
     rows = [e for e in prof.key_averages()
             if str(e.device_type).endswith("CUDA")]
     dev_us = {e.key: (e.self_device_time_total, e.count) for e in rows}
@@ -1623,6 +1661,7 @@ def log_device_time(prof, wall: float, window: str) -> None:
             f"{name[:90]}")
     if total == 0:
         log("  the profiler saw no device time: not measured")
+    return dev_us, total
 
 
 def time_flash(recorder: FlashRecorder, worst: dict, launches: dict) -> list:
@@ -1667,9 +1706,10 @@ def time_flash(recorder: FlashRecorder, worst: dict, launches: dict) -> list:
                      else "operations", "library_ms": lib_ms,
                      "shape": [B, Hkv, G, T, hd]})
         log(f"  {name} {[B, Hkv, G, T, hd]} {dtype}: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
-            f"{max(by_bytes, by_ops):.4f} ms, main-path max_abs_err "
-            f"{err:.3g}")
+            f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms (kernel / "
+            f"library {ms / lib_ms:.2f}x), bound {max(by_bytes, by_ops):.4f}"
+            f" ms ({ms / max(by_bytes, by_ops):.1f}x), main-path max_abs_err"
+            f" {err:.3g}")
 
     def ulp_check(name, got, want):
         # both round one float32 result once: one unit in the last place
@@ -2158,10 +2198,10 @@ def main() -> int:
     lib_path = _build.build()
     _build.lib()
     log(f"[build] {lib_path.name} in {time.perf_counter() - t0:.1f} s")
-    for line in (_build.BUILD_DIR / "build.log").read_text().splitlines() \
-            if (_build.BUILD_DIR / "build.log").exists() else []:
-        if "registers" in line or "error" in line or "spill" in line:
-            log(f"  {line.strip()}")
+    build_log = _build.BUILD_DIR / "build.log"
+    for line in ptxas_report(build_log.read_text()
+                             if build_log.exists() else ""):
+        log(f"  {line}")
 
     worst = {k: 0.0 for k in KERNELS}
     if "kernels" in phases:

@@ -15,31 +15,50 @@
 // dS *= 1 - (s_capped / softcap)^2).
 //
 // Bound on the H100: operations. A causal layer of the training shape
-// (B 4, 32 query heads, T 2048, hd 64) does ~69 GFLOP forward and ~2.5x that
-// backward, against ~0.1 GB of operands: far above the ~295 flop/byte ridge.
+// (B 4, 32 query heads, T 2048, hd 64) does ~69 GFLOP forward (two products
+// of the visible (query, key) pairs) and ~172 backward (five), against
+// ~0.1 GB of operands: far above the ~295 flop/byte ridge, so the products
+// must run on the tensor cores (989 TFLOP/s bf16) and not on the float32
+// CUDA cores (67).
 //
-// Design, simple and right first. Every product runs on the float32 CUDA
-// cores: no tensor cores, no TMA (later work). A row of q (or of k, in the
-// dK/dV kernel) is owned by TPR = hd / 32 neighbouring threads, 32 of its
-// dims each, held in registers as float4s interleaved across the TPR
-// threads, so that the threads of a row read neighbouring 16-byte words of
-// a shared-memory row (conflict-free) and a dot product is one shuffle
-// reduction over the TPR threads.
-//  * forward and dQ: one block of 128 threads per (b, kv head, q tile); the
-//    tile holds the G query heads that share one K/V stream (the TPU
-//    block's G * bq rows): R = 128 / TPR rows, R / G positions. K/V tiles
-//    of 4096 / hd keys are staged in shared memory as float32 with
-//    16-byte (float32) or 8-byte (bf16) loads, and only the tiles up to the
-//    causal limit and from the window's start are visited (block skip).
-//    Keys are scored 8 at a time; the forward rescales its accumulator once
-//    per 8 keys. Any Tq and Tk: rows and keys past the ends are masked.
-//    The dQ kernel first forms delta for its rows and writes it for the
-//    dK/dV kernel, which runs after it on the same stream.
-//  * dK/dV: one block per (b, kv head, k tile) of R keys, which loops over
-//    the q positions that see its keys, all G heads, staged 4096 / hd rows
-//    of q and dO at a time, recomputes P from lse and accumulates dK and dV
-//    in float32 registers. No atomics: every output element has one owner.
-#include "payload.cuh"
+// bfloat16 operands run the tensor-core kernels (FlashAttention-2 on
+// mma.sync m16n8k16, bf16 in, float32 accumulators; wgmma and TMA are later
+// work). A block is 4 warps and owns 64 rows, 16 a warp:
+//  * forward and dQ: one block per (b, query head, 64-query tile), the last
+//    tiles first (they see the most keys). 64-key tiles of K and V come in
+//    by 16-byte cp.async into two shared-memory stages, so that tile j + 1
+//    lands while tile j is computed (zero-fill past Tk); only the tiles from
+//    the window's start to the causal limit are visited, and only edge
+//    tiles are masked. Shared-memory rows are bf16, padded by 8 elements,
+//    so that every ldmatrix is free of bank conflicts. S = Q K^T and
+//    dP = dO V^T come from ldmatrix fragments; the online softmax (forward)
+//    or P = exp(s - lse) and dS (dQ) run in float32 on the accumulator
+//    fragments, and P or dS is packed to bf16 in registers as the A operand
+//    of P V or dS K: it never goes through shared memory. The forward keeps
+//    its Q fragments in registers for the whole sweep. The dQ kernel first
+//    forms delta for its rows and writes it for the dK/dV kernel, which
+//    runs after it on the same stream.
+//  * dK/dV: one block per (b, kv head, 64-key tile), which loops over the G
+//    heads and the 64-query tiles (32 at hd 128, for registers) that see
+//    its keys, staged by cp.async with their lse and delta, and forms the
+//    transposed products directly, rows being keys: S^T = K Q^T,
+//    dP^T = V dO^T, then dV += P^T dO and dK += dS^T Q. No atomics: every
+//    output element has one owner, and the result is deterministic.
+// P and dS are rounded to bf16 once before their products (relative 2^-9),
+// as the inputs of S and dP already are; nothing else is rounded before
+// the outputs.
+//
+// float32 operands run the first, CUDA-core kernels, kept for float32's
+// tolerances: a row of q (or of k, in the dK/dV kernel) is owned by
+// TPR = hd / 32 neighbouring threads, 32 of its dims each, held in
+// registers as float4s interleaved across the TPR threads; a dot product
+// is one shuffle reduction over them. One block of 128 threads per
+// (b, kv head, q tile) holds the G query heads that share one K/V stream,
+// with K/V tiles of 4096 / hd keys staged as float32; the dK/dV kernel
+// stages 4096 / hd rows of q and dO at a time.
+#include <math_constants.h>
+
+#include "mma.cuh"
 
 namespace {
 
@@ -75,33 +94,12 @@ template <>
 __device__ __forceinline__ float4 load4<float>(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-template <>
-__device__ __forceinline__ float4 load4<__nv_bfloat16>(
-    const __nv_bfloat16* p) {
-  const uint2 w = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&w.x));
-  const float2 b = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&w.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
 
 template <typename T>
 __device__ __forceinline__ void store4(T* p, float4 v);
 template <>
 __device__ __forceinline__ void store4<float>(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
-}
-template <>
-__device__ __forceinline__ void store4<__nv_bfloat16>(__nv_bfloat16* p,
-                                                      float4 v) {
-  // round to nearest even, as torch's cast
-  __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-  uint2 w;
-  w.x = *reinterpret_cast<const unsigned int*>(&a);
-  w.y = *reinterpret_cast<const unsigned int*>(&b);
-  *reinterpret_cast<uint2*>(p) = w;
 }
 
 __device__ __forceinline__ void fma4(float4& a, float4 x, float4 y) {
@@ -465,6 +463,500 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16: the tensor-core kernels
+// ---------------------------------------------------------------------------
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int kRows = 64;  // a block's own rows: queries, or keys in dK/dV
+constexpr int kBK = 64;    // keys per staged K/V tile (forward, dQ)
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr unsigned kAll = 0xffffffffu;
+
+// a shared-memory row of HD bf16 and 8 more (16 bytes), so that the 8 rows
+// one ldmatrix matrix reads fall in 8 distinct bank quads
+template <int HD>
+constexpr int kPitch = HD + 8;
+
+// rows [r0, r0 + ROWS) of a row-major (n, HD) bf16 matrix into a padded
+// shared-memory tile by 16-byte cp.async; zeros for rows at or past n
+template <int HD, int ROWS>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int r0,
+                                          int n) {
+  constexpr int kPieces = HD / 8;  // 16-byte pieces of a row
+  static_assert(ROWS * kPieces % kThreads == 0, "whole rounds of copies");
+#pragma unroll
+  for (int u = 0; u < ROWS * kPieces / kThreads; ++u) {
+    const int c = threadIdx.x + u * kThreads;
+    const int r = c / kPieces, col = c % kPieces * 8;
+    const bool in = r0 + r < n;
+    cp_async16(dst + r * kPitch<HD> + col,
+               src + (long long)(in ? r0 + r : 0) * HD + col, in);
+  }
+}
+
+// the max (or sum) over the 4 lanes that hold one accumulator row
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(kAll, x, 1));
+  return fmaxf(x, __shfl_xor_sync(kAll, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(kAll, x, 1);
+  return x + __shfl_xor_sync(kAll, x, 2);
+}
+
+// K and V rows of key tile t into stage st of a two-stage K/V buffer
+// (stage st: K at 2 st kBK rows, V after it)
+template <int HD>
+__device__ __forceinline__ void load_kv(bf16* kv_s, const bf16* kg,
+                                        const bf16* vg, int st, int t,
+                                        int Tk) {
+  bf16* k_s = kv_s + st * 2 * kBK * kPitch<HD>;
+  load_rows<HD, kBK>(k_s, kg, t * kBK, Tk);
+  load_rows<HD, kBK>(k_s + kBK * kPitch<HD>, vg, t * kBK, Tk);
+}
+
+// row band h (the thread's row +0 or +8) of a warp's 16 x HD accumulator,
+// times mul, as bf16 into the row-major row at dst
+template <int DT>
+__device__ __forceinline__ void store_band(bf16* dst,
+                                           const float (&c)[DT][4], int h,
+                                           float mul) {
+  const int col = threadIdx.x % 4 * 2;
+#pragma unroll
+  for (int d = 0; d < DT; ++d)
+    *reinterpret_cast<uint32_t*>(dst + d * 8 + col) =
+        pack_bf16(c[d][2 * h] * mul, c[d][2 * h + 1] * mul);
+}
+
+// The 64-query tile of a forward or dQ block and the keys it sees.
+struct QBlock {
+  long long row0;  // (B, Hkv, G, Tq) row of the block's (b, h, g, 0)
+  long long kv;    // (B, Hkv) stream of its K and V
+  int i0, off, q_first, q_last, t_lo, t_hi;
+
+  __device__ QBlock(const Params& p) {
+    const int qt = gridDim.x - 1 - blockIdx.x;  // the last tiles first
+    row0 = ((long long)blockIdx.z * p.Hkv * p.G + blockIdx.y) * p.Tq;
+    kv = (long long)blockIdx.z * p.Hkv + blockIdx.y / p.G;
+    i0 = qt * kRows;
+    off = p.Tk - p.Tq;
+    q_first = i0 + off;
+    q_last = min(i0 + kRows, p.Tq) - 1 + off;
+    const int k_hi = p.causal ? min(p.Tk - 1, q_last) : p.Tk - 1;
+    const int k_lo = p.window > 0 ? max(0, q_first - p.window + 1) : 0;
+    t_lo = k_lo / kBK;
+    t_hi = k_hi / kBK;
+  }
+
+  // whether some (row, key) pair of key tile t is masked
+  __device__ bool edge(int t, const Params& p) const {
+    const int k0 = t * kBK;
+    return k0 + kBK > p.Tk || (p.causal && k0 + kBK - 1 > q_first) ||
+           (p.window > 0 && k0 <= q_last - p.window);
+  }
+};
+
+template <int HD>
+constexpr int fwd_smem() { return 5 * kRows * kPitch<HD> * 2; }
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads) flash_fwd_tc_kernel(
+    const Params p) {
+  constexpr int P = kPitch<HD>, KS = HD / 16, DT = HD / 8, NT = kBK / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem);
+  bf16* kv_s = q_s + kRows * P;
+  const QBlock b(p);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r_lo = warp * 16 + lane / 4;  // this thread's rows: r_lo, +8
+  const bf16* kg = static_cast<const bf16*>(p.k) + b.kv * p.Tk * HD;
+  const bf16* vg = static_cast<const bf16*>(p.v) + b.kv * p.Tk * HD;
+  load_rows<HD, kRows>(q_s, static_cast<const bf16*>(p.q) + b.row0 * HD,
+                       b.i0, p.Tq);
+  load_kv<HD>(kv_s, kg, vg, 0, b.t_lo, p.Tk);
+  cp_async_commit();
+  const float mul = p.scale * kLog2e;  // without a softcap
+  uint32_t qf[KS][4];
+  float acc[DT][4] = {};
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+  for (int t = b.t_lo; t <= b.t_hi; ++t) {
+    const int st = (t - b.t_lo) & 1;
+    if (t < b.t_hi) load_kv<HD>(kv_s, kg, vg, st ^ 1, t + 1, p.Tk);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile t (and q) have landed
+    __syncthreads();
+    if (t == b.t_lo) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        ldsm_a<P>(qf[kk], q_s, warp * 16, kk * 16);
+    }
+    const bf16* k_s = kv_s + st * 2 * kBK * P;
+    const bf16* v_s = k_s + kBK * P;
+    float s[NT][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+      for (int n = 0; n < NT; n += 2) {
+        uint32_t f[4];
+        ldsm_b<P>(f, k_s, n * 8, kk * 16);
+        mma16816(s[n], qf[kk], f[0], f[1]);
+        mma16816(s[n + 1], qf[kk], f[2], f[3]);
+      }
+    }
+    // scores in the log2 domain, masked to -inf on edge tiles
+    const bool edge = b.edge(t, p);
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = p.softcap > 0.f ? capped(s[n][e], p) * kLog2e
+                                  : s[n][e] * mul;
+        if (edge && !visible(t * kBK + n * 8 + lane % 4 * 2 + (e & 1),
+                             b.q_first + r_lo + (e >> 1) * 8, p))
+          x = -CUDART_INF_F;
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float base[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float m_new = fmaxf(m[h], quad_max(mx[h]));
+      base[h] = m_new == -CUDART_INF_F ? 0.f : m_new;  // no key seen yet
+      const float corr = exp2f(m[h] - base[h]);
+      m[h] = m_new;
+      l[h] *= corr;
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        acc[d][2 * h] *= corr;
+        acc[d][2 * h + 1] *= corr;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = exp2f(s[n][e] - base[e >> 1]);
+        l[e >> 1] += s[n][e];
+      }
+    }
+    // O += P V, P from registers, 16 keys a step
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk) {
+      uint32_t a[4];
+      c_to_a(a, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int d = 0; d < DT; d += 2) {
+        uint32_t f[4];
+        ldsm_bt<P>(f, v_s, kk * 16, d * 8);
+        mma16816(acc[d], a, f[0], f[1]);
+        mma16816(acc[d + 1], a, f[2], f[3]);
+      }
+    }
+    __syncthreads();  // stage st is consumed before tile t + 2 refills it
+  }
+  bf16* og = static_cast<bf16*>(p.out) + b.row0 * HD;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float sum = quad_sum(l[h]);
+    const int i = b.i0 + r_lo + h * 8;
+    if (i >= p.Tq) continue;
+    store_band(og + (long long)i * HD, acc, h, 1.f / sum);
+    if (lane % 4 == 0) p.lse[b.row0 + i] = m[h] * kLn2 + logf(sum);
+  }
+}
+
+template <int HD>
+constexpr int dq_smem() {
+  return 6 * kRows * kPitch<HD> * 2 + 2 * kRows * 4;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_tc_kernel(
+    const Params p) {
+  constexpr int P = kPitch<HD>, KS = HD / 16, DT = HD / 8, NT = kBK / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem);
+  bf16* do_s = q_s + kRows * P;
+  bf16* kv_s = do_s + kRows * P;
+  float* lse_s = reinterpret_cast<float*>(kv_s + 4 * kBK * P);  // log2 e
+  float* dl_s = lse_s + kRows;
+  const QBlock b(p);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r_lo = warp * 16 + lane / 4;
+  const bf16* kg = static_cast<const bf16*>(p.k) + b.kv * p.Tk * HD;
+  const bf16* vg = static_cast<const bf16*>(p.v) + b.kv * p.Tk * HD;
+  const bf16* dog = static_cast<const bf16*>(p.dout) + b.row0 * HD;
+  load_rows<HD, kRows>(q_s, static_cast<const bf16*>(p.q) + b.row0 * HD,
+                       b.i0, p.Tq);
+  load_rows<HD, kRows>(do_s, dog, b.i0, p.Tq);
+  load_kv<HD>(kv_s, kg, vg, 0, b.t_lo, p.Tk);
+  cp_async_commit();
+  {
+    // delta = rowsum(dO * O), two threads a row, while the tiles land
+    const int r = threadIdx.x / 2, i = b.i0 + r;
+    const long long at = (long long)i * HD + threadIdx.x % 2 * (HD / 2);
+    float dl = 0.f;
+    if (i < p.Tq) {
+#pragma unroll
+      for (int c = 0; c < HD / 16; ++c) {
+        const uint4 o4 = *reinterpret_cast<const uint4*>(
+            static_cast<const bf16*>(p.o) + b.row0 * HD + at + c * 8);
+        const uint4 d4 = *reinterpret_cast<const uint4*>(dog + at + c * 8);
+        const bf16* oe = reinterpret_cast<const bf16*>(&o4);
+        const bf16* de = reinterpret_cast<const bf16*>(&d4);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          dl = fmaf(__bfloat162float(de[j]), __bfloat162float(oe[j]), dl);
+      }
+    }
+    dl += __shfl_xor_sync(kAll, dl, 1);
+    if (threadIdx.x % 2 == 0) {
+      dl_s[r] = dl;
+      lse_s[r] = i < p.Tq ? p.lse[b.row0 + i] * kLog2e : 0.f;
+      if (i < p.Tq) p.delta[b.row0 + i] = dl;
+    }
+  }
+  float dq[DT][4] = {};
+  for (int t = b.t_lo; t <= b.t_hi; ++t) {
+    const int st = (t - b.t_lo) & 1;
+    if (t < b.t_hi) load_kv<HD>(kv_s, kg, vg, st ^ 1, t + 1, p.Tk);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* k_s = kv_s + st * 2 * kBK * P;
+    const bf16* v_s = k_s + kBK * P;
+    float s[NT][4] = {}, dp[NT][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t qa[4], da[4];
+      ldsm_a<P>(qa, q_s, warp * 16, kk * 16);
+      ldsm_a<P>(da, do_s, warp * 16, kk * 16);
+#pragma unroll
+      for (int n = 0; n < NT; n += 2) {
+        uint32_t f[4];
+        ldsm_b<P>(f, k_s, n * 8, kk * 16);
+        mma16816(s[n], qa, f[0], f[1]);
+        mma16816(s[n + 1], qa, f[2], f[3]);
+        ldsm_b<P>(f, v_s, n * 8, kk * 16);
+        mma16816(dp[n], da, f[0], f[1]);
+        mma16816(dp[n + 1], da, f[2], f[3]);
+      }
+    }
+    // dS = P * (dP - delta) * d(capped)/d(dot), P = exp(capped - lse)
+    const bool edge = b.edge(t, p);
+    const float lse2[2] = {lse_s[r_lo], lse_s[r_lo + 8]};
+    const float dl[2] = {dl_s[r_lo], dl_s[r_lo + 8]};
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const float sc = capped(s[n][e], p);
+        float ds = 0.f;
+        if (!edge || visible(t * kBK + n * 8 + lane % 4 * 2 + (e & 1),
+                             b.q_first + r_lo + h * 8, p))
+          ds = exp2f(sc * kLog2e - lse2[h]) * (dp[n][e] - dl[h]) *
+               capped_grad(sc, p);
+        s[n][e] = ds;
+      }
+    }
+    // dQ += dS K, dS from registers, 16 keys a step
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk) {
+      uint32_t a[4];
+      c_to_a(a, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int d = 0; d < DT; d += 2) {
+        uint32_t f[4];
+        ldsm_bt<P>(f, k_s, kk * 16, d * 8);
+        mma16816(dq[d], a, f[0], f[1]);
+        mma16816(dq[d + 1], a, f[2], f[3]);
+      }
+    }
+    __syncthreads();
+  }
+  bf16* dqg = static_cast<bf16*>(p.dq) + b.row0 * HD;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = b.i0 + r_lo + h * 8;
+    if (i < p.Tq) store_band(dqg + (long long)i * HD, dq, h, 1.f);
+  }
+}
+
+// query rows per staged tile of the dK/dV kernel: its dK and dV
+// accumulators grow with hd, so the scores' shrink at hd 128
+template <int HD>
+constexpr int kDkvRows = HD > 64 ? 32 : 64;
+
+template <int HD>
+constexpr int dkv_smem() {
+  constexpr int BQ = kDkvRows<HD>;
+  return (2 * kRows + 4 * BQ) * kPitch<HD> * 2 + 4 * BQ * 4;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_tc_kernel(
+    const Params p) {
+  constexpr int P = kPitch<HD>, KS = HD / 16, DT = HD / 8;
+  constexpr int BQ = kDkvRows<HD>, NT = BQ / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem);
+  bf16* v_s = k_s + kRows * P;
+  bf16* qd_s = v_s + kRows * P;  // stage s: q at 2 s BQ P, dO after it
+  float* lse_s = reinterpret_cast<float*>(qd_s + 4 * BQ * P);  // 2 stages
+  float* dl_s = lse_s + 2 * BQ;
+  const int G = p.G, Tq = p.Tq, Tk = p.Tk, off = Tk - Tq;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long bh = (long long)blockIdx.z * p.Hkv + blockIdx.y;
+  const int j0 = blockIdx.x * kRows, j1 = min(j0 + kRows, Tk);
+  const int key = j0 + warp * 16 + lane / 4;  // this thread's keys: +0, +8
+  // the query rows that see a key of this tile, in tiles of BQ, per head
+  const int i_lo = p.causal ? max(0, j0 - off) : 0;
+  const int i_hi = p.window > 0 ? min(Tq - 1, j1 - 2 + p.window - off)
+                                : Tq - 1;
+  const int n_qt = i_hi >= i_lo ? (i_hi - i_lo) / BQ + 1 : 0;
+  const long long row0 = bh * G * Tq;  // lse row of (b, h, 0, 0)
+  const bf16* qg = static_cast<const bf16*>(p.q) + row0 * HD;
+  const bf16* dog = static_cast<const bf16*>(p.dout) + row0 * HD;
+  auto load_q = [&](int st, int it) {
+    const int g = it / n_qt, i0 = i_lo + (it - g * n_qt) * BQ;
+    bf16* qs = qd_s + st * 2 * BQ * P;
+    load_rows<HD, BQ>(qs, qg + (long long)g * Tq * HD, i0, Tq);
+    load_rows<HD, BQ>(qs + BQ * P, dog + (long long)g * Tq * HD, i0, Tq);
+    if (threadIdx.x < BQ) {
+      const int i = i0 + threadIdx.x;
+      const long long r = row0 + (long long)g * Tq + min(i, Tq - 1);
+      cp_async4(lse_s + st * BQ + threadIdx.x, p.lse + r, i < Tq);
+      cp_async4(dl_s + st * BQ + threadIdx.x, p.delta + r, i < Tq);
+    }
+  };
+  load_rows<HD, kRows>(k_s, static_cast<const bf16*>(p.k) + bh * Tk * HD,
+                       j0, Tk);
+  load_rows<HD, kRows>(v_s, static_cast<const bf16*>(p.v) + bh * Tk * HD,
+                       j0, Tk);
+  if (n_qt > 0) load_q(0, 0);
+  cp_async_commit();
+  float dk[DT][4] = {}, dv[DT][4] = {};
+  for (int it = 0; it < G * n_qt; ++it) {
+    const int st = it & 1;
+    if (it + 1 < G * n_qt) load_q(st ^ 1, it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int i0 = i_lo + it % n_qt * BQ;
+    const bf16* q_s = qd_s + st * 2 * BQ * P;
+    const bf16* do_s = q_s + BQ * P;
+    const float* ls = lse_s + st * BQ;
+    const float* dls = dl_s + st * BQ;
+    // S^T = K Q^T and dP^T = V dO^T, rows are this warp's 16 keys
+    float s[NT][4] = {}, dp[NT][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t ka[4], va[4];
+      ldsm_a<P>(ka, k_s, warp * 16, kk * 16);
+      ldsm_a<P>(va, v_s, warp * 16, kk * 16);
+#pragma unroll
+      for (int n = 0; n < NT; n += 2) {
+        uint32_t f[4];
+        ldsm_b<P>(f, q_s, n * 8, kk * 16);
+        mma16816(s[n], ka, f[0], f[1]);
+        mma16816(s[n + 1], ka, f[2], f[3]);
+        ldsm_b<P>(f, do_s, n * 8, kk * 16);
+        mma16816(dp[n], va, f[0], f[1]);
+        mma16816(dp[n + 1], va, f[2], f[3]);
+      }
+    }
+    const bool edge = i0 + BQ > Tq || j0 + kRows > Tk ||
+                      (p.causal && j0 + kRows - 1 > i0 + off) ||
+                      (p.window > 0 &&
+                       j0 <= min(i0 + BQ, Tq) - 1 + off - p.window);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = n * 8 + lane % 4 * 2 + (e & 1);  // query row in tile
+        const float sc = capped(s[n][e], p);
+        float pr = 0.f, ds = 0.f;
+        if (!edge || (i0 + c < Tq &&
+                      visible(key + (e >> 1) * 8, i0 + c + off, p))) {
+          pr = exp2f((sc - ls[c]) * kLog2e);
+          ds = pr * (dp[n][e] - dls[c]) * capped_grad(sc, p);
+        }
+        s[n][e] = pr;
+        dp[n][e] = ds;
+      }
+    }
+    // dV += P^T dO and dK += dS^T Q, from registers, 16 query rows a step
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk) {
+      uint32_t pa[4], da[4];
+      c_to_a(pa, s[2 * kk], s[2 * kk + 1]);
+      c_to_a(da, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int d = 0; d < DT; d += 2) {
+        uint32_t f[4];
+        ldsm_bt<P>(f, do_s, kk * 16, d * 8);
+        mma16816(dv[d], pa, f[0], f[1]);
+        mma16816(dv[d + 1], pa, f[2], f[3]);
+        ldsm_bt<P>(f, q_s, kk * 16, d * 8);
+        mma16816(dk[d], da, f[0], f[1]);
+        mma16816(dk[d + 1], da, f[2], f[3]);
+      }
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();  // no copy outlives the block (n_qt may be 0)
+  bf16* dkg = static_cast<bf16*>(p.dk) + bh * Tk * HD;
+  bf16* dvg = static_cast<bf16*>(p.dv) + bh * Tk * HD;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = key + h * 8;
+    if (j >= Tk) continue;
+    store_band(dkg + (long long)j * HD, dk, h, 1.f);
+    store_band(dvg + (long long)j * HD, dv, h, 1.f);
+  }
+}
+
+// above 48 KB a kernel must opt in to its dynamic shared memory
+template <typename K>
+int launch(K kernel, dim3 grid, int smem, const Params& p, cudaStream_t s) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<grid, kThreads, smem, s>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int run(bool bwd, const Params& p, int B, cudaStream_t s) {
+  const dim3 qgrid((p.Tq + kRows - 1) / kRows, p.Hkv * p.G, B);
+  if (!bwd)
+    return launch(flash_fwd_tc_kernel<HD>, qgrid, fwd_smem<HD>(), p, s);
+  const int err = launch(flash_bwd_dq_tc_kernel<HD>, qgrid, dq_smem<HD>(), p,
+                         s);
+  if (err) return err;
+  // after the dQ kernel on the same stream: delta is written
+  const dim3 kgrid((p.Tk + kRows - 1) / kRows, p.Hkv, B);
+  return launch(flash_bwd_dkv_tc_kernel<HD>, kgrid, dkv_smem<HD>(), p, s);
+}
+
+int dispatch(bool bwd, int hd, const Params& p, int B, cudaStream_t s) {
+  switch (hd) {
+    case 32: return run<32>(bwd, p, B, s);
+    case 64: return run<64>(bwd, p, B, s);
+    case 128: return run<128>(bwd, p, B, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace tc
+
 template <int HD>
 constexpr int q_rows() { return kThreads / (HD / kDS); }
 
@@ -502,18 +994,20 @@ int dispatch(bool bwd, int hd, const Params& p, int B, cudaStream_t s) {
 
 int run(bool bwd, const Params& p, int B, int hd, int dtype, void* stream) {
   if (B == 0 || p.Hkv == 0 || p.G == 0 || p.Tq == 0) return 0;
-  // every row must see a key; a tile must hold all G heads of a position
+  // every row must see a key; a float32 tile holds all G heads of a
+  // position, and both routes take the same shapes
   if (p.Tq > p.Tk || hd < kDS || p.G > kThreads / (hd / kDS))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch<float>(bwd, hd, p, B, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(bwd, hd, p, B, s);
+  if (dtype == 1) return tc::dispatch(bwd, hd, p, B, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// dtype (q, k, v, out): 0 = float32, 1 = bfloat16; hd in {32, 64, 128};
+// dtype (q, k, v, out): 0 = float32 (CUDA cores), 1 = bfloat16 (tensor
+// cores); hd in {32, 64, 128};
 // G at most 128 / (hd / 32); Tq <= Tk. causal 0 or 1; window <= 0 and
 // softcap <= 0 mean none. Returns the cudaError_t of the launch.
 extern "C" int flash_attention_fwd_launch(

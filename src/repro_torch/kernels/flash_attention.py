@@ -14,7 +14,10 @@ versions disagree.
 Layout: q (B, Hkv, G, Tq, hd); k, v (B, Hkv, Tk, hd); out like q; the
 forward also gives lse (B, Hkv, G, Tq), the per-row log-sum-exp the
 backward recomputes the probabilities from. The kernel source is
-``csrc/flash_attention.cu``.
+``csrc/flash_attention.cu``: bfloat16 operands run its tensor-core kernels
+(``mma.sync``, float32 accumulators, P and dS rounded to bf16 before their
+products), float32 operands its CUDA-core kernels, each shape on one route
+with no fallback between them.
 """
 from __future__ import annotations
 
@@ -115,7 +118,8 @@ def _check(kernel, *tensors):
         raise ValueError("q must be (B, Hkv, G, Tq, hd) and k, v "
                          "(B, Hkv, Tk, hd)")
     B, Hkv, G, Tq, hd = q.shape
-    # all G heads of a position share one kernel block of 4096 / hd rows
+    # all G heads of a position share one float32 kernel block of
+    # 4096 / hd rows; the bf16 kernels take the same shapes
     if hd not in HEAD_DIMS or G > 4096 // hd \
             or tuple(k.shape[:2]) != (B, Hkv) or k.shape[3] != hd \
             or tensors[2].shape != k.shape:

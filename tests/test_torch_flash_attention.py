@@ -185,13 +185,23 @@ def cuda():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("G,Tq,Tk,window,softcap,causal", [
-    (4, 64, 64, None, None, True), (4, 100, 100, None, None, True),
-    (1, 70, 200, 33, None, True), (4, 63, 63, None, 30.0, True),
-    (8, 50, 50, None, None, False), (4, 1, 1, None, None, True)])
+@pytest.mark.parametrize("G,Tq,Tk,window,softcap,causal,hd", [
+    (4, 64, 64, None, None, True, 64), (4, 100, 100, None, None, True, 64),
+    (1, 70, 200, 33, None, True, 64), (4, 63, 63, None, 30.0, True, 64),
+    (8, 50, 50, None, None, False, 64), (4, 1, 1, None, None, True, 64),
+    # the bf16 kernels' 64-row tiles: lengths one past and one short of a
+    # tile, an offset Tk - Tq that is not a tile multiple, windows ending
+    # on and one past a tile boundary, G 1 and 16, hd 32 and 128
+    (4, 65, 65, None, None, True, 64), (4, 127, 127, None, None, True, 64),
+    (4, 129, 129, None, None, True, 64), (4, 100, 163, None, None, True, 64),
+    (4, 200, 200, 64, None, True, 64), (4, 200, 200, 65, None, True, 64),
+    (1, 129, 129, None, None, True, 64), (16, 130, 130, None, None, True, 64),
+    (4, 129, 129, None, None, True, 32), (4, 100, 163, 65, None, True, 32),
+    (4, 129, 129, None, None, True, 128), (2, 100, 163, None, 20.0, True, 128),
+    (4, 127, 129, None, None, False, 128)])
 def test_gpu_kernels_match_plain(cuda, dtype, G, Tq, Tk, window, softcap,
-                                 causal):
-    arrays = _inputs(Tq, 2, 2, G, Tq, Tk, 64)
+                                 causal, hd):
+    arrays = _inputs(Tq, 2, 2, G, Tq, Tk, hd)
     q, k, v = _torch(arrays, dtype, cuda)
     do = torch.randn(q.shape, generator=torch.Generator(cuda).manual_seed(1),
                      device=cuda).to(q.dtype)

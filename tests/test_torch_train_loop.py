@@ -181,3 +181,25 @@ def test_chip_smoke_train_rehearsals():
     assert q.shape == (4, 2, 4, 64, 32) and k.shape == (4, 2, 64, 32)
     assert rec.dout.shape == q.shape and rec.dout.is_contiguous()
     assert set(cs.FLASH_REPLACES) <= set(cs.KERNELS)
+
+
+def test_chip_smoke_ptxas_report():
+    """The build log's ptxas -v report, one line per kernel with its
+    registers and spills, errors kept."""
+    cs = _chip_smoke()
+    text = """== nvcc a.cu (exit 0)
+ptxas info    : Compiling entry function '_Z3fwdv' for 'sm_90a'
+ptxas info    : Function properties for _Z3fwdv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 137 registers, used 1 barriers
+ptxas info    : Compiling entry function '_Z3bwdv' for 'sm_90a'
+ptxas info    : Function properties for _Z3bwdv
+    8 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers
+b.cu(3): error: identifier "x" is undefined"""
+    assert cs.ptxas_report(text) == [
+        "_Z3fwdv: Used 137 registers, used 1 barriers; 0 bytes stack "
+        "frame, 0 bytes spill stores, 0 bytes spill loads",
+        "_Z3bwdv: Used 255 registers, used 1 barriers; 8 bytes stack "
+        "frame, 8 bytes spill stores, 4 bytes spill loads",
+        'b.cu(3): error: identifier "x" is undefined']
