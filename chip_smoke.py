@@ -15,7 +15,12 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      bf16 and f32, plus edge cases; the quantized pools'
                      kernels (page_requant, the kv_append_quant composite,
                      the scaled attention kernels) for int8, float8_e4m3
-                     and float8_e5m2, and a SwapStager round trip of a
+                     and float8_e5m2; the bf16 attention sweep's tile and
+                     split edges (chunks of tq - 1, tq, tq + 1 tokens at
+                     G {1, 4, 8} and hd {32, 64, 128}, two sequences in a
+                     tile, unsorted tok_seq, decode-only buckets and B = 1
+                     decodes at split edges and the full table) and a
+                     SwapStager round trip of a
                      quantized pool tree; the flash attention forward and
                      backward at T {1, 63, 64, 1000, 2048}, Tq < Tk,
                      G {1, 4}, window, softcap and no causal mask;
@@ -73,8 +78,14 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      21 gla_scan launches, finite logits
  18. timing        — each kernel, its plain version and the one-call PyTorch
                      yardstick, timed with CUDA events on the inputs the
-                     serve, train and ssm_serve runs gave it; bound from
-                     those inputs
+                     serve, train and ssm_serve runs gave it (the paged
+                     attention kernels' device time by CUDA graph
+                     replays); bound from those inputs; the ragged
+                     kernel also at its largest
+                     decode-only call and at every bucketed N the serve
+                     runs gave it (launches x (ms - bound) summed over
+                     the sizes); with --parent DIR, the parent checkout's
+                     attention kernels in turns with these
  19. profile       — torch.profiler over a window of serve steps, over one
                      train step and over one xlstm prefill: device busy
                      share and device time by kernel
@@ -110,10 +121,13 @@ SERVE_PHASES = {"serve": ("infercept", {}), "swap": ("swap", {}),
                 "quant_unfused": ("infercept", {"kv_dtype": "int8",
                                                 "fused": False})}
 # the rows of the kernels line: an attention kernel over int8 pools is a
-# row of its own beside its wrapper's
+# row of its own beside its wrapper's, and so is the ragged kernel's
+# largest decode-only call (its launches: the decode-only calls, no more
+# q rows than block-table rows, counted by the serve runs' recorder)
 KERNELS = ("ragged_paged_attention", "paged_attention", "kv_append",
            "swap_pack", "swap_unpack", "page_requant",
            "ragged_paged_attention_int8", "paged_attention_int8",
+           "ragged_paged_attention_decode",
            "flash_attention", "flash_attention_bwd", "gla_scan")
 # the TPU kernel of each flash row; the backward has none: the reference
 # differentiates its XLA blocked_attention
@@ -196,6 +210,36 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Device ms of one ``fn()``: ``iters`` calls captured in a CUDA graph,
+    the graph replayed between two events (the faster of two replays), so
+    no host time per call is in it (a kernel of ~10-50 us launched from
+    Python in a loop is timed by its host, not the card)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    best = math.inf
+    for _ in range(2):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / iters)
+    del graph
+    return best
 
 
 def in_turns(plain, kernel, iters: int):
@@ -317,6 +361,7 @@ def check_kernels() -> dict:
         for hd, G in ((32, 4), (128, 8)):
             ragged_case(f"hd={hd} G={G}", dtype, N=16, B=2,
                         **dict(full, hd=hd, G=G))
+        tile_edge_cases(ragged_case, paged_case, dtype, full)
 
         # kv_append: distinct slots, random validity, then all invalid
         n_pages, page, Hkv, hd = 64, 16, 8, 64
@@ -369,6 +414,62 @@ def check_kernels() -> dict:
             worst["swap_unpack"] = max(worst["swap_unpack"], err_u, err_r)
     check_quant_kernels(gen, worst)
     return worst
+
+
+def layout(lens, starts, pad=0, order=None):
+    """The engine's ragged layout: sequence b's lens[b] tokens at positions
+    starts[b], starts[b] + 1, ... on consecutive rows, then ``pad`` padded
+    rows (tok_seq 0, tok_pos -1); ``order`` permutes the rows."""
+    import torch
+    seq = [b for b, n in enumerate(lens) for _ in range(n)] + [0] * pad
+    pos = [s + i for n, s in zip(lens, starts) for i in range(n)] + [-1] * pad
+    if order is not None:
+        seq, pos = [seq[i] for i in order], [pos[i] for i in order]
+    return (torch.tensor(seq, dtype=torch.int32),
+            torch.tensor(pos, dtype=torch.int32))
+
+
+def tile_edge_cases(ragged_case, paged_case, dtype, full) -> None:
+    """The bf16 sweep's edges (csrc/paged_tc.cuh), held like every other
+    case: chunks of one sequence of tq - 1, tq and tq + 1 tokens (tq = 64 /
+    G) at G {1, 4, 8} and hd {32, 128}; two sequences inside one tile;
+    unsorted tok_seq; decode-only buckets whose contexts end at a split's
+    edge, one past it and at the full 64-page table; the paged kernel at
+    B = 1 (a split a 64-key stage) and B = 3 over the same edges."""
+    import torch
+    from repro_torch.kernels.ragged_paged_attention import tile_tokens
+    for G, hd in ((1, 64), (4, 64), (8, 64), (4, 32), (8, 128)):
+        kw = dict(full, G=G, hd=hd)
+        tq = tile_tokens(G)
+        for n in (tq - 1, tq, tq + 1):
+            for start in (100, 1024 - n):
+                ts, tp = layout([n], [start], pad=1)
+                ragged_case(f"chunk {n} at {start} G={G} hd={hd}", dtype,
+                            N=n + 1, B=1, tok_seq=ts, tok_pos=tp, **kw)
+    ts, tp = layout([3, 5, 20], [30, 700, 0], pad=4)
+    ragged_case("two sequences in one tile", dtype, N=32, B=3, tok_seq=ts,
+                tok_pos=tp, **full)
+    order = torch.randperm(40, generator=torch.Generator().manual_seed(0))
+    ts, tp = layout([1, 17, 9, 1, 12], [63, 0, 250, 1023, 500],
+                    order=order.tolist())
+    ragged_case("unsorted tok_seq", dtype, N=40, B=5, tok_seq=ts,
+                tok_pos=tp, **full)
+    edges = [64, 65, 256, 257, 768, 769, 1024, 1]
+    ts, tp = layout([1] * 8, [c - 1 for c in edges])
+    ragged_case(f"decode-only ctx {edges}", dtype, N=8, B=8, tok_seq=ts,
+                tok_pos=tp, **full)
+    for G in (1, 4, 8):
+        ts, tp = layout([1] * 8, [c - 1 for c in edges])
+        ragged_case(f"decode-only G={G}", dtype, N=8, B=8, tok_seq=ts,
+                    tok_pos=tp, **dict(full, G=G))
+    for ctx in (64, 65, 128, 129, 687, 1024):
+        paged_case(f"B=1 ctx={ctx}", dtype, B=1, ctx_lens=torch.tensor([ctx]),
+                   **full)
+    for G in (1, 4, 8):
+        for hd in (32, 64, 128):
+            paged_case(f"B=3 ctx 65/1024/0 G={G} hd={hd}", dtype, B=3,
+                       ctx_lens=torch.tensor([65, 1024, 0]),
+                       **dict(full, G=G, hd=hd))
 
 
 def same_bytes(a, b) -> bool:
@@ -503,9 +604,32 @@ def check_quant_kernels(gen, worst) -> None:
                             q, kq, vq, ks, vs, bt, torch.arange(5, **i32),
                             ctx_lens - 1, **kw)))
                 assert max(errs) <= tol[qdtype], (label, window, softcap)
+            # the bf16 sweep's edges over the payload: a chunk past a tile,
+            # two sequences in one tile, a decode-only bucket at split edges
+            for lens, starts, pad in (([17], [100], 1),
+                                      ([3, 5, 20], [30, 700, 0], 4),
+                                      ([1] * 8, [63, 64, 255, 256, 767, 768,
+                                                 1023, 0], 0)):
+                ts, tp = (t.to(dev) for t in layout(lens, starts, pad))
+                n = ts.numel()
+                q = torch.randn((n, Hkv, 4, hd), generator=gen,
+                                device=dev).to(qdtype)
+                bt = torch.randint(0, 2048, (len(lens), 64), generator=gen,
+                                   **i32)
+                got = ragged_paged_attention(q, kq, vq, bt, ts, tp,
+                                             k_scale=ks, v_scale=vs)
+                want = ragged_paged_attention_quant_ref(q, kq, vq, ks, vs,
+                                                        bt, ts, tp)
+                err = max_err(got, want)
+                assert err <= tol[qdtype] and bool(
+                    (got[tp < 0] == 0).all()), (label, lens)
+                if name == "int8":
+                    worst["ragged_paged_attention_int8"] = max(
+                        worst["ragged_paged_attention_int8"], err)
             log(f"  scaled paged/ragged attention, {label}: ctx {{1, 16, "
-                f"17, 1024}} x G {{1, 4}}, window and softcap within "
-                f"{tol[qdtype]:g}, padded rows zero")
+                f"17, 1024}} x G {{1, 4}}, window and softcap, a 17-token "
+                f"chunk, two sequences in a tile, decode at split edges "
+                f"within {tol[qdtype]:g}, padded rows zero")
     # the stager moves a quantized pool tree's scale leaves with its
     # payload: pack, collect, clobber, unpack, compare
     kq, vq, ks, vs = quant_pools(gen, "int8", n_pages=128, page=page,
@@ -855,11 +979,21 @@ class Recorder:
     the page_requant call."""
 
     COPY_BYTES = 8 << 20       # inputs up to this size are copied at once
+    RAGGED = ("ragged_paged_attention", "ragged_paged_attention_int8")
 
     def __init__(self):
         import repro_torch.kernels.ops as ops
         import repro_torch.models.attention as attention
         self.calls = {}
+        # the ragged op's calls by bucketed N (q's rows, known without a
+        # sync): {key: {N: calls}} and the first call of each N; and the
+        # bf16 decode-only calls (no more rows than block-table rows):
+        # their count and the first of the largest, the timing phase's
+        # "ragged_paged_attention_decode"
+        self.by_size = {k: {} for k in self.RAGGED}
+        self.size_calls = {k: {} for k in self.RAGGED}
+        self.decode_launches = 0
+        self.decode_call = (-1, None, None)
         # (module, op name, kernel, index of the argument whose leading
         # size ranks the calls, whether a later call of the same
         # size; paged_attention keeps the last of its largest-batch calls,
@@ -883,6 +1017,8 @@ class Recorder:
                 if kw.get("k_scale") is not None:
                     _key += "_int8"
                 size = args[_size].shape[0]
+                if _key in self.RAGGED:
+                    self._ragged(_key, args, kw)
                 best = self.calls.get(_key, (-1,))[0]
                 if size > best or (_later and size == best):
                     self.calls[_key] = (size, self._keep(args),
@@ -890,6 +1026,17 @@ class Recorder:
                 return _orig(*args, **kw)
             setattr(mod, name, wrapped)
         return self
+
+    def _ragged(self, key, args, kw):
+        n = args[0].shape[0]
+        counts = self.by_size[key]
+        counts[n] = counts.get(n, 0) + 1
+        if counts[n] == 1:
+            self.size_calls[key][n] = (self._keep(args), self._keep(kw))
+        if key == "ragged_paged_attention" and n <= args[3].shape[0]:
+            self.decode_launches += 1
+            if n > self.decode_call[0]:
+                self.decode_call = (n, self._keep(args), self._keep(kw))
 
     def _keep(self, tree):
         from repro_torch.utils.tree import tree_map
@@ -901,18 +1048,29 @@ class Recorder:
         from repro_torch.utils.tree import tree_map
         for (mod, name), orig in self._orig.items():
             setattr(mod, name, orig)
+        def to_host(tree):
+            return tree_map(lambda t: t.to("cpu") if hasattr(t, "to")
+                            else t, tree)
         for key, (size, args, kw) in self.calls.items():
-            self.calls[key] = (size, *tree_map(
-                lambda t: t.to("cpu") if hasattr(t, "to") else t,
-                (args, kw)))
+            self.calls[key] = (size, *to_host((args, kw)))
+        self.decode_call = (self.decode_call[0],
+                            *to_host(self.decode_call[1:]))
+        for calls in self.size_calls.values():
+            for n, rec in calls.items():
+                calls[n] = to_host(rec)
 
-    def call(self, key: str, device="cuda"):
-        """The recorded (args, kw) of ``key``'s largest call, on
-        ``device``."""
+    def call(self, key: str, device="cuda", size=None):
+        """The recorded (args, kw) of ``key``'s largest call (or, for a
+        ragged key, of its first call of ``size`` rows), on ``device``."""
         from repro_torch.utils.tree import tree_map
-        _, args, kw = self.calls[key]
+        if key == "ragged_paged_attention_decode":
+            rec = self.decode_call[1:]
+        elif size is None:
+            rec = self.calls[key][1:]
+        else:
+            rec = self.size_calls[key][size]
         return tree_map(lambda t: t.to(device) if hasattr(t, "to") else t,
-                        (args, kw))
+                        rec)
 
 
 def kernel_wrappers() -> dict:
@@ -1066,7 +1224,62 @@ def serve(policy: str, recorder: Recorder, *, tiny: bool = False,
 # ---------------------------------------------------------------------------
 # phase 15: timing on the main path's inputs
 # ---------------------------------------------------------------------------
-def time_kernels(recorder: Recorder, worst: dict, launches: dict) -> list:
+def parent_kernels(parent: Path):
+    """The parent commit's ragged and paged attention kernels, built from
+    its checkout at ``parent`` by its own ``_build.py`` and called through
+    its C signatures, for timing both versions in one run."""
+    import importlib.util
+    import torch
+    from repro_torch.kernels.kv_quant import attention_pool_code
+    spec = importlib.util.spec_from_file_location(
+        "parent_build", parent / "src/repro_torch/kernels/_build.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    lib = mod.lib()
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    def common(q, kp, vp, k_scale, v_scale, window, softcap):
+        code = attention_pool_code("parent", q, kp, vp, k_scale, v_scale)
+        return (int(window or 0), float(softcap or 0.0),
+                1.0 / math.sqrt(q.shape[-1]),
+                int(q.dtype == torch.bfloat16), code,
+                torch.cuda.current_stream(q.device).cuda_stream)
+
+    def ragged(q, kp, vp, bt, ts, tp, *, k_scale=None, v_scale=None,
+               softcap=None, window=None):
+        out = torch.empty_like(q)
+        w, cap, scale, dt, code, st = common(q, kp, vp, k_scale, v_scale,
+                                              window, softcap)
+        assert lib.ragged_paged_attention_launch(
+            q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ptr(k_scale),
+            ptr(v_scale), bt.data_ptr(), ts.data_ptr(), tp.data_ptr(),
+            out.data_ptr(), *q.shape, kp.shape[1], bt.shape[1], w, cap,
+            scale, dt, code, st) == 0
+        return out
+
+    def paged(q, kp, vp, bt, ctx, *, k_scale=None, v_scale=None,
+              softcap=None, window=None):
+        out = torch.empty_like(q)
+        w, cap, scale, dt, code, st = common(q, kp, vp, k_scale, v_scale,
+                                              window, softcap)
+        assert lib.paged_attention_launch(
+            q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ptr(k_scale),
+            ptr(v_scale), bt.data_ptr(), ctx.data_ptr(), out.data_ptr(),
+            *q.shape, kp.shape[1], bt.shape[1], w, cap, scale, dt, code,
+            st) == 0
+        return out
+
+    import types
+    return types.SimpleNamespace(ragged=ragged, paged=paged)
+
+
+def time_kernels(recorder: Recorder, worst: dict, launches: dict,
+                 parent=None) -> list:
+    """Rows 1-6 (and 1d); with ``parent`` (``parent_kernels``), the
+    parent's attention kernels timed in turns with these on the same
+    inputs."""
     import torch
     from repro_torch.kernels.kv_append import kv_append, kv_append_ref
     from repro_torch.kernels.kv_quant import (page_requant, page_requant_ref,
@@ -1076,7 +1289,7 @@ def time_kernels(recorder: Recorder, worst: dict, launches: dict) -> list:
         paged_attention, paged_attention_quant_ref, paged_attention_ref)
     from repro_torch.kernels.ragged_paged_attention import (
         ragged_paged_attention, ragged_paged_attention_quant_ref,
-        ragged_paged_attention_ref)
+        ragged_paged_attention_ref, sm_count, split_count, tile_grid)
     from repro_torch.kernels.swap_pack import (swap_pack, swap_pack_ref,
                                                swap_unpack, swap_unpack_ref)
     rows = []
@@ -1087,6 +1300,7 @@ def time_kernels(recorder: Recorder, worst: dict, launches: dict) -> list:
     meta = {
         "ragged_paged_attention": ragged_src,
         "ragged_paged_attention_int8": ragged_src,
+        "ragged_paged_attention_decode": ragged_src,
         "paged_attention": paged_src,
         "paged_attention_int8": paged_src,
         "kv_append": ("src/repro_torch/kernels/csrc/kv_append.cu",
@@ -1136,12 +1350,55 @@ def time_kernels(recorder: Recorder, worst: dict, launches: dict) -> list:
         return (2 * n_pages_read * page * Hkv * hd * kp.element_size()
                 + scales + 2 * q.numel() * q.element_size() + 4 * n_idx)
 
-    # ragged paged attention: no single PyTorch call computes it
-    for name, plain in (("ragged_paged_attention",
-                         ragged_paged_attention_ref),
-                        ("ragged_paged_attention_int8",
-                         ragged_paged_attention_quant_ref)):
-        args, kw = recorder.call(name)
+    def ragged_work(q, kp, bt, tok_seq, tok_pos, window):
+        """(bytes, operations) of a ragged call from its data: the pages
+        its live rows see, 4 hd operations per visible (query, key)
+        pair and G head."""
+        N, Hkv, G, hd = q.shape
+        page = kp.shape[1]
+        pos, seqs, table = tok_pos.tolist(), tok_seq.tolist(), bt.tolist()
+        pages, visible = set(), 0
+        for p, sq in zip(pos, seqs):
+            if p < 0:
+                continue
+            lo = 0 if window is None else max(0, p + 1 - window)
+            visible += p + 1 - lo
+            pages.update(table[sq][i] for i in range(lo // page,
+                                                     p // page + 1))
+        return (attention_bytes(q, kp, len(pages), bt.numel() + 2 * N),
+                4 * visible * Hkv * G * hd)
+
+    def bound_ms(nbytes, ops, dtype):
+        return max(nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]) * 1e3
+
+    def against_parent(row_, old_fn, kernel_fn, iters):
+        """parent, change, change, parent on the same inputs, device time
+        (graph_ms); the row's ms becomes this kernel's device time"""
+        row_["host_loop_ms"] = row_["ms"]
+        if old_fn is None:
+            row_["ms"] = graph_ms(kernel_fn, iters)
+            log(f"    device time {row_['ms']:.4f} ms; host-launched loop "
+                f"{row_['host_loop_ms']:.4f} ms")
+            return
+        turns = [graph_ms(f, iters) for f in (old_fn, kernel_fn, kernel_fn,
+                                               old_fn)]
+        new_ms, old_ms = min(turns[1:3]), min(turns[0], turns[3])
+        log(f"    device time in turns: parent's kernel {old_ms:.4f} ms, "
+            f"this one {new_ms:.4f} ms ({old_ms / new_ms:.2f}x); host-"
+            f"launched loop {row_['host_loop_ms']:.4f} ms")
+        row_["ms"] = new_ms
+        row_["parent_ms"] = old_ms
+
+    # ragged paged attention: no single PyTorch call computes it. Rows 1
+    # and 1q at the largest call, 1d at the largest decode-only call
+    for name, plain, key in (
+            ("ragged_paged_attention", ragged_paged_attention_ref,
+             "ragged_paged_attention"),
+            ("ragged_paged_attention_int8", ragged_paged_attention_quant_ref,
+             "ragged_paged_attention_int8"),
+            ("ragged_paged_attention_decode", ragged_paged_attention_ref,
+             "ragged_paged_attention_decode")):
+        args, kw = recorder.call(key)
         q, kp, vp, bt, tok_seq, tok_pos = args
         scales = {k: kw.pop(k) for k in ("k_scale", "v_scale") if k in kw}
         plain_args = (q, kp, vp, *scales.values(), bt, tok_seq, tok_pos)
@@ -1151,23 +1408,51 @@ def time_kernels(recorder: Recorder, worst: dict, launches: dict) -> list:
 
         def plain_fn():
             return plain(*plain_args, **kw)
+
+        def old_fn():
+            return parent.ragged(*args, **scales, **kw)
         err = main_path_err(name, kernel_fn(), plain_fn())
         ms, plain_ms = in_turns(plain_fn, kernel_fn, 5)
         N, Hkv, G, hd = q.shape
-        page = kp.shape[1]
-        pos, seqs, table = tok_pos.tolist(), tok_seq.tolist(), bt.tolist()
-        window = kw.get("window")
-        pages, visible = set(), 0
-        for p, sq in zip(pos, seqs):
-            if p < 0:
-                continue
-            lo = 0 if window is None else max(0, p + 1 - window)
-            visible += p + 1 - lo
-            pages.update(table[sq][i] for i in range(lo // page,
-                                                     p // page + 1))
-        row(name, ms, plain_ms, None,
-            attention_bytes(q, kp, len(pages), bt.numel() + 2 * N),
-            4 * visible * Hkv * G * hd, str(q.dtype)[6:], err, list(q.shape))
+        nbytes, ops = ragged_work(q, kp, bt, tok_seq, tok_pos,
+                                  kw.get("window"))
+        tiles = tile_grid(N, G, bt.shape[0])
+        splits = split_count(tiles * Hkv, bt.shape[1] * kp.shape[1],
+                             sm_count(0))
+        row(name, ms, plain_ms, None, nbytes, ops, str(q.dtype)[6:], err,
+            list(q.shape) + [f"{tiles} tiles x {Hkv} heads x {splits} "
+                             "splits"])
+        against_parent(rows[-1], old_fn if parent else None, kernel_fn,
+                       20)
+        if key not in recorder.by_size:
+            continue
+        # launches x (ms - bound) at every bucketed N the serve runs gave
+        by_size, gap, old_gap = [], 0.0, 0.0
+        counts = recorder.by_size[key]
+        assert sum(counts.values()) == launches[name], (counts, name)
+        for n in sorted(counts):
+            a, k = recorder.call(key, size=n)
+            sc = {x: k.pop(x) for x in ("k_scale", "v_scale") if x in k}
+            b_ms = bound_ms(*ragged_work(a[0], a[1], a[3], a[4], a[5],
+                                         k.get("window")),
+                            str(a[0].dtype)[6:])
+            k_ms = graph_ms(lambda: ragged_paged_attention(*a, **sc, **k),
+                            10)
+            entry = {"N": n, "launches": counts[n], "ms": k_ms,
+                     "bound_ms": b_ms}
+            gap += counts[n] * (k_ms - b_ms)
+            if parent:
+                entry["parent_ms"] = graph_ms(
+                    lambda: parent.ragged(*a, **sc, **k), 10)
+                old_gap += counts[n] * (entry["parent_ms"] - b_ms)
+            by_size.append(entry)
+            log(f"    N={n}: {counts[n]} launches, {k_ms:.4f} ms"
+                + (f" (parent {entry['parent_ms']:.4f})" if parent else "")
+                + f", bound {b_ms:.5f} ms")
+        rows[-1]["by_size"] = by_size
+        rows[-1]["launches_x_gap_s"] = gap / 1e3
+        log(f"    launches x (ms - bound) over the sizes: {gap / 1e3:.3f} s"
+            + (f" (parent {old_gap / 1e3:.3f} s)" if parent else ""))
 
     # paged decode attention: no single PyTorch call computes it either
     for name, plain in (("paged_attention", paged_attention_ref),
@@ -1182,24 +1467,21 @@ def time_kernels(recorder: Recorder, worst: dict, launches: dict) -> list:
 
         def plain_fn():
             return plain(*plain_args, **kw)
+
+        def old_fn():
+            return parent.paged(*args, **scales, **kw)
         err = main_path_err(name, kernel_fn(), plain_fn())
         ms, plain_ms = in_turns(plain_fn, kernel_fn, 20)
         B, Hkv, G, hd = q.shape
-        page = kp.shape[1]
-        table = bt.tolist()
-        window = kw.get("window")
-        pages, visible = set(), 0
-        for b, ctx in enumerate(ctx_lens.tolist()):
-            if ctx <= 0:
-                continue
-            lo = 0 if window is None else max(0, ctx - window)
-            visible += ctx - lo
-            pages.update(table[b][i] for i in range(lo // page,
-                                                    (ctx - 1) // page + 1))
-        row(name, ms, plain_ms, None,
-            attention_bytes(q, kp, len(pages), bt.numel() + B),
-            4 * visible * Hkv * G * hd, str(q.dtype)[6:], err,
-            list(q.shape) + [f"ctx {ctx_lens.tolist()}"])
+        nbytes, ops = ragged_work(q, kp, bt, torch.arange(B),
+                                  ctx_lens - 1, kw.get("window"))
+        splits = split_count(B * Hkv, bt.shape[1] * kp.shape[1],
+                             sm_count(0))
+        row(name, ms, plain_ms, None, nbytes, ops, str(q.dtype)[6:], err,
+            list(q.shape) + [f"ctx {ctx_lens.tolist()}",
+                             f"{splits} splits"])
+        against_parent(rows[-1], old_fn if parent else None, kernel_fn,
+                       20)
 
     # kv_append: two pools and a validity mask, no single PyTorch call
     args, _ = recorder.call("kv_append")
@@ -2177,6 +2459,10 @@ def main() -> int:
                          "run; timing needs every serve phase for rows "
                          "1-6, the train phase for the flash rows and "
                          "ssm_serve for the gla_scan row)")
+    ap.add_argument("--parent", default=None,
+                    help="a checkout of the parent commit: its ragged and "
+                         "paged attention kernels are built there and "
+                         "timed in turns with these in the timing phase")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     t_start = time.perf_counter()
@@ -2202,6 +2488,15 @@ def main() -> int:
     for line in ptxas_report(build_log.read_text()
                              if build_log.exists() else ""):
         log(f"  {line}")
+    import ctypes
+    for hd in (32, 64, 128):
+        for code, pool in enumerate(("bf16", "int8", "float8_e4m3",
+                                     "float8_e5m2")):
+            smem = ctypes.c_int(0)
+            n = _build.lib().ragged_paged_attention_tc_occupancy(
+                hd, code, ctypes.byref(smem))
+            log(f"  paged_tc_kernel hd {hd} {pool} pools: {smem.value} B "
+                f"of shared memory, {n} blocks of 128 threads per SM")
 
     worst = {k: 0.0 for k in KERNELS}
     if "kernels" in phases:
@@ -2294,7 +2589,12 @@ def main() -> int:
     if "timing" in phases and set(SERVE_PHASES) <= phases:
         log("[timing] CUDA events on the inputs of each kernel's largest "
             "main-path call")
-        rows = time_kernels(recorder, worst, total)
+        total["ragged_paged_attention_decode"] = recorder.decode_launches
+        parent = None
+        if args.parent:
+            parent = parent_kernels(Path(args.parent).resolve())
+            log(f"  the parent's kernels built from {args.parent}")
+        rows = time_kernels(recorder, worst, total, parent)
     if "timing" in phases and "train" in phases:
         log("[timing] flash attention on the train step's first attention "
             "call")

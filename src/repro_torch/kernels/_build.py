@@ -28,9 +28,10 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # C signatures of csrc/*.cu, in declaration order
 SIGNATURES = {
     "ragged_paged_attention_launch":
-        [_P] * 9 + [_I] * 7 + [_F, _F, _I, _I, _P],
+        [_P] * 11 + [_I] * 10 + [_F, _F, _I, _I, _P],
+    "ragged_paged_attention_tc_occupancy": [_I, _I, _P],
     "paged_attention_launch":
-        [_P] * 8 + [_I] * 7 + [_F, _F, _I, _I, _P],
+        [_P] * 10 + [_I] * 8 + [_F, _F, _I, _I, _P],
     "page_requant_launch": [_P] * 5 + [_I] * 6 + [_P],
     "flash_attention_fwd_launch": [_P] * 5 + [_I] * 8 + [_F, _F, _I, _P],
     "flash_attention_bwd_launch": [_P] * 10 + [_I] * 8 + [_F, _F, _I, _P],

@@ -9,26 +9,31 @@
 // ctx_lens[b] == 0 marks a padded row, whose output is zeros (the TPU
 // kernel's max(l, 1e-37) flush of an untouched accumulator). The pools hold
 // q's type, or a quantized 1-byte payload (int8, float8 e4m3 or e5m2) with
-// one float32 scale per (page, kv head) in k_scale / v_scale, dequantized
-// in-register as the TPU kernel's quant mode does.
+// one float32 scale per (page, kv head) in k_scale / v_scale.
 //
 // Bound on the H100: bytes. Each live KV page of a sequence is read once
 // from HBM (3.35 TB/s) per kv head; the arithmetic is G * 4 flops per K/V
 // element pair, far below the ~295 flop/byte ridge of the bf16 tensor cores.
 // A 1-byte payload halves the bytes of a bf16 pool.
 //
-// Design: one block per (sequence b, kv head h), the TPU grid's (B, Hkv)
-// axes; a loop inside the block takes the place of the sequential page
-// axis and visits only the live pages, i * page < ctx and, for a window,
-// (i + 1) * page > ctx - window, as the TPU kernel's pl.when does. The block
-// loads its own ctx_lens[b] and block-table row (the TPU's scalar
-// prefetch). Each page's K and V tile for head h is staged through shared
-// memory with 16-byte loads (16 / sizeof(payload) elements each, converted
-// to float32 and multiplied by the page's scale as they are stored; K rows
-// padded by one float so the score loop is free of bank conflicts); the G
-// query rows and their running max, sum and head_dim-wide accumulator stay
-// in float32 shared memory. Simple and right first: no tensor cores, no
-// TMA, no split-KV, so a batch of B decodes fills only B * Hkv blocks.
+// Two routes:
+// - bf16 q (every serve path): the tensor-core sweep of paged_tc.cuh, the
+//   ragged problem with one row per sequence (tile b = row b at position
+//   ctx_lens[b] - 1). A B = 1 decode alone gives Hkv blocks, so the keys
+//   are split over blockIdx.z (the wrapper sizes the split from B and the
+//   table, without a host sync) and merged by log-sum-exp; each split's
+//   pages are staged by pipelined cp.async, the four warps share out its
+//   keys, and the scores and P.V run on mma.sync.
+// - float32 q (the parity checks): the CUDA-core kernel below, one block
+//   per (sequence b, kv head h), the TPU grid's (B, Hkv) axes; a loop inside
+//   the block visits only the live pages, i * page < ctx and, for a window,
+//   (i + 1) * page > ctx - window, as the TPU kernel's pl.when does. Each
+//   page's K and V tile for head h is staged through shared memory with
+//   16-byte loads (converted to float32 and multiplied by the page's scale
+//   as they are stored; K rows padded by one float against bank
+//   conflicts); the G query rows and their running max, sum and
+//   accumulator stay in float32 shared memory.
+#include "paged_tc.cuh"
 #include "payload.cuh"
 
 namespace {
@@ -211,25 +216,37 @@ int launch_pool(int pool_dtype, int hd, const Params& prm, int B,
 
 }  // namespace
 
-// dtype (q and out): 0 = float32, 1 = bfloat16. pool_dtype: 0 = q's type
-// (k_scale and v_scale null), 1 = int8, 2 = float8 e4m3, 3 = float8 e5m2
-// (both scales set). window <= 0 and softcap <= 0 mean none. Returns the
+// dtype (q and out): 0 = float32 (CUDA cores), 1 = bfloat16 (tensor
+// cores). pool_dtype: 0 = q's type (k_scale and v_scale null), 1 = int8,
+// 2 = float8 e4m3, 3 = float8 e5m2 (both scales set). window <= 0 and
+// softcap <= 0 mean none. bfloat16 only: `splits` key splits, G <= 64; with
+// splits > 1, part is (splits, B, Hkv, G, hd + 4) float32 scratch and
+// counters (B, Hkv) int32 scratch, zeroed here on the stream. Returns the
 // cudaError_t of the launch.
 extern "C" int paged_attention_launch(
     const void* q, const void* k_pool, const void* v_pool,
     const float* k_scale, const float* v_scale, const int* block_tables,
-    const int* ctx_lens, void* out, int B, int Hkv, int G, int hd, int page,
-    int max_pages, int window, float softcap, float scale, int dtype,
-    int pool_dtype, void* stream) {
+    const int* ctx_lens, void* out, float* part, int* counters, int B,
+    int Hkv, int G, int hd, int page, int max_pages, int window, int splits,
+    float softcap, float scale, int dtype, int pool_dtype, void* stream) {
   if (B == 0) return 0;
   if ((pool_dtype == 0) != (k_scale == nullptr) ||
       (k_scale == nullptr) != (v_scale == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    if (splits > 1 && (!part || !counters))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const ptc::Params p{static_cast<const __nv_bfloat16*>(q), k_pool, v_pool,
+                        k_scale, v_scale, block_tables, nullptr, nullptr,
+                        ctx_lens, static_cast<__nv_bfloat16*>(out), part,
+                        counters, B, Hkv, G, page, max_pages, window, 1,
+                        splits, softcap, scale};
+    return ptc::dispatch(pool_dtype, hd, p, B, s);
+  }
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   const Params prm{q, k_pool, v_pool, k_scale, v_scale, block_tables,
                    ctx_lens, out, Hkv, G, page, max_pages, window, softcap,
                    scale};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_pool<float>(pool_dtype, hd, prm, B, s);
-  if (dtype == 1) return launch_pool<__nv_bfloat16>(pool_dtype, hd, prm, B, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_pool<float>(pool_dtype, hd, prm, B, s);
 }

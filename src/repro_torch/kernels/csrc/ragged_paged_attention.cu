@@ -8,25 +8,30 @@
 // `window` positions when window > 0), with an online softmax and float32
 // accumulators. tok_pos[n] == -1 marks a padded row, whose output is zeros.
 // The pools hold q's type, or a quantized 1-byte payload (int8, float8 e4m3
-// or e5m2) with one float32 scale per (page, kv head) in k_scale / v_scale,
-// dequantized in-register as the TPU kernel's quant mode does.
+// or e5m2) with one float32 scale per (page, kv head) in k_scale / v_scale.
 //
 // Bound on the H100: bytes. Each live KV page of a sequence is read from HBM
 // (3.35 TB/s); the arithmetic per byte is G * 2 flops per element, far below
 // the ~295 flop/byte ridge of the bf16 tensor cores. A 1-byte payload
 // halves the bytes of a bf16 pool.
 //
-// Design: one block per (token n, kv head h). The block loads its own
-// tok_seq[n] / tok_pos[n] and block-table row from global memory, which
-// takes the place of the TPU's scalar prefetch. Instead of the TPU grid's
-// full max_pages sweep with pl.when, it loops only over the live pages,
-// from the window's first page to (ctx - 1) / page. Each page's K and V tile
-// for head h is staged through shared memory with 16-byte loads (16 /
-// sizeof(payload) elements each, converted to float32 and multiplied by the
-// page's scale as they are stored; K rows padded by one float so the score
-// loop is free of bank conflicts); each of the G query rows keeps
-// its running max, sum and head_dim-wide accumulator in float32 shared
-// memory. Simple and right first: no tensor cores, no TMA, no split-KV.
+// Two routes:
+// - bf16 q (every serve path): the tensor-core sweep of paged_tc.cuh. A
+//   block takes a tile of up to 64 / G consecutive rows of one sequence
+//   (found in-kernel from tok_seq, so any order is right and the engine's
+//   consecutive layout is fast), stages each visible page once for the
+//   whole tile with pipelined cp.async, runs the scores and P.V on mma.sync,
+//   and splits the keys over blockIdx.z when the tiles alone cannot fill
+//   the card (decode-only iterations), merging the splits by log-sum-exp.
+// - float32 q (the parity checks): the CUDA-core kernel below, one block
+//   per (token n, kv head h). It loads its own tok_seq[n] / tok_pos[n] and
+//   block-table row, loops over the live pages only, stages each page's K
+//   and V tile for head h through shared memory with 16-byte loads
+//   (converted to float32 and multiplied by the page's scale as they are
+//   stored; K rows padded by one float against bank conflicts); each of the
+//   G query rows keeps its running max, sum and accumulator in float32
+//   shared memory.
+#include "paged_tc.cuh"
 #include "payload.cuh"
 
 namespace {
@@ -210,25 +215,49 @@ int launch_pool(int pool_dtype, int hd, const Params& prm, int N,
 
 }  // namespace
 
-// dtype (q and out): 0 = float32, 1 = bfloat16. pool_dtype: 0 = q's type
-// (k_scale and v_scale null), 1 = int8, 2 = float8 e4m3, 3 = float8 e5m2
-// (both scales set). window <= 0 and softcap <= 0 mean none. Returns the
+// dtype (q and out): 0 = float32 (CUDA cores), 1 = bfloat16 (tensor
+// cores). pool_dtype: 0 = q's type (k_scale and v_scale null), 1 = int8,
+// 2 = float8 e4m3, 3 = float8 e5m2 (both scales set). window <= 0 and
+// softcap <= 0 mean none. bfloat16 only: the grid takes `tiles` tiles of
+// `tq` rows (the last block the rest) times `splits` key splits, G <= 64;
+// with splits > 1, part is (splits, N, Hkv, G, hd + 4) float32 scratch and
+// counters (N, Hkv) int32 scratch, zeroed here on the stream. Returns the
 // cudaError_t of the launch.
 extern "C" int ragged_paged_attention_launch(
     const void* q, const void* k_pool, const void* v_pool,
     const float* k_scale, const float* v_scale, const int* block_tables,
-    const int* tok_seq, const int* tok_pos, void* out, int N, int Hkv, int G,
-    int hd, int page, int max_pages, int window, float softcap, float scale,
+    const int* tok_seq, const int* tok_pos, void* out, float* part,
+    int* counters, int N, int Hkv, int G, int hd, int page, int max_pages,
+    int window, int tq, int tiles, int splits, float softcap, float scale,
     int dtype, int pool_dtype, void* stream) {
   if (N == 0) return 0;
   if ((pool_dtype == 0) != (k_scale == nullptr) ||
       (k_scale == nullptr) != (v_scale == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    if (tq < 1 || tiles < 1 || (splits > 1 && (!part || !counters)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const ptc::Params p{static_cast<const __nv_bfloat16*>(q), k_pool, v_pool,
+                        k_scale, v_scale, block_tables, tok_seq, tok_pos,
+                        nullptr, static_cast<__nv_bfloat16*>(out), part,
+                        counters, N, Hkv, G, page, max_pages, window, tq,
+                        splits, softcap, scale};
+    return ptc::dispatch(pool_dtype, hd, p, tiles, s);
+  }
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   const Params prm{q, k_pool, v_pool, k_scale, v_scale, block_tables,
                    tok_seq, tok_pos, out, Hkv, G, page, max_pages, window,
                    softcap, scale};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_pool<float>(pool_dtype, hd, prm, N, s);
-  if (dtype == 1) return launch_pool<__nv_bfloat16>(pool_dtype, hd, prm, N, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_pool<float>(pool_dtype, hd, prm, N, s);
+}
+
+// The tensor-core kernel's blocks per SM for head_dim hd and pool_dtype
+// (0 = bf16, 1-3 as above); its dynamic shared memory in *smem.
+extern "C" int ragged_paged_attention_tc_occupancy(int hd, int pool_dtype,
+                                                   int* smem) {
+  ptc::Params p{};
+  p.G = 1;
+  p.splits = 1;
+  return ptc::dispatch(pool_dtype, hd, p, 1, nullptr, smem);
 }

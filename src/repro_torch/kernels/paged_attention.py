@@ -11,7 +11,9 @@ Layout: q (B, Hkv, G, hd); pools (n_pages, page, Hkv, hd);
 block_tables (B, max_pages) int32; ctx_lens (B,) int32. Pools are in
 q's dtype, or quantized (int8, float8_e4m3fn, float8_e5m2) with
 ``k_scale``/``v_scale`` (n_pages, Hkv) float32, dequantized in-register.
-The kernel source is ``csrc/paged_attention.cu``.
+The kernel source is ``csrc/paged_attention.cu``; its bf16 route is the
+tensor-core sweep of ``csrc/paged_tc.cuh``, the ragged problem with one
+row per sequence.
 """
 from __future__ import annotations
 
@@ -22,11 +24,15 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.kv_quant import (attention_pool_code,
                                           dequant_gathered, gather_pages)
+from repro_torch.kernels.ragged_paged_attention import (TILE_ROWS,
+                                                        sm_count,
+                                                        split_count,
+                                                        split_scratch)
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-SMEM_LIMIT = 48 * 1024      # bytes of shared memory without an opt-in
+SMEM_LIMIT = 48 * 1024      # the float32 kernel's shared memory, no opt-in
 
 
 def _attend(q, k_cache, v_cache, ctx_lens, softcap, window):
@@ -81,8 +87,9 @@ def paged_attention_quant_ref(q, k_pool, v_pool, k_scale, v_scale,
 
 
 def _smem_bytes(G: int, page: int, hd: int) -> int:
-    # the staged tiles are float32 whatever the payload: a 16-byte load
-    # carries 16 / element size elements, dequantized as they are stored
+    # the float32 kernel's staged tiles are float32 whatever the payload: a
+    # 16-byte load carries 16 / element size elements, dequantized as they
+    # are stored
     return 4 * (2 * G * hd + page * (hd + 1) + page * hd + G * page + 3 * G)
 
 
@@ -119,6 +126,13 @@ def _check(q, k_pool, v_pool, k_scale, v_scale, block_tables,
     for t in (k_pool, v_pool):
         if t.data_ptr() % 16:
             raise ValueError("the pools must start on a 16-byte boundary")
+    if q.dtype == torch.bfloat16:
+        # the tensor-core sweep's shared memory depends on hd and the
+        # payload only (opted in by the launcher); a row holds all G heads
+        if G > TILE_ROWS:
+            raise ValueError(f"G={G} above {TILE_ROWS}: a bf16 tile holds "
+                             "all G heads of a row")
+        return pool_code
     smem = _smem_bytes(G, page, hd)
     if smem > SMEM_LIMIT:
         raise ValueError(f"G={G}, page={page}, hd={hd} needs {smem} bytes "
@@ -136,14 +150,21 @@ def paged_attention(q, k_pool, v_pool, block_tables, ctx_lens, *,
                        ctx_lens)
     B, Hkv, G, hd = q.shape
     page = k_pool.shape[1]
+    max_pages = block_tables.shape[1]
     out = torch.empty_like(q)
+    splits, part, counters, _scratch = 1, None, None, None
+    if q.dtype == torch.bfloat16:
+        splits = split_count(B * Hkv, max_pages * page,
+                             sm_count(q.device.index))
+        part, counters, _scratch = split_scratch(splits, q)
     err = _build.lib().paged_attention_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         None if k_scale is None else k_scale.data_ptr(),
         None if v_scale is None else v_scale.data_ptr(),
         block_tables.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),
-        B, Hkv, G, hd, page, block_tables.shape[1],
-        0 if window is None else int(window),
+        part, counters,
+        B, Hkv, G, hd, page, max_pages,
+        0 if window is None else int(window), splits,
         0.0 if softcap is None else float(softcap), 1.0 / math.sqrt(hd),
         DTYPES[q.dtype], pool_code,
         torch.cuda.current_stream(q.device).cuda_stream)
