@@ -78,14 +78,15 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      21 gla_scan launches, finite logits
  18. timing        — each kernel, its plain version and the one-call PyTorch
                      yardstick, timed with CUDA events on the inputs the
-                     serve, train and ssm_serve runs gave it (the paged
-                     attention kernels' device time by CUDA graph
-                     replays); bound from those inputs; the ragged
-                     kernel also at its largest
-                     decode-only call and at every bucketed N the serve
-                     runs gave it (launches x (ms - bound) summed over
-                     the sizes); with --parent DIR, the parent checkout's
-                     attention kernels in turns with these
+                     serve, train and ssm_serve runs gave it, launched
+                     from the host (ms); the paged attention kernels also
+                     as device time by CUDA graph replays (device_ms);
+                     bound from those inputs; the ragged kernel also at
+                     its largest decode-only call and at the last call of
+                     every bucketed N the serve runs gave it (launches x
+                     (time - bound) summed over the sizes, by both
+                     measures); with --parent DIR, another checkout's
+                     attention wrappers in turns with these
  19. profile       — torch.profiler over a window of serve steps, over one
                      train step and over one xlstm prefill: device busy
                      share and device time by kernel
@@ -435,9 +436,13 @@ def tile_edge_cases(ragged_case, paged_case, dtype, full) -> None:
     G) at G {1, 4, 8} and hd {32, 128}; two sequences inside one tile;
     unsorted tok_seq; decode-only buckets whose contexts end at a split's
     edge, one past it and at the full 64-page table; the paged kernel at
-    B = 1 (a split a 64-key stage) and B = 3 over the same edges."""
+    B = 1 (a split a 64-key stage) and B = 3 over the same edges; a G
+    past a tile's rows (the CUDA-core kernel); and the split-KV arrival
+    counters zero after all of them."""
     import torch
-    from repro_torch.kernels.ragged_paged_attention import tile_tokens
+    from repro_torch.kernels.ragged_paged_attention import (_COUNTERS,
+                                                            TILE_ROWS,
+                                                            tile_tokens)
     for G, hd in ((1, 64), (4, 64), (8, 64), (4, 32), (8, 128)):
         kw = dict(full, G=G, hd=hd)
         tq = tile_tokens(G)
@@ -470,6 +475,17 @@ def tile_edge_cases(ragged_case, paged_case, dtype, full) -> None:
             paged_case(f"B=3 ctx 65/1024/0 G={G} hd={hd}", dtype, B=3,
                        ctx_lens=torch.tensor([65, 1024, 0]),
                        **dict(full, G=G, hd=hd))
+    # more heads a row than a tile holds: the CUDA-core kernel
+    wide = dict(full, G=TILE_ROWS + 8, hd=32)
+    ts, tp = layout([5, 1], [100, 687], pad=1)
+    ragged_case(f"G={wide['G']} hd=32", dtype, N=7, B=2, tok_seq=ts,
+                tok_pos=tp, **wide)
+    paged_case(f"G={wide['G']} hd=32", dtype, B=2,
+               ctx_lens=torch.tensor([687, 0]), **wide)
+    # every split launch leaves its arrival counters zero
+    torch.cuda.synchronize()
+    assert all(int(c.abs().sum()) == 0 for c in _COUNTERS.values()), \
+        "split counters left nonzero"
 
 
 def same_bytes(a, b) -> bool:
@@ -986,10 +1002,14 @@ class Recorder:
         import repro_torch.models.attention as attention
         self.calls = {}
         # the ragged op's calls by bucketed N (q's rows, known without a
-        # sync): {key: {N: calls}} and the first call of each N; and the
+        # sync): {key: {N: calls}} and the last call of each N; and the
         # bf16 decode-only calls (no more rows than block-table rows):
-        # their count and the first of the largest, the timing phase's
-        # "ragged_paged_attention_decode"
+        # their count and the last of the largest, the timing phase's
+        # "ragged_paged_attention_decode". The last call of a size is the
+        # latest in the run, so its contexts are among the run's longest;
+        # it is kept by reference (the engine uploads fresh routing every
+        # step and writes no q after the call), so keeping it costs the
+        # serve no copy
         self.by_size = {k: {} for k in self.RAGGED}
         self.size_calls = {k: {} for k in self.RAGGED}
         self.decode_launches = 0
@@ -1031,12 +1051,11 @@ class Recorder:
         n = args[0].shape[0]
         counts = self.by_size[key]
         counts[n] = counts.get(n, 0) + 1
-        if counts[n] == 1:
-            self.size_calls[key][n] = (self._keep(args), self._keep(kw))
+        self.size_calls[key][n] = (args, dict(kw))
         if key == "ragged_paged_attention" and n <= args[3].shape[0]:
             self.decode_launches += 1
-            if n > self.decode_call[0]:
-                self.decode_call = (n, self._keep(args), self._keep(kw))
+            if n >= self.decode_call[0]:
+                self.decode_call = (n, args, dict(kw))
 
     def _keep(self, tree):
         from repro_torch.utils.tree import tree_map
@@ -1061,7 +1080,7 @@ class Recorder:
 
     def call(self, key: str, device="cuda", size=None):
         """The recorded (args, kw) of ``key``'s largest call (or, for a
-        ragged key, of its first call of ``size`` rows), on ``device``."""
+        ragged key, of its last call of ``size`` rows), on ``device``."""
         from repro_torch.utils.tree import tree_map
         if key == "ragged_paged_attention_decode":
             rec = self.decode_call[1:]
@@ -1225,61 +1244,44 @@ def serve(policy: str, recorder: Recorder, *, tiny: bool = False,
 # phase 15: timing on the main path's inputs
 # ---------------------------------------------------------------------------
 def parent_kernels(parent: Path):
-    """The parent commit's ragged and paged attention kernels, built from
-    its checkout at ``parent`` by its own ``_build.py`` and called through
-    its C signatures, for timing both versions in one run."""
-    import importlib.util
-    import torch
-    from repro_torch.kernels.kv_quant import attention_pool_code
-    spec = importlib.util.spec_from_file_location(
-        "parent_build", parent / "src/repro_torch/kernels/_build.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    lib = mod.lib()
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    def common(q, kp, vp, k_scale, v_scale, window, softcap):
-        code = attention_pool_code("parent", q, kp, vp, k_scale, v_scale)
-        return (int(window or 0), float(softcap or 0.0),
-                1.0 / math.sqrt(q.shape[-1]),
-                int(q.dtype == torch.bfloat16), code,
-                torch.cuda.current_stream(q.device).cuda_stream)
-
-    def ragged(q, kp, vp, bt, ts, tp, *, k_scale=None, v_scale=None,
-               softcap=None, window=None):
-        out = torch.empty_like(q)
-        w, cap, scale, dt, code, st = common(q, kp, vp, k_scale, v_scale,
-                                              window, softcap)
-        assert lib.ragged_paged_attention_launch(
-            q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ptr(k_scale),
-            ptr(v_scale), bt.data_ptr(), ts.data_ptr(), tp.data_ptr(),
-            out.data_ptr(), *q.shape, kp.shape[1], bt.shape[1], w, cap,
-            scale, dt, code, st) == 0
-        return out
-
-    def paged(q, kp, vp, bt, ctx, *, k_scale=None, v_scale=None,
-              softcap=None, window=None):
-        out = torch.empty_like(q)
-        w, cap, scale, dt, code, st = common(q, kp, vp, k_scale, v_scale,
-                                              window, softcap)
-        assert lib.paged_attention_launch(
-            q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ptr(k_scale),
-            ptr(v_scale), bt.data_ptr(), ctx.data_ptr(), out.data_ptr(),
-            *q.shape, kp.shape[1], bt.shape[1], w, cap, scale, dt, code,
-            st) == 0
-        return out
-
+    """The ragged and paged attention wrappers of another checkout of the
+    port at ``parent`` (the parent commit's, for timing both versions in
+    one run): its ``repro_torch`` modules are imported from its own source
+    tree, so its kernels build there by its own ``_build.py`` and are
+    called through its own wrappers, whatever their C signatures
+    (``build`` builds them). This tree's modules are put back afterwards;
+    the parent's launch counts are its own."""
+    import importlib
     import types
-    return types.SimpleNamespace(ragged=ragged, paged=paged)
+
+    def ours():
+        return {k: m for k, m in sys.modules.items()
+                if k == "repro_torch" or k.startswith("repro_torch.")}
+    saved = ours()
+    for k in saved:
+        del sys.modules[k]
+    src = str(parent / "src")
+    sys.path.insert(0, src)
+    try:
+        rpa = importlib.import_module(
+            "repro_torch.kernels.ragged_paged_attention")
+        pa = importlib.import_module("repro_torch.kernels.paged_attention")
+    finally:
+        sys.path.remove(src)
+        for k in ours():
+            del sys.modules[k]
+        sys.modules.update(saved)
+    return types.SimpleNamespace(ragged=rpa.ragged_paged_attention,
+                                 paged=pa.paged_attention,
+                                 build=rpa._build.lib)
 
 
 def time_kernels(recorder: Recorder, worst: dict, launches: dict,
                  parent=None) -> list:
-    """Rows 1-6 (and 1d); with ``parent`` (``parent_kernels``), the
-    parent's attention kernels timed in turns with these on the same
-    inputs."""
+    """Rows 1-6 (and 1d), each ``ms`` launched from the host as earlier
+    rows were; the attention rows also as device time. With ``parent``
+    (``parent_kernels``), the parent's attention wrappers timed in turns
+    with these on the same inputs."""
     import torch
     from repro_torch.kernels.kv_append import kv_append, kv_append_ref
     from repro_torch.kernels.kv_quant import (page_requant, page_requant_ref,
@@ -1371,23 +1373,27 @@ def time_kernels(recorder: Recorder, worst: dict, launches: dict,
     def bound_ms(nbytes, ops, dtype):
         return max(nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]) * 1e3
 
-    def against_parent(row_, old_fn, kernel_fn, iters):
-        """parent, change, change, parent on the same inputs, device time
-        (graph_ms); the row's ms becomes this kernel's device time"""
-        row_["host_loop_ms"] = row_["ms"]
+    def device_time(row_, kernel_fn, old_fn, iters):
+        """The row's device time, ``device_ms`` (graph_ms: no host time per
+        call), beside its ``ms`` (cuda_ms over calls launched from Python,
+        as every row is timed). With the parent's kernel, both measures
+        of both kernels in turns, parent, change, change, parent:
+        ``parent_ms`` and ``parent_device_ms``."""
         if old_fn is None:
-            row_["ms"] = graph_ms(kernel_fn, iters)
-            log(f"    device time {row_['ms']:.4f} ms; host-launched loop "
-                f"{row_['host_loop_ms']:.4f} ms")
+            row_["device_ms"] = graph_ms(kernel_fn, iters)
+            log(f"    device time {row_['device_ms']:.4f} ms (launched "
+                f"from the host {row_['ms']:.4f} ms)")
             return
-        turns = [graph_ms(f, iters) for f in (old_fn, kernel_fn, kernel_fn,
-                                               old_fn)]
-        new_ms, old_ms = min(turns[1:3]), min(turns[0], turns[3])
-        log(f"    device time in turns: parent's kernel {old_ms:.4f} ms, "
-            f"this one {new_ms:.4f} ms ({old_ms / new_ms:.2f}x); host-"
-            f"launched loop {row_['host_loop_ms']:.4f} ms")
-        row_["ms"] = new_ms
-        row_["parent_ms"] = old_ms
+        order = (old_fn, kernel_fn, kernel_fn, old_fn)
+        loop = [cuda_ms(f, iters) for f in order]
+        dev = [graph_ms(f, iters) for f in order]
+        row_["device_ms"] = min(dev[1:3])
+        row_["parent_ms"] = min(loop[0], loop[3])
+        row_["parent_device_ms"] = min(dev[0], dev[3])
+        log(f"    in turns with the parent's kernel: launched from the "
+            f"host {row_['parent_ms']:.4f} -> {min(loop[1:3]):.4f} ms, "
+            f"device time {row_['parent_device_ms']:.4f} -> "
+            f"{row_['device_ms']:.4f} ms")
 
     # ragged paged attention: no single PyTorch call computes it. Rows 1
     # and 1q at the largest call, 1d at the largest decode-only call
@@ -1420,14 +1426,17 @@ def time_kernels(recorder: Recorder, worst: dict, launches: dict,
         splits = split_count(tiles * Hkv, bt.shape[1] * kp.shape[1],
                              sm_count(0))
         row(name, ms, plain_ms, None, nbytes, ops, str(q.dtype)[6:], err,
-            list(q.shape) + [f"{tiles} tiles x {Hkv} heads x {splits} "
+            list(q.shape) + [f"ctx up to {int(tok_pos.max()) + 1}",
+                             f"{tiles} tiles x {Hkv} heads x {splits} "
                              "splits"])
-        against_parent(rows[-1], old_fn if parent else None, kernel_fn,
-                       20)
+        device_time(rows[-1], kernel_fn, old_fn if parent else None, 20)
         if key not in recorder.by_size:
             continue
-        # launches x (ms - bound) at every bucketed N the serve runs gave
-        by_size, gap, old_gap = [], 0.0, 0.0
+        # launches x (ms - bound) at every bucketed N the serve runs gave,
+        # each N timed at its last call, by both measures
+        by_size = []
+        gap = {m: 0.0 for m in ("ms", "device_ms", "parent_ms",
+                                "parent_device_ms")}
         counts = recorder.by_size[key]
         assert sum(counts.values()) == launches[name], (counts, name)
         for n in sorted(counts):
@@ -1436,23 +1445,28 @@ def time_kernels(recorder: Recorder, worst: dict, launches: dict,
             b_ms = bound_ms(*ragged_work(a[0], a[1], a[3], a[4], a[5],
                                          k.get("window")),
                             str(a[0].dtype)[6:])
-            k_ms = graph_ms(lambda: ragged_paged_attention(*a, **sc, **k),
-                            10)
-            entry = {"N": n, "launches": counts[n], "ms": k_ms,
-                     "bound_ms": b_ms}
-            gap += counts[n] * (k_ms - b_ms)
+            entry = {"N": n, "launches": counts[n], "bound_ms": b_ms,
+                     "ctx": int(a[5].max()) + 1}
+            fns = {"ms": lambda: ragged_paged_attention(*a, **sc, **k)}
             if parent:
-                entry["parent_ms"] = graph_ms(
-                    lambda: parent.ragged(*a, **sc, **k), 10)
-                old_gap += counts[n] * (entry["parent_ms"] - b_ms)
+                fns["parent_ms"] = lambda: parent.ragged(*a, **sc, **k)
+            for m, fn in fns.items():
+                entry[m] = cuda_ms(fn, 10)
+                entry[m.replace("ms", "device_ms")] = graph_ms(fn, 10)
+            for m in gap:
+                if m in entry:
+                    gap[m] += counts[n] * (entry[m] - b_ms)
             by_size.append(entry)
-            log(f"    N={n}: {counts[n]} launches, {k_ms:.4f} ms"
-                + (f" (parent {entry['parent_ms']:.4f})" if parent else "")
+            log(f"    N={n} (ctx up to {entry['ctx']}): {counts[n]} "
+                "launches, " + ", ".join(f"{m} {entry[m]:.4f}" for m in gap
+                                         if m in entry)
                 + f", bound {b_ms:.5f} ms")
         rows[-1]["by_size"] = by_size
-        rows[-1]["launches_x_gap_s"] = gap / 1e3
-        log(f"    launches x (ms - bound) over the sizes: {gap / 1e3:.3f} s"
-            + (f" (parent {old_gap / 1e3:.3f} s)" if parent else ""))
+        rows[-1]["launches_x_gap_s"] = gap["ms"] / 1e3
+        rows[-1]["launches_x_device_gap_s"] = gap["device_ms"] / 1e3
+        log("    launches x (time - bound) over the sizes: " + ", ".join(
+            f"{m} {gap[m] / 1e3:.3f} s" for m in gap
+            if parent or "parent" not in m))
 
     # paged decode attention: no single PyTorch call computes it either
     for name, plain in (("paged_attention", paged_attention_ref),
@@ -1480,8 +1494,7 @@ def time_kernels(recorder: Recorder, worst: dict, launches: dict,
         row(name, ms, plain_ms, None, nbytes, ops, str(q.dtype)[6:], err,
             list(q.shape) + [f"ctx {ctx_lens.tolist()}",
                              f"{splits} splits"])
-        against_parent(rows[-1], old_fn if parent else None, kernel_fn,
-                       20)
+        device_time(rows[-1], kernel_fn, old_fn if parent else None, 20)
 
     # kv_append: two pools and a validity mask, no single PyTorch call
     args, _ = recorder.call("kv_append")
@@ -2460,9 +2473,11 @@ def main() -> int:
                          "1-6, the train phase for the flash rows and "
                          "ssm_serve for the gla_scan row)")
     ap.add_argument("--parent", default=None,
-                    help="a checkout of the parent commit: its ragged and "
-                         "paged attention kernels are built there and "
-                         "timed in turns with these in the timing phase")
+                    help="another checkout of the port (the parent "
+                         "commit's): its ragged and paged attention "
+                         "wrappers are imported from there, build their "
+                         "kernels there and are timed in turns with these "
+                         "in the timing phase")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     t_start = time.perf_counter()
@@ -2592,8 +2607,11 @@ def main() -> int:
         total["ragged_paged_attention_decode"] = recorder.decode_launches
         parent = None
         if args.parent:
+            t0 = time.perf_counter()
             parent = parent_kernels(Path(args.parent).resolve())
-            log(f"  the parent's kernels built from {args.parent}")
+            parent.build()
+            log(f"  the parent's kernels built from {args.parent} in "
+                f"{time.perf_counter() - t0:.1f} s")
         rows = time_kernels(recorder, worst, total, parent)
     if "timing" in phases and "train" in phases:
         log("[timing] flash attention on the train step's first attention "

@@ -17,22 +17,23 @@
 // A 1-byte payload halves the bytes of a bf16 pool.
 //
 // Two routes:
-// - bf16 q (every serve path): the tensor-core sweep of paged_tc.cuh, the
-//   ragged problem with one row per sequence (tile b = row b at position
-//   ctx_lens[b] - 1). A B = 1 decode alone gives Hkv blocks, so the keys
-//   are split over blockIdx.z (the wrapper sizes the split from B and the
-//   table, without a host sync) and merged by log-sum-exp; each split's
-//   pages are staged by pipelined cp.async, the four warps share out its
-//   keys, and the scores and P.V run on mma.sync.
-// - float32 q (the parity checks): the CUDA-core kernel below, one block
-//   per (sequence b, kv head h), the TPU grid's (B, Hkv) axes; a loop inside
-//   the block visits only the live pages, i * page < ctx and, for a window,
-//   (i + 1) * page > ctx - window, as the TPU kernel's pl.when does. Each
-//   page's K and V tile for head h is staged through shared memory with
-//   16-byte loads (converted to float32 and multiplied by the page's scale
-//   as they are stored; K rows padded by one float against bank
-//   conflicts); the G query rows and their running max, sum and
-//   accumulator stay in float32 shared memory.
+// - bf16 q with G <= 64 (every serve path): the tensor-core sweep of
+//   paged_tc.cuh, the ragged problem with one row per sequence (tile b =
+//   row b at position ctx_lens[b] - 1). A B = 1 decode alone gives Hkv
+//   blocks, so the keys are split over blockIdx.z (the wrapper sizes the
+//   split from B and the table, without a host sync) and merged by
+//   log-sum-exp; each split's pages are staged by pipelined cp.async, the
+//   four warps share out its keys, and the scores and P.V run on mma.sync.
+// - float32 q (the parity checks), and bf16 q with G > 64 (more rows than a
+//   tile holds): the CUDA-core kernel below, one block per (sequence b, kv
+//   head h), the TPU grid's (B, Hkv) axes; a loop inside the block visits
+//   only the live pages, i * page < ctx and, for a window, (i + 1) * page >
+//   ctx - window, as the TPU kernel's pl.when does. Each page's K and V
+//   tile for head h is staged through shared memory with 16-byte loads
+//   (converted to float32 and multiplied by the page's scale as they are
+//   stored; K rows padded by one float against bank conflicts); the G query
+//   rows and their running max, sum and accumulator stay in float32 shared
+//   memory.
 #include "paged_tc.cuh"
 #include "payload.cuh"
 
@@ -216,12 +217,13 @@ int launch_pool(int pool_dtype, int hd, const Params& prm, int B,
 
 }  // namespace
 
-// dtype (q and out): 0 = float32 (CUDA cores), 1 = bfloat16 (tensor
-// cores). pool_dtype: 0 = q's type (k_scale and v_scale null), 1 = int8,
-// 2 = float8 e4m3, 3 = float8 e5m2 (both scales set). window <= 0 and
-// softcap <= 0 mean none. bfloat16 only: `splits` key splits, G <= 64; with
-// splits > 1, part is (splits, B, Hkv, G, hd + 4) float32 scratch and
-// counters (B, Hkv) int32 scratch, zeroed here on the stream. Returns the
+// dtype (q and out): 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores
+// for G <= 64, the CUDA-core kernel above for a larger G). pool_dtype: 0 =
+// q's type (k_scale and v_scale null), 1 = int8, 2 = float8 e4m3, 3 =
+// float8 e5m2 (both scales set). window <= 0 and softcap <= 0 mean none.
+// Tensor cores only: `splits` key splits; with splits > 1, part is (splits,
+// B, Hkv, G, hd + 4) float32 scratch and counters (B, Hkv) int32, zero at
+// the launch and left zero by it. Returns the
 // cudaError_t of the launch.
 extern "C" int paged_attention_launch(
     const void* q, const void* k_pool, const void* v_pool,
@@ -234,7 +236,7 @@ extern "C" int paged_attention_launch(
       (k_scale == nullptr) != (v_scale == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
+  if (dtype == 1 && G <= ptc::kRows) {
     if (splits > 1 && (!part || !counters))
       return static_cast<int>(cudaErrorInvalidValue);
     const ptc::Params p{static_cast<const __nv_bfloat16*>(q), k_pool, v_pool,
@@ -244,9 +246,11 @@ extern "C" int paged_attention_launch(
                         splits, softcap, scale};
     return ptc::dispatch(pool_dtype, hd, p, B, s);
   }
-  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 0 && dtype != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Params prm{q, k_pool, v_pool, k_scale, v_scale, block_tables,
                    ctx_lens, out, Hkv, G, page, max_pages, window, softcap,
                    scale};
-  return launch_pool<float>(pool_dtype, hd, prm, B, s);
+  return dtype == 0 ? launch_pool<float>(pool_dtype, hd, prm, B, s)
+                   : launch_pool<__nv_bfloat16>(pool_dtype, hd, prm, B, s);
 }

@@ -65,7 +65,7 @@ struct Params {
   const int* ctx_lens;          // (N,) paged rows, row b = sequence b; or null
   bf16* out;                    // (N, Hkv, G, HD)
   float* part;                  // (splits, N, Hkv, G, HD + 4), splits > 1
-  int* counters;                // (N, Hkv), splits > 1: zeroed by launch
+  int* counters;                // (N, Hkv), splits > 1: zero, left zero
   int N, Hkv, G, page, max_pages, window, tq, splits;
   float softcap, scale;
 };
@@ -569,9 +569,12 @@ __device__ void finish(const Params& p, const Tile& t, unsigned char* area,
   if (!multi) return;
   __threadfence();
   __syncthreads();
+  int* counter = p.counters + (long long)t.start * p.Hkv + h;
   if (tid == 0) {
-    const int prev = atomicAdd(p.counters + (long long)t.start * p.Hkv + h, 1);
+    const int prev = atomicAdd(counter, 1);
     meta[kFlag + 6] = prev == n_splits - 1;
+    // every split has arrived: the counter is free for the next launch
+    if (prev == n_splits - 1) *counter = 0;
   }
   __syncthreads();
   if (!meta[kFlag + 6]) return;
@@ -678,12 +681,12 @@ cudaError_t opt_in() {
   return e;
 }
 
-// With splits > 1 the counters are zeroed on the stream first.
+// With splits > 1 the counters must be zero at the launch; the merging
+// block of each (tile, head) leaves its counter zero again, so a buffer
+// zeroed once serves every launch on its stream.
 template <typename P, int HD>
 int launch(const Params& p, int tiles, cudaStream_t s) {
-  cudaError_t e = opt_in<P, HD>();
-  if (e == cudaSuccess && p.splits > 1)
-    e = cudaMemsetAsync(p.counters, 0, sizeof(int) * p.N * p.Hkv, s);
+  const cudaError_t e = opt_in<P, HD>();
   if (e != cudaSuccess) return static_cast<int>(e);
   paged_tc_kernel<P, HD><<<dim3(tiles, p.Hkv, p.splits), kThreads,
                            Cfg<P, HD>::kSmem, s>>>(p);

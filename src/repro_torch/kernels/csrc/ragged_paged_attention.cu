@@ -16,21 +16,22 @@
 // halves the bytes of a bf16 pool.
 //
 // Two routes:
-// - bf16 q (every serve path): the tensor-core sweep of paged_tc.cuh. A
-//   block takes a tile of up to 64 / G consecutive rows of one sequence
-//   (found in-kernel from tok_seq, so any order is right and the engine's
-//   consecutive layout is fast), stages each visible page once for the
-//   whole tile with pipelined cp.async, runs the scores and P.V on mma.sync,
-//   and splits the keys over blockIdx.z when the tiles alone cannot fill
-//   the card (decode-only iterations), merging the splits by log-sum-exp.
-// - float32 q (the parity checks): the CUDA-core kernel below, one block
-//   per (token n, kv head h). It loads its own tok_seq[n] / tok_pos[n] and
-//   block-table row, loops over the live pages only, stages each page's K
-//   and V tile for head h through shared memory with 16-byte loads
-//   (converted to float32 and multiplied by the page's scale as they are
-//   stored; K rows padded by one float against bank conflicts); each of the
-//   G query rows keeps its running max, sum and accumulator in float32
-//   shared memory.
+// - bf16 q with G <= 64 (every serve path): the tensor-core sweep of
+//   paged_tc.cuh. A block takes a tile of up to 64 / G consecutive rows of
+//   one sequence (found in-kernel from tok_seq, so any order is right and
+//   the engine's consecutive layout is fast), stages each visible page once
+//   for the whole tile with pipelined cp.async, runs the scores and P.V on
+//   mma.sync, and splits the keys over blockIdx.z when the tiles alone
+//   cannot fill the card (decode-only iterations), merging the splits by
+//   log-sum-exp.
+// - float32 q (the parity checks), and bf16 q with G > 64 (more rows than a
+//   tile holds): the CUDA-core kernel below, one block per (token n, kv
+//   head h). It loads its own tok_seq[n] / tok_pos[n] and block-table row,
+//   loops over the live pages only, stages each page's K and V tile for
+//   head h through shared memory with 16-byte loads (converted to float32
+//   and multiplied by the page's scale as they are stored; K rows padded by
+//   one float against bank conflicts); each of the G query rows keeps its
+//   running max, sum and accumulator in float32 shared memory.
 #include "paged_tc.cuh"
 #include "payload.cuh"
 
@@ -215,13 +216,14 @@ int launch_pool(int pool_dtype, int hd, const Params& prm, int N,
 
 }  // namespace
 
-// dtype (q and out): 0 = float32 (CUDA cores), 1 = bfloat16 (tensor
-// cores). pool_dtype: 0 = q's type (k_scale and v_scale null), 1 = int8,
-// 2 = float8 e4m3, 3 = float8 e5m2 (both scales set). window <= 0 and
-// softcap <= 0 mean none. bfloat16 only: the grid takes `tiles` tiles of
-// `tq` rows (the last block the rest) times `splits` key splits, G <= 64;
-// with splits > 1, part is (splits, N, Hkv, G, hd + 4) float32 scratch and
-// counters (N, Hkv) int32 scratch, zeroed here on the stream. Returns the
+// dtype (q and out): 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores
+// for G <= 64, the CUDA-core kernel above for a larger G). pool_dtype: 0 =
+// q's type (k_scale and v_scale null), 1 = int8, 2 = float8 e4m3, 3 =
+// float8 e5m2 (both scales set). window <= 0 and softcap <= 0 mean none.
+// Tensor cores only: the grid takes `tiles` tiles of `tq` rows (the last
+// block the rest) times `splits` key splits; with splits > 1, part is
+// (splits, N, Hkv, G, hd + 4) float32 scratch and counters (N, Hkv) int32,
+// zero at the launch and left zero by it. Returns the
 // cudaError_t of the launch.
 extern "C" int ragged_paged_attention_launch(
     const void* q, const void* k_pool, const void* v_pool,
@@ -235,7 +237,7 @@ extern "C" int ragged_paged_attention_launch(
       (k_scale == nullptr) != (v_scale == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
+  if (dtype == 1 && G <= ptc::kRows) {
     if (tq < 1 || tiles < 1 || (splits > 1 && (!part || !counters)))
       return static_cast<int>(cudaErrorInvalidValue);
     const ptc::Params p{static_cast<const __nv_bfloat16*>(q), k_pool, v_pool,
@@ -245,11 +247,13 @@ extern "C" int ragged_paged_attention_launch(
                         splits, softcap, scale};
     return ptc::dispatch(pool_dtype, hd, p, tiles, s);
   }
-  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 0 && dtype != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Params prm{q, k_pool, v_pool, k_scale, v_scale, block_tables,
                    tok_seq, tok_pos, out, Hkv, G, page, max_pages, window,
                    softcap, scale};
-  return launch_pool<float>(pool_dtype, hd, prm, N, s);
+  return dtype == 0 ? launch_pool<float>(pool_dtype, hd, prm, N, s)
+                   : launch_pool<__nv_bfloat16>(pool_dtype, hd, prm, N, s);
 }
 
 // The tensor-core kernel's blocks per SM for head_dim hd and pool_dtype

@@ -24,15 +24,15 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.kv_quant import (attention_pool_code,
                                           dequant_gathered, gather_pages)
-from repro_torch.kernels.ragged_paged_attention import (TILE_ROWS,
-                                                        sm_count,
+from repro_torch.kernels.ragged_paged_attention import (sm_count,
                                                         split_count,
-                                                        split_scratch)
+                                                        split_scratch,
+                                                        tensor_cores)
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-SMEM_LIMIT = 48 * 1024      # the float32 kernel's shared memory, no opt-in
+SMEM_LIMIT = 48 * 1024      # the CUDA-core kernel's shared memory, no opt-in
 
 
 def _attend(q, k_cache, v_cache, ctx_lens, softcap, window):
@@ -87,7 +87,7 @@ def paged_attention_quant_ref(q, k_pool, v_pool, k_scale, v_scale,
 
 
 def _smem_bytes(G: int, page: int, hd: int) -> int:
-    # the float32 kernel's staged tiles are float32 whatever the payload: a
+    # the CUDA-core kernel's staged tiles are float32 whatever the payload: a
     # 16-byte load carries 16 / element size elements, dequantized as they
     # are stored
     return 4 * (2 * G * hd + page * (hd + 1) + page * hd + G * page + 3 * G)
@@ -126,12 +126,9 @@ def _check(q, k_pool, v_pool, k_scale, v_scale, block_tables,
     for t in (k_pool, v_pool):
         if t.data_ptr() % 16:
             raise ValueError("the pools must start on a 16-byte boundary")
-    if q.dtype == torch.bfloat16:
+    if tensor_cores(q):
         # the tensor-core sweep's shared memory depends on hd and the
-        # payload only (opted in by the launcher); a row holds all G heads
-        if G > TILE_ROWS:
-            raise ValueError(f"G={G} above {TILE_ROWS}: a bf16 tile holds "
-                             "all G heads of a row")
+        # payload only (opted in by the launcher)
         return pool_code
     smem = _smem_bytes(G, page, hd)
     if smem > SMEM_LIMIT:
@@ -152,11 +149,12 @@ def paged_attention(q, k_pool, v_pool, block_tables, ctx_lens, *,
     page = k_pool.shape[1]
     max_pages = block_tables.shape[1]
     out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     splits, part, counters, _scratch = 1, None, None, None
-    if q.dtype == torch.bfloat16:
+    if tensor_cores(q):
         splits = split_count(B * Hkv, max_pages * page,
                              sm_count(q.device.index))
-        part, counters, _scratch = split_scratch(splits, q)
+        part, counters, _scratch = split_scratch(splits, q, stream)
     err = _build.lib().paged_attention_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         None if k_scale is None else k_scale.data_ptr(),
@@ -166,8 +164,7 @@ def paged_attention(q, k_pool, v_pool, block_tables, ctx_lens, *,
         B, Hkv, G, hd, page, max_pages,
         0 if window is None else int(window), splits,
         0.0 if softcap is None else float(softcap), 1.0 / math.sqrt(hd),
-        DTYPES[q.dtype], pool_code,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        DTYPES[q.dtype], pool_code, stream)
     _build.check(err, "paged_attention")
     paged_attention.launches += 1
     return out

@@ -36,7 +36,7 @@ from repro_torch.kernels.kv_quant import (attention_pool_code,
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-SMEM_LIMIT = 48 * 1024      # the float32 kernel's shared memory, no opt-in
+SMEM_LIMIT = 48 * 1024      # the CUDA-core kernel's shared memory, no opt-in
 # the bf16 (tensor-core) sweep: a tile is at most TILE_ROWS query rows
 # (tokens x G heads), the keys are staged STAGE_KEYS positions at a time,
 # and a call splits its keys at most MAX_SPLITS ways
@@ -284,16 +284,12 @@ def _check(q, k_pool, v_pool, k_scale, v_scale, block_tables, tok_seq,
     for t in (k_pool, v_pool):
         if t.data_ptr() % 16:
             raise ValueError("the pools must start on a 16-byte boundary")
-    if q.dtype == torch.bfloat16:
+    if tensor_cores(q):
         # the tensor-core sweep's shared memory depends on hd and the
-        # payload only (at most ~100 KB, opted in by the launcher); a tile
-        # holds all G heads of a token
-        if G > TILE_ROWS:
-            raise ValueError(f"G={G} above {TILE_ROWS}: a bf16 tile holds "
-                             "all G heads of a token")
+        # payload only (at most ~100 KB, opted in by the launcher)
         return pool_code
-    # the float32 kernel's staged tiles: a 16-byte load carries 16 /
-    # element size elements, dequantized as they are stored
+    # the CUDA-core kernel's staged tiles: a 16-byte load carries 16 /
+    # element size elements, dequantized to float32 as they are stored
     smem = 4 * (2 * G * hd + page * (hd + 1) + page * hd + G * page + 3 * G)
     if smem > SMEM_LIMIT:
         raise ValueError(f"G={G}, page={page}, hd={hd} needs {smem} bytes "
@@ -301,18 +297,42 @@ def _check(q, k_pool, v_pool, k_scale, v_scale, block_tables, tok_seq,
     return pool_code
 
 
-def split_scratch(splits: int, q):
-    """The split-KV scratch of a call, one allocation: (splits, N, Hkv, G,
+def tensor_cores(q) -> bool:
+    """Whether q takes the tensor-core sweep: bf16, with all G heads of a
+    row inside one tile. The rest take the CUDA-core kernel."""
+    return q.dtype == torch.bfloat16 and q.shape[2] <= TILE_ROWS
+
+
+_COUNTERS = {}   # (device index, stream) -> int32 arrival counters
+
+
+def split_counters(n: int, device, stream: int) -> int:
+    """A pointer to at least ``n`` int32 arrival counters for ``stream``
+    (a handle) on ``device``. They are zeroed once, when made or grown,
+    and every launch leaves them zero (the merging block resets its own),
+    so no call pays for a memset; one buffer per stream keeps two streams'
+    launches apart."""
+    key = (device.index, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        size = max(n, 2 * buf.numel() if buf is not None else 0)
+        buf = _COUNTERS[key] = torch.zeros(size, dtype=torch.int32,
+                                           device=device)
+    return buf.data_ptr()
+
+
+def split_scratch(splits: int, q, stream: int):
+    """The split-KV scratch of a call on ``stream``: (splits, N, Hkv, G,
     hd + 4) float32 partials (the accumulator, the row max and sum,
-    16-byte rows), then N * Hkv int32 arrival counters, which the launcher
-    zeroes on the stream. None for one split. Returns (partials pointer,
-    counters pointer, the tensor that owns both)."""
+    16-byte rows), and N * Hkv arrival counters (``split_counters``). None
+    for one split. Returns (partials pointer, counters pointer, the
+    partials' tensor)."""
     if splits == 1:
         return None, None, None
     N, Hkv, G, hd = q.shape
-    n_part = splits * N * Hkv * G * (hd + 4)
-    buf = torch.empty(n_part + N * Hkv, dtype=torch.float32, device=q.device)
-    return buf.data_ptr(), buf.data_ptr() + 4 * n_part, buf
+    part = torch.empty(splits * N * Hkv * G * (hd + 4), dtype=torch.float32,
+                       device=q.device)
+    return part.data_ptr(), split_counters(N * Hkv, q.device, stream), part
 
 
 def ragged_paged_attention(q, k_pool, v_pool, block_tables, tok_seq,
@@ -328,13 +348,14 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, tok_seq,
     page = k_pool.shape[1]
     B, max_pages = block_tables.shape
     out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     tq, tiles, splits, part, counters = tile_tokens(G), 1, 1, None, None
-    _scratch = None   # owns part and counters until the launch is queued
-    if q.dtype == torch.bfloat16:
+    _scratch = None   # owns part until the launch is queued
+    if tensor_cores(q):
         tiles = tile_grid(N, G, B)
         splits = split_count(tiles * Hkv, max_pages * page,
                              sm_count(q.device.index))
-        part, counters, _scratch = split_scratch(splits, q)
+        part, counters, _scratch = split_scratch(splits, q, stream)
     err = _build.lib().ragged_paged_attention_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         None if k_scale is None else k_scale.data_ptr(),
@@ -344,8 +365,7 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, tok_seq,
         N, Hkv, G, hd, page, max_pages,
         0 if window is None else int(window), tq, tiles, splits,
         0.0 if softcap is None else float(softcap), 1.0 / math.sqrt(hd),
-        DTYPES[q.dtype], pool_code,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        DTYPES[q.dtype], pool_code, stream)
     _build.check(err, "ragged_paged_attention")
     ragged_paged_attention.launches += 1
     return out

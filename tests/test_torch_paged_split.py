@@ -27,8 +27,9 @@ from repro_torch.kernels.paged_attention import (paged_attention,
 from repro_torch.kernels.ragged_paged_attention import (
     MAX_SPLITS, STAGE_KEYS, attention_partials, block_tiles, merge_partials,
     plan_tiles, ragged_paged_attention, ragged_paged_attention_quant_ref,
-    ragged_paged_attention_ref, ragged_paged_attention_split_ref,
-    split_count, split_key_bounds, tile_grid, tile_tokens)
+    TILE_ROWS, _COUNTERS, ragged_paged_attention_ref,
+    ragged_paged_attention_split_ref, split_count, split_key_bounds,
+    tensor_cores, tile_grid, tile_tokens)
 
 pytest.importorskip("hypothesis")
 from hypothesis import given, settings  # noqa: E402
@@ -266,6 +267,78 @@ def test_paged_is_ragged_with_one_row_per_sequence():
     _close(got, paged_attention_ref(q, kp, vp, bt, ctx), SPLIT_TOL)
 
 
+@pytest.mark.parametrize("dtype,G,sweep", [
+    (torch.bfloat16, 1, True), (torch.bfloat16, TILE_ROWS, True),
+    (torch.bfloat16, TILE_ROWS + 8, False), (torch.float32, 4, False)])
+def test_route_by_dtype_and_group(dtype, G, sweep):
+    """bf16 q takes the tensor-core sweep while a tile holds all G heads of
+    a row; a larger G, and float32 q, take the CUDA-core kernel."""
+    assert tensor_cores(torch.zeros((2, 1, G, 32), dtype=dtype)) is sweep
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py's timing records
+# ---------------------------------------------------------------------------
+def _chip_smoke():
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.pop(0)
+    return chip_smoke
+
+
+def test_recorder_keeps_the_last_call_of_each_size():
+    """The timing phase times each bucketed N at its last call, and row 1d
+    at the last of the largest decode-only calls: the run's latest, so
+    the longest contexts of that size."""
+    import repro_torch.models.attention as attention
+    rec = _chip_smoke().Recorder()
+    calls = []
+    with rec:
+        for n, ctx in ((4, 10), (8, 20), (4, 30), (2, 40), (4, 50),
+                       (2, 60)):
+            args = _inputs(n * ctx, N=n, B=4, tok_pos=[ctx - 1] * n)
+            attention.ragged_paged_attention_op(*args)
+            calls.append((n, args))
+    last = {n: args for n, args in calls}
+    counts = rec.by_size["ragged_paged_attention"]
+    assert counts == {4: 3, 8: 1, 2: 2}
+    for n, args in last.items():
+        got, _ = rec.call("ragged_paged_attention", device="cpu", size=n)
+        assert all(torch.equal(a, b) for a, b in zip(got, args))
+    # decode-only: no more rows than the block table's 4
+    got, _ = rec.call("ragged_paged_attention_decode", device="cpu")
+    assert rec.decode_launches == 5 and torch.equal(got[5], last[4][5])
+
+
+def test_parent_kernels_import_another_tree_under_its_own_modules():
+    """--parent loads another checkout's wrappers through its own modules
+    (here this very tree's source, imported a second time) and leaves this
+    tree's modules as they were."""
+    import sys
+    from pathlib import Path
+    from repro_torch.kernels import _build, ragged_paged_attention as rpa
+    cs = _chip_smoke()
+    before = {k: m for k, m in sys.modules.items()
+              if k.startswith("repro_torch")}
+    ns = cs.parent_kernels(Path(cs.ROOT))
+    after = {k: m for k, m in sys.modules.items()
+             if k.startswith("repro_torch")}
+    assert after.keys() == before.keys()
+    assert all(after[k] is before[k] for k in before)
+    assert ns.ragged is not rpa.ragged_paged_attention
+    assert ns.ragged.__globals__["_build"] is not _build
+    assert ns.build.__module__ == "repro_torch.kernels._build"
+    with pytest.raises(ValueError, match="launches a CUDA kernel"):
+        ns.ragged(*_inputs(0, N=2, B=1))
+    with pytest.raises(ValueError, match="launches a CUDA kernel"):
+        q, kp, vp, bt, _, _ = _inputs(0, N=1, B=1)
+        ns.paged(q, kp, vp, bt, torch.tensor([3], dtype=torch.int32))
+
+
 # ---------------------------------------------------------------------------
 # on the card: the kernels at the sweep's edges
 # ---------------------------------------------------------------------------
@@ -359,3 +432,41 @@ def test_gpu_quantized_tile_edges(cuda, name):
     got = paged_attention(q[:3], kq, vq, bt, lens, k_scale=ks, v_scale=vs)
     want = paged_attention_quant_ref(q[:3], kq, vq, ks, vs, bt, lens)
     torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", [TILE_ROWS + 8])
+def test_gpu_bf16_group_past_a_tile(cuda, G):
+    """bf16 q with more heads a row than a tile holds runs the CUDA-core
+    kernel in both entry points, at the same tolerance."""
+    seq, pos = _layout([5, 1], [100, 687], 1)
+    args = _card_inputs(cuda, seq, pos, G=G, hd=32, B=2)
+    torch.testing.assert_close(ragged_paged_attention(*args).float(),
+                               ragged_paged_attention_ref(*args).float(),
+                               atol=3e-2, rtol=0)
+    q, kp, vp, bt = args[:4]
+    lens = torch.tensor([687, 0], dtype=torch.int32, device=cuda)
+    got = paged_attention(q[:2], kp, vp, bt, lens)
+    torch.testing.assert_close(
+        got.float(), paged_attention_ref(q[:2], kp, vp, bt, lens).float(),
+        atol=3e-2, rtol=0)
+
+
+@pytest.mark.gpu
+def test_gpu_split_counters_are_left_zero(cuda):
+    """The arrival counters are zeroed once: every split launch leaves them
+    zero, so launch after launch on one stream merges the same result."""
+    seq, pos = _layout([1] * 8, [63, 64, 255, 256, 767, 768, 1023, 0])
+    args = _card_inputs(cuda, seq, pos, G=4, hd=64, B=8)
+    q, kp, vp, bt = args[:4]
+    lens = torch.tensor([1000], dtype=torch.int32, device=cuda)
+
+    def paged():
+        return paged_attention(q[:1], kp, vp, bt[:1], lens)
+    first, first_paged = ragged_paged_attention(*args), paged()
+    for _ in range(3):
+        assert torch.equal(ragged_paged_attention(*args), first)
+        assert torch.equal(paged(), first_paged)
+    torch.cuda.synchronize()
+    assert _COUNTERS and all(int(c.abs().sum()) == 0
+                             for c in _COUNTERS.values())
