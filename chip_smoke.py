@@ -12,8 +12,10 @@ Phases; any failure ends the run with a non-zero exit and no result line:
   2. build         — nvcc every csrc/*.cu for sm_90a, load the library
   3. kernels       — each kernel against its plain version on the card, at
                      llama3.2-1b's widths (Hkv 8, G 4, hd 64, page 16) in
-                     bf16 and f32, plus edge cases; the quantized pools'
-                     kernels (page_requant, the kv_append_quant composite,
+                     bf16 and f32, plus edge cases (kv_append at its 8-row
+                     blocks' edges); the quantized pools' kernels
+                     (page_requant, the fused kv_append_quant over Hkv
+                     {1, 8} x hd {32, 64, 128} x N {1, 7, 16, 17, 512},
                      the scaled attention kernels) for int8, float8_e4m3
                      and float8_e5m2; the bf16 attention sweep's tile and
                      split edges (chunks of tq - 1, tq, tq + 1 tokens at
@@ -64,7 +66,8 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      segment emits only its seed token, so only the closed
                      loop's scripted segments give forks decode steps
  14. quant         — the serve run with int8 KV pools
-                     (Engine(kv_dtype="int8")): page_requant, kv_append and
+                     (Engine(kv_dtype="int8")): the fused kv_append_quant
+                     kernel (and neither kv_append nor page_requant) and
                      the scaled ragged kernel
  15. quant_unfused — the same with fused=False: the scaled paged decode
                      kernel
@@ -79,17 +82,22 @@ Phases; any failure ends the run with a non-zero exit and no result line:
  18. timing        — each kernel, its plain version and the one-call PyTorch
                      yardstick, timed with CUDA events on the inputs the
                      serve, train and ssm_serve runs gave it, launched
-                     from the host (ms); the paged attention kernels also
-                     as device time by CUDA graph replays (device_ms);
+                     from the host (ms); the paged attention and append
+                     kernels (rows 2, 2q, 6) also as device time by CUDA
+                     graph replays (device_ms) and the wrapper's host
+                     time (host_ms, the difference);
                      bound from those inputs; the ragged kernel also at
-                     its largest decode-only call and at the last call of
-                     every bucketed N the serve runs gave it (launches x
+                     its largest decode-only call; the ragged kernel and
+                     both appends (rows 2, 2q) also at the last call of
+                     every N the serve runs gave them (launches x
                      (time - bound) summed over the sizes, by both
                      measures); with --parent DIR, another checkout's
-                     attention wrappers in turns with these
- 19. profile       — torch.profiler over a window of serve steps, over one
-                     train step and over one xlstm prefill: device busy
-                     share and device time by kernel
+                     attention and append wrappers in turns with these
+ 19. profile       — torch.profiler over a window of serve steps (bf16 and
+                     int8 pools), over one train step and over one
+                     xlstm prefill: device busy share, device time by
+                     kernel, and the append's share of the serve's device
+                     time
 
 Launch counts are read from the kernel wrappers: set to 0 just before
 each serve run, the train run and the timed xlstm run, and read just
@@ -124,9 +132,10 @@ SERVE_PHASES = {"serve": ("infercept", {}), "swap": ("swap", {}),
 # the rows of the kernels line: an attention kernel over int8 pools is a
 # row of its own beside its wrapper's, and so is the ragged kernel's
 # largest decode-only call (its launches: the decode-only calls, no more
-# q rows than block-table rows, counted by the serve runs' recorder)
+# q rows than block-table rows, counted by the serve runs' recorder); the
+# quantized append (row 2q) is the whole of kv_append_quant
 KERNELS = ("ragged_paged_attention", "paged_attention", "kv_append",
-           "swap_pack", "swap_unpack", "page_requant",
+           "kv_append_quant", "swap_pack", "swap_unpack", "page_requant",
            "ragged_paged_attention_int8", "paged_attention_int8",
            "ragged_paged_attention_decode",
            "flash_attention", "flash_attention_bwd", "gla_scan")
@@ -364,9 +373,13 @@ def check_kernels() -> dict:
                         **dict(full, hd=hd, G=G))
         tile_edge_cases(ragged_case, paged_case, dtype, full)
 
-        # kv_append: distinct slots, random validity, then all invalid
+        # kv_append: distinct slots, random validity, the 8-row blocks'
+        # edges, then all invalid
         n_pages, page, Hkv, hd = 64, 16, 8, 64
         for label, n, all_invalid in (("N=37", 37, False),
+                                      ("N=1", 1, False), ("N=7", 7, False),
+                                      ("N=8", 8, False), ("N=9", 9, False),
+                                      ("N=512", 512, False),
                                       ("all invalid", 16, True)):
             kp = torch.randn((n_pages, page, Hkv, hd), generator=gen,
                              device=dev).to(dtype)
@@ -496,6 +509,21 @@ def same_bytes(a, b) -> bool:
     return a.shape == b.shape and bool(torch.equal(view(a), view(b)))
 
 
+def differing(got, want, names=("k_pool", "v_pool", "k_scale", "v_scale")
+              ) -> str:
+    """Which of the outputs differ and by how many elements: the line an
+    exactness failure logs."""
+    import torch
+    out = []
+    for name, a, b in zip(names, got, want):
+        if not same_bytes(a, b):
+            view = (lambda t: t.view(torch.uint8)  # noqa: E731
+                    if t.element_size() == 1 else t)
+            out.append(f"{name}: {int((view(a) != view(b)).sum())} of "
+                       f"{a.numel()} differ")
+    return "; ".join(out) or "none differ"
+
+
 def quant_pools(gen, name, *, n_pages, page, Hkv, hd, device):
     """Random K and V quantized at one scale per (page, kv head): payload
     and scales as kv_append_quant would leave them."""
@@ -513,11 +541,50 @@ def quant_pools(gen, name, *, n_pages, page, Hkv, hd, device):
     return kq, vq, ks, vs
 
 
+def append_quant_case(gen, name, rdtype, *, N, Hkv, hd, device,
+                      n_pages=64, page=16):
+    """A quantized append on the card: pools quantized at random
+    per-(page, head) scales, four of them zero (over leftover payload),
+    then N rows on distinct slots (so pages repeat in any order), ~1/8 of
+    them invalid, ~1/20 with an id out of range, the middle row all zero,
+    at 8x a page's span for odd N, half of it for even N. Returns
+    ([k_pool, v_pool, k_scale, v_scale], (k_new, v_new, page_ids,
+    offsets, valid))."""
+    import torch
+    from repro_torch.kernels.kv_quant import (kv_quant_dtype, kv_quant_qmax,
+                                              quantize_rows)
+    qd = kv_quant_dtype(name)
+    qmax = kv_quant_qmax(qd)
+    state = []
+    for _ in range(2):
+        s = torch.rand((n_pages, Hkv), generator=gen, device=device) * 0.09 \
+            + 0.01
+        f = (torch.rand((n_pages, page, Hkv, hd), generator=gen,
+                        device=device) * 2 - 1) * s[:, None, :, None] * qmax
+        q = quantize_rows(f, s[:, None].expand(n_pages, page, Hkv), qd)
+        s[:4] = 0.0
+        state += [q, s]
+    kq, ks, vq, vs = state
+    slots = torch.randperm(n_pages * page, generator=gen, device=device)[:N]
+    far = torch.rand(N, generator=gen, device=device) < 0.05
+    ids = torch.where(far, n_pages + 2, slots // page).to(torch.int32)
+    valid = (torch.rand(N, generator=gen, device=device) > 0.125).to(
+        torch.int32)
+    mag = 8.0 if N % 2 else 0.5
+    rows = [(torch.randn((N, Hkv, hd), generator=gen, device=device) * mag
+             * 0.05 * qmax).to(rdtype) for _ in range(2)]
+    for r in rows:
+        r[N // 2] = 0
+    return [kq, vq, ks, vs], (*rows, ids, (slots % page).to(torch.int32),
+                              valid)
+
+
 def check_quant_kernels(gen, worst) -> None:
     """The quantized pools' kernels on the card: page_requant and the
-    kv_append_quant composite bit for bit against their plain versions
+    fused kv_append_quant bit for bit against their plain versions
     (the same float32 multiply, round-half-to-even and clip, and a
-    round-to-nearest-even float8 cast); the attention kernels over int8,
+    round-to-nearest-even float8 cast), kv_append_quant also against its
+    plain version run on the CPU; the attention kernels over int8,
     float8_e4m3 and float8_e5m2 pools within the float pools' tolerances
     (1e-4 for float32 q, 3e-2 for bf16 q: the same sums, the dequantizing
     multiply exact in both); a SwapStager round trip of a quantized pool
@@ -552,28 +619,40 @@ def check_quant_kernels(gen, worst) -> None:
         ok = all(same_bytes(a, b) for a, b in zip(got, want))
         log(f"  page_requant {name} N={N}: bit-exact {ok}")
         assert ok, name
-        # kv_append_quant: rows of the main path's sizes in bf16 and f32,
-        # duplicate pages, invalid rows, rows 8x larger than the pool's
+        # kv_append_quant, the fused kernel, over Hkv {1, 8} x hd {32, 64,
+        # 128} x N {1, 7, 16, 17, 512} with bf16 and f32 rows: pages named
+        # by several rows in any order, invalid rows on valid rows' pages,
+        # ids out of range, zero-scale pages, an all-zero row, rows that
+        # grow the scales (8x a page's span) and rows that mostly do not
         for rdtype in (torch.bfloat16, torch.float32):
-            for n, mag in ((512, 8.0), (7, 0.5)):
-                slots = torch.randperm(n_pages * page, generator=gen,
-                                       device=dev)[:n]
-                rows = [(torch.randn((n, Hkv, hd), generator=gen,
-                                     device=dev) * mag).to(rdtype)
-                        for _ in range(2)]
-                valid = (torch.rand(n, generator=gen, device=dev)
-                         > 0.1).to(torch.int32)
-                args = (*rows, (slots // page).to(torch.int32),
-                        (slots % page).to(torch.int32), valid)
-                want = kv_append_quant_ref(kq.clone(), vq.clone(),
-                                           ks.clone(), vs.clone(), *args)
-                got = kv_append_quant(kq.clone(), vq.clone(), ks.clone(),
-                                      vs.clone(), *args)
-                torch.cuda.synchronize()
-                ok = all(same_bytes(a, b) for a, b in zip(got, want))
-                log(f"  kv_append_quant {name} rows {str(rdtype)[6:]} "
-                    f"N={n}: payload and scales bit-exact {ok}")
-                assert ok, (name, rdtype, n)
+            for kv_heads in (1, 8):
+                for head_dim in (32, 64, 128):
+                    for n in (1, 7, 16, 17, 512):
+                        state, args = append_quant_case(
+                            gen, name, rdtype, N=n, Hkv=kv_heads,
+                            hd=head_dim, device=dev)
+                        want = kv_append_quant_ref(
+                            *(t.clone() for t in state), *args)
+                        # the plain version on the CPU, which the tests
+                        # hold against the JAX reference: a witness that
+                        # the card's plain version is not the kernel's twin
+                        on_cpu = kv_append_quant_ref(
+                            *(t.cpu() for t in (*state, *args)))
+                        got = kv_append_quant(*state, *args)
+                        torch.cuda.synchronize()
+                        ok = all(same_bytes(a, b) for a, b in zip(got, want))
+                        assert ok, (name, rdtype, kv_heads, head_dim, n,
+                                    differing(got, want))
+                        got = [t.cpu() for t in got]
+                        ok = all(same_bytes(a, b)
+                                 for a, b in zip(got, on_cpu))
+                        assert ok, (name, rdtype, kv_heads, head_dim, n,
+                                    "against the CPU",
+                                    differing(got, on_cpu))
+            log(f"  kv_append_quant {name}, rows {str(rdtype)[6:]}: Hkv "
+                "{1, 8} x hd {32, 64, 128} x N {1, 7, 16, 17, 512}, payload "
+                "and scales bit-exact against the plain version on the card "
+                "and on the CPU")
         # the scaled attention kernels
         kq, vq, ks, vs = quant_pools(gen, name, n_pages=2048, page=page,
                                      Hkv=Hkv, hd=hd, device=dev)
@@ -996,22 +1075,26 @@ class Recorder:
 
     COPY_BYTES = 8 << 20       # inputs up to this size are copied at once
     RAGGED = ("ragged_paged_attention", "ragged_paged_attention_int8")
+    # the ops whose calls are also kept by size (their first argument's
+    # rows for the ragged op, the rows appended for the appends)
+    SIZED = RAGGED + ("kv_append", "kv_append_quant")
 
     def __init__(self):
         import repro_torch.kernels.ops as ops
         import repro_torch.models.attention as attention
         self.calls = {}
-        # the ragged op's calls by bucketed N (q's rows, known without a
-        # sync): {key: {N: calls}} and the last call of each N; and the
-        # bf16 decode-only calls (no more rows than block-table rows):
-        # their count and the last of the largest, the timing phase's
-        # "ragged_paged_attention_decode". The last call of a size is the
-        # latest in the run, so its contexts are among the run's longest;
-        # it is kept by reference (the engine uploads fresh routing every
-        # step and writes no q after the call), so keeping it costs the
-        # serve no copy
-        self.by_size = {k: {} for k in self.RAGGED}
-        self.size_calls = {k: {} for k in self.RAGGED}
+        # the ragged op's and the appends' calls by N (q's rows or the
+        # rows appended, known without a sync): {key: {N: calls}} and the
+        # last call of each N; and the bf16 decode-only ragged calls (no
+        # more rows than block-table rows): their count and the last of
+        # the largest, the timing phase's "ragged_paged_attention_decode".
+        # The last call of a size is the latest in the run, so its
+        # contexts are among the run's longest; it is kept by reference
+        # (the engine uploads fresh routing and rows every step and writes
+        # no q after the call; the pools it holds are the run's), so
+        # keeping it costs the serve no copy
+        self.by_size = {k: {} for k in self.SIZED}
+        self.size_calls = {k: {} for k in self.SIZED}
         self.decode_launches = 0
         self.decode_call = (-1, None, None)
         # (module, op name, kernel, index of the argument whose leading
@@ -1037,8 +1120,8 @@ class Recorder:
                 if kw.get("k_scale") is not None:
                     _key += "_int8"
                 size = args[_size].shape[0]
-                if _key in self.RAGGED:
-                    self._ragged(_key, args, kw)
+                if _key in self.SIZED:
+                    self._sized(_key, size, args, kw)
                 best = self.calls.get(_key, (-1,))[0]
                 if size > best or (_later and size == best):
                     self.calls[_key] = (size, self._keep(args),
@@ -1047,8 +1130,7 @@ class Recorder:
             setattr(mod, name, wrapped)
         return self
 
-    def _ragged(self, key, args, kw):
-        n = args[0].shape[0]
+    def _sized(self, key, n, args, kw):
         counts = self.by_size[key]
         counts[n] = counts.get(n, 0) + 1
         self.size_calls[key][n] = (args, dict(kw))
@@ -1080,7 +1162,8 @@ class Recorder:
 
     def call(self, key: str, device="cuda", size=None):
         """The recorded (args, kw) of ``key``'s largest call (or, for a
-        ragged key, of its last call of ``size`` rows), on ``device``."""
+        key in ``SIZED``, of its last call of ``size`` rows), on
+        ``device``."""
         from repro_torch.utils.tree import tree_map
         if key == "ragged_paged_attention_decode":
             rec = self.decode_call[1:]
@@ -1106,6 +1189,7 @@ def kernel_wrappers() -> dict:
             ragged_paged_attention.ragged_paged_attention,
             "paged_attention": paged_attention.paged_attention,
             "kv_append": kv_append.kv_append,
+            "kv_append_quant": kv_quant.kv_append_quant,
             "swap_pack": sp.swap_pack, "swap_unpack": sp.swap_unpack,
             "page_requant": kv_quant.page_requant}
 
@@ -1222,7 +1306,6 @@ def serve(policy: str, recorder: Recorder, *, tiny: bool = False,
     assert drained and res["finished"] == res["requests"], res
     assert all(0 <= t < cfg.vocab_size for s in streams for t in s)
     if on_card:
-        assert counts["kv_append"] > 0
         if eng.fused:
             assert counts["ragged_paged_attention"] > 0
         else:
@@ -1230,10 +1313,15 @@ def serve(policy: str, recorder: Recorder, *, tiny: bool = False,
                 and counts["paged_attention"] > 0, counts
         if eng.speculate:
             assert counts["paged_attention"] > 0, counts
-        # quantized pools run the page_requant kernel on every append;
-        # float pools never do
-        assert (counts["page_requant"] > 0) == (eng.kv_dtype is not None), \
-            counts
+        # float pools launch kv_append and never the fused quantized
+        # append; quantized pools launch the fused kernel on every append
+        # and neither kv_append nor page_requant
+        if eng.kv_dtype is None:
+            assert counts["kv_append"] > 0 \
+                and counts["kv_append_quant"] == 0, counts
+        else:
+            assert counts["kv_append_quant"] > 0 and counts["kv_append"] \
+                == counts["page_requant"] == 0, counts
     assert eng.blocks.num_free == eng.blocks.n_pages - 1, "leaked pages"
     assert res["stale_scale_pages"] == [], "freed pages kept their scales"
     eng.close()
@@ -1244,9 +1332,10 @@ def serve(policy: str, recorder: Recorder, *, tiny: bool = False,
 # phase 15: timing on the main path's inputs
 # ---------------------------------------------------------------------------
 def parent_kernels(parent: Path):
-    """The ragged and paged attention wrappers of another checkout of the
-    port at ``parent`` (the parent commit's, for timing both versions in
-    one run): its ``repro_torch`` modules are imported from its own source
+    """The attention and append wrappers of another checkout of the port at
+    ``parent`` (the parent commit's, for timing both versions in one run):
+    ragged and paged attention, kv_append, page_requant and the whole
+    quantized append. Its ``repro_torch`` modules are imported from its own source
     tree, so its kernels build there by its own ``_build.py`` and are
     called through its own wrappers, whatever their C signatures
     (``build`` builds them). This tree's modules are put back afterwards;
@@ -1266,6 +1355,8 @@ def parent_kernels(parent: Path):
         rpa = importlib.import_module(
             "repro_torch.kernels.ragged_paged_attention")
         pa = importlib.import_module("repro_torch.kernels.paged_attention")
+        ka = importlib.import_module("repro_torch.kernels.kv_append")
+        kq = importlib.import_module("repro_torch.kernels.kv_quant")
     finally:
         sys.path.remove(src)
         for k in ours():
@@ -1273,20 +1364,51 @@ def parent_kernels(parent: Path):
         sys.modules.update(saved)
     return types.SimpleNamespace(ragged=rpa.ragged_paged_attention,
                                  paged=pa.paged_attention,
+                                 kv_append=ka.kv_append,
+                                 page_requant=kq.page_requant,
+                                 kv_append_quant=kq.kv_append_quant,
                                  build=rpa._build.lib)
+
+
+def append_quant_work(kp, ks, kn, page_ids, offs, valid):
+    """(bytes, operations) of a quantized append from its data: the
+    live rows (valid, id in range) read in their dtype; in both pools
+    each touched page's payload written once and read where no row
+    overwrites it (the new rows land inside the written pages), its
+    scales read and written; the int32 routing read once. Operations:
+    a multiply per requantized element, an amax and a divide per row
+    element."""
+    n_pages, page = kp.shape[:2]
+    live = (valid != 0) & (page_ids >= 0) & (page_ids < n_pages)
+    n_live = int(live.sum())
+    touched = len(set(page_ids[live].tolist()))
+    lands = live & (offs >= 0) & (offs < page)
+    written = len(set(zip(page_ids[lands].tolist(),
+                          offs[lands].tolist())))
+    slot_elems = kn[0].numel()                  # Hkv * hd
+    page_elems = kp[0].numel()                  # page * Hkv * hd
+    nbytes = 2 * (n_live * slot_elems * kn.element_size()
+                  + (touched * page - written) * slot_elems
+                  * kp.element_size()
+                  + touched * page_elems * kp.element_size()
+                  + 2 * touched * ks.shape[1] * 4) + 3 * 4 * kn.shape[0]
+    ops = 2 * (touched * page_elems + 2 * n_live * slot_elems)
+    return nbytes, ops, touched
 
 
 def time_kernels(recorder: Recorder, worst: dict, launches: dict,
                  parent=None) -> list:
-    """Rows 1-6 (and 1d), each ``ms`` launched from the host as earlier
-    rows were; the attention rows also as device time. With ``parent``
-    (``parent_kernels``), the parent's attention wrappers timed in turns
-    with these on the same inputs."""
+    """Rows 1-6 (and 1d, 2q), each ``ms`` launched from the host as
+    earlier rows were; the attention and append rows also as device
+    time. With ``parent`` (``parent_kernels``), the parent's attention and
+    append wrappers timed in turns with these on the same inputs."""
     import torch
     from repro_torch.kernels.kv_append import kv_append, kv_append_ref
-    from repro_torch.kernels.kv_quant import (page_requant, page_requant_ref,
-                                              updated_page_scales,
-                                              kv_quant_qmax)
+    from repro_torch.kernels.kv_quant import (kv_append_quant,
+                                              kv_append_quant_ref,
+                                              kv_quant_qmax, page_requant,
+                                              page_requant_ref,
+                                              updated_page_scales)
     from repro_torch.kernels.paged_attention import (
         paged_attention, paged_attention_quant_ref, paged_attention_ref)
     from repro_torch.kernels.ragged_paged_attention import (
@@ -1307,6 +1429,11 @@ def time_kernels(recorder: Recorder, worst: dict, launches: dict,
         "paged_attention_int8": paged_src,
         "kv_append": ("src/repro_torch/kernels/csrc/kv_append.cu",
                       "src/repro/kernels/kv_append.py:60"),
+        "kv_append_quant": (
+            "src/repro_torch/kernels/csrc/kv_append_quant.cu",
+            "src/repro/kernels/kv_quant.py:182 (kv_append_quant: XLA phases "
+            "A and C around page_requant, :140, and kv_append, "
+            "kv_append.py:60)"),
         "swap_pack": ("src/repro_torch/kernels/csrc/swap_pack.cu",
                       "src/repro/kernels/swap_pack.py:35"),
         "swap_unpack": ("src/repro_torch/kernels/csrc/swap_pack.cu",
@@ -1376,13 +1503,16 @@ def time_kernels(recorder: Recorder, worst: dict, launches: dict,
     def device_time(row_, kernel_fn, old_fn, iters):
         """The row's device time, ``device_ms`` (graph_ms: no host time per
         call), beside its ``ms`` (cuda_ms over calls launched from Python,
-        as every row is timed). With the parent's kernel, both measures
-        of both kernels in turns, parent, change, change, parent:
-        ``parent_ms`` and ``parent_device_ms``."""
+        as every row is timed), and the wrapper's host time, ``host_ms``,
+        the difference. With the parent's kernel, both measures of both
+        kernels in turns, parent, change, change, parent: ``parent_ms``,
+        ``parent_device_ms`` and ``parent_host_ms``."""
         if old_fn is None:
             row_["device_ms"] = graph_ms(kernel_fn, iters)
+            row_["host_ms"] = row_["ms"] - row_["device_ms"]
             log(f"    device time {row_['device_ms']:.4f} ms (launched "
-                f"from the host {row_['ms']:.4f} ms)")
+                f"from the host {row_['ms']:.4f} ms, host time "
+                f"{row_['host_ms']:.4f} ms)")
             return
         order = (old_fn, kernel_fn, kernel_fn, old_fn)
         loop = [cuda_ms(f, iters) for f in order]
@@ -1390,10 +1520,56 @@ def time_kernels(recorder: Recorder, worst: dict, launches: dict,
         row_["device_ms"] = min(dev[1:3])
         row_["parent_ms"] = min(loop[0], loop[3])
         row_["parent_device_ms"] = min(dev[0], dev[3])
+        row_["host_ms"] = row_["ms"] - row_["device_ms"]
+        row_["parent_host_ms"] = row_["parent_ms"] - row_["parent_device_ms"]
         log(f"    in turns with the parent's kernel: launched from the "
             f"host {row_['parent_ms']:.4f} -> {min(loop[1:3]):.4f} ms, "
             f"device time {row_['parent_device_ms']:.4f} -> "
             f"{row_['device_ms']:.4f} ms")
+
+    def size_gaps(name, key, prepare):
+        """launches x (time - bound) at every N the serve runs gave
+        ``key``, each N timed at its last call by both measures (with the
+        parent's wrapper too): ``prepare(args, kw)`` gives ({"ms": this
+        tree's call[, "parent_ms": the parent's]}, bytes, operations,
+        dtype, notes). Kept on the row as ``by_size``,
+        ``launches_x_gap_s`` and ``launches_x_device_gap_s``."""
+        by_size = []
+        gap = {m: 0.0 for m in ("ms", "device_ms", "parent_ms",
+                                "parent_device_ms")}
+        counts = recorder.by_size[key]
+        assert sum(counts.values()) == launches[name], (counts, name)
+        for n in sorted(counts):
+            fns, nbytes, ops, dtype, notes = prepare(*recorder.call(
+                key, size=n))
+            b_ms = bound_ms(nbytes, ops, dtype)
+            entry = {"N": n, "launches": counts[n], "bound_ms": b_ms,
+                     **notes}
+            for m, fn in fns.items():
+                entry[m] = cuda_ms(fn, 10)
+                entry[m.replace("ms", "device_ms")] = graph_ms(fn, 10)
+            for m in gap:
+                if m in entry:
+                    gap[m] += counts[n] * (entry[m] - b_ms)
+            by_size.append(entry)
+            log(f"    N={n} {notes}: {counts[n]} launches, " + ", ".join(
+                f"{m} {entry[m]:.4f}" for m in gap if m in entry)
+                + f", bound {b_ms:.5f} ms")
+        rows[-1]["by_size"] = by_size
+        rows[-1]["launches_x_gap_s"] = gap["ms"] / 1e3
+        rows[-1]["launches_x_device_gap_s"] = gap["device_ms"] / 1e3
+        log("    launches x (time - bound) over the sizes: " + ", ".join(
+            f"{m} {gap[m] / 1e3:.3f} s" for m in gap
+            if parent or "parent" not in m))
+
+    def ragged_at_size(a, k):
+        sc = {x: k.pop(x) for x in ("k_scale", "v_scale") if x in k}
+        fns = {"ms": lambda: ragged_paged_attention(*a, **sc, **k)}
+        if parent:
+            fns["parent_ms"] = lambda: parent.ragged(*a, **sc, **k)
+        return (fns, *ragged_work(a[0], a[1], a[3], a[4], a[5],
+                                  k.get("window")),
+                str(a[0].dtype)[6:], {"ctx": int(a[5].max()) + 1})
 
     # ragged paged attention: no single PyTorch call computes it. Rows 1
     # and 1q at the largest call, 1d at the largest decode-only call
@@ -1430,43 +1606,10 @@ def time_kernels(recorder: Recorder, worst: dict, launches: dict,
                              f"{tiles} tiles x {Hkv} heads x {splits} "
                              "splits"])
         device_time(rows[-1], kernel_fn, old_fn if parent else None, 20)
-        if key not in recorder.by_size:
-            continue
-        # launches x (ms - bound) at every bucketed N the serve runs gave,
-        # each N timed at its last call, by both measures
-        by_size = []
-        gap = {m: 0.0 for m in ("ms", "device_ms", "parent_ms",
-                                "parent_device_ms")}
-        counts = recorder.by_size[key]
-        assert sum(counts.values()) == launches[name], (counts, name)
-        for n in sorted(counts):
-            a, k = recorder.call(key, size=n)
-            sc = {x: k.pop(x) for x in ("k_scale", "v_scale") if x in k}
-            b_ms = bound_ms(*ragged_work(a[0], a[1], a[3], a[4], a[5],
-                                         k.get("window")),
-                            str(a[0].dtype)[6:])
-            entry = {"N": n, "launches": counts[n], "bound_ms": b_ms,
-                     "ctx": int(a[5].max()) + 1}
-            fns = {"ms": lambda: ragged_paged_attention(*a, **sc, **k)}
-            if parent:
-                fns["parent_ms"] = lambda: parent.ragged(*a, **sc, **k)
-            for m, fn in fns.items():
-                entry[m] = cuda_ms(fn, 10)
-                entry[m.replace("ms", "device_ms")] = graph_ms(fn, 10)
-            for m in gap:
-                if m in entry:
-                    gap[m] += counts[n] * (entry[m] - b_ms)
-            by_size.append(entry)
-            log(f"    N={n} (ctx up to {entry['ctx']}): {counts[n]} "
-                "launches, " + ", ".join(f"{m} {entry[m]:.4f}" for m in gap
-                                         if m in entry)
-                + f", bound {b_ms:.5f} ms")
-        rows[-1]["by_size"] = by_size
-        rows[-1]["launches_x_gap_s"] = gap["ms"] / 1e3
-        rows[-1]["launches_x_device_gap_s"] = gap["device_ms"] / 1e3
-        log("    launches x (time - bound) over the sizes: " + ", ".join(
-            f"{m} {gap[m] / 1e3:.3f} s" for m in gap
-            if parent or "parent" not in m))
+        if key in recorder.by_size:
+            # launches x (ms - bound) at every bucketed N the serve runs
+            # gave, each N timed at its last call, by both measures
+            size_gaps(name, key, ragged_at_size)
 
     # paged decode attention: no single PyTorch call computes it either
     for name, plain in (("paged_attention", paged_attention_ref),
@@ -1496,6 +1639,26 @@ def time_kernels(recorder: Recorder, worst: dict, launches: dict,
                              f"{splits} splits"])
         device_time(rows[-1], kernel_fn, old_fn if parent else None, 20)
 
+    def append_bytes(kn, valid):
+        """Each valid row read and written once in both pools, the int32
+        routing read once."""
+        row_bytes = kn[0].numel() * kn.element_size()
+        return 4 * int((valid != 0).sum()) * row_bytes + 3 * 4 * kn.shape[0]
+
+    def append_at_size(a, _):
+        fns = {"ms": lambda: kv_append(*a)}
+        if parent:
+            fns["parent_ms"] = lambda: parent.kv_append(*a)
+        return fns, append_bytes(a[2], a[6]), 0, str(a[2].dtype)[6:], {}
+
+    def append_quant_at_size(a, _):
+        mine, olds = ([t.clone() for t in a[:4]] for _ in range(2))
+        fns = {"ms": lambda: kv_append_quant(*mine, *a[4:])}
+        if parent:
+            fns["parent_ms"] = lambda: parent.kv_append_quant(*olds, *a[4:])
+        nbytes, ops, touched = append_quant_work(a[0], a[2], a[4], *a[6:])
+        return fns, nbytes, ops, "float32", {"pages": touched}
+
     # kv_append: two pools and a validity mask, no single PyTorch call
     args, _ = recorder.call("kv_append")
     kp, vp, kn, vn, ids, offs, valid = args
@@ -1508,11 +1671,47 @@ def time_kernels(recorder: Recorder, worst: dict, launches: dict,
     ms, plain_ms = in_turns(
         lambda: kv_append_ref(kp, vp, kn, vn, ids, offs, valid),
         lambda: kv_append(kp, vp, kn, vn, ids, offs, valid), 20)
-    n_valid = int((valid != 0).sum())
-    row_bytes = kn[0].numel() * kn.element_size()
-    nbytes = 4 * n_valid * row_bytes + 3 * 4 * kn.shape[0]
-    row("kv_append", ms, plain_ms, None, nbytes, 0, str(kn.dtype)[6:], err,
-        list(kn.shape))
+    row("kv_append", ms, plain_ms, None, append_bytes(kn, valid), 0,
+        str(kn.dtype)[6:], err, list(kn.shape))
+    device_time(rows[-1], lambda: kv_append(kp, vp, kn, vn, ids, offs, valid),
+                (lambda: parent.kv_append(kp, vp, kn, vn, ids, offs, valid))
+                if parent else None, 20)
+    size_gaps("kv_append", "kv_append", append_at_size)
+
+    # the quantized append, row 2q: the whole of kv_append_quant at its
+    # largest call. Each version runs on its own copy of the recorded pools
+    # and scales, cloned before the timed region: its first call grows the
+    # scales as the serve's call did, every later one finds them grown
+    # (ratio 1), the same work. No single PyTorch call computes it
+    args, _ = recorder.call("kv_append_quant")
+    kp, vp, ks, vs, kn, vn, page_ids, offs, valid = args
+    routing = args[4:]
+    want = kv_append_quant_ref(*(t.clone() for t in args[:4]), *routing)
+    on_cpu = kv_append_quant_ref(*(t.cpu() for t in args))
+    got = kv_append_quant(*(t.clone() for t in args[:4]), *routing)
+    torch.cuda.synchronize()
+    assert all(same_bytes(a, b) for a, b in zip(got, want)), \
+        f"kv_append_quant disagrees on the main path's inputs: " \
+        f"{differing(got, want)}"
+    got = [t.cpu() for t in got]
+    assert all(same_bytes(a, b) for a, b in zip(got, on_cpu)), \
+        f"kv_append_quant disagrees with the plain version on the CPU on " \
+        f"the main path's inputs: {differing(got, on_cpu)}"
+    log("  kv_append_quant main-path call: bit-exact against the plain "
+        "version on the card and on the CPU")
+    mine, plains, olds = ([t.clone() for t in args[:4]] for _ in range(3))
+    ms, plain_ms = in_turns(lambda: kv_append_quant_ref(*plains, *routing),
+                            lambda: kv_append_quant(*mine, *routing), 20)
+    nbytes, ops, touched = append_quant_work(kp, ks, kn, page_ids, offs,
+                                             valid)
+    row("kv_append_quant", ms, plain_ms, None, nbytes, ops, "float32",
+        worst["kv_append_quant"],
+        list(kn.shape) + [f"{touched} pages", str(kp.dtype)[6:],
+                          f"rows {str(kn.dtype)[6:]}"])
+    device_time(rows[-1], lambda: kv_append_quant(*mine, *routing),
+                (lambda: parent.kv_append_quant(*olds, *routing))
+                if parent else None, 20)
+    size_gaps("kv_append_quant", "kv_append_quant", append_quant_at_size)
 
     # swap pack: the yardstick is index_select over the page axis
     args, _ = recorder.call("swap_pack")
@@ -1545,12 +1744,12 @@ def time_kernels(recorder: Recorder, worst: dict, launches: dict,
 
     # page_requant: its call inside the largest quantized append, rebuilt
     # from that append's inputs (phase A on copies gives the ratios); no
-    # single PyTorch call requantizes pages by per-head ratios
-    args, _ = recorder.call("kv_append_quant")
-    kp, vp, ks, vs, kn, vn, page_ids, offs, valid = args
+    # single PyTorch call requantizes pages by per-head ratios. The main
+    # path no longer launches it: it is the reference's standalone op
     n_pages = kp.shape[0]
     pids = torch.where(valid != 0, page_ids, n_pages).to(torch.int32)
     gidx = pids.clamp(max=n_pages - 1).long()
+    ks, vs = ks.clone(), vs.clone()
     old = ks[gidx], vs[gidx]
     updated_page_scales(ks, vs, kn, vn, pids, kv_quant_qmax(kp.dtype))
     k_ratio, v_ratio = (torch.where(s[gidx] > 0, o / torch.where(
@@ -1571,26 +1770,83 @@ def time_kernels(recorder: Recorder, worst: dict, launches: dict,
     row("page_requant", ms, plain_ms, None, nbytes,
         2 * touched * kp[0].numel(), "float32", 0.0,
         [pids.numel(), f"{touched} pages"] + list(kp.shape[1:]))
+    device_time(rows[-1], lambda: page_requant(kc, vc, *rq),
+                (lambda: parent.page_requant(kc, vc, *rq)) if parent
+                else None, 20)
     torch.cuda.synchronize()
     return rows
 
 
-def profile_serve(warm_steps: int = 100, steps: int = 100) -> None:
+APPEND_RANGE = "kv_append (the attention layer's append)"
+
+
+class AppendRange:
+    """Puts each call of the attention layer's two append ops (float pools'
+    kv_append, quantized pools' kv_append_quant) under one profiler range,
+    so the device time of the kernels they launch adds up under it."""
+
+    def __enter__(self):
+        import torch
+        import repro_torch.models.attention as attention
+        self._orig = {}
+        for name in ("kv_append_op", "kv_append_quant_op"):
+            orig = self._orig[name] = getattr(attention, name)
+
+            def wrapped(*args, _orig=orig, **kw):
+                with torch.profiler.record_function(APPEND_RANGE):
+                    return _orig(*args, **kw)
+            setattr(attention, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        import repro_torch.models.attention as attention
+        for name, orig in self._orig.items():
+            setattr(attention, name, orig)
+
+
+def profile_serve(warm_steps: int = 100, steps: int = 100,
+                  **engine_kw) -> None:
     """torch.profiler over ``steps`` engine steps of the InferCept serve
-    run, after ``warm_steps``: the device's busy share of the window and
-    device time by kernel."""
+    run (``engine_kw``: e.g. ``kv_dtype="int8"``), after ``warm_steps``:
+    the device's busy share of the window, device time by kernel, and the
+    append's share of it (``AppendRange``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    eng, client, _ = agent_engine("infercept", tiny=False, device="cuda")
+    eng, client, _ = agent_engine("infercept", tiny=False, device="cuda",
+                                  **engine_kw)
     client.poll(warm_steps)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with AppendRange(), profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         client.poll(steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    log_device_time(prof, wall, f"{steps} serve steps")
+    label = f"{steps} serve steps" + "".join(
+        f", {k}={v}" for k, v in engine_kw.items())
+    dev_us, total = log_device_time(prof, wall, label)
+    # the PyTorch ops' kernels add up under the range's host-side events
+    # (its device-side twin spans idle gaps too); kernels launched through
+    # ctypes are not attributed to it, so the append's own CUDA kernels
+    # are added by name unless the range already holds them
+    ranges = [e for e in prof.events() if e.name == APPEND_RANGE
+              and not str(e.device_type).endswith("CUDA")]
+    attributed, todo = set(), list(ranges)
+    while todo:
+        e = todo.pop()
+        attributed.update(k.name for k in e.kernels)
+        todo.extend(e.cpu_children)
+    range_us = sum(e.device_time_total for e in ranges)
+    own = {k: v for k, v in dev_us.items() if any(
+        n in k for n in ("kv_append_kernel", "append_quant_kernel",
+                         "requant_kernel"))}
+    for key, (us, n) in own.items():
+        log(f"    {us / 1e3:9.3f} ms {n:7d}x  {key[:80]}")
+    own_us = sum(us for k, (us, _) in own.items() if k not in attributed)
+    append_us = range_us + own_us
+    log(f"  the append ({len(ranges)} calls): {append_us / 1e3:.2f} ms = "
+        f"{append_us / max(total, 1e-9):.3f} of device time (PyTorch ops "
+        f"{range_us / 1e3:.2f} ms, CUDA kernels {own_us / 1e3:.2f} ms)")
     eng.close()
 
 
@@ -1944,7 +2200,8 @@ def log_device_time(prof, wall: float, window: str) -> tuple:
     """Device busy share of a profiled window and device time by kernel;
     returns ({kernel: (us, launches)}, total us)."""
     rows = [e for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA")]
+            if str(e.device_type).endswith("CUDA")
+            and not getattr(e, "is_user_annotation", False)]
     dev_us = {e.key: (e.self_device_time_total, e.count) for e in rows}
     total = sum(us for us, _ in dev_us.values())
     log(f"  window: {window}, wall {wall * 1e3:.1f} ms, device busy "
@@ -2546,6 +2803,13 @@ def main() -> int:
             "with gla_scan vs the plain chunked_gla_ref on the card, and "
             "decode continuation")
         check_ssm_parity()
+    parent = None
+    if args.parent:
+        t0 = time.perf_counter()
+        parent = parent_kernels(Path(args.parent).resolve())
+        parent.build()
+        log(f"[parent] its kernels built from {args.parent} in "
+            f"{time.perf_counter() - t0:.1f} s")
     recorder = Recorder()
     total = {k: 0 for k in KERNELS}
     results = {}
@@ -2605,13 +2869,6 @@ def main() -> int:
         log("[timing] CUDA events on the inputs of each kernel's largest "
             "main-path call")
         total["ragged_paged_attention_decode"] = recorder.decode_launches
-        parent = None
-        if args.parent:
-            t0 = time.perf_counter()
-            parent = parent_kernels(Path(args.parent).resolve())
-            parent.build()
-            log(f"  the parent's kernels built from {args.parent} in "
-                f"{time.perf_counter() - t0:.1f} s")
         rows = time_kernels(recorder, worst, total, parent)
     if "timing" in phases and "train" in phases:
         log("[timing] flash attention on the train step's first attention "
@@ -2624,9 +2881,15 @@ def main() -> int:
     if "timing" in phases and \
             set(SERVE_PHASES) | {"train", "ssm_serve"} <= phases:
         assert sorted(r["name"] for r in rows) == sorted(KERNELS), rows
+        # every kernel of the main path launched; page_requant is the
+        # reference's standalone op, which the fused append replaced there
+        assert all(r["launches"] > 0 for r in rows
+                   if r["name"] != "page_requant"), rows
     if "profile" in phases:
         log("[profile] torch.profiler over serve steps, InferCept policy")
         profile_serve()
+        log("[profile] the same over int8 pools")
+        profile_serve(kv_dtype="int8")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -20,38 +20,14 @@
 // __syncthreads_or folds the answer, so no N x N mask is built. A page id out
 // of [0, n_pages) marks an invalid row. The page is streamed with 16-byte
 // loads and stores (16 elements, all of one head when head_dim is a multiple
-// of 16), else element by element. The arithmetic is the plain version's
-// float32 multiply, with no fast-math flags, so the result equals it bit for
-// bit.
-#include "payload.cuh"
+// of 16), else element by element, by requant.cuh's requant_runs, which the
+// fused quantized append (kv_append_quant.cu) shares. The main path runs
+// that fused kernel; this one is the reference's standalone phase-B op.
+#include "requant.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
-
-template <typename P>
-__device__ __forceinline__ void requant_page(P* __restrict__ pool,
-                                             const float* __restrict__ ratio,
-                                             long long elems, int Hkv, int hd,
-                                             float qmax, bool vec) {
-  if (vec) {
-    uint4* words = reinterpret_cast<uint4*>(pool);
-    const long long n16 = elems / 16;
-    for (long long c = threadIdx.x; c < n16; c += kThreads) {
-      const float r = ratio[((c * 16) / hd) % Hkv];
-      uint4 w = words[c];
-      P* e = reinterpret_cast<P*>(&w);
-#pragma unroll
-      for (int j = 0; j < 16; ++j) e[j] = quantize<P>(to_float(e[j]) * r, qmax);
-      words[c] = w;
-    }
-  } else {
-    for (long long i = threadIdx.x; i < elems; i += kThreads) {
-      const float r = ratio[(i / hd) % Hkv];
-      pool[i] = quantize<P>(to_float(pool[i]) * r, qmax);
-    }
-  }
-}
 
 template <typename P>
 __global__ void __launch_bounds__(kThreads) requant_kernel(
@@ -66,11 +42,12 @@ __global__ void __launch_bounds__(kThreads) requant_kernel(
   int earlier = 0;
   for (int j = threadIdx.x; j < i; j += kThreads) earlier |= pids[j] == pid;
   if (__syncthreads_or(earlier)) return;
-  const long long elems = (long long)page * Hkv * hd;
-  requant_page(k_pool + pid * elems, k_ratio + (long long)i * Hkv, elems, Hkv,
-               hd, qmax, vec);
-  requant_page(v_pool + pid * elems, v_ratio + (long long)i * Hkv, elems, Hkv,
-               hd, qmax, vec);
+  const int elems = page * Hkv * hd;
+  const long long at = (long long)pid * elems;
+  requant_runs<P>(k_pool + at, v_pool + at,
+                  HeadRatios{k_ratio + (long long)i * Hkv, hd, Hkv},
+                  HeadRatios{v_ratio + (long long)i * Hkv, hd, Hkv}, 1, elems,
+                  elems, qmax, vec, threadIdx.x, kThreads);
 }
 
 template <typename P>

@@ -26,6 +26,13 @@ def kv_append_ref(k_pool, v_pool, k_new, v_new, page_ids, offsets, valid):
     return k_pool, v_pool
 
 
+def _raw_stream(t) -> int:
+    """The current CUDA stream of ``t``'s device as an integer, read
+    without building a Stream object (the launchers' host time is most of
+    what a ~10 us kernel costs a call)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
 def _check(k_pool, v_pool, k_new, v_new, page_ids, offsets, valid):
     if not k_pool.is_cuda:
         raise ValueError("kv_append launches a CUDA kernel; got a tensor on "
@@ -38,15 +45,15 @@ def _check(k_pool, v_pool, k_new, v_new, page_ids, offsets, valid):
                          f"{tuple(k_new.shape)} {tuple(v_new.shape)} not "
                          "taken: pools (n_pages, page, Hkv, hd), rows "
                          "(N, Hkv, hd)")
-    for t in (v_pool, k_new, v_new):
-        if t.dtype != k_pool.dtype:
-            raise TypeError("pools and rows must share a dtype")
-    for t in (page_ids, offsets, valid):
-        if t.dtype != torch.int32 or t.shape != (N,):
-            raise TypeError("page_ids, offsets and valid must be (N,) int32")
-    for t in (k_pool, v_pool, k_new, v_new, page_ids, offsets, valid):
-        if t.device != k_pool.device or not t.is_contiguous():
-            raise ValueError("all operands must be contiguous on one device")
+    if not k_pool.dtype == v_pool.dtype == k_new.dtype == v_new.dtype:
+        raise TypeError("pools and rows must share a dtype")
+    if not (page_ids.dtype == offsets.dtype == valid.dtype == torch.int32
+            and page_ids.shape == offsets.shape == valid.shape == (N,)):
+        raise TypeError("page_ids, offsets and valid must be (N,) int32")
+    ops = (k_pool, v_pool, k_new, v_new, page_ids, offsets, valid)
+    if not all(t.is_contiguous() for t in ops) \
+            or len({t.get_device() for t in ops}) != 1:
+        raise ValueError("all operands must be contiguous on one device")
 
 
 def kv_append(k_pool, v_pool, k_new, v_new, page_ids, offsets, valid):
@@ -59,8 +66,7 @@ def kv_append(k_pool, v_pool, k_new, v_new, page_ids, offsets, valid):
         k_pool.data_ptr(), v_pool.data_ptr(), k_new.data_ptr(),
         v_new.data_ptr(), page_ids.data_ptr(), offsets.data_ptr(),
         valid.data_ptr(), k_new.shape[0], n_pages, page,
-        Hkv * hd * k_pool.element_size(),
-        torch.cuda.current_stream(k_pool.device).cuda_stream)
+        Hkv * hd * k_pool.element_size(), _raw_stream(k_pool))
     _build.check(err, "kv_append")
     kv_append.launches += 1
     return k_pool, v_pool

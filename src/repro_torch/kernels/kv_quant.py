@@ -1,36 +1,41 @@
-"""Quantized KV pages with per-(page, kv head) float32 scales: the
-``page_requant`` CUDA kernel's launcher, its plain PyTorch version, and
-the requantize-on-append composite ``kv_append_quant``.
+"""Quantized KV pages with per-(page, kv head) float32 scales: the fused
+quantized-append CUDA kernel's launcher (``kv_append_quant``), the
+``page_requant`` kernel's launcher, and their plain PyTorch versions.
 
 Counterpart of ``repro.kernels.kv_quant`` (DESIGN.md §17). A quantized
 pool stores its payload in int8, float8_e4m3 or float8_e5m2 beside one
 float32 scale per (page, kv head), ``k_scale``/``v_scale`` of shape
 (n_pages, Hkv), in the same pool dict, so COW copies and swap slabs move
-payload and scales together. The append runs the reference's three
-phases:
+payload and scales together. The append is the reference's three phases:
 
   A. scale update: each row's amax over the head dim, scatter-maxed into
-     its page's scales, ``new = max(old, amax / qmax)`` (PyTorch ops);
+     its page's scales, ``new = max(old, amax / qmax)``;
   B. page requant: every touched page's payload is rescaled once by
-     ``old / new`` (the ``page_requant`` kernel), so a page never mixes
-     scales;
-  C. row write: the rows, quantized at the new scales, go through the
-     ordinary ``kv_append`` kernel, which copies bytes.
+     ``old / new``, so a page never mixes scales;
+  C. row write: the rows, quantized at the new scales, go into their
+     slots.
 
-Unlike the reference, pools and scales are updated in place: the old
-scales are gathered and the ratios formed before the new scales are
-written back. Every quantize or requant clips to ±qmax before the cast
-(a float8 cast of an out-of-range value is NaN); int8 rounds half to
-even first. A zero scale means the page holds nothing; its ratio is 0.
-Gathers and scatters of the payload go through a uint8 view, which every
-device indexes. The kernel source is ``csrc/page_requant.cu``.
+The plain version ``kv_append_quant_ref`` runs them op for op as the
+reference does, with ``page_requant_ref`` and ``kv_append_ref`` for B and
+C. On the card one kernel (``csrc/kv_append_quant.cu``) runs all three:
+one block per (row, kv head), of which the first valid row naming each
+page owns that (page, head); ``kv_append_quant_owner_ref`` is the same
+decomposition in plain PyTorch. ``page_requant`` (``csrc/page_requant.cu``)
+stays the reference's standalone phase-B op; the main path no longer
+launches it.
+
+Unlike the reference, pools and scales are updated in place. Every
+quantize or requant clips to ±qmax before the cast (a float8 cast of an
+out-of-range value is NaN); int8 rounds half to even first. A zero scale
+means the page holds nothing; its ratio is 0. Gathers and scatters of the
+payload go through a uint8 view, which every device indexes.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.kv_append import kv_append, kv_append_ref
+from repro_torch.kernels.kv_append import _raw_stream, kv_append_ref
 
 # public name -> (storage dtype, largest representable magnitude)
 KV_QUANT_DTYPES = {
@@ -41,6 +46,8 @@ KV_QUANT_DTYPES = {
 # the kernels' payload codes
 PAYLOAD_CODES = {torch.int8: 0, torch.float8_e4m3fn: 1,
                  torch.float8_e5m2: 2}
+# the fused append's row codes
+ROW_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def kv_quant_dtype(name: str) -> torch.dtype:
@@ -133,6 +140,10 @@ def updated_page_scales(k_scale, v_scale, k_new, v_new, pids, qmax):
     live = ((pids >= 0) & (pids < n_pages))[:, None]
     idx = pids.clamp(0, n_pages - 1).long()[:, None].expand(-1,
                                                             k_scale.shape[1])
+    # qmax as a tensor on the rows' device: PyTorch on CUDA divides by a
+    # Python number by multiplying with its reciprocal, which can miss the
+    # reference's quotient by one bit; by a tensor it divides everywhere
+    qmax = k_scale.new_full((), qmax)
     for scale, rows in ((k_scale, k_new), (v_scale, v_new)):
         amax = rows.float().abs().amax(dim=-1) / qmax          # (N, Hkv)
         scale.scatter_reduce_(0, idx, torch.where(live, amax, 0.0), "amax")
@@ -217,9 +228,13 @@ def page_requant(k_pool, v_pool, k_ratio, v_ratio, pids, discard_pid=None):
 page_requant.launches = 0
 
 
-def _kv_append_quant(requant, append, k_pool, v_pool, k_scale, v_scale,
-                     k_new, v_new, page_ids, offsets, valid, discard_pid):
-    """The three phases around the given phase-B and phase-C functions."""
+def kv_append_quant_ref(k_pool, v_pool, k_scale, v_scale, k_new, v_new,
+                        page_ids, offsets, valid, discard_pid=None):
+    """The plain version of the quantized append, following
+    ``repro.kernels.ref.kv_append_quant_ref`` op for op, in place.
+    Pools (n_pages, page, Hkv, hd) quantized; scales (n_pages, Hkv)
+    float32; rows (N, Hkv, hd); page_ids/offsets/valid (N,) int32.
+    Returns (k_pool, v_pool, k_scale, v_scale)."""
     n_pages = k_pool.shape[0]
     qdtype = k_pool.dtype
     live = valid != 0
@@ -229,34 +244,117 @@ def _kv_append_quant(requant, append, k_pool, v_pool, k_scale, v_scale,
     updated_page_scales(k_scale, v_scale, k_new, v_new, pids,
                         kv_quant_qmax(qdtype))
     k_s, v_s = k_scale[gidx], v_scale[gidx]
-    requant(k_pool, v_pool, _ratio(k_old, k_s), _ratio(v_old, v_s), pids,
-            discard_pid)
+    page_requant_ref(k_pool, v_pool, _ratio(k_old, k_s), _ratio(v_old, v_s),
+                     pids, discard_pid)
     u8 = torch.uint8
-    append(k_pool.view(u8), v_pool.view(u8),
-           quantize_rows(k_new, k_s, qdtype).view(u8),
-           quantize_rows(v_new, v_s, qdtype).view(u8), pids, offsets,
-           live.to(torch.int32))
+    kv_append_ref(k_pool.view(u8), v_pool.view(u8),
+                  quantize_rows(k_new, k_s, qdtype).view(u8),
+                  quantize_rows(v_new, v_s, qdtype).view(u8), pids, offsets,
+                  live.to(torch.int32))
     return k_pool, v_pool, k_scale, v_scale
 
 
-def kv_append_quant_ref(k_pool, v_pool, k_scale, v_scale, k_new, v_new,
-                        page_ids, offsets, valid, discard_pid=None):
-    """The plain version of the quantized append, following
-    ``repro.kernels.ref.kv_append_quant_ref`` op for op, in place.
-    Pools (n_pages, page, Hkv, hd) quantized; scales (n_pages, Hkv)
-    float32; rows (N, Hkv, hd); page_ids/offsets/valid (N,) int32.
+def kv_append_quant_owner_ref(k_pool, v_pool, k_scale, v_scale, k_new,
+                              v_new, page_ids, offsets, valid,
+                              discard_pid=None):
+    """The fused kernel's decomposition in plain PyTorch, in place: one
+    owner per (page, kv head), taken in the order of the rows that first
+    name each page, as ``csrc/kv_append_quant.cu``'s blocks divide the
+    work. A valid row with an id in [0, n_pages) that no earlier valid row
+    shares owns its page; its members are the valid rows at or after it
+    naming the page. Per head and pool, the owner forms the members' amax
+    in float32, ``new = max(old, amax / qmax)``, requantizes the head's
+    slice of the page by ``old / new`` and writes the members' head
+    slices quantized at ``new`` (a member whose offset lies outside the
+    page writes nothing). Equal to ``kv_append_quant_ref`` byte for byte.
     Returns (k_pool, v_pool, k_scale, v_scale)."""
-    return _kv_append_quant(page_requant_ref, kv_append_ref, k_pool, v_pool,
-                            k_scale, v_scale, k_new, v_new, page_ids,
-                            offsets, valid, discard_pid)
+    del discard_pid
+    n_pages, page, Hkv, _ = k_pool.shape
+    qdtype = k_pool.dtype
+    qmax = kv_quant_qmax(qdtype)
+    ids, live = page_ids.tolist(), (valid != 0).tolist()
+    offs = offsets.tolist()
+    u8 = torch.uint8
+    named = set()
+    for i, (pid, ok) in enumerate(zip(ids, live)):
+        if not ok or not 0 <= pid < n_pages or pid in named:
+            continue
+        named.add(pid)
+        members = [j for j in range(i, len(ids)) if live[j] and ids[j] == pid]
+        writes = [j for j in members if 0 <= offs[j] < page]
+        slots = torch.tensor([offs[j] for j in writes], dtype=torch.long)
+        for h in range(Hkv):
+            for pool, scale, rows in ((k_pool, k_scale, k_new),
+                                      (v_pool, v_scale, v_new)):
+                old = scale[pid, h].clone()
+                amax = rows[members, h].float().abs().amax()
+                new = torch.maximum(old, amax / qmax)
+                payload = pool.view(u8)[pid, :, h].view(qdtype)
+                pool.view(u8)[pid, :, h] = _cast(
+                    payload.float() * _ratio(old, new), qdtype).view(u8)
+                if writes:
+                    q = quantize_rows(rows[writes, h],
+                                      new.expand(len(writes)), qdtype)
+                    pool.view(u8)[pid, slots, h] = q.view(u8)
+                scale[pid, h] = new
+    return k_pool, v_pool, k_scale, v_scale
+
+
+def _check_append_quant(k_pool, v_pool, k_scale, v_scale, k_new, v_new,
+                        page_ids, offsets, valid):
+    if not k_pool.is_cuda:
+        raise ValueError("kv_append_quant launches a CUDA kernel; got a "
+                         f"tensor on {k_pool.device}")
+    if k_pool.dtype not in PAYLOAD_CODES or v_pool.dtype != k_pool.dtype:
+        raise TypeError(f"kv_append_quant takes int8, float8_e4m3fn or "
+                        f"float8_e5m2 pools of one dtype, got {k_pool.dtype} "
+                        f"and {v_pool.dtype}")
+    if k_new.dtype not in ROW_CODES or v_new.dtype != k_new.dtype:
+        raise TypeError(f"kv_append_quant takes float32 or bfloat16 rows of "
+                        f"one dtype, got {k_new.dtype} and {v_new.dtype}")
+    if not k_scale.dtype == v_scale.dtype == torch.float32:
+        raise TypeError("scales must be float32")
+    n_pages, page, Hkv, hd = k_pool.shape
+    N = k_new.shape[0]
+    if v_pool.shape != k_pool.shape or k_new.shape != (N, Hkv, hd) \
+            or v_new.shape != k_new.shape \
+            or not k_scale.shape == v_scale.shape == (n_pages, Hkv):
+        raise ValueError(f"pools {tuple(k_pool.shape)}, scales "
+                         f"{tuple(k_scale.shape)} {tuple(v_scale.shape)}, "
+                         f"rows {tuple(k_new.shape)} {tuple(v_new.shape)} "
+                         "not taken: pools (n_pages, page, Hkv, hd), scales "
+                         "(n_pages, Hkv), rows (N, Hkv, hd)")
+    if not (page_ids.dtype == offsets.dtype == valid.dtype == torch.int32
+            and page_ids.shape == offsets.shape == valid.shape == (N,)):
+        raise TypeError("page_ids, offsets and valid must be (N,) int32")
+    ops = (k_pool, v_pool, k_scale, v_scale, k_new, v_new, page_ids,
+           offsets, valid)
+    if not all(t.is_contiguous() for t in ops) \
+            or len({t.get_device() for t in ops}) != 1:
+        raise ValueError("all operands must be contiguous on one device")
 
 
 def kv_append_quant(k_pool, v_pool, k_scale, v_scale, k_new, v_new,
                     page_ids, offsets, valid, discard_pid=None):
-    """The card path, in place: phases A and C's quantize as PyTorch ops
-    on the current stream, phase B on the ``page_requant`` kernel and
-    phase C's write on the ``kv_append`` kernel (1-byte rows, copied as
-    bytes). Returns (k_pool, v_pool, k_scale, v_scale)."""
-    return _kv_append_quant(page_requant, kv_append, k_pool, v_pool,
-                            k_scale, v_scale, k_new, v_new, page_ids,
-                            offsets, valid, discard_pid)
+    """Launch the fused CUDA kernel on the current stream: the same
+    function as ``kv_append_quant_ref`` (phases A, B and C), in place, in
+    one launch with no allocation; returns (k_pool, v_pool, k_scale,
+    v_scale). ``discard_pid`` is kept for the reference's signature: no
+    row writes to it. Raises on any operand the kernel does not take, a
+    CPU tensor included."""
+    _check_append_quant(k_pool, v_pool, k_scale, v_scale, k_new, v_new,
+                        page_ids, offsets, valid)
+    del discard_pid
+    n_pages, page, Hkv, hd = k_pool.shape
+    err = _build.lib().kv_append_quant_launch(
+        k_pool.data_ptr(), v_pool.data_ptr(), k_scale.data_ptr(),
+        v_scale.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+        page_ids.data_ptr(), offsets.data_ptr(), valid.data_ptr(),
+        k_new.shape[0], n_pages, page, Hkv, hd, ROW_CODES[k_new.dtype],
+        PAYLOAD_CODES[k_pool.dtype], _raw_stream(k_pool))
+    _build.check(err, "kv_append_quant")
+    kv_append_quant.launches += 1
+    return k_pool, v_pool, k_scale, v_scale
+
+
+kv_append_quant.launches = 0

@@ -29,8 +29,8 @@ card.
 * The teacher-forced int8 logit check of ``tests/test_quantized_kv.py``,
   calibrated: the port's worst error/spread ratio equals the reference's
   measured ratio on the same weights and tokens within 1e-4 relative.
-* On a CUDA card (``-m gpu``): ``page_requant`` and ``kv_append_quant``
-  bit for bit against their plain versions, the scaled attention kernels
+* On a CUDA card (``-m gpu``): ``page_requant`` and the fused
+  ``kv_append_quant`` kernel bit for bit against their plain versions, the scaled attention kernels
   within 1e-4 (float32 q) and 3e-2 (bf16 q). The card's machine has no
   JAX, so the reference is imported inside the CPU tests only and the card
   runs this file alone: ``PYTHONPATH=src python -m pytest -q
@@ -303,7 +303,7 @@ def test_quant_ops_dispatch_cpu_to_plain_versions():
     bt = torch.tensor([[0, 1, 2], [3, 4, 5]], dtype=torch.int32)
     ctx = torch.tensor([9, 3], dtype=torch.int32)
     before = (paged_attention.launches, ragged_paged_attention.launches,
-              page_requant.launches)
+              page_requant.launches, kv_append_quant.launches)
     got = ops.paged_attention_op(q, kq, vq, bt, ctx, k_scale=ks, v_scale=vs)
     assert torch.equal(got, paged_attention_quant_ref(q, kq, vq, ks, vs, bt,
                                                       ctx))
@@ -326,7 +326,7 @@ def test_quant_ops_dispatch_cpu_to_plain_versions():
                            if b.element_size() == 1 else b)
                for a, b in zip(got, want))
     assert (paged_attention.launches, ragged_paged_attention.launches,
-            page_requant.launches) == before
+            page_requant.launches, kv_append_quant.launches) == before
 
 
 def test_quant_launchers_refuse_cpu_tensors():
@@ -334,7 +334,8 @@ def test_quant_launchers_refuse_cpu_tensors():
     kq, ks, vq, vs = _quant_pools(np.random.default_rng(1), "int8", 4, 4, 1,
                                   32)
     i32 = torch.int32
-    before = (page_requant.launches, paged_attention.launches)
+    before = (page_requant.launches, paged_attention.launches,
+              kv_append_quant.launches)
     with pytest.raises(ValueError, match="CUDA"):
         page_requant(kq, vq, torch.ones(1, 1), torch.ones(1, 1),
                      torch.zeros(1, dtype=i32))
@@ -346,7 +347,8 @@ def test_quant_launchers_refuse_cpu_tensors():
         paged_attention(torch.zeros(1, 1, 2, 32), kq, vq,
                         torch.zeros(1, 2, dtype=i32),
                         torch.ones(1, dtype=i32), k_scale=ks, v_scale=vs)
-    assert (page_requant.launches, paged_attention.launches) == before
+    assert (page_requant.launches, paged_attention.launches,
+            kv_append_quant.launches) == before
 
 
 def test_attention_pool_code_checks_scales():
@@ -736,10 +738,12 @@ def _same(a, b):
 def test_gpu_kv_append_quant_bit_exact(cuda, name):
     pools, rows = _card_quant_state(cuda, name)
     want = kv_append_quant_ref(*[t.clone() for t in pools], *rows)
-    before = page_requant.launches
+    before = (kv_append_quant.launches, page_requant.launches)
     got = ops.kv_append_quant_op(*[t.clone() for t in pools], *rows)
     torch.cuda.synchronize()
-    assert page_requant.launches == before + 1
+    # one fused launch; the standalone page_requant is not launched
+    assert (kv_append_quant.launches, page_requant.launches) == \
+        (before[0] + 1, before[1])
     assert _same(got, want)
 
 
