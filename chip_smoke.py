@@ -27,8 +27,11 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      backward at T {1, 63, 64, 1000, 2048}, Tq < Tk,
                      G {1, 4}, window, softcap and no causal mask;
                      gla_scan over the reference grid, the tiny and the
-                     full-width mLSTM shapes, a Mamba2 call (stride-0 q
-                     and k) and a carried initial state
+                     full-width mLSTM shapes (also as mlstm_forward lays
+                     them out, read in place, with log_a at the clamp
+                     over whole chunks, and with an initial state), a
+                     Mamba2 call (stride-0 q and k), a carried initial
+                     state and dk 8 with chunks of 5
   4. tiny          — tiny-config f32 forward_mixed_paged, decode_step_paged
                      and extend_step_paged, kernels on the card against
                      plain versions on the CPU, same weights and pools,
@@ -91,8 +94,10 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      both appends (rows 2, 2q) also at the last call of
                      every N the serve runs gave them (launches x
                      (time - bound) summed over the sizes, by both
-                     measures); with --parent DIR, another checkout's
-                     attention and append wrappers in turns with these
+                     measures); gla_scan also as device time, its bound
+                     the split's bf16 tensor-core operations; with
+                     --parent DIR, another checkout's attention, append
+                     and gla_scan wrappers in turns with these
  19. profile       — torch.profiler over a window of serve steps (bf16 and
                      int8 pools), over one train step and over one
                      xlstm prefill: device busy share, device time by
@@ -1332,13 +1337,13 @@ def serve(policy: str, recorder: Recorder, *, tiny: bool = False,
 # phase 15: timing on the main path's inputs
 # ---------------------------------------------------------------------------
 def parent_kernels(parent: Path):
-    """The attention and append wrappers of another checkout of the port at
-    ``parent`` (the parent commit's, for timing both versions in one run):
-    ragged and paged attention, kv_append, page_requant and the whole
-    quantized append. Its ``repro_torch`` modules are imported from its own source
-    tree, so its kernels build there by its own ``_build.py`` and are
-    called through its own wrappers, whatever their C signatures
-    (``build`` builds them). This tree's modules are put back afterwards;
+    """The attention, append and gla_scan wrappers of another checkout of
+    the port at ``parent`` (the parent commit's, for timing both versions
+    in one run): ragged and paged attention, kv_append, page_requant, the
+    whole quantized append and gla_scan's launcher. Its ``repro_torch``
+    modules are imported from its own source tree, so its kernels build
+    there by its own ``_build.py`` and are called through its own
+    wrappers, whatever their C signatures (``build`` builds them). This tree's modules are put back afterwards;
     the parent's launch counts are its own."""
     import importlib
     import types
@@ -1357,6 +1362,7 @@ def parent_kernels(parent: Path):
         pa = importlib.import_module("repro_torch.kernels.paged_attention")
         ka = importlib.import_module("repro_torch.kernels.kv_append")
         kq = importlib.import_module("repro_torch.kernels.kv_quant")
+        gs = importlib.import_module("repro_torch.kernels.gla_scan")
     finally:
         sys.path.remove(src)
         for k in ours():
@@ -1367,6 +1373,7 @@ def parent_kernels(parent: Path):
                                  kv_append=ka.kv_append,
                                  page_requant=kq.page_requant,
                                  kv_append_quant=kq.kv_append_quant,
+                                 gla_scan=gs.gla_scan_fwd,
                                  build=rpa._build.lib)
 
 
@@ -2317,13 +2324,20 @@ GLA_REPLACES = "src/repro/kernels/gla_scan.py:69"
 
 
 def gla_inputs(gen, *, B, H, T, dk, dv, dtype, mixed=False,
-               broadcast=False, state=False, device="cuda"):
+               broadcast=False, strided=False, strong=0, state=False,
+               device="cuda"):
     """q, k, v, log_a (and an initial state) for gla_scan: q, v normal,
     k normal / sqrt(dk), log_a = -|normal| * 0.2 (tests/test_kernels.py's
     decay). ``mixed``: k float32 beside q and v in ``dtype``, as an mLSTM
     call (k times the float32 input gate); ``broadcast``: q and k shared
-    by the H heads with stride 0 and v float32, as a Mamba2 call."""
+    by the H heads with stride 0 and v float32, as a Mamba2 call;
+    ``strided``: laid out as ``mlstm_forward`` passes them, q and k
+    (B, H, T, dk) views of (B, T, H, dk) tensors and v the first dv
+    columns of an ``aligned_empty`` buffer, its last column ones;
+    ``strong``: log_a = -30 (mLSTM's clamp) over every other chunk of
+    ``strong`` steps, from the first."""
     import torch
+    from repro_torch.kernels.gla_scan import aligned_empty
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=device)
@@ -2332,12 +2346,21 @@ def gla_inputs(gen, *, B, H, T, dk, dv, dtype, mixed=False,
         k = (randn(B, 1, T, dk) / math.sqrt(dk)).to(dtype).expand(
             B, H, T, dk)
         v = randn(B, H, T, dv)
+    elif strided:
+        q = randn(B, T, H, dk).to(dtype).transpose(1, 2)
+        k = (randn(B, T, H, dk) / math.sqrt(dk)).to(
+            torch.float32 if mixed else dtype).transpose(1, 2)
+        v = aligned_empty((B, H, T, dv), dtype, device)
+        v[..., :-1] = randn(B, T, H, dv - 1).to(dtype).transpose(1, 2)
+        v[..., -1] = 1
     else:
         q = randn(B, H, T, dk).to(dtype)
         k = (randn(B, H, T, dk) / math.sqrt(dk)).to(
             torch.float32 if mixed else dtype)
         v = randn(B, H, T, dv).to(dtype)
     la = -randn(B, H, T).abs() * 0.2
+    for t0 in range(0, T, 2 * strong) if strong else ():
+        la[..., t0:t0 + strong] = -30.0
     s0 = randn(B, H, dk, dv) if state else None
     return q, k, v, la, s0
 
@@ -2355,13 +2378,17 @@ def check_gla_kernels(gen, worst) -> None:
     (tests/test_kernels.py's shapes and chunks) in float32 and bf16, the
     tiny xLSTM's mLSTM shape (dk 256, dv 257, chunk 64) and the full-width
     one (B 2, H 4, T 2000, dk 512, dv 513, chunk 256) with float32 k
-    beside bf16 q and v, a Mamba2 call (zamba2's widths: H 8, dk 64, dv
-    512, stride-0 q and k, float32 v), and a carried initial state. Held
-    relative to the largest |y| and |S|: 1e-4 for float32 results
-    (float32 sums in another order), 2^-7 for a bf16 y (both round one
-    float32 result once: a unit in the last place)."""
+    beside bf16 q and v, also laid out as ``mlstm_forward`` passes them
+    (read in place: no copy), with log_a at mLSTM's clamp over whole
+    chunks and with an initial state; a Mamba2 call (zamba2's widths: H 8,
+    dk 64, dv 512, stride-0 q and k, float32 v), a carried initial state
+    and dk 8 with chunks of 5. Held relative to the largest |y| and |S|:
+    1e-4 for float32 results (float32 sums in another order), 2^-7 for a
+    bf16 y (both round one float32 result once: a unit in the last
+    place)."""
     import torch
-    from repro_torch.kernels.gla_scan import chunked_gla_ref, gla_scan_fwd
+    from repro_torch.kernels.gla_scan import (aligned, chunked_gla_ref,
+                                              gla_scan_fwd)
     grid = [(2, 2, 64, 16, 16, 16), (1, 4, 128, 32, 64, 32),
             (2, 1, 256, 64, 64, 128), (1, 2, 96, 16, 16, 32)]
     cases = [(f"grid B{b} H{h} T{t} dk{dk} dv{dv} c{c}", dtype,
@@ -2381,9 +2408,22 @@ def check_gla_kernels(gen, worst) -> None:
                                             dv=512), 256,
          dict(broadcast=True)),
         ("float32 T off the chunk, initial state", torch.float32,
-         dict(B=2, H=2, T=333, dk=64, dv=40), 128, dict(state=True))]
+         dict(B=2, H=2, T=333, dk=64, dv=40), 128, dict(state=True)),
+        ("mLSTM operands as mlstm_forward passes them", bf16,
+         dict(B=2, H=4, T=2000, dk=512, dv=513), 256,
+         dict(mixed=True, strided=True)),
+        ("strong decay: log_a -30 over whole chunks", bf16,
+         dict(B=2, H=4, T=1300, dk=512, dv=513), 256,
+         dict(mixed=True, strided=True, strong=256)),
+        ("mLSTM full width T 2000, initial state", bf16,
+         dict(B=2, H=4, T=2000, dk=512, dv=513), 256,
+         dict(mixed=True, strided=True, state=True))]
+    cases += [("dk 8, chunk 5", dtype, dict(B=2, H=3, T=37, dk=8, dv=12), 5,
+               {}) for dtype in (torch.float32, bf16)]
     for label, dtype, shape, c, kw in cases:
         q, k, v, la, s0 = gla_inputs(gen, dtype=dtype, **shape, **kw)
+        if kw.get("strided"):
+            assert all(aligned(t) for t in (q, k, v)), label
         y, s = gla_scan_fwd(q, k, v, la, chunk=c, initial_state=s0)
         want_y, want_s = chunked_gla_ref(q, k, v, la, c, s0)
         torch.cuda.synchronize()
@@ -2644,7 +2684,13 @@ def ssm_serve(recorder: GLARecorder, *, tiny: bool = False,
             prefill(params, tokens)
             sync()
             wall = time.perf_counter() - t0
-        log_device_time(prof, wall, f"1 prefill of {batch} x {seq}")
+        dev_us, total = log_device_time(prof, wall,
+                                        f"1 prefill of {batch} x {seq}")
+        gla = [v for k, v in dev_us.items() if "gla_" in k]
+        log(f"  gla_scan's kernels: {sum(us for us, _ in gla) / 1e3:.2f} ms "
+            f"over {sum(n for _, n in gla)} launches = "
+            f"{sum(us for us, _ in gla) / max(total, 1e-9):.3f} of device "
+            f"time")
     del params, cache, logits, step_logits
     gc.collect()
     if on_card:
@@ -2669,12 +2715,51 @@ def gla_ops(shape, dv: int, chunk: int, with_state: bool) -> int:
     return ops
 
 
-def time_gla(recorder: GLARecorder, worst: dict, launches: dict) -> list:
-    """The gla_scan row: the kernel's launcher (its float32 casts
-    included: the main path pays them) and the plain version, timed on
-    the inputs of the first mLSTM call of ssm_serve's prefill. No single
-    PyTorch call computes chunked gated linear attention, so there is no
-    library yardstick."""
+def split_products(a, b, terms) -> int:
+    """The bf16 tensor-core products gla_scan takes for one product of two
+    operands held as ``a`` and ``b`` terms (1 for a bf16 operand,
+    ``terms`` for a float32 one): the term pairs whose indexes sum below
+    ``terms``."""
+    return sum(i + j < terms for i in range(a) for j in range(b))
+
+
+def gla_tc_ops(shape, dv: int, chunk: int, with_state: bool,
+               dtypes: tuple) -> int:
+    """gla_ops' work as the kernel's bf16 tensor-core products: each of the
+    four products (q k^T, P v, q S, the decayed k^T v) times
+    ``split_products`` of its operands. ``dtypes``: q's, k's and v's; a
+    float32 operand (the scores P, the state S and the decayed k always)
+    is held as the kernel's terms for v's dtype (``TERMS``)."""
+    import torch
+    from repro_torch.kernels.gla_scan import TERMS
+    B, H, T, dk = shape
+    nt = TERMS[dtypes[2]]
+    tq, tk, tv = (1 if d == torch.bfloat16 else nt for d in dtypes)
+    ops = 0
+    for t0 in range(0, T, chunk):
+        r = min(chunk, T - t0)
+        inter = 0 if (t0 == 0 and not with_state) else r * dk * dv
+        pairs = r * (r + 1) // 2
+        ops += 2 * B * H * (
+            pairs * dk * split_products(tq, tk, nt)
+            + pairs * dv * split_products(nt, tv, nt)
+            + inter * split_products(tq, nt, nt)
+            + r * dk * dv * split_products(nt, tv, nt))
+    return ops
+
+
+def time_gla(recorder: GLARecorder, worst: dict, launches: dict,
+             parent=None) -> list:
+    """The gla_scan row: the kernel's launcher and the plain version, timed
+    on the inputs of the first mLSTM call of ssm_serve's prefill, in
+    turns (plain, kernel, kernel, plain; with ``parent``, the parent's
+    launcher between them); ``ms`` launched from the host, ``device_ms``
+    by CUDA graph replays (both for the parent's too). The bound: the
+    split's bf16 tensor-core operations at the bf16 peak or each operand
+    read and each result written once, whichever is longer; the float32
+    figure (the same work on the float32 CUDA cores, the bound of the
+    kernel this one replaced) is logged beside it. No single PyTorch call computes chunked gated linear
+    attention, so there is no library yardstick."""
     import torch
     from repro_torch.kernels.gla_scan import chunked_gla_ref, gla_scan_fwd
     from repro_torch.utils.tree import tree_map
@@ -2695,23 +2780,49 @@ def time_gla(recorder: GLARecorder, worst: dict, launches: dict) -> list:
         f"(tol {tol_y:.3g}), state {es:.3g} (tol 1e-4)")
     assert ey <= tol_y and es <= 1e-4
     err = max(worst["gla_scan"], max_err(y, want_y), max_err(s, want_s))
-    ms, plain_ms = in_turns(plain, kernel, 3)
+    del y, s, want_y, want_s
+    fns = {"plain": plain, "ms": kernel}
+    if parent is not None:
+        fns["parent_ms"] = lambda: parent.gla_scan(
+            q, k, v, la, chunk=chunk, initial_state=s0)
+    order = ["plain"] + [m for m in fns if m != "plain"]
+    order += order[::-1]
+    loop = {m: [] for m in fns}
+    for m in order:
+        loop[m].append(cuda_ms(fns[m], 3))
+    row_ = {m: min(t) for m, t in loop.items()}
+    dev = {m: [] for m in fns if m != "plain"}
+    for m in order:
+        if m != "plain":
+            dev[m].append(graph_ms(fns[m], 3))
+    for m, t in dev.items():
+        row_[m.replace("ms", "device_ms")] = min(t)
+    ms, plain_ms = row_.pop("ms"), row_.pop("plain")
     dv = v.shape[-1]
+    c = min(chunk, q.shape[2])
     # each input read once in its dtype, y written in v's, the state in
     # float32
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, la)) \
-        + y.numel() * y.element_size() + s.numel() * 4 \
+        + q.shape[0] * q.shape[1] * q.shape[2] * dv * v.element_size() \
+        + q.shape[0] * q.shape[1] * q.shape[-1] * dv * 4 \
         + (0 if s0 is None else s0.numel() * 4)
-    ops = gla_ops(tuple(q.shape), dv, min(chunk, q.shape[2]),
-                  s0 is not None)
+    ops = gla_tc_ops(tuple(q.shape), dv, c, s0 is not None,
+                     tuple(t.dtype for t in (q, k, v)))
+    f32_ops = gla_ops(tuple(q.shape), dv, c, s0 is not None)
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / PEAK_OPS["float32"] * 1e3
+    by_ops = ops / PEAK_OPS["bfloat16"] * 1e3
+    f32_bound = max(by_bytes, f32_ops / PEAK_OPS["float32"] * 1e3)
     shape = list(q.shape) + [dv, f"chunk {chunk}",
                              " ".join(str(t.dtype)[6:] for t in (q, k, v))]
-    log(f"  gla_scan {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"library none, bound {max(by_bytes, by_ops):.4f} ms ({nbytes} B, "
-        f"{ops} float32 operations), main-path max_abs_err {err:.3g}")
-    del y, s, want_y, want_s
+    log(f"  gla_scan {shape}: kernel {ms:.4f} ms (device "
+        f"{row_['device_ms']:.4f}), plain {plain_ms:.4f} ms, library none, "
+        f"bound {max(by_bytes, by_ops):.4f} ms ({nbytes} B, {ops} bf16 "
+        f"tensor-core operations; float32 figure {f32_bound:.4f} ms, "
+        f"{f32_ops} float32 operations), main-path max_abs_err {err:.3g}")
+    if parent is not None:
+        log(f"    in turns with the parent's kernel: launched from the host "
+            f"{row_['parent_ms']:.4f} -> {ms:.4f} ms, device time "
+            f"{row_['parent_device_ms']:.4f} -> {row_['device_ms']:.4f} ms")
     torch.cuda.empty_cache()
     return [{"name": "gla_scan", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/gla_scan.cu",
@@ -2719,7 +2830,9 @@ def time_gla(recorder: GLARecorder, worst: dict, launches: dict) -> list:
              "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
              "bound_ms": max(by_bytes, by_ops),
              "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-             "library_ms": None, "shape": shape}]
+             "library_ms": None, "shape": shape, **row_,
+             "host_ms": ms - row_["device_ms"],
+             "float32_bound_ms": f32_bound}]
 
 
 def main() -> int:
@@ -2731,7 +2844,7 @@ def main() -> int:
                          "ssm_serve for the gla_scan row)")
     ap.add_argument("--parent", default=None,
                     help="another checkout of the port (the parent "
-                         "commit's): its ragged and paged attention "
+                         "commit's): its attention, append and gla_scan "
                          "wrappers are imported from there, build their "
                          "kernels there and are timed in turns with these "
                          "in the timing phase")
@@ -2877,7 +2990,7 @@ def main() -> int:
     if "timing" in phases and "ssm_serve" in phases:
         log("[timing] gla_scan on the first mLSTM call of the xlstm "
             "prefill")
-        rows += time_gla(gla_rec, worst, total)
+        rows += time_gla(gla_rec, worst, total, parent)
     if "timing" in phases and \
             set(SERVE_PHASES) | {"train", "ssm_serve"} <= phases:
         assert sorted(r["name"] for r in rows) == sorted(KERNELS), rows

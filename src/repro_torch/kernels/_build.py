@@ -35,7 +35,7 @@ SIGNATURES = {
     "page_requant_launch": [_P] * 5 + [_I] * 6 + [_P],
     "flash_attention_fwd_launch": [_P] * 5 + [_I] * 8 + [_F, _F, _I, _P],
     "flash_attention_bwd_launch": [_P] * 10 + [_I] * 8 + [_F, _F, _I, _P],
-    "gla_scan_launch": [_P] * 9 + [_I] * 6 + [_P],
+    "gla_scan_launch": [_P] * 10 + [_LL] * 9 + [_I] * 11 + [_P],
     "kv_append_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _P],
     "kv_append_quant_launch": [_P] * 9 + [_I] * 7 + [_P],
     "swap_pack_launch": [_P, _P, _P, _I, _I, _I, _LL, _P],

@@ -98,6 +98,7 @@ __device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c0)[4],
 //  ldsm_b: B fragments of a tile stored n x k (rows are n): columns
 //    n0..n0+7 in r[0..1] and n0+8..n0+15 in r[2..3], depth k0..k0+15;
 //  ldsm_bt: the same of a tile stored k x n (rows are k), by .trans.
+// (ldsm_at, below, is ldsm_a of a tile stored k x m.)
 template <int PITCH>
 __device__ __forceinline__ void ldsm_a(uint32_t (&r)[4],
                                        const __nv_bfloat16* t, int r0,
@@ -120,6 +121,16 @@ __device__ __forceinline__ void ldsm_bt(uint32_t (&r)[4],
                                         int n0) {
   const int l = threadIdx.x % 32;
   ldsm_x4_t(r, t + (k0 + l % 8 + (l / 8 % 2) * 8) * PITCH + n0 + l / 16 * 8);
+}
+
+// ldsm_at: the A fragment of rows m0..m0+15, depth k0..k0+15 of a tile
+// stored k x m (rows are k), by .trans
+template <int PITCH>
+__device__ __forceinline__ void ldsm_at(uint32_t (&r)[4],
+                                        const __nv_bfloat16* t, int k0,
+                                        int m0) {
+  const int l = threadIdx.x % 32;
+  ldsm_x4_t(r, t + (k0 + l % 8 + l / 16 * 8) * PITCH + m0 + (l / 8 % 2) * 8);
 }
 
 }  // namespace

@@ -15,6 +15,13 @@ Layout: q, k (B, H, T, dk); v (B, H, T, dv); log_a (B, H, T); an
 optional initial state (B, H, dk, dv). Returns y (B, H, T, dv) in v's
 dtype and the final state (B, H, dk, dv) float32. The kernel source is
 ``csrc/gla_scan.cu``; it has no backward yet.
+
+The kernel reads q, k and v in place, float32 or bfloat16, through their
+(B, H, T) strides, where every row starts on 16 bytes (``aligned``); it
+multiplies on the tensor cores, a float32 operand split into bf16 terms
+(``TERMS``, by y's dtype). y comes back as the first dv columns of a
+buffer whose rows are padded to a multiple of 8 elements
+(``aligned_empty``), as the mLSTM builds its v.
 """
 from __future__ import annotations
 
@@ -23,9 +30,54 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 
-MAX_CHUNK = 256      # rows of a chunk: one thread of the scan block each
-MAX_DK = 512         # key dims: two state rows per thread of the scan block
+MAX_CHUNK = 256      # steps of a chunk: the decays of one block
+# bf16 terms of a float32 operand, by y's (v's) dtype (csrc kTermsOf):
+# two leave ~1e-5 of the float32 result, below a bf16 y's rounding; three
+# ~2e-7, as float32 sums, for a float32 y
+TERMS = {torch.bfloat16: 2, torch.float32: 3}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def padded_width(n: int) -> int:
+    """n rounded up to a multiple of 8 elements: rows of that pitch start
+    on 16 bytes in either dtype."""
+    return -(-n // 8) * 8
+
+
+def aligned_empty(shape, dtype, device):
+    """An uninitialized tensor of ``shape`` whose rows (the last dimension)
+    start on 16 bytes: the first ``shape[-1]`` columns of a buffer padded
+    to ``padded_width``."""
+    *lead, n = shape
+    buf = torch.empty((*lead, padded_width(n)), dtype=dtype, device=device)
+    return buf[..., :n]
+
+
+def aligned(t) -> bool:
+    """Whether the kernel reads ``t`` in place: float32 or bfloat16, unit
+    stride along the last dimension, and every row of it starting on 16
+    bytes (the data pointer and each stride of a dimension longer than 1,
+    in bytes, multiples of 16; a stride-0 broadcast passes)."""
+    if t.dtype not in DTYPES:
+        return False
+    if t.shape[-1] > 1 and t.stride(-1) != 1:
+        return False
+    size = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        n == 1 or st * size % 16 == 0
+        for n, st in zip(t.shape[:-1], t.stride()[:-1]))
+
+
+def in_place(t):
+    """``t`` itself where the kernel reads it in place; else a copy in an
+    ``aligned_empty`` buffer, in float32 unless ``t`` is float32 or
+    bfloat16 already (so a bf16 operand is never widened)."""
+    if aligned(t):
+        return t
+    dtype = t.dtype if t.dtype in DTYPES else torch.float32
+    out = aligned_empty(tuple(t.shape), dtype, t.device)
+    out.copy_(t)
+    return out
 
 
 def chunked_gla_ref(q, k, v, log_a, chunk: int, initial_state=None):
@@ -113,23 +165,24 @@ def _check(q, k, v, log_a, chunk, initial_state):
         if not t.is_floating_point():
             raise TypeError(f"gla_scan takes floating operands, got "
                             f"{t.dtype}")
-    if (T > 0 and not 1 <= min(chunk, T) <= MAX_CHUNK) or dk > MAX_DK:
-        raise ValueError(f"chunk {chunk} / dk {dk} not taken: the kernel "
-                         f"takes chunks of 1-{MAX_CHUNK} steps and dk up "
-                         f"to {MAX_DK}")
+    if T > 0 and not 1 <= min(chunk, T) <= MAX_CHUNK:
+        raise ValueError(f"chunk {chunk} not taken: the kernel takes chunks "
+                         f"of 1-{MAX_CHUNK} steps")
 
 
 def gla_scan_fwd(q, k, v, log_a, *, chunk: int, initial_state=None):
-    """Launch the kernel on the current stream. The operands are cast to
-    float32 and made contiguous first (a stride-0 broadcast, as Mamba2's
-    shared q and k, is materialized). Returns (y like v, the final state
-    (B, H, dk, dv) float32). Raises on any operand the kernel does not
-    take, a CPU tensor included."""
+    """Launch the kernel on the current stream. q, k and v are read in
+    place (``in_place``: a stride-0 broadcast, as Mamba2's shared q and k,
+    and the mLSTM's transposed views included); log_a and the initial
+    state are read as contiguous float32. Returns (y like v, as the first
+    dv columns of an ``aligned_empty`` buffer; the final state (B, H, dk,
+    dv) float32). Raises on any operand the kernel does not take, a CPU
+    tensor included."""
     _check(q, k, v, log_a, chunk, initial_state)
     B, H, T, dk = q.shape
     dv = v.shape[-1]
     dev = q.device
-    y = torch.empty((B, H, T, dv), dtype=v.dtype, device=dev)
+    y = aligned_empty((B, H, T, dv), v.dtype, dev)
     state = torch.empty((B, H, dk, dv), dtype=torch.float32, device=dev)
     if B * H == 0 or dv == 0:
         return y, state
@@ -139,18 +192,26 @@ def gla_scan_fwd(q, k, v, log_a, *, chunk: int, initial_state=None):
     c = min(chunk, T)
     n = -(-T // c)
     cpad = -(-c // 64) * 64
-    f32 = [t.to(torch.float32).contiguous() for t in (q, k, v, log_a)]
+    dvp = padded_width(dv)
+    q, k, v = (in_place(t) for t in (q, k, v))
+    la = log_a.to(torch.float32).contiguous()
     s0 = None if initial_state is None \
         else initial_state.to(torch.float32).contiguous()
-    # scratch: the masked, decayed intra-chunk scores (transposed) and the
-    # chunks' cumulative log decays
-    scores = torch.empty((B * H, n, cpad, cpad), dtype=torch.float32,
-                         device=dev)
+    # scratch: the chunks' cumulative log decays, the masked decayed scores
+    # and the chunk-entry states, each of the last two as its bf16 terms
+    terms = TERMS[v.dtype]
     lb = torch.empty((B * H, n, cpad), dtype=torch.float32, device=dev)
+    scores = torch.empty((terms, B * H, n, cpad, cpad), dtype=torch.bfloat16,
+                         device=dev)
+    states = torch.empty((terms, B * H, n, dk, dvp), dtype=torch.bfloat16,
+                         device=dev)
     err = _build.lib().gla_scan_launch(
-        *(t.data_ptr() for t in f32), 0 if s0 is None else s0.data_ptr(),
-        y.data_ptr(), state.data_ptr(), scores.data_ptr(), lb.data_ptr(),
-        B * H, T, dk, dv, c, DTYPES[v.dtype],
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), la.data_ptr(),
+        0 if s0 is None else s0.data_ptr(), y.data_ptr(), state.data_ptr(),
+        lb.data_ptr(), scores.data_ptr(), states.data_ptr(),
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        B, H, T, dk, dv, c, dvp,
+        DTYPES[q.dtype], DTYPES[k.dtype], DTYPES[v.dtype], terms,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "gla_scan")
     gla_scan_fwd.launches += 1
@@ -175,8 +236,8 @@ class GLAScan(torch.autograd.Function):
     def backward(ctx, dy, dstate):
         raise NotImplementedError(
             "gla_scan has no backward kernel yet: training an SSM model on "
-            "the card waits for the gla backward (ROADMAP, 'What remains' "
-            "item 1)")
+            "the card waits for the gla backward (ROADMAP, 'The kernel "
+            "work that remains': '8b. The gla backward')")
 
 
 def gla_scan(q, k, v, log_a, *, chunk: int = 128, initial_state=None):

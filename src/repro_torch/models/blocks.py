@@ -26,7 +26,7 @@ _DECODE = {"mamba2": ssm.mamba2_decode, "mlstm": ssm.mlstm_decode,
 _STATE = {"mamba2": ssm.mamba2_state_shapes,
           "mlstm": ssm.mlstm_state_shapes, "slstm": ssm.slstm_state_shapes}
 GATHER_SLICE = ("the gather path for attention blocks (decode_step, "
-                "slotted caches; ROADMAP 'What remains' item 2)")
+                "slotted caches; ROADMAP, 'Modules to port' item 2)")
 
 
 def _check_ported(blk: BlockCfg):

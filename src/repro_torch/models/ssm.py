@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMCfg
 from repro_torch.kernels import ops
-from repro_torch.kernels.gla_scan import gla_step_ref
+from repro_torch.kernels.gla_scan import aligned_empty, gla_step_ref
 from repro_torch.models.common import dense_init, rms_norm
 
 F32 = torch.float32
@@ -315,7 +315,11 @@ def mlstm_forward(p, s: SSMCfg, d_model: int, x, initial_state=None):
     qh = q.transpose(1, 2)
     kh = k.transpose(1, 2) * i_eff[..., None]
     vh = v.transpose(1, 2)
-    v_aug = torch.cat([vh, torch.ones_like(vh[..., :1])], dim=-1)
+    # [v, 1] with rows padded to 16 bytes, so the kernel reads it in place
+    # (a contiguous bf16 row of hd + 1 = 513 is only 2-byte aligned)
+    v_aug = aligned_empty((B, H, T, hd + 1), vh.dtype, vh.device)
+    v_aug[..., :hd] = vh
+    v_aug[..., hd] = 1
     y_aug, S = chunked_gla(qh, kh, v_aug, log_a, s.chunk_size, S0)
     h = _mlstm_out(p, y_aug, m, hd)
     h = h.transpose(1, 2).reshape(B, T, d_inner)

@@ -11,11 +11,25 @@
   bfloat16 q and v), lengths that are not chunk multiples and an initial
   state against ``chunked_gla`` (the Pallas kernel takes neither), and
   ``gla_step_ref`` against ``repro.models.ssm.gla_step``.
+* The kernel's numerical design, before any card run: a plain-torch
+  emulation of its chunk-parallel order (the states entering each chunk
+  first, then every chunk's outputs from them) and of its operand split
+  (each float32 operand as ``TERMS[y's dtype]`` bf16 terms, a bf16 one as
+  it is, the term pairs whose indexes sum below that, float32 sums),
+  against the
+  JAX kernel in interpret mode and ``chunked_gla`` at the card's
+  tolerances: the grid, the tiny mLSTM shape, log_a at mLSTM's clamp over
+  whole chunks; and one term, which does not hold them.
+* Operands read in place: the mLSTM's (transposed q and k, v padded by
+  ``aligned_empty``) and Mamba2's broadcast q and k need no copy; a row
+  that is not 16-byte aligned is copied in its own dtype.
 * The dispatch: ``ops.gla_scan_op`` is the plain version on the CPU, and
   differentiable there; the launcher refuses a CPU tensor.
 * On a CUDA card (``-m gpu``), the kernel against the plain version,
   within 1e-4 (float32) or 2^-7 (a bfloat16 unit in the last place) of
-  the largest |y| and |S|, and the backward of the kernel raising. These
+  the largest |y| and |S| (also on the mLSTM's operands read in place,
+  with and without log_a at the clamp), and the backward of the kernel
+  raising. These
   skip when no card is present. The card's machine has no JAX, so the
   reference is imported inside the CPU tests only and the card runs this
   file with ``PYTHONPATH=src python -m pytest -q --noconftest -m gpu
@@ -27,9 +41,13 @@ import numpy as np
 import pytest
 import torch
 
+import torch.nn.functional as F
+
 from repro_torch.kernels import ops
-from repro_torch.kernels.gla_scan import (chunked_gla_ref, gla_scan,
-                                          gla_scan_fwd, gla_step_ref)
+from repro_torch.kernels.gla_scan import (TERMS, aligned, aligned_empty,
+                                          chunked_gla_ref, gla_scan,
+                                          gla_scan_fwd, gla_step_ref,
+                                          in_place)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -200,6 +218,246 @@ def test_plain_chunked_equals_steps():
         torch.testing.assert_close(s_par, S, atol=1e-4, rtol=0)
 
 
+# ---------------------------------------------------------------------------
+# the kernel's numerical design, emulated on the CPU
+# ---------------------------------------------------------------------------
+def _split(x, terms):
+    """x (float32) as ``terms`` bf16 values, largest first, that sum to it
+    (to ~2^-17 for two)."""
+    out, rest = [], x.float()
+    for _ in range(terms):
+        out.append(rest.to(torch.bfloat16).float())
+        rest = rest - out[-1]
+    return out
+
+
+def _tc(eq, a, b, terms):
+    """``einsum(eq, a, b)`` as the kernel's tensor cores take it: a
+    float32 operand split into ``terms`` bf16 terms, a bf16 one exact as
+    it is; the products of the term pairs whose indexes sum below
+    ``terms`` (each exact in float32), summed in float32."""
+    A = _split(a, terms) if a.dtype == torch.float32 else [a.float()]
+    B = _split(b, terms) if b.dtype == torch.float32 else [b.float()]
+    return sum(torch.einsum(eq, x, y) for i, x in enumerate(A)
+               for j, y in enumerate(B) if i + j < terms)
+
+
+def _emulate(q, k, v, log_a, chunk, initial_state=None, terms=None):
+    """The kernel's order and products in plain torch (``terms`` bf16
+    terms of a float32 operand, by default the kernel's for v's dtype):
+    lb per chunk; the
+    states entering every chunk, S <- exp(lb_last) S + (k exp(lb_last -
+    lb))^T v; then each chunk's outputs from its entering state, the
+    scores P = (q k^T) exp(lb_i - lb_j) masked after the product, y =
+    P v + exp(lb_i) q S_n (no q S term while S is the zero state). P, S
+    and the decayed k are float32 operands, so split."""
+    B, H, T, dk = q.shape
+    dv = v.shape[-1]
+    terms = terms or TERMS[v.dtype]
+    c = min(chunk, T)
+    n = -(-T // c)
+    pad = n * c - T
+    if pad:
+        q, k, v = (F.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
+        log_a = F.pad(log_a, (0, pad))
+    qc, kc, vc = (t.reshape(B, H, n, c, -1) for t in (q, k, v))
+    lb = torch.cumsum(log_a.float().reshape(B, H, n, c), dim=-1)
+    S = torch.zeros((B, H, dk, dv)) if initial_state is None \
+        else initial_state.float()
+    states = []
+    for i in range(n):
+        states.append(S)
+        last = lb[:, :, i, -1:]
+        dec = torch.exp(last - lb[:, :, i])
+        U = _tc("bhjd,bhjv->bhdv", kc[:, :, i].float() * dec[..., None],
+                vc[:, :, i], terms)
+        S = torch.exp(last)[..., None] * S + U
+    causal = torch.tril(torch.ones((c, c), dtype=torch.bool))
+    ys = []
+    for i in range(n):
+        li = lb[:, :, i]
+        D = torch.exp(torch.where(causal, li[..., :, None] - li[..., None, :],
+                                  -torch.inf))
+        P = _tc("bhid,bhjd->bhij", qc[:, :, i], kc[:, :, i], terms) * D
+        y = _tc("bhij,bhjv->bhiv", P, vc[:, :, i], terms)
+        if i > 0 or initial_state is not None:
+            y = y + torch.exp(li)[..., None] * _tc(
+                "bhid,bhdv->bhiv", qc[:, :, i], states[i], terms)
+        ys.append(y)
+    return torch.cat(ys, dim=2)[:, :, :T].to(v.dtype), S
+
+
+def _card_tol(y, want_y, s, want_s):
+    """The card's tolerances, relative to the largest |y| and |S|: 1e-4 in
+    float32, 2^-7 for a bf16 y (each side rounds a float32 result once);
+    the state 1e-4."""
+    want_y = np.asarray(want_y, np.float32)
+    want_s = np.asarray(want_s, np.float32)
+    rel = 1e-4 if y.dtype == torch.float32 else 2.0 ** -7
+    np.testing.assert_allclose(y.float().numpy(), want_y, rtol=0,
+                               atol=rel * np.abs(want_y).max())
+    np.testing.assert_allclose(s.numpy(), want_s, rtol=0,
+                               atol=1e-4 * np.abs(want_s).max())
+
+
+def _strong_decay(la, c):
+    """log_a at mLSTM's clamp, -30, over every other chunk of c steps."""
+    T = la.shape[-1]
+    for t0 in range(0, T, 2 * c):
+        la[..., t0:t0 + c] = -30.0
+    return la
+
+
+@pytest.mark.parametrize("B,H,T,dk,dv,c", GRID)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_emulation_matches_pallas_and_chunked_gla(B, H, T, dk, dv, c,
+                                                        dtype):
+    from repro.kernels.gla_scan import gla_scan as jax_gla_scan
+    from repro.models.ssm import chunked_gla
+    arrays = _inputs(B * 100 + T, B, H, T, dk, dv, k_scale=1 / math.sqrt(dk))
+    dtypes = [dtype] * 3 + ["float32"]
+    jargs = _jax(arrays, dtypes)
+    y, s = _emulate(*_torch(arrays, dtypes), c)
+    assert y.dtype == getattr(torch, dtype)
+    for want in (jax_gla_scan(*jargs, chunk=c, interpret=True),
+                 chunked_gla(*jargs, c)):
+        _card_tol(y, want[0], s, want[1])
+
+
+@pytest.mark.parametrize("state", [False, True])
+def test_split_emulation_tiny_mlstm_shape(state):
+    """dk 256, dv 257 (the ones column last), chunk 64, T off the chunk; q
+    and v bf16, k float32 (split), and an initial state."""
+    from repro.models.ssm import chunked_gla
+    arrays = _inputs(8, 2, 2, 130, 256, 257, k_scale=1 / 16, state=state)
+    arrays[2][..., -1] = 1.0
+    dtypes = ["bfloat16", "float32", "bfloat16"] + ["float32"] * (
+        len(arrays) - 3)
+    jargs = _jax(arrays, dtypes)
+    targs = _torch(arrays, dtypes)
+    y, s = _emulate(*targs[:4], 64, targs[4] if state else None)
+    want = chunked_gla(*jargs[:4], 64, jargs[4] if state else None)
+    _card_tol(y, want[0], s, want[1])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_emulation_strong_decay(dtype):
+    """log_a at mLSTM's clamp over whole chunks (lb to ~ -7680) beside
+    ordinary chunks: nothing overflows, and the card's tolerances hold
+    (off the diagonal, each decay of a clamped chunk is below exp(-30))."""
+    from repro.models.ssm import chunked_gla
+    arrays = _inputs(13, 1, 2, 600, 64, 40, k_scale=1 / 8)
+    _strong_decay(arrays[3], 128)
+    dtypes = [dtype] * 3 + ["float32"]
+    y, s = _emulate(*_torch(arrays, dtypes), 128)
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    want_y, want_s = chunked_gla(*_jax(arrays, dtypes), 128)
+    _card_tol(y, want_y, s, want_s)
+
+
+def test_one_term_does_not_hold_the_tolerances():
+    """The fewest terms: one bf16 term per float32 operand is ~3e-3 off
+    the float32 result, outside 1e-4; two hold it (~1e-5: the kernel's
+    for a bf16 y); three come within 1e-6 (~2e-7: the kernel's for a
+    float32 y, whose model, the float32 xlstm-350m held within 1e-3 over
+    24 layers on the card, drifts past that with two)."""
+    arrays = _inputs(21, 1, 4, 128, 32, 64, k_scale=1 / math.sqrt(32))
+    args = _torch(arrays, ["float32"] * 4)
+    want_y, want_s = chunked_gla_ref(*args, 32)
+    assert TERMS == {torch.bfloat16: 2, torch.float32: 3}
+    for terms, tol, holds in ((1, 1e-4, False), (2, 1e-4, True),
+                              (3, 1e-6, True)):
+        y, s = _emulate(*args, 32, terms=terms)
+        err = max(float((y - want_y).abs().max() / want_y.abs().max()),
+                  float((s - want_s).abs().max() / want_s.abs().max()))
+        assert (err <= tol) == holds, (terms, err)
+
+
+# ---------------------------------------------------------------------------
+# operands read in place
+# ---------------------------------------------------------------------------
+def test_mlstm_and_mamba2_operands_are_read_in_place():
+    """The layouts the model hands the kernel need no copy: mLSTM's q and
+    k, (B, H, T, hd) views of (B, T, H, hd) tensors (k float32), its v
+    padded by ``aligned_empty``; Mamba2's q and k broadcast over the heads
+    (stride 0) and its transposed v."""
+    B, T, H, hd = 2, 5, 3, 512
+    q = torch.zeros((B, T, H, hd), dtype=torch.bfloat16).transpose(1, 2)
+    k = torch.zeros((B, T, H, hd)).transpose(1, 2)
+    v = aligned_empty((B, H, T, hd + 1), torch.bfloat16, "cpu")
+    assert v.shape == (B, H, T, hd + 1) and v.stride(2) == hd + 8
+    shared = torch.zeros((B, T, 64), dtype=torch.bfloat16)[:, None]
+    mv = torch.zeros((B, T, H, 64)).transpose(1, 2)
+    for t in (q, k, v, shared.expand(B, H, T, 64), mv):
+        assert aligned(t) and in_place(t) is t
+
+
+def test_unaligned_operands_are_copied_in_their_own_dtype():
+    """A contiguous bf16 row of 513 is 2-byte aligned: copied into a
+    padded buffer, still bf16 (never widened to float32); a dtype the
+    kernel does not take is cast to float32; a last dimension that is
+    not unit-stride is copied."""
+    v = torch.randn(2, 3, 4, 513).to(torch.bfloat16)
+    assert not aligned(v)
+    got = in_place(v)
+    assert got.dtype == torch.bfloat16 and aligned(got)
+    assert torch.equal(got, v)
+    h = torch.randn(2, 3, 4, 8).to(torch.float16)
+    assert not aligned(h) and in_place(h).dtype == torch.float32
+    t = torch.randn(2, 3, 8, 4).transpose(2, 3)
+    assert not aligned(t) and torch.equal(in_place(t), t)
+
+
+def test_mlstm_forward_hands_the_kernel_aligned_operands(monkeypatch):
+    """``mlstm_forward`` builds v = [v, 1] in an ``aligned_empty`` buffer,
+    so on the card the kernel reads all three operands in place; the
+    values are those of the concatenation."""
+    from repro_torch.configs.base import SSMCfg
+    from repro_torch.models import ssm
+    s = SSMCfg(kind="mlstm", n_heads=2, expand=2, chunk_size=8)
+    gen = torch.Generator().manual_seed(0)
+    p = ssm.init_mlstm(gen, 64, s, dtype=torch.float32, device="cpu")
+    x = torch.randn((2, 11, 64), generator=gen)
+    seen = []
+
+    def spy(q, k, v, log_a, **kw):
+        seen.append((q, k, v))
+        return chunked_gla_ref(q, k, v, log_a, kw["chunk"],
+                               kw.get("initial_state"))
+    monkeypatch.setattr(ops, "gla_scan_op", spy)
+    ssm.mlstm_forward(p, s, 64, x)
+    (q, k, v), = seen
+    assert all(aligned(t) for t in (q, k, v))
+    assert v.shape[-1] == 64 + 1 and bool((v[..., -1] == 1).all())
+
+
+def test_chip_smoke_gla_bound_counts_the_split_products():
+    """chip_smoke's row-8 bound: each product's bf16 tensor-core products
+    are its operands' term pairs whose indexes sum below the kernel's term
+    count: two at the mLSTM call (bf16 q and v, float32 k; P, S and the
+    decayed k in two terms), so twice the float32 work; six for every
+    product when all three are float32 (three terms each)."""
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    try:
+        import chip_smoke as cs
+    finally:
+        sys.path.pop(0)
+    assert [cs.split_products(a, b, 2) for a, b in
+            ((1, 1), (1, 2), (2, 1), (2, 2))] == [1, 2, 2, 3]
+    assert [cs.split_products(a, b, 3) for a, b in
+            ((1, 3), (3, 1), (3, 3))] == [3, 3, 6]
+    shape = (8, 4, 2000, 512)
+    f32 = cs.gla_ops(shape, 513, 256, False)
+    assert cs.gla_tc_ops(shape, 513, 256, False,
+                         (torch.bfloat16, torch.float32,
+                          torch.bfloat16)) == 2 * f32
+    assert cs.gla_tc_ops(shape, 513, 256, True, (torch.float32,) * 3) == \
+        6 * cs.gla_ops(shape, 513, 256, True)
+
+
 def test_launcher_refuses_cpu_tensors():
     q, k, v, la = _torch(_inputs(1, 1, 1, 8, 4, 4), ["float32"] * 4)
     with pytest.raises(ValueError, match="CUDA"):
@@ -242,6 +500,7 @@ GPU_CASES = [
     ("mLSTM", 1, 4, 600, 512, 513, 256, "mixed"),
     ("T off chunk", 2, 2, 100, 16, 24, 32, None),
     ("short T", 1, 3, 5, 8, 40, 64, None),
+    ("dk 8 chunk 5", 2, 3, 37, 8, 12, 5, None),
 ]
 
 
@@ -302,3 +561,46 @@ def test_gpu_op_launches_the_kernel_and_its_backward_raises(cuda):
     assert y.requires_grad
     with pytest.raises(NotImplementedError, match="gla backward"):
         (y.sum() + s.sum()).backward()
+
+
+def _mlstm_operands(seed, B, H, T, hd, device):
+    """q, k, v as ``mlstm_forward`` hands them to the kernel: q bf16 and k
+    float32, (B, H, T, hd) views of (B, T, H, hd) tensors; v bf16, the
+    first hd + 1 columns of an ``aligned_empty`` buffer, the last ones."""
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.normal(size=(B, T, H, hd)).astype(
+        np.float32)).to(device, torch.bfloat16).transpose(1, 2)
+    k = torch.from_numpy((rng.normal(size=(B, T, H, hd)) / math.sqrt(
+        hd)).astype(np.float32)).to(device).transpose(1, 2)
+    v = aligned_empty((B, H, T, hd + 1), torch.bfloat16, device)
+    v[..., :hd] = torch.from_numpy(rng.normal(size=(B, T, H, hd)).astype(
+        np.float32)).to(device, torch.bfloat16).transpose(1, 2)
+    v[..., hd] = 1
+    return q, k, v
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strong", [False, True])
+@pytest.mark.parametrize("state", [False, True])
+def test_gpu_mlstm_operands_in_place(cuda, strong, state):
+    """The full-width mLSTM call's operands as the model lays them out
+    (strided q and k, v of pitch 520), read without a copy, with log_a at
+    the clamp over whole chunks or not, with an initial state or not:
+    within 2^-7 of the largest |y| and 1e-4 of the largest |S|."""
+    B, H, T, hd, c = 1, 4, 700, 512, 256
+    q, k, v = _mlstm_operands(T + hd, B, H, T, hd, cuda)
+    assert all(aligned(t) for t in (q, k, v))
+    rng = np.random.default_rng(3)
+    la = (-np.abs(rng.normal(size=(B, H, T))) * 0.2).astype(np.float32)
+    if strong:
+        _strong_decay(la, c)
+    la = torch.from_numpy(la).to(cuda)
+    s0 = torch.from_numpy(rng.normal(size=(B, H, hd, hd + 1)).astype(
+        np.float32)).to(cuda) if state else None
+    y, s = gla_scan_fwd(q, k, v, la, chunk=c, initial_state=s0)
+    want_y, want_s = chunked_gla_ref(q, k, v, la, c, s0)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and y.shape == v.shape
+    for got, want, rel in ((y, want_y, 2.0 ** -7), (s, want_s, 1e-4)):
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=rel * float(want.float().abs().max()))
