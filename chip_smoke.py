@@ -21,9 +21,14 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      split edges (chunks of tq - 1, tq, tq + 1 tokens at
                      G {1, 4, 8} and hd {32, 64, 128}, two sequences in a
                      tile, unsorted tok_seq, decode-only buckets and B = 1
-                     decodes at split edges and the full table) and a
-                     SwapStager round trip of a
-                     quantized pool tree; the flash attention forward and
+                     decodes at split edges and the full table), a
+                     SwapStager round trip of a quantized pool tree (one
+                     launch each way for its 4 leaves) and the swap tree
+                     pack and unpack byte for byte over a ragged grid
+                     (trees of 1-4 leaves, rows of 4 B to 24 KB on the
+                     bulk copies and the word path, P {1, 3}, n {0, 1, 7,
+                     34, 100}, aligned and shifted slabs); the flash
+                     attention forward and
                      backward at T {1, 63, 64, 1000, 2048}, Tq < Tk,
                      G {1, 4}, window, softcap and no causal mask;
                      gla_scan over the reference grid, the tiny and the
@@ -60,7 +65,12 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      seed, agent sessions through ScriptedClient under
                      InferCept
  11. swap          — the same under the swap policy, so pages cross to the
-                     host
+                     host; then the SwapStager's host ms per pack +
+                     collect and per unpack (the slab's assembly
+                     included), with --parent the parent's stager in
+                     turns. In every serve run one swap_pack and one
+                     swap_unpack launch per stager pack and unpack; in
+                     serve, swap and quant every swapped page comes back
  12. unfused       — the same under InferCept with Engine(fused=False): the
                      per-call extend and paged decode paths
  13. spec          — the same under InferCept with speculative resume and
@@ -95,9 +105,14 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      every N the serve runs gave them (launches x
                      (time - bound) summed over the sizes, by both
                      measures); gla_scan also as device time, its bound
-                     the split's bf16 tensor-core operations; with
-                     --parent DIR, another checkout's attention, append
-                     and gla_scan wrappers in turns with these
+                     the split's bf16 tensor-core operations; the swap
+                     rows (3, 4 over the bf16 pool tree, 3q, 4q over the
+                     int8 one, one launch per tree) also with a cold L2
+                     (after a 64 MB write) by both measures, the library
+                     calls' device time and the slab's pinned host copy;
+                     with --parent DIR, another checkout's attention,
+                     append, gla_scan and per-leaf swap wrappers in turns
+                     with these
  19. profile       — torch.profiler over a window of serve steps (bf16 and
                      int8 pools), over one train step and over one
                      xlstm prefill: device busy share, device time by
@@ -135,12 +150,15 @@ SERVE_PHASES = {"serve": ("infercept", {}), "swap": ("swap", {}),
                 "quant_unfused": ("infercept", {"kv_dtype": "int8",
                                                 "fused": False})}
 # the rows of the kernels line: an attention kernel over int8 pools is a
-# row of its own beside its wrapper's, and so is the ragged kernel's
+# row of its own beside its wrapper's, and so are the swap kernels over an
+# int8 pool tree (payload and scale leaves in one launch, rows 3q/4q),
+# and so is the ragged kernel's
 # largest decode-only call (its launches: the decode-only calls, no more
 # q rows than block-table rows, counted by the serve runs' recorder); the
 # quantized append (row 2q) is the whole of kv_append_quant
 KERNELS = ("ragged_paged_attention", "paged_attention", "kv_append",
-           "kv_append_quant", "swap_pack", "swap_unpack", "page_requant",
+           "kv_append_quant", "swap_pack", "swap_unpack", "swap_pack_int8",
+           "swap_unpack_int8", "page_requant",
            "ragged_paged_attention_int8", "paged_attention_int8",
            "ragged_paged_attention_decode",
            "flash_attention", "flash_attention_bwd", "gla_scan")
@@ -157,10 +175,11 @@ PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
 
 
 def row_key(kernel: str, kv_dtype) -> str:
-    """The kernels-line row of a wrapper's launches: the attention kernels
-    over int8 pools count apart."""
+    """The kernels-line row of a wrapper's launches: the attention and swap
+    kernels over int8 pools count apart."""
     if kv_dtype is not None and kernel in ("ragged_paged_attention",
-                                           "paged_attention"):
+                                           "paged_attention", "swap_pack",
+                                           "swap_unpack"):
         return f"{kernel}_int8"
     return kernel
 
@@ -432,6 +451,7 @@ def check_kernels() -> dict:
             worst["swap_pack"] = max(worst["swap_pack"], err_p)
             worst["swap_unpack"] = max(worst["swap_unpack"], err_u, err_r)
     check_quant_kernels(gen, worst)
+    check_swap_kernels(gen)
     return worst
 
 
@@ -603,7 +623,8 @@ def check_quant_kernels(gen, worst) -> None:
         paged_attention, paged_attention_quant_ref)
     from repro_torch.kernels.ragged_paged_attention import (
         ragged_paged_attention, ragged_paged_attention_quant_ref)
-    from repro_torch.kernels.swap_pack import SwapStager
+    from repro_torch.kernels.swap_pack import (SwapStager, slab_pages,
+                                               swap_pack, swap_unpack)
     dev = torch.device("cuda")
     i32 = dict(dtype=torch.int32, device=dev)
     tol = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
@@ -741,16 +762,109 @@ def check_quant_kernels(gen, worst) -> None:
     want = {k: v.clone() for k, v in pools[0]["b0"].items()}
     st = SwapStager()
     ids = [5, 77, 3, 120]
+    before = (swap_pack.launches, swap_unpack.launches)
     slab = st.collect(st.pack(pools, ids))
     for leaf in pools[0]["b0"].values():
         leaf[:, ids] = 0
-    st.unpack(pools, ids, slab)
+    st.unpack(pools, ids, slab_pages(slab, len(ids)))
     torch.cuda.synchronize()
     ok = all(same_bytes(pools[0]["b0"][k], want[k]) for k in want)
+    launched = (swap_pack.launches - before[0],
+                swap_unpack.launches - before[1])
     log(f"  SwapStager round trip of int8 pools and their scale leaves "
         f"(slab leaves {[tuple(t.shape) for t in slab[0]['b0'].values()]}): "
-        f"exact {ok}")
-    assert ok
+        f"exact {ok}, launches {launched} (one each for the 4 leaves)")
+    assert ok and launched == (1, 1), launched
+
+
+def byte_equal(a, b) -> bool:
+    """Bit-for-bit equality of two tensors of one shape and dtype."""
+    import torch
+    return a.shape == b.shape and a.dtype == b.dtype and bool(torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
+
+
+# (trailing shape, dtype) of the swap grid's leaves: rows of 16 KB (one
+# stage), 8 KB, 20 KB and 24 KB (pieces of stages), 512 and 1040 bytes
+# (many rows a chunk) on the bulk copies; 48 and 32 bytes (16-byte words),
+# 4, 8, 18 and 5 bytes on the word path
+SWAP_LEAVES = (((16, 8, 64), "bfloat16"), ((16, 8, 64), "int8"),
+               ((20, 8, 64), "bfloat16"), ((3, 16, 8, 16), "float32"),
+               ((48,), "float8_e4m3fn"), ((8,), "float32"),
+               ((1,), "float32"), ((2,), "float32"), ((9,), "bfloat16"),
+               ((5,), "int8"), ((256,), "bfloat16"), ((260,), "float32"))
+
+
+def swap_leaf(gen, P, n_pages, trailing, dtype, device):
+    """A random pool leaf (P, n_pages, *trailing) of ``dtype``."""
+    import torch
+    dtype = getattr(torch, dtype)
+    raw = torch.randint(0, 256, (P, n_pages, *trailing[:-1],
+                                 trailing[-1] * dtype.itemsize),
+                        generator=gen, device=device, dtype=torch.uint8)
+    return raw.view(dtype)
+
+
+def check_swap_kernels(gen) -> None:
+    """The tree pack and unpack (rows 3, 4, 3q, 4q) byte for byte against
+    their plain versions on the card over a ragged grid: trees of 1-4
+    leaves from SWAP_LEAVES (bulk and word-path rows, rows larger than a
+    stage, the int8 pools' tree of payload and scale leaves), P {1, 3},
+    n {0, 1, 7, 34, 100} with repeated (pack) and out-of-range ids,
+    slabs with 128-byte aligned sections and slabs that start 8 bytes
+    into their buffer; one launch per call, none at n 0. Skipped rows
+    keep the slab's bytes."""
+    import torch
+    from repro_torch.kernels.swap_pack import (slab_layout, swap_pack,
+                                               swap_pack_tree,
+                                               swap_pack_tree_ref,
+                                               swap_unpack, swap_unpack_tree,
+                                               swap_unpack_tree_ref)
+    dev = torch.device("cuda")
+    n_pages = 128
+    trees = [[0], [1, 4], [0, 5, 1, 5], [2, 3], [6, 7, 8, 9], [0, 6, 1, 9],
+             [4, 5, 8, 2], [10, 11, 7]]
+    cases = 0
+    for picks in trees:
+        for P in (1, 3):
+            for n in (0, 1, 7, 34, 100):
+                for shift in (0, 8):
+                    leaves = [swap_leaf(gen, P, n_pages, *SWAP_LEAVES[i],
+                                        dev) for i in picks]
+                    _, size = slab_layout(leaves, n)
+                    buf = torch.randint(0, 256, (size + shift,),
+                                        generator=gen, device=dev,
+                                        dtype=torch.uint8)
+                    ids = torch.randint(-3, n_pages + 4, (n,),
+                                        generator=gen, device=dev,
+                                        dtype=torch.int32)
+                    before = (swap_pack.launches, swap_unpack.launches)
+                    got = buf.clone()
+                    want = buf.clone()
+                    swap_pack_tree(leaves, ids, got[shift:])
+                    swap_pack_tree_ref(leaves, ids, want[shift:])
+                    torch.cuda.synchronize()
+                    assert byte_equal(got, want), ("pack", picks, P, n,
+                                                   shift)
+                    # unpack: distinct ids, some out of range
+                    uids = torch.randperm(n_pages + 8, generator=gen,
+                                          device=dev)[:n].to(torch.int32)
+                    mine = [leaf.clone() for leaf in leaves]
+                    swap_unpack_tree(mine, buf[shift:], uids)
+                    swap_unpack_tree_ref(leaves, buf[shift:], uids)
+                    torch.cuda.synchronize()
+                    assert all(byte_equal(a, b) for a, b in
+                               zip(mine, leaves)), ("unpack", picks, P, n,
+                                                    shift)
+                    launched = (swap_pack.launches - before[0],
+                                swap_unpack.launches - before[1])
+                    assert launched == ((0, 0) if n == 0 else (1, 1)), \
+                        (picks, P, n, launched)
+                    cases += 1
+    log(f"  swap_pack/swap_unpack trees: {cases} cases ({len(trees)} trees "
+        "of 1-4 leaves, rows 4 B to 24 KB, P {1, 3}, n {0, 1, 7, 34, 100}, "
+        "aligned and shifted slabs) byte for byte against the plain "
+        "versions, one launch per call and none at n 0")
 
 
 # ---------------------------------------------------------------------------
@@ -1073,10 +1187,11 @@ class Recorder:
     carry their contents at the end of the run. On leaving, the run's
     records move to host memory, outside the run's timed region, so the
     records add no device memory to a serve run's
-    ``max_memory_allocated``. An attention call over quantized pools is
-    kept under its own key (``..._int8``); the quantized append's inputs
-    are kept as ``kv_append_quant``, from which the timing phase rebuilds
-    the page_requant call."""
+    ``max_memory_allocated``. An attention or swap call over quantized
+    pools is kept under its own key (``..._int8``); a swap's call is the
+    stager's tree call (leaves, ids, byte slab); the quantized append's
+    inputs are kept as ``kv_append_quant``, from which the timing phase
+    rebuilds the page_requant call."""
 
     COPY_BYTES = 8 << 20       # inputs up to this size are copied at once
     RAGGED = ("ragged_paged_attention", "ragged_paged_attention_int8")
@@ -1112,8 +1227,8 @@ class Recorder:
             (attention, "paged_attention_op", "paged_attention", 0, True),
             (attention, "kv_append_op", "kv_append", 2, False),
             (attention, "kv_append_quant_op", "kv_append_quant", 4, False),
-            (ops, "swap_pack_op", "swap_pack", 1, False),
-            (ops, "swap_unpack_op", "swap_unpack", 2, False)]
+            (ops, "swap_pack_tree_op", "swap_pack", 1, False),
+            (ops, "swap_unpack_tree_op", "swap_unpack", 2, False)]
         self._orig = {}
 
     def __enter__(self):
@@ -1122,7 +1237,9 @@ class Recorder:
 
             def wrapped(*args, _orig=orig, _key=key, _size=size_arg,
                         _later=later, **kw):
-                if kw.get("k_scale") is not None:
+                if kw.get("k_scale") is not None or (
+                        _key.startswith("swap") and any(
+                            leaf.element_size() == 1 for leaf in args[0])):
                     _key += "_int8"
                 size = args[_size].shape[0]
                 if _key in self.SIZED:
@@ -1302,6 +1419,9 @@ def serve(policy: str, recorder: Recorder, *, tiny: bool = False,
            "kv_pool_bytes": sum(t.numel() * t.element_size()
                                 for t in tree_leaves(eng.pools)),
            "stale_scale_pages": eng._stale_scale_pages(),
+           "stager": {k: getattr(eng.stager, k) for k in (
+               "packs", "unpacks", "packed_pages", "collected_pages",
+               "unpacked_pages")},
            "spec": {k: eng.counters[k] for k in (
                "spec_forks", "spec_accepted", "spec_rejected",
                "spec_killed", "spec_grafted_tokens")},
@@ -1327,6 +1447,11 @@ def serve(policy: str, recorder: Recorder, *, tiny: bool = False,
         else:
             assert counts["kv_append_quant"] > 0 and counts["kv_append"] \
                 == counts["page_requant"] == 0, counts
+        # one pack and one unpack launch per swap, whatever the leaf count
+        assert (counts["swap_pack"], counts["swap_unpack"]) == (
+            res["stager"]["packs"], res["stager"]["unpacks"]), res["stager"]
+    assert res["stager"]["packed_pages"] == res["stager"][
+        "collected_pages"], res["stager"]
     assert eng.blocks.num_free == eng.blocks.n_pages - 1, "leaked pages"
     assert res["stale_scale_pages"] == [], "freed pages kept their scales"
     eng.close()
@@ -1337,14 +1462,17 @@ def serve(policy: str, recorder: Recorder, *, tiny: bool = False,
 # phase 15: timing on the main path's inputs
 # ---------------------------------------------------------------------------
 def parent_kernels(parent: Path):
-    """The attention, append and gla_scan wrappers of another checkout of
-    the port at ``parent`` (the parent commit's, for timing both versions
-    in one run): ragged and paged attention, kv_append, page_requant, the
-    whole quantized append and gla_scan's launcher. Its ``repro_torch``
-    modules are imported from its own source tree, so its kernels build
-    there by its own ``_build.py`` and are called through its own
-    wrappers, whatever their C signatures (``build`` builds them). This tree's modules are put back afterwards;
-    the parent's launch counts are its own."""
+    """The kernel wrappers of another checkout of the port at ``parent``
+    (the parent commit's, for timing both versions in one run): ragged and
+    paged attention, kv_append, page_requant, the whole quantized append,
+    gla_scan's launcher, the one-leaf swap_pack / swap_unpack and the
+    SwapStager. Its ``repro_torch`` modules are imported from its own
+    source tree, so its kernels build there by its own ``_build.py`` and
+    are called through its own wrappers, whatever their C signatures
+    (``build`` builds them). This tree's modules are put back afterwards;
+    the parent's launch counts are its own. Its stager imports its ops
+    module when called: run it inside ``with parent.own_ops():``."""
+    import contextlib
     import importlib
     import types
 
@@ -1363,17 +1491,36 @@ def parent_kernels(parent: Path):
         ka = importlib.import_module("repro_torch.kernels.kv_append")
         kq = importlib.import_module("repro_torch.kernels.kv_quant")
         gs = importlib.import_module("repro_torch.kernels.gla_scan")
+        sp = importlib.import_module("repro_torch.kernels.swap_pack")
+        ops = importlib.import_module("repro_torch.kernels.ops")
     finally:
         sys.path.remove(src)
         for k in ours():
             del sys.modules[k]
         sys.modules.update(saved)
+
+    @contextlib.contextmanager
+    def own_ops():
+        key = "repro_torch.kernels.ops"
+        mine = sys.modules.get(key)
+        sys.modules[key] = ops
+        try:
+            yield
+        finally:
+            if mine is None:
+                del sys.modules[key]
+            else:
+                sys.modules[key] = mine
     return types.SimpleNamespace(ragged=rpa.ragged_paged_attention,
                                  paged=pa.paged_attention,
                                  kv_append=ka.kv_append,
                                  page_requant=kq.page_requant,
                                  kv_append_quant=kq.kv_append_quant,
                                  gla_scan=gs.gla_scan_fwd,
+                                 swap_pack=sp.swap_pack,
+                                 swap_unpack=sp.swap_unpack,
+                                 SwapStager=sp.SwapStager,
+                                 own_ops=own_ops,
                                  build=rpa._build.lib)
 
 
@@ -1403,6 +1550,208 @@ def append_quant_work(kp, ks, kn, page_ids, offs, valid):
     return nbytes, ops, touched
 
 
+SWAP_FLUSH_BYTES = 64 << 20      # written between calls: more than 50 MB L2
+
+
+def swap_work(leaves, n: int) -> int:
+    """Bytes a tree pack or unpack of ``n`` pages must move: each leaf's
+    (P, n) rows read once and written once, the int32 ids read once."""
+    return sum(2 * leaf.shape[0] * n * leaf[0, 0].numel()
+               * leaf.element_size() for leaf in leaves) + 4 * n
+
+
+def time_swap(recorder: Recorder, launches: dict, parent, suffix: str, row,
+              device_time) -> None:
+    """Rows 3 and 4 (``suffix`` "") or 3q and 4q ("_int8"): the tree pack
+    and unpack at their largest main-path call, one launch for every
+    leaf, bit-exact against the plain tree versions and, leaf by leaf,
+    against swap_pack_ref / swap_unpack_ref. Timed launched from the host
+    (``ms``) and as device time (``device_ms``, CUDA graphs), with a warm
+    L2 and after a 64 MB write (``cold_ms``, ``cold_device_ms``: the
+    write's own time taken off), the parent's one launch per leaf in turns
+    on every measure; the library yardstick over the same leaves
+    (``library_ms``, and ``library_device_ms``); and the copy of the slab
+    between the card and one pinned host buffer (``host_copy_ms``: device
+    to host beside the pack, host to device beside the unpack)."""
+    import torch
+    from repro_torch.kernels.swap_pack import (
+        slab_views, swap_pack_ref, swap_pack_tree, swap_pack_tree_ref,
+        swap_unpack_ref, swap_unpack_tree, swap_unpack_tree_ref)
+    flush = torch.empty(SWAP_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+
+    def flushed(fn):
+        def call():
+            flush.fill_(1)
+            fn()
+        return call
+
+    def cold(row_, kernel_fn, old_fn, iters):
+        order = (old_fn, kernel_fn, kernel_fn, old_fn) if old_fn else \
+            (kernel_fn, kernel_fn)
+        base = [(cuda_ms(flushed(lambda: None), iters),
+                 graph_ms(flushed(lambda: None), iters))]
+        times = [(cuda_ms(flushed(f), iters), graph_ms(flushed(f), iters))
+                 for f in order]
+        base.append((cuda_ms(flushed(lambda: None), iters),
+                     graph_ms(flushed(lambda: None), iters)))
+        b_loop, b_dev = (min(b[i] for b in base) for i in (0, 1))
+        mine = times[1:3] if old_fn else times
+        row_["cold_ms"] = min(t[0] for t in mine) - b_loop
+        row_["cold_device_ms"] = min(t[1] for t in mine) - b_dev
+        msg = (f"    cold L2 (after a {SWAP_FLUSH_BYTES >> 20} MB write, "
+               f"its {b_loop:.4f} / {b_dev:.4f} ms taken off): launched "
+               f"from the host {row_['cold_ms']:.4f} ms, device "
+               f"{row_['cold_device_ms']:.4f} ms")
+        if old_fn:
+            row_["parent_cold_ms"] = min(times[0][0], times[3][0]) - b_loop
+            row_["parent_cold_device_ms"] = min(times[0][1],
+                                                times[3][1]) - b_dev
+            msg += (f" (the parent's per-leaf launches "
+                    f"{row_['parent_cold_ms']:.4f} / "
+                    f"{row_['parent_cold_device_ms']:.4f} ms)")
+        log(msg)
+
+    def finish(row_, kernel_fn, old_fn, lib_fn, copy_fn, leaves):
+        device_time(row_, kernel_fn, old_fn, 20)
+        cold(row_, kernel_fn, old_fn, 20)
+        row_["library_device_ms"] = graph_ms(lib_fn, 20)
+        row_["host_copy_ms"] = cuda_ms(copy_fn, 10)
+        row_["leaves"] = len(leaves)
+        log(f"    library device time {row_['library_device_ms']:.4f} ms; "
+            f"the slab's pinned host copy {row_['host_copy_ms']:.4f} ms")
+
+    # the pack: a slab of random bytes, so the rows it writes are seen
+    leaves, ids, slab = recorder.call("swap_pack" + suffix)[0]
+    n = ids.numel()
+    ids64 = ids.long()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    base = torch.randint(0, 256, slab.shape, generator=gen, device="cuda",
+                         dtype=torch.uint8)
+    got, want = base.clone(), base.clone()
+    swap_pack_tree(leaves, ids, got)
+    swap_pack_tree_ref(leaves, ids, want)
+    torch.cuda.synchronize()
+    exact = byte_equal(got, want) and all(
+        byte_equal(v, swap_pack_ref(leaf, ids))
+        for leaf, v in zip(leaves, slab_views(got, leaves, n)))
+    shape = [[leaf.shape[0], n, *leaf.shape[2:], str(leaf.dtype)[6:]]
+             for leaf in leaves]
+    log(f"  swap_pack{suffix} main-path call {shape}: bit-exact against the "
+        f"plain tree version and swap_pack_ref leaf by leaf: {exact}")
+    assert exact, f"swap_pack{suffix} disagrees on the main path's inputs"
+
+    def lib_fn():
+        return [torch.index_select(leaf, 1, ids64) for leaf in leaves]
+    ms, plain_ms = in_turns(lambda: swap_pack_tree_ref(leaves, ids, want),
+                            lambda: swap_pack_tree(leaves, ids, got), 20)
+    r = row("swap_pack" + suffix, ms, plain_ms, cuda_ms(lib_fn, 20),
+            swap_work(leaves, n), 0, "bfloat16", 0.0, shape)
+    host = torch.empty(got.numel(), dtype=torch.uint8, pin_memory=True)
+    finish(r, lambda: swap_pack_tree(leaves, ids, got),
+           (lambda: [parent.swap_pack(leaf, ids) for leaf in leaves])
+           if parent else None, lib_fn,
+           lambda: host.copy_(got, non_blocking=True), leaves)
+    del base, got, want, leaves, slab
+
+    # the unpack: each version on its own copy of the recorded pools
+    leaves, slab, ids = recorder.call("swap_unpack" + suffix)[0]
+    n = ids.numel()
+    ids64 = ids.long()
+    views = slab_views(slab, leaves, n)
+    got = [leaf.clone() for leaf in leaves]
+    want = [leaf.clone() for leaf in leaves]
+    swap_unpack_tree(got, slab, ids)
+    swap_unpack_tree_ref(want, slab, ids)
+    per_leaf = [swap_unpack_ref(leaf.clone(), v, ids)
+                for leaf, v in zip(leaves, views)]
+    torch.cuda.synchronize()
+    exact = all(byte_equal(a, b) and byte_equal(a, c)
+                for a, b, c in zip(got, want, per_leaf))
+    shape = [[leaf.shape[0], n, *leaf.shape[2:], str(leaf.dtype)[6:]]
+             for leaf in leaves]
+    log(f"  swap_unpack{suffix} main-path call {shape}: bit-exact against "
+        f"the plain tree version and swap_unpack_ref leaf by leaf: {exact}")
+    assert exact, f"swap_unpack{suffix} disagrees on the main path's inputs"
+    del want, per_leaf, leaves
+
+    def lib_fn():
+        return [leaf.index_copy_(1, ids64, v) for leaf, v in zip(got, views)]
+    ms, plain_ms = in_turns(lambda: swap_unpack_tree_ref(got, slab, ids),
+                            lambda: swap_unpack_tree(got, slab, ids), 20)
+    r = row("swap_unpack" + suffix, ms, plain_ms, cuda_ms(lib_fn, 20),
+            swap_work(got, n), 0, "bfloat16", 0.0, shape)
+    host = slab.cpu().pin_memory()
+    dst = torch.empty_like(slab)
+    finish(r, lambda: swap_unpack_tree(got, slab, ids),
+           (lambda: [parent.swap_unpack(leaf, v, ids)
+                     for leaf, v in zip(got, views)]) if parent else None,
+           lib_fn, lambda: dst.copy_(host, non_blocking=True), got)
+    del got, views, slab, dst, flush
+    torch.cuda.synchronize()
+
+
+def time_stager(recorder: Recorder, parent) -> dict:
+    """Host ms of one SwapStager pack + collect and of one unpack (the
+    pinned slab's assembly from the page payloads included, ended by a
+    synchronize), the median of 10 each, at the bf16 tree's largest
+    recorded pack: its leaves' shapes and page ids over fresh random
+    pools. With ``parent``, the parent's stager in turns, parent, this,
+    this, parent; its unpack time includes the engine's stacking of the
+    payloads that came before it."""
+    import torch
+    from repro_torch.kernels.swap_pack import SwapStager, slab_pages
+    from repro_torch.utils.tree import tree_map
+    leaves, ids, _ = recorder.calls["swap_pack"][1]
+    ids = ids.tolist()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    pools = [torch.randn(leaf.shape, generator=gen, device="cuda")
+             .to(leaf.dtype) for leaf in leaves]
+
+    def wall_ms(fn, iters=10):
+        fn()
+        times = []
+        for _ in range(iters):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return sorted(times)[iters // 2] * 1e3
+
+    def pack():
+        st = SwapStager()
+        return st.collect(st.pack(pools, ids))
+    pages = slab_pages(pack(), len(ids))
+
+    def unpack():
+        SwapStager().unpack(pools, ids, pages)
+        torch.cuda.synchronize()
+
+    def old_pack():
+        with parent.own_ops():
+            st = parent.SwapStager()
+            return st.collect(st.pack(pools, ids))
+
+    def old_unpack():
+        with parent.own_ops():
+            slab = tree_map(lambda *ls: torch.stack(ls, dim=1), *pages)
+            parent.SwapStager().unpack(pools, ids, slab)
+        torch.cuda.synchronize()
+    out = {"pages": len(ids), "leaves": len(pools)}
+    for name, fn, old in (("pack_collect_ms", pack, old_pack),
+                          ("unpack_ms", unpack, old_unpack)):
+        if parent is None:
+            out[name] = min(wall_ms(fn), wall_ms(fn))
+            continue
+        times = [wall_ms(f) for f in (old, fn, fn, old)]
+        out[name] = min(times[1:3])
+        out["parent_" + name] = min(times[0], times[3])
+    log(f"  SwapStager host ms, {len(ids)} pages of {len(pools)} leaves "
+        f"{[tuple(leaf.shape) for leaf in pools]}: {json.dumps(out)}")
+    del pools, pages
+    torch.cuda.empty_cache()
+    return out
+
+
 def time_kernels(recorder: Recorder, worst: dict, launches: dict,
                  parent=None) -> list:
     """Rows 1-6 (and 1d, 2q), each ``ms`` launched from the host as
@@ -1421,8 +1770,6 @@ def time_kernels(recorder: Recorder, worst: dict, launches: dict,
     from repro_torch.kernels.ragged_paged_attention import (
         ragged_paged_attention, ragged_paged_attention_quant_ref,
         ragged_paged_attention_ref, sm_count, split_count, tile_grid)
-    from repro_torch.kernels.swap_pack import (swap_pack, swap_pack_ref,
-                                               swap_unpack, swap_unpack_ref)
     rows = []
     ragged_src = ("src/repro_torch/kernels/csrc/ragged_paged_attention.cu",
                   "src/repro/kernels/ragged_paged_attention.py:105")
@@ -1445,13 +1792,17 @@ def time_kernels(recorder: Recorder, worst: dict, launches: dict,
                       "src/repro/kernels/swap_pack.py:35"),
         "swap_unpack": ("src/repro_torch/kernels/csrc/swap_pack.cu",
                         "src/repro/kernels/swap_pack.py:74"),
+        "swap_pack_int8": ("src/repro_torch/kernels/csrc/swap_pack.cu",
+                           "src/repro/kernels/swap_pack.py:35"),
+        "swap_unpack_int8": ("src/repro_torch/kernels/csrc/swap_pack.cu",
+                             "src/repro/kernels/swap_pack.py:74"),
         "page_requant": ("src/repro_torch/kernels/csrc/page_requant.cu",
                          "src/repro/kernels/kv_quant.py:140"),
     }
 
     def row(name, ms, plain_ms, lib_ms, nbytes, ops, dtype, err, shape):
         by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        by_ops = ops / PEAK_OPS[dtype] * 1e3
+        by_ops = ops / PEAK_OPS[dtype] * 1e3 if ops else 0.0
         src, rep = meta[name]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep, "launches": launches[name],
@@ -1463,6 +1814,7 @@ def time_kernels(recorder: Recorder, worst: dict, launches: dict,
         log(f"  {name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
             f"ms, library {lib_ms} ms, bound {max(by_bytes, by_ops):.4f} "
             f"ms, main-path max_abs_err {err:.3g}")
+        return rows[-1]
 
     def main_path_err(name, got, want):
         """Both round one float32 result to the working type once: within
@@ -1720,34 +2072,12 @@ def time_kernels(recorder: Recorder, worst: dict, launches: dict,
                 if parent else None, 20)
     size_gaps("kv_append_quant", "kv_append_quant", append_quant_at_size)
 
-    # swap pack: the yardstick is index_select over the page axis
-    args, _ = recorder.call("swap_pack")
-    pool, ids = args
-    err = max(worst["swap_pack"],
-              max_err(swap_pack(pool, ids), swap_pack_ref(pool, ids)))
-    assert err == 0.0, "swap_pack disagrees on the main path's inputs"
-    ms, plain_ms = in_turns(lambda: swap_pack_ref(pool, ids),
-                            lambda: swap_pack(pool, ids), 20)
-    lib_ms = cuda_ms(lambda: torch.index_select(pool, 1, ids.long()), 20)
-    moved = pool.shape[0] * ids.numel() * pool[0, 0].numel() \
-        * pool.element_size()
-    row("swap_pack", ms, plain_ms, lib_ms, 2 * moved + 4 * ids.numel(), 0,
-        str(pool.dtype)[6:], err, list(pool.shape[:1]) + [ids.numel()]
-        + list(pool.shape[2:]))
-
-    # swap unpack: the yardstick is index_copy_ over the page axis
-    args, _ = recorder.call("swap_unpack")
-    pool, staging, ids = args
-    want = swap_unpack_ref(pool.clone(), staging, ids)
-    err = max(worst["swap_unpack"],
-              max_err(swap_unpack(pool, staging, ids), want))
-    assert err == 0.0, "swap_unpack disagrees on the main path's inputs"
-    ms, plain_ms = in_turns(lambda: swap_unpack_ref(pool, staging, ids),
-                            lambda: swap_unpack(pool, staging, ids), 20)
-    lib_ms = cuda_ms(lambda: pool.index_copy_(1, ids.long(), staging), 20)
-    moved = staging.numel() * staging.element_size()
-    row("swap_unpack", ms, plain_ms, lib_ms, 2 * moved + 4 * ids.numel(), 0,
-        str(pool.dtype)[6:], err, list(staging.shape))
+    # swap pack / unpack: rows 3 and 4 at the bf16 pool tree's largest
+    # call, 3q and 4q at the int8 tree's (payload and scale leaves), one
+    # launch each; the yardstick is index_select / index_copy_ over the
+    # same leaves, the parent's one launch per leaf in turns
+    for suffix in ("", "_int8"):
+        time_swap(recorder, launches, parent, suffix, row, device_time)
 
     # page_requant: its call inside the largest quantized append, rebuilt
     # from that append's inputs (phase A on copies gives the ratios); no
@@ -2840,14 +3170,15 @@ def main() -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma list of {PHASES} (card and build always "
                          "run; timing needs every serve phase for rows "
-                         "1-6, the train phase for the flash rows and "
-                         "ssm_serve for the gla_scan row)")
+                         "1-6 (and 3q, 4q), the train phase for the flash "
+                         "rows and ssm_serve for the gla_scan row)")
     ap.add_argument("--parent", default=None,
                     help="another checkout of the port (the parent "
-                         "commit's): its attention, append and gla_scan "
-                         "wrappers are imported from there, build their "
-                         "kernels there and are timed in turns with these "
-                         "in the timing phase")
+                         "commit's): its attention, append, gla_scan and "
+                         "swap wrappers and its SwapStager are imported "
+                         "from there, build their kernels there and are "
+                         "timed in turns with these in the swap and "
+                         "timing phases")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     t_start = time.perf_counter()
@@ -2934,17 +3265,21 @@ def main() -> int:
         res = results[phase] = serve(policy, recorder, **engine_kw)
         for k, v in res["launches"].items():
             total[row_key(k, res["kv_dtype"])] += v
-        if phase == "swap":
+        if phase in ("serve", "swap", "quant"):
+            # every swapped page came back, one launch per pack and unpack
+            # (serve() holds the launches to the stager's counts)
             assert res["swapped_out_tokens"] > 0, "nothing was swapped"
             assert res["swapped_in_tokens"] == res["swapped_out_tokens"]
-            assert res["launches"]["swap_pack"] > 0 and \
-                res["launches"]["swap_unpack"] > 0
+            assert res["stager"]["packs"] > 0 and \
+                res["stager"]["unpacks"] > 0, res["stager"]
+            assert res["stager"]["unpacked_pages"] == \
+                res["stager"]["packed_pages"], res["stager"]
+        if phase == "swap":
+            res["stager_ms"] = time_stager(recorder, parent)
         if phase == "spec":
             assert res["spec"]["spec_accepted"] > 0, res["spec"]
             assert res["launches"]["ragged_paged_attention"] > 0
         if phase == "quant":
-            # the stager moved the scale leaves with the payload
-            assert res["swapped_out_tokens"] > 0, "nothing was swapped"
             if "serve" in results:
                 bf16 = results["serve"]
                 log(f"  kv_token_bytes {res['kv_token_bytes']} (bf16 serve "

@@ -17,7 +17,10 @@ from repro_torch.kernels.ragged_paged_attention import (
     ragged_paged_attention, ragged_paged_attention_quant_ref,
     ragged_paged_attention_ref)
 from repro_torch.kernels.swap_pack import (swap_pack, swap_pack_ref,
-                                           swap_unpack, swap_unpack_ref)
+                                           swap_pack_tree,
+                                           swap_pack_tree_ref, swap_unpack,
+                                           swap_unpack_ref, swap_unpack_tree,
+                                           swap_unpack_tree_ref)
 
 
 def _on_cpu(t) -> bool:
@@ -105,3 +108,13 @@ def swap_pack_op(pool, page_ids):
 def swap_unpack_op(pool, staging, page_ids):
     fn = swap_unpack_ref if _on_cpu(pool) else swap_unpack
     return fn(pool, staging, page_ids)
+
+
+def swap_pack_tree_op(leaves, page_ids, slab):
+    fn = swap_pack_tree_ref if _on_cpu(leaves[0]) else swap_pack_tree
+    return fn(leaves, page_ids, slab)
+
+
+def swap_unpack_tree_op(leaves, slab, page_ids):
+    fn = swap_unpack_tree_ref if _on_cpu(leaves[0]) else swap_unpack_tree
+    return fn(leaves, slab, page_ids)

@@ -20,9 +20,10 @@ paged KV storage:
                     their logits fetched and sampled on the host at commit.
   * swap_out/in   — page-granular device<->host movement staged through ONE
                     contiguous slab per request (the §4.1 coalesced
-                    transfer): swap_pack gathers on the compute stream, the
-                    slab crosses to pinned host memory on a copy stream,
-                    and swap_unpack scatters it back; with overlap=True
+                    transfer): one swap_pack launch gathers every pool
+                    leaf on the compute stream, the slab crosses to one
+                    pinned host buffer on a copy stream, and one
+                    swap_unpack launch scatters it back; with overlap=True
                     (default) the host copy is reconciled at commit, so it
                     hides under the model call (DESIGN.md §12)
   * discard/evict — pages freed via the scheduler's on_discard hook
@@ -83,7 +84,7 @@ from repro_torch.core.policy import PolicyConfig
 from repro_torch.core.request import Interception, Phase, Request
 from repro_torch.core.scheduler import Scheduler
 from repro_torch.kernels.kv_quant import KV_QUANT_DTYPES
-from repro_torch.kernels.swap_pack import SwapStager
+from repro_torch.kernels.swap_pack import SwapStager, slab_pages
 from repro_torch.memory.block_manager import BlockManager
 from repro_torch.models.model import LM
 from repro_torch.obs.ledger import WasteLedger
@@ -1177,9 +1178,10 @@ class Engine:
 
     def _stage_swap_out(self, req: Request) -> Optional[int]:
         """Dispatch half of the outbound swap (DESIGN.md §12): launch the
-        swap_pack gather of ALL the request's outbound pages into one
-        contiguous slab and issue its host copy WITHOUT synchronizing,
-        then free the source pages. The pools are updated in place, so
+        one swap_pack gather of ALL the request's outbound pages, every
+        pool leaf, into one contiguous device slab and issue its copy to
+        one pinned host buffer WITHOUT synchronizing, then free the source
+        pages. The pools are updated in place, so
         freeing is safe only because the gather runs on the compute
         stream: this iteration's swap-ins and appends into the recycled
         pages are stream-ordered after it, while the host copy drains on
@@ -1208,17 +1210,18 @@ class Engine:
             return
         st = self.kv[req.rid]
         idxs = self._swap_out_pages.get(req.rid, [])
-        slab = self.stager.collect(ticket)
-        for i, p in enumerate(idxs):
-            st.pages[p] = ("host", tree_map(lambda leaf: leaf[:, i], slab))
+        pages = slab_pages(self.stager.collect(ticket), len(idxs))
+        for p, payload in zip(idxs, pages):
+            st.pages[p] = ("host", payload)
         self.counters["swap_bytes"] += \
             len(idxs) * self.page * self.kv_token_bytes
 
     def _exec_swap_in(self, req: Request) -> bool:
-        """Reassemble the request's inbound pages into one staged slab and
-        scatter it back into freshly allocated pool pages with one host to
-        device copy and one swap_unpack launch per pool leaf, issue-only
-        on the compute stream — the model dispatch that follows reads the
+        """Hand the request's inbound page payloads to the stager, which
+        stacks them into one pinned slab and scatters it back into freshly
+        allocated pool pages with one host to device copy and one
+        swap_unpack launch for every pool leaf, issue-only on the compute
+        stream — the model dispatch that follows reads the
         updated pools in stream order, without a host sync. Returns
         False (nothing moved, no partial allocation held) when the
         physical pool cannot back the planned pages — the caller
@@ -1235,9 +1238,7 @@ class Engine:
             kind, payload = st.pages[p]
             assert kind == "host"
             payloads.append(payload)
-        slab = tree_map(lambda *leaves: torch.stack(leaves, dim=1),
-                        *payloads)
-        self.stager.unpack(self.pools, got, slab)
+        self.stager.unpack(self.pools, got, payloads)
         for i, p in enumerate(idxs):
             st.pages[p] = ("dev", got[i])
         self.counters["swap_bytes"] += \

@@ -23,9 +23,10 @@ from repro_torch.kernels.kv_append import kv_append, kv_append_ref
 from repro_torch.kernels.ragged_paged_attention import (
     ragged_paged_attention, ragged_paged_attention_quant_ref,
     ragged_paged_attention_ref)
-from repro_torch.kernels.swap_pack import (SwapStager, swap_pack,
-                                           swap_pack_ref, swap_unpack,
-                                           swap_unpack_ref)
+from repro_torch.kernels.swap_pack import (SwapStager, slab_pages,
+                                           swap_pack, swap_pack_ref,
+                                           swap_pack_tree, swap_unpack,
+                                           swap_unpack_ref, swap_unpack_tree)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -250,7 +251,7 @@ def test_swap_stager_cpu_roundtrip_over_stacked_pools():
     assert st.inflight == 0 and host[0]["b0"]["k"].shape == (3, 3, 4, 2, 8)
     for leaf in pools[0]["b0"].values():
         leaf[:, [7, 2, 5]] = 0.0
-    st.unpack(pools, [7, 2, 5], host)
+    st.unpack(pools, [7, 2, 5], slab_pages(host, 3))
     for k in orig:
         assert torch.equal(pools[0]["b0"][k], orig[k])
     assert (st.packed_pages, st.collected_pages, st.unpacked_pages) == \
@@ -285,7 +286,8 @@ def test_ops_dispatch_cpu_to_plain_versions():
 
 
 @pytest.mark.parametrize("launcher", ["ragged", "kv_append", "swap_pack",
-                                      "swap_unpack"])
+                                      "swap_unpack", "swap_pack_tree",
+                                      "swap_unpack_tree"])
 def test_kernel_launchers_refuse_cpu_tensors(launcher):
     """A wrapper launches its kernel or raises; it never falls back."""
     z = torch.zeros
@@ -300,6 +302,10 @@ def test_kernel_launchers_refuse_cpu_tensors(launcher):
         "swap_pack": lambda: swap_pack(z(1, 4, 8), z(2, dtype=i32)),
         "swap_unpack": lambda: swap_unpack(z(1, 4, 8), z(1, 2, 8),
                                            z(2, dtype=i32)),
+        "swap_pack_tree": lambda: swap_pack_tree(
+            [z(1, 4, 8)], z(2, dtype=i32), z(64, dtype=torch.uint8)),
+        "swap_unpack_tree": lambda: swap_unpack_tree(
+            [z(1, 4, 8)], z(64, dtype=torch.uint8), z(2, dtype=i32)),
     }
     with pytest.raises(ValueError, match="CUDA"):
         calls[launcher]()
@@ -357,7 +363,8 @@ def test_gpu_kv_append_matches_plain(cuda, dtype):
 @pytest.mark.gpu
 def test_gpu_swap_stager_roundtrip(cuda):
     """Pack on the compute stream, host copy on the copy stream, collect,
-    clobber, unpack: exact; both kernels launched once per leaf."""
+    clobber, unpack: exact; each kernel launched once for the whole tree,
+    and the collected slab is one pinned buffer."""
     g = torch.Generator(device=cuda).manual_seed(1)
     pools = ({"b0": {"k": torch.randn((4, 64, 16, 8, 64), generator=g,
                                       device=cuda).bfloat16(),
@@ -371,9 +378,9 @@ def test_gpu_swap_stager_roundtrip(cuda):
     assert host[0]["b0"]["k"].is_pinned()
     for leaf in pools[0]["b0"].values():
         leaf[:, ids] = 0
-    st.unpack(pools, ids, host)
+    st.unpack(pools, ids, slab_pages(host, len(ids)))
     torch.cuda.synchronize()
     for k in orig:
         assert torch.equal(pools[0]["b0"][k], orig[k])
     assert (swap_pack.launches, swap_unpack.launches) == \
-        (before[0] + 2, before[1] + 2)
+        (before[0] + 1, before[1] + 1)

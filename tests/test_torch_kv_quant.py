@@ -56,7 +56,7 @@ from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_attention_quant_ref)
 from repro_torch.kernels.ragged_paged_attention import (
     ragged_paged_attention, ragged_paged_attention_quant_ref)
-from repro_torch.kernels.swap_pack import SwapStager
+from repro_torch.kernels.swap_pack import SwapStager, slab_pages
 
 ALL_KV_DTYPES = sorted(KV_QUANT_DTYPES)
 
@@ -660,7 +660,7 @@ def test_swap_stager_carries_scale_leaves():
         (x.shape[0], 3, *x.shape[2:]) for x in tree_leaves(pools)]
     for leaf in tree_leaves(pools):
         leaf[:, [3, 7, 1]] = 0
-    st.unpack(pools, [3, 7, 1], slab)
+    st.unpack(pools, [3, 7, 1], slab_pages(slab, 3))
     for a, b in zip(tree_leaves(pools), tree_leaves(want)):
         assert torch.equal(a.view(torch.uint8) if a.element_size() == 1
                            else a, b.view(torch.uint8)

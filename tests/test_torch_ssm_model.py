@@ -330,10 +330,10 @@ def test_chip_smoke_ssm_rehearsals():
     the card (no kernel launches here), and the recorder keeps the first
     mLSTM call's inputs, on the host."""
     cs = _chip_smoke()
-    # 13 rows: the eight TPU kernels' wrappers, the flash backward, the
-    # two attention kernels over int8 pools, the ragged kernel's
-    # decode-only call and the fused quantized append
-    assert "gla_scan" in cs.KERNELS and len(cs.KERNELS) == 13
+    # 15 rows: the eight TPU kernels' wrappers, the flash backward, the
+    # two attention and the two swap kernels over int8 pools, the ragged
+    # kernel's decode-only call and the fused quantized append
+    assert "gla_scan" in cs.KERNELS and len(cs.KERNELS) == 15
     cs.check_tiny_ssm(device="cpu")
     cs.check_ssm_parity(tiny=True, device="cpu", seq=70)
     rec = cs.GLARecorder()
