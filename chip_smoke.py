@@ -13,9 +13,10 @@ Phases; any failure ends the run with a non-zero exit and no result line:
   3. kernels       — each kernel against its plain version on the card, at
                      llama3.2-1b's widths (Hkv 8, G 4, hd 64, page 16) in
                      bf16 and f32, plus edge cases (kv_append at its 8-row
-                     blocks' edges); the quantized pools' kernels
-                     (page_requant, the fused kv_append_quant over Hkv
-                     {1, 8} x hd {32, 64, 128} x N {1, 7, 16, 17, 512},
+                     blocks' edges, swap_unpack with repeated ids); the
+                     quantized pools' kernels (page_requant, the fused
+                     kv_append_quant over Hkv {1, 8} x hd {32, 64, 128} x
+                     N {1, 7, 16, 17, 512},
                      the scaled attention kernels) for int8, float8_e4m3
                      and float8_e5m2; the bf16 attention sweep's tile and
                      split edges (chunks of tq - 1, tq, tq + 1 tokens at
@@ -29,7 +30,8 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      bulk copies and the word path, P {1, 3}, n {0, 1, 7,
                      34, 100}, aligned and shifted slabs); the flash
                      attention forward and
-                     backward at T {1, 63, 64, 1000, 2048}, Tq < Tk,
+                     backward at T {1, 63, 64, 1000, 2048}, at B 8 x
+                     T 1024 (dense_serve's prefill), Tq < Tk,
                      G {1, 4}, window, softcap and no causal mask;
                      gla_scan over the reference grid, the tiny and the
                      full-width mLSTM shapes (also as mlstm_forward lays
@@ -50,9 +52,12 @@ Phases; any failure ends the run with a non-zero exit and no result line:
   7. decode_parity — full width on the card: the fused and per-call paths
                      against each other, prefill (forward_mixed_paged vs
                      extend_step_paged) and one decode step on equal pools
-                     (the ragged kernel vs the paged decode kernel); held
-                     in f32, the prefill on weights conditioned for soft
-                     attention; reported with the reference's init
+                     (the ragged kernel vs the paged decode kernel), and
+                     the gather path (extend_step then decode_step on a
+                     slotted cache, per sequence) against both; held in
+                     f32, the prefill and the gather leg on weights
+                     conditioned for soft attention; reported with the
+                     reference's init
   8. train_parity  — full width in f32, B 1 x T 512: loss and gradients
                      with the flash kernels against the plain attention on
                      the card; held on conditioned weights, reported with
@@ -70,7 +75,8 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      included), with --parent the parent's stager in
                      turns. In every serve run one swap_pack and one
                      swap_unpack launch per stager pack and unpack; in
-                     serve, swap and quant every swapped page comes back
+                     serve, swap, quant, gather, sanitize and
+                     sanitize_quant every swapped page comes back
  12. unfused       — the same under InferCept with Engine(fused=False): the
                      per-call extend and paged decode paths
  13. spec          — the same under InferCept with speculative resume and
@@ -84,15 +90,27 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      the scaled ragged kernel
  15. quant_unfused — the same with fused=False: the scaled paged decode
                      kernel
- 16. train         — full-width llama3.2-1b training through
+ 16. gather        — the serve run with Engine(paged=False), the gather
+                     oracle: no paged attention or append launch, swaps
+                     through the stager, every page back
+ 17. sanitize      — the serve run with Engine(sanitize=True): no
+     sanitize_quant  findings, and the streams and counters of the serve
+                     (quant) run of this process
+ 18. train         — full-width llama3.2-1b training through
                      make_train_step: bf16 params, f32 AdamW, remat,
                      SyntheticLM batches of 4 x 2048, 2 warm-up and 8
                      timed steps; finite, falling loss
- 17. ssm_serve     — full-width xlstm-350m in bf16 (seed-0 port init)
+ 19. ssm_serve     — full-width xlstm-350m in bf16 (seed-0 port init)
                      through prefill_step of 8 x 2000 random tokens and 64
                      greedy serve_step calls: tok/s of each, peak memory,
                      21 gla_scan launches, finite logits
- 18. timing        — each kernel, its plain version and the one-call PyTorch
+ 20. dense_serve   — full-width llama3.2-1b in bf16 (seed-0 port init)
+                     through prefill_step of 8 x 1024 random tokens (the
+                     flash kernel, 16 launches) and 32 greedy serve_step
+                     calls over slotted caches: tok/s of each, peak
+                     memory, finite logits (one function serves both
+                     models, MODEL_SERVES)
+ 21. timing        — each kernel, its plain version and the one-call PyTorch
                      yardstick, timed with CUDA events on the inputs the
                      serve, train and ssm_serve runs gave it, launched
                      from the host (ms); the paged attention and append
@@ -111,23 +129,27 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      (after a 64 MB write) by both measures, the library
                      calls' device time and the slab's pinned host copy;
                      with --parent DIR, another checkout's attention,
-                     append, gla_scan and per-leaf swap wrappers in turns
+                     append, gla_scan and tree swap wrappers in turns
                      with these
- 19. profile       — torch.profiler over a window of serve steps (bf16 and
-                     int8 pools), over one train step and over one
-                     xlstm prefill: device busy share, device time by
-                     kernel, and the append's share of the serve's device
-                     time
+ 22. profile       — torch.profiler over a window of serve steps (bf16 and
+                     int8 pools), over one train step, and over one
+                     prefill and one window of serve steps of each of
+                     xlstm and llama: device busy share, device time by
+                     kernel, the append's share of the serve's device
+                     time, and the serve steps' host ops
 
 Launch counts are read from the kernel wrappers: set to 0 just before
-each serve run, the train run and the timed xlstm run, and read just
-after each. The
-last three lines are the kernels JSON, the card's name and power limit,
-and {"ok": true, "device": {...}}.
+each serve run, the train run and the timed xlstm and llama prefills, and
+read just after each. The kernels line's launches are those of the timed
+serve phases (serve, swap, unfused, spec, quant, quant_unfused), train
+and ssm_serve; those of gather, the sanitized runs and dense_serve are
+logged apart. The last three lines are the kernels JSON, the card's
+name and power limit, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -140,15 +162,25 @@ ROOT = Path(__file__).resolve().parent
 T_START = time.perf_counter()
 PHASES = ("kernels", "tiny", "tiny_train", "tiny_ssm", "decode_parity",
           "train_parity", "ssm_parity", "serve", "swap", "unfused", "spec",
-          "quant", "quant_unfused", "train", "ssm_serve", "timing",
-          "profile")
+          "quant", "quant_unfused", "gather", "sanitize", "sanitize_quant",
+          "train", "ssm_serve", "dense_serve", "timing", "profile")
 SERVE_PHASES = {"serve": ("infercept", {}), "swap": ("swap", {}),
                 "unfused": ("infercept", {"fused": False}),
                 "spec": ("infercept", {"speculate": True,
                                        "closed_loop": True}),
                 "quant": ("infercept", {"kv_dtype": "int8"}),
                 "quant_unfused": ("infercept", {"kv_dtype": "int8",
-                                                "fused": False})}
+                                                "fused": False}),
+                "gather": ("infercept", {"paged": False}),
+                "sanitize": ("infercept", {"sanitize": True}),
+                "sanitize_quant": ("infercept", {"kv_dtype": "int8",
+                                                 "sanitize": True})}
+# the serve phases whose recorded calls the timing phase's rows 1-6 (and
+# 3q, 4q) take their inputs from
+TIMED_SERVE_PHASES = ("serve", "swap", "unfused", "spec", "quant",
+                      "quant_unfused")
+# a sanitized phase and the phase whose streams and counters it repeats
+SANITIZED_OF = {"sanitize": "serve", "sanitize_quant": "quant"}
 # the rows of the kernels line: an attention kernel over int8 pools is a
 # row of its own beside its wrapper's, and so are the swap kernels over an
 # int8 pool tree (payload and scale leaves in one launch, rows 3q/4q),
@@ -810,10 +842,11 @@ def check_swap_kernels(gen) -> None:
     their plain versions on the card over a ragged grid: trees of 1-4
     leaves from SWAP_LEAVES (bulk and word-path rows, rows larger than a
     stage, the int8 pools' tree of payload and scale leaves), P {1, 3},
-    n {0, 1, 7, 34, 100} with repeated (pack) and out-of-range ids,
-    slabs with 128-byte aligned sections and slabs that start 8 bytes
-    into their buffer; one launch per call, none at n 0. Skipped rows
-    keep the slab's bytes."""
+    n {0, 1, 7, 34, 100} with repeated and out-of-range ids (an unpack
+    of distinct ids, then one of repeated ids, where the last row naming
+    a page wins), slabs with 128-byte aligned sections and slabs that
+    start 8 bytes into their buffer; one launch per call, none at n 0.
+    Skipped rows keep the slab's bytes."""
     import torch
     from repro_torch.kernels.swap_pack import (slab_layout, swap_pack,
                                                swap_pack_tree,
@@ -856,15 +889,28 @@ def check_swap_kernels(gen) -> None:
                     assert all(byte_equal(a, b) for a, b in
                                zip(mine, leaves)), ("unpack", picks, P, n,
                                                     shift)
+                    # unpack: ids repeated (pages 0-9 only) and out of
+                    # range; the last row naming a page wins
+                    rids = torch.randint(0, 10, (n,), generator=gen,
+                                         device=dev, dtype=torch.int32)
+                    rids[::5] = -1
+                    rids[1::7] = n_pages
+                    swap_unpack_tree(mine, buf[shift:], rids)
+                    swap_unpack_tree_ref(leaves, buf[shift:], rids)
+                    torch.cuda.synchronize()
+                    assert all(byte_equal(a, b) for a, b in
+                               zip(mine, leaves)), ("repeated", picks, P,
+                                                    n, shift)
                     launched = (swap_pack.launches - before[0],
                                 swap_unpack.launches - before[1])
-                    assert launched == ((0, 0) if n == 0 else (1, 1)), \
+                    assert launched == ((0, 0) if n == 0 else (1, 2)), \
                         (picks, P, n, launched)
                     cases += 1
     log(f"  swap_pack/swap_unpack trees: {cases} cases ({len(trees)} trees "
         "of 1-4 leaves, rows 4 B to 24 KB, P {1, 3}, n {0, 1, 7, 34, 100}, "
-        "aligned and shifted slabs) byte for byte against the plain "
-        "versions, one launch per call and none at n 0")
+        "aligned and shifted slabs; unpacks of distinct and of repeated "
+        "ids) byte for byte against the plain versions, one launch per "
+        "call and none at n 0")
 
 
 # ---------------------------------------------------------------------------
@@ -1029,7 +1075,11 @@ def paths_parity(dtype, *, conditioned: bool, tiny: bool = False,
       decode  — one step on equal copies of the fused prefill's pools, as
                 a decode-only ragged batch (ragged_paged_attention) and
                 through decode_step_paged (paged_attention), each with a
-                padded row.
+                padded row;
+      gather  — per sequence, extend_step over its prompt on a zeroed
+                slotted cache, then one decode_step (plain PyTorch
+                attention), against the fused prefill's logits and the
+                ragged decode's logits and pools.
     ``conditioned`` rescales the attention projections to a fan-in over
     d_model: the reference's init takes it over the heads, which at full
     width gives attention logits of standard deviation ~128, a softmax
@@ -1107,6 +1157,27 @@ def paths_parity(dtype, *, conditioned: bool, tiny: bool = False,
         torch.arange(B + 1, **i32), pools_r, bt)
     logits_p, pools_p = lm.decode_step_paged(params, feed, ctx + (ctx > 0),
                                              pools, bt)
+    # the gather leg: per sequence, extend_step then one decode_step on a
+    # slotted cache of the block table's width
+    S = max_pages * page
+    gather_logits, gather_cache = [], (0.0, 0.0)
+    for b, n in enumerate(lens):
+        cache = lm.init_cache(1, S, dtype=dtype, device=dev)
+        lg, cache = lm.extend_step(
+            params, tokens[None, q_last[b] + 1 - n:q_last[b] + 1],
+            torch.zeros(1, **i32), cache)
+        gather_logits.append(lg[0])
+        lg, cache = lm.decode_step(params, feed[b:b + 1],
+                                   torch.tensor([n], **i32), cache)
+        gather_logits.append(lg[0])
+        for got, pool in zip(tree_leaves(cache), tree_leaves(pools_r)):
+            want = pool[:, bt[b].long()].reshape(got.shape)
+            gather_cache = (max(gather_cache[0], max_err(
+                got[:, :, :n + 1], want[:, :, :n + 1])), max(
+                gather_cache[1], float(want[:, :, :n + 1].abs().max())))
+    gather_logits = torch.stack(gather_logits)
+    paired = torch.stack([x for b in range(B)
+                          for x in (logits_f[b], logits_r[b])])
     top2 = torch.topk(logits_f[:B].float(), 2).values
     res = {"lens": lens,
            "prefill_err": max_err(logits_u, logits_f[:B]),
@@ -1119,9 +1190,14 @@ def paths_parity(dtype, *, conditioned: bool, tiny: bool = False,
            "decode_ids": (logits_p[:B].argmax(-1).tolist(),
                           logits_r[:B].argmax(-1).tolist()),
            "decode_pools": pool_err(pools_p, pools_r),
+           "gather_err": max_err(gather_logits, paired),
+           "gather_ids": (gather_logits.argmax(-1).tolist(),
+                          paired.argmax(-1).tolist()),
+           "gather_cache": gather_cache,
            "finite": bool(torch.isfinite(logits_p[:B]).all()
-                          and torch.isfinite(logits_u).all())}
-    del params, pools, pools_u, pools_r, pools_p
+                          and torch.isfinite(logits_u).all()
+                          and torch.isfinite(gather_logits).all())}
+    del params, pools, pools_u, pools_r, pools_p, cache
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -1160,6 +1236,11 @@ def check_decode_parity(*, tiny: bool = False, device: str = "cuda") -> None:
         log(f"  {name}: decode paged vs ragged logits max_abs_err "
             f"{r['decode_err']:.3g}, greedy ids {r['decode_ids'][0]} vs "
             f"{r['decode_ids'][1]}, pools {de:.3g} of max {dt:.3g}")
+        (ge, gt) = r["gather_cache"]
+        log(f"  {name}: gather extend + decode vs fused prefill + ragged "
+            f"decode logits max_abs_err {r['gather_err']:.3g}, greedy ids "
+            f"{r['gather_ids'][0]} vs {r['gather_ids'][1]}, cache {ge:.3g} "
+            f"of max {gt:.3g}")
         assert r["finite"], name
         if dtype != torch.float32:
             continue
@@ -1169,10 +1250,13 @@ def check_decode_parity(*, tiny: bool = False, device: str = "cuda") -> None:
         if conditioned:
             assert r["prefill_err"] <= 1e-3 and pe <= 1e-4 * pt, name
             assert r["prefill_ids"][0] == r["prefill_ids"][1], name
+            assert r["gather_err"] <= 1e-3 and ge <= 1e-4 * gt, name
+            assert r["gather_ids"][0] == r["gather_ids"][1], name
         log(f"  {name}: held (logits 1e-3 and equal ids"
-            f"{', prefill too' if conditioned else ' for decode'}; layer-0 "
-            "pools 1e-5, decode pools 1e-5"
-            f"{', prefill pools 1e-4' if conditioned else ''} of max)")
+            f"{', prefill and gather too' if conditioned else ' for decode'}"
+            "; layer-0 pools 1e-5, decode pools 1e-5"
+            f"{', prefill pools and gather cache 1e-4' if conditioned else ''}"
+            " of max)")
 
 
 # ---------------------------------------------------------------------------
@@ -1414,7 +1498,10 @@ def serve(policy: str, recorder: Recorder, *, tiny: bool = False,
            "swapped_out_tokens": st.swapped_out_tokens,
            "swapped_in_tokens": st.swapped_in_tokens,
            "free_pages": eng.blocks.num_free, "n_pages": eng.blocks.n_pages,
-           "fused": eng.fused, "speculate": eng.speculate,
+           "fused": eng.fused, "paged": eng.paged,
+           "speculate": eng.speculate, "sanitize": eng.sanitize,
+           "findings": [str(f) for f in eng.sanitizer.findings]
+           if eng.sanitizer is not None else None,
            "kv_dtype": eng.kv_dtype, "kv_token_bytes": eng.kv_token_bytes,
            "kv_pool_bytes": sum(t.numel() * t.element_size()
                                 for t in tree_leaves(eng.pools)),
@@ -1428,10 +1515,18 @@ def serve(policy: str, recorder: Recorder, *, tiny: bool = False,
            "launches": counts}
     log(f"  {json.dumps(res)}")
     res["streams"] = streams
+    res["counters"] = dict(eng.counters)
     assert drained and res["finished"] == res["requests"], res
     assert all(0 <= t < cfg.vocab_size for s in streams for t in s)
+    assert res["findings"] in (None, []), res["findings"]
     if on_card:
-        if eng.fused:
+        if not eng.paged:
+            # the gather oracle: slotted caches in plain PyTorch, no paged
+            # attention and no append kernel
+            assert counts["ragged_paged_attention"] == counts[
+                "paged_attention"] == counts["kv_append"] == counts[
+                "kv_append_quant"] == 0, counts
+        elif eng.fused:
             assert counts["ragged_paged_attention"] > 0
         else:
             assert counts["ragged_paged_attention"] == 0 \
@@ -1441,10 +1536,10 @@ def serve(policy: str, recorder: Recorder, *, tiny: bool = False,
         # float pools launch kv_append and never the fused quantized
         # append; quantized pools launch the fused kernel on every append
         # and neither kv_append nor page_requant
-        if eng.kv_dtype is None:
+        if eng.paged and eng.kv_dtype is None:
             assert counts["kv_append"] > 0 \
                 and counts["kv_append_quant"] == 0, counts
-        else:
+        elif eng.paged:
             assert counts["kv_append_quant"] > 0 and counts["kv_append"] \
                 == counts["page_requant"] == 0, counts
         # one pack and one unpack launch per swap, whatever the leaf count
@@ -1465,7 +1560,7 @@ def parent_kernels(parent: Path):
     """The kernel wrappers of another checkout of the port at ``parent``
     (the parent commit's, for timing both versions in one run): ragged and
     paged attention, kv_append, page_requant, the whole quantized append,
-    gla_scan's launcher, the one-leaf swap_pack / swap_unpack and the
+    gla_scan's launcher, the tree swap_pack / swap_unpack and the
     SwapStager. Its ``repro_torch`` modules are imported from its own
     source tree, so its kernels build there by its own ``_build.py`` and
     are called through its own wrappers, whatever their C signatures
@@ -1517,8 +1612,8 @@ def parent_kernels(parent: Path):
                                  page_requant=kq.page_requant,
                                  kv_append_quant=kq.kv_append_quant,
                                  gla_scan=gs.gla_scan_fwd,
-                                 swap_pack=sp.swap_pack,
-                                 swap_unpack=sp.swap_unpack,
+                                 swap_pack_tree=sp.swap_pack_tree,
+                                 swap_unpack_tree=sp.swap_unpack_tree,
                                  SwapStager=sp.SwapStager,
                                  own_ops=own_ops,
                                  build=rpa._build.lib)
@@ -1568,8 +1663,8 @@ def time_swap(recorder: Recorder, launches: dict, parent, suffix: str, row,
     against swap_pack_ref / swap_unpack_ref. Timed launched from the host
     (``ms``) and as device time (``device_ms``, CUDA graphs), with a warm
     L2 and after a 64 MB write (``cold_ms``, ``cold_device_ms``: the
-    write's own time taken off), the parent's one launch per leaf in turns
-    on every measure; the library yardstick over the same leaves
+    write's own time taken off), the parent's tree launch in turns on
+    every measure; the library yardstick over the same leaves
     (``library_ms``, and ``library_device_ms``); and the copy of the slab
     between the card and one pinned host buffer (``host_copy_ms``: device
     to host beside the pack, host to device beside the unpack)."""
@@ -1606,7 +1701,7 @@ def time_swap(recorder: Recorder, launches: dict, parent, suffix: str, row,
             row_["parent_cold_ms"] = min(times[0][0], times[3][0]) - b_loop
             row_["parent_cold_device_ms"] = min(times[0][1],
                                                 times[3][1]) - b_dev
-            msg += (f" (the parent's per-leaf launches "
+            msg += (f" (the parent's tree launch "
                     f"{row_['parent_cold_ms']:.4f} / "
                     f"{row_['parent_cold_device_ms']:.4f} ms)")
         log(msg)
@@ -1648,7 +1743,7 @@ def time_swap(recorder: Recorder, launches: dict, parent, suffix: str, row,
             swap_work(leaves, n), 0, "bfloat16", 0.0, shape)
     host = torch.empty(got.numel(), dtype=torch.uint8, pin_memory=True)
     finish(r, lambda: swap_pack_tree(leaves, ids, got),
-           (lambda: [parent.swap_pack(leaf, ids) for leaf in leaves])
+           (lambda: parent.swap_pack_tree(leaves, ids, got))
            if parent else None, lib_fn,
            lambda: host.copy_(got, non_blocking=True), leaves)
     del base, got, want, leaves, slab
@@ -1683,8 +1778,8 @@ def time_swap(recorder: Recorder, launches: dict, parent, suffix: str, row,
     host = slab.cpu().pin_memory()
     dst = torch.empty_like(slab)
     finish(r, lambda: swap_unpack_tree(got, slab, ids),
-           (lambda: [parent.swap_unpack(leaf, v, ids)
-                     for leaf, v in zip(got, views)]) if parent else None,
+           (lambda: parent.swap_unpack_tree(got, slab, ids))
+           if parent else None,
            lib_fn, lambda: dst.copy_(host, non_blocking=True), got)
     del got, views, slab, dst, flush
     torch.cuda.synchronize()
@@ -1696,11 +1791,9 @@ def time_stager(recorder: Recorder, parent) -> dict:
     synchronize), the median of 10 each, at the bf16 tree's largest
     recorded pack: its leaves' shapes and page ids over fresh random
     pools. With ``parent``, the parent's stager in turns, parent, this,
-    this, parent; its unpack time includes the engine's stacking of the
-    payloads that came before it."""
+    this, parent, on the same page payloads."""
     import torch
     from repro_torch.kernels.swap_pack import SwapStager, slab_pages
-    from repro_torch.utils.tree import tree_map
     leaves, ids, _ = recorder.calls["swap_pack"][1]
     ids = ids.tolist()
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -1733,8 +1826,7 @@ def time_stager(recorder: Recorder, parent) -> dict:
 
     def old_unpack():
         with parent.own_ops():
-            slab = tree_map(lambda *ls: torch.stack(ls, dim=1), *pages)
-            parent.SwapStager().unpack(pools, ids, slab)
+            parent.SwapStager().unpack(pools, ids, pages)
         torch.cuda.synchronize()
     out = {"pages": len(ids), "leaves": len(pools)}
     for name, fn, old in (("pack_collect_ms", pack, old_pack),
@@ -2075,7 +2167,7 @@ def time_kernels(recorder: Recorder, worst: dict, launches: dict,
     # swap pack / unpack: rows 3 and 4 at the bf16 pool tree's largest
     # call, 3q and 4q at the int8 tree's (payload and scale leaves), one
     # launch each; the yardstick is index_select / index_copy_ over the
-    # same leaves, the parent's one launch per leaf in turns
+    # same leaves, the parent's tree launch in turns
     for suffix in ("", "_int8"):
         time_swap(recorder, launches, parent, suffix, row, device_time)
 
@@ -2242,7 +2334,9 @@ def check_flash_kernels(gen, worst) -> None:
         ("hd=128 T=129", dict(B=1, Hkv=2, G=4, Tq=129, Tk=129, hd=128), {}),
         ("hd=128 Tq=100 Tk=163 softcap=20", dict(B=1, Hkv=2, G=2, Tq=100,
                                                  Tk=163, hd=128),
-         dict(softcap=20.0))]
+         dict(softcap=20.0)),
+        # dense_serve's prefill: llama's every layer at B 8 x T 1024
+        ("B=8 T=1024", dict(B=8, Hkv=8, G=4, Tq=1024, Tk=1024, hd=64), {})]
     for dtype in (torch.bfloat16, torch.float32):
         for label, shape, kw in cases:
             B, Hkv, G, Tq, Tk, hd = (shape[k] for k in ("B", "Hkv", "G",
@@ -2929,27 +3023,45 @@ class GLARecorder:
                              self.args)
 
 
-def ssm_serve(recorder: GLARecorder, *, tiny: bool = False,
-              device: str = "cuda", batch: int = 8, seq: int = 2000,
-              steps: int = 64, profile: bool = False) -> dict:
-    """xlstm-350m served through prefill_step and greedy serve_step: bf16
-    weights from the port's seed-0 init, ``batch`` prompts of ``seq``
-    random tokens (seed 0). A warm-up prefill (which the recorder
-    watches) and serve step, then the timed prefill and ``steps`` serve
-    steps, each timed to a synchronize. Launch counts are set to 0 before
-    the timed prefill and read after the last step: every mLSTM layer
-    launches gla_scan once per prefill, and decode never. Fails unless
-    every logit is finite. ``profile`` adds one more prefill under
-    torch.profiler. ``tiny`` and ``device="cpu"`` rehearse it in
-    float32."""
+# the serve-step phases: the model served at full width, the block kind
+# whose every layer launches the phase's kernel once per prefill (decode
+# launches no kernel), the prompt length, the greedy steps, whether the
+# slotted caches hold the decoded tokens too (SSM state has no slots),
+# and the serve steps profiled after the prefill in the profile phase
+# (the profiler's own parse takes ~1 s for each llama step)
+MODEL_SERVES = {
+    "ssm_serve": dict(model="xlstm-350m", kernel="gla_scan", kind="mlstm",
+                      seq=2000, steps=64, slots=False, profile_steps=0),
+    "dense_serve": dict(model="llama3.2-1b", kernel="flash_attention",
+                        kind="attn", seq=1024, steps=32, slots=True,
+                        profile_steps=32)}
+
+
+def model_serve(phase: str, recorder=None, *, tiny: bool = False,
+                device: str = "cuda", batch: int = 8, seq: int = None,
+                steps: int = None, profile: bool = False) -> dict:
+    """A model of MODEL_SERVES served through prefill_step and greedy
+    serve_step: bf16 weights from the port's seed-0 init, ``batch``
+    prompts of ``seq`` random tokens (seed 0). A warm-up prefill (which
+    ``recorder``, if any, watches) and serve step, then the timed prefill
+    and ``steps`` serve steps, each timed to a synchronize. Launch counts
+    are set to 0 before the timed prefill and read after the last step:
+    every layer of the phase's block kind launches its kernel once per
+    prefill, and nothing else launches one. Fails unless every logit is
+    finite. ``profile`` adds one more prefill, and the phase's
+    ``profile_steps`` more serve steps, under torch.profiler. ``tiny`` and
+    ``device="cpu"`` rehearse it in float32."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import build_prefill_step, build_serve_step
     from repro_torch.models.model import LM
+    spec = MODEL_SERVES[phase]
+    seq = spec["seq"] if seq is None else seq
+    steps = spec["steps"] if steps is None else steps
     dev = torch.device(device)
     on_card = dev.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
-    cfg = get_config("xlstm-350m", tiny=tiny)
+    cfg = get_config(spec["model"], tiny=tiny)
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
@@ -2958,12 +3070,14 @@ def ssm_serve(recorder: GLARecorder, *, tiny: bool = False,
                           else torch.float32, device=dev)
     tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
                            device=dev, dtype=torch.int32)
-    n_mlstm = sum(g.n_periods * sum(b.kind == "mlstm" for b in g.period)
-                  for g in cfg.groups)
-    _, prefill = build_prefill_step(cfg, seq)
+    n_layers = sum(g.n_periods * sum(b.kind == spec["kind"]
+                                     for b in g.period) for g in cfg.groups)
+    n_prof = spec["profile_steps"] if profile else 0
+    n_slots = seq + steps + n_prof if spec["slots"] else seq
+    _, prefill = build_prefill_step(cfg, n_slots)
     _, serve_step = build_serve_step(cfg)
     pos = torch.full((batch,), seq, device=dev, dtype=torch.int32)
-    with recorder:
+    with recorder if recorder is not None else contextlib.nullcontext():
         logits, cache = prefill(params, tokens)
     serve_step(params, cache, torch.argmax(logits, dim=-1).to(torch.int32),
                pos)
@@ -3003,24 +3117,42 @@ def ssm_serve(recorder: GLARecorder, *, tiny: bool = False,
     assert finite, "non-finite logits"
     assert fed.shape == (batch, steps + 1)
     assert 0 <= int(fed.min()) and int(fed.max()) < cfg.vocab_size
-    assert recorder.args is not None
+    assert recorder is None or recorder.args is not None
     if on_card:
-        assert counts["gla_scan"] == n_mlstm, counts
+        assert counts[spec["kernel"]] == n_layers and sum(
+            counts.values()) == n_layers, counts
     if profile:
         from torch.profiler import ProfilerActivity, profile as prof_ctx
-        with prof_ctx(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) as prof:
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with prof_ctx(activities=acts) as prof:
             t0 = time.perf_counter()
             prefill(params, tokens)
             sync()
             wall = time.perf_counter() - t0
         dev_us, total = log_device_time(prof, wall,
                                         f"1 prefill of {batch} x {seq}")
-        gla = [v for k, v in dev_us.items() if "gla_" in k]
-        log(f"  gla_scan's kernels: {sum(us for us, _ in gla) / 1e3:.2f} ms "
-            f"over {sum(n for _, n in gla)} launches = "
-            f"{sum(us for us, _ in gla) / max(total, 1e-9):.3f} of device "
+        mine = [v for k, v in dev_us.items()
+                if spec["kernel"].split("_")[0] + "_" in k]
+        log(f"  {spec['kernel']}'s kernels: "
+            f"{sum(us for us, _ in mine) / 1e3:.2f} ms over "
+            f"{sum(n for _, n in mine)} launches = "
+            f"{sum(us for us, _ in mine) / max(total, 1e-9):.3f} of device "
             f"time")
+    if n_prof:
+        with prof_ctx(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for i in range(n_prof):
+                _, tok, cache = serve_step(params, cache, tok,
+                                           pos + steps + i)
+            sync()
+            wall = time.perf_counter() - t0
+        log_device_time(prof, wall, f"{n_prof} serve steps of {batch}")
+        # the host side of the decode window: the ops that took the most
+        # CPU time of their own
+        ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+        for e in ops[:8]:
+            log(f"  host {e.self_cpu_time_total / 1e3:9.2f} ms {e.count:7d}x"
+                f"  {e.key[:80]}")
     del params, cache, logits, step_logits
     gc.collect()
     if on_card:
@@ -3262,10 +3394,20 @@ def main() -> int:
             continue
         log(f"[{phase}] llama3.2-1b full width, bf16, policy {policy}"
             f"{''.join(f', {k}={v}' for k, v in engine_kw.items())}")
-        res = results[phase] = serve(policy, recorder, **engine_kw)
-        for k, v in res["launches"].items():
-            total[row_key(k, res["kv_dtype"])] += v
-        if phase in ("serve", "swap", "quant"):
+        # the timing phase's records and per-size launch counts are the
+        # timed phases' own, as the kernels line's totals are
+        res = results[phase] = serve(
+            policy, recorder if phase in TIMED_SERVE_PHASES else Recorder(),
+            **engine_kw)
+        if phase in TIMED_SERVE_PHASES:
+            for k, v in res["launches"].items():
+                total[row_key(k, res["kv_dtype"])] += v
+        else:
+            # the kernels line's launches stay those of the timed serve
+            # phases and train, as they were before these phases came
+            log(f"  launches (not in the kernels line): "
+                f"{json.dumps(res['launches'])}")
+        if phase in ("serve", "swap", "quant", "gather", *SANITIZED_OF):
             # every swapped page came back, one launch per pack and unpack
             # (serve() holds the launches to the stager's counts)
             assert res["swapped_out_tokens"] > 0, "nothing was swapped"
@@ -3288,7 +3430,15 @@ def main() -> int:
                     f"{bf16['run_peak_bytes']}), max_memory_allocated "
                     f"{res['max_memory_allocated']} (bf16 serve "
                     f"{bf16['max_memory_allocated']})")
-        if phase in ("unfused", "spec") and "serve" in results:
+        if phase in SANITIZED_OF and SANITIZED_OF[phase] in results:
+            # the sanitizer only observes: the same streams and counters
+            # as the unsanitized run of this process
+            plain = results[SANITIZED_OF[phase]]
+            assert res["streams"] == plain["streams"], phase
+            assert res["counters"] == plain["counters"], phase
+            log(f"  no findings; streams and counters equal to the "
+                f"{SANITIZED_OF[phase]} run's")
+        if phase in ("unfused", "spec", "gather") and "serve" in results:
             # bf16 at full width with random weights: the paths can part
             # at a near-tie of the argmax, so the share is reported, and
             # correctness rests on decode_parity and the kernel checks
@@ -3302,18 +3452,26 @@ def main() -> int:
             "SyntheticLM B 4 x T 2048")
         res = train(flash_rec, profile="profile" in phases)
         for k in ("flash_attention", "flash_attention_bwd"):
-            total[k] = res["launches"][k]
+            total[k] += res["launches"][k]
     gla_rec = GLARecorder()
-    if "ssm_serve" in phases:
-        log("[ssm_serve] xlstm-350m full width, bf16, seed-0 port init: "
-            "prefill_step of 8 x 2000, then 64 greedy serve_step calls")
-        res = ssm_serve(gla_rec, profile="profile" in phases)
-        total["gla_scan"] = res["launches"]["gla_scan"]
+    for phase, spec in MODEL_SERVES.items():
+        if phase not in phases:
+            continue
+        log(f"[{phase}] {spec['model']} full width, bf16, seed-0 port init: "
+            f"prefill_step of 8 x {spec['seq']}, then {spec['steps']} "
+            f"greedy serve_step calls")
+        res = model_serve(phase, gla_rec if phase == "ssm_serve" else None,
+                          profile="profile" in phases)
+        if phase == "ssm_serve":
+            total["gla_scan"] = res["launches"]["gla_scan"]
+        else:
+            log("  (its launches are not in the kernels line, whose flash "
+                "row is the train step's)")
         log(f"  {smi}: prefill {res['prefill_tokens_per_s']:.1f} tok/s, "
             f"decode {res['decode_tokens_per_s']:.1f} tok/s, "
             f"max_memory_allocated {res['max_memory_allocated']} B")
     rows = []
-    if "timing" in phases and set(SERVE_PHASES) <= phases:
+    if "timing" in phases and set(TIMED_SERVE_PHASES) <= phases:
         log("[timing] CUDA events on the inputs of each kernel's largest "
             "main-path call")
         total["ragged_paged_attention_decode"] = recorder.decode_launches
@@ -3327,7 +3485,7 @@ def main() -> int:
             "prefill")
         rows += time_gla(gla_rec, worst, total, parent)
     if "timing" in phases and \
-            set(SERVE_PHASES) | {"train", "ssm_serve"} <= phases:
+            set(TIMED_SERVE_PHASES) | {"train", "ssm_serve"} <= phases:
         assert sorted(r["name"] for r in rows) == sorted(KERNELS), rows
         # every kernel of the main path launched; page_requant is the
         # reference's standalone op, which the fused append replaced there

@@ -34,8 +34,14 @@
 //   bytes). A one-thread TMA op per 32-byte row would cost more than the
 //   row.
 // * A page id out of range is skipped: pack leaves its slab row as it was,
-//   unpack writes nothing. The engine never repeats an id in an unpack (it
-//   scatters into freshly allocated pages); repeated ids there race.
+//   unpack writes nothing. An unpack writes a page once whatever its ids: a
+//   slab row whose id appears again later in ids writes nothing, so the
+//   last of repeated ids wins, as the reference's sequential grid writes
+//   them. Whoever issues a row's store decides it with a scan of the ids
+//   after it (n is at most a few hundred; the ids stay in L1): on the bulk
+//   copies the ring's thread before each store, on the word path each lane
+//   for its row. The engine never repeats an id (it scatters into freshly
+//   allocated pages).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -161,6 +167,16 @@ __device__ __forceinline__ bool in_range(int pid, const Leaf& L) {
   return pid >= 0 && pid < L.n_pages;
 }
 
+// unpack: slab row i (id pid) is the last row naming its page. A fold with
+// no early exit, so the loads are independent and unrolled ones overlap (an
+// early return per id waited out each load in turn)
+__device__ __forceinline__ bool last_of(const Table& t, int i, int pid) {
+  bool last = true;
+#pragma unroll 8
+  for (int j = i + 1; j < t.n; ++j) last &= __ldg(t.ids + j) != pid;
+  return last;
+}
+
 __device__ __forceinline__ char* pool_row(const Leaf& L, long long p,
                                           int pid) {
   return L.pool + (p * L.n_pages + pid) * L.row;
@@ -202,7 +218,7 @@ __device__ __forceinline__ void store_chunk(const Table& t, const Chunk& k,
   if (kUnpack) {
     for (int r = 0; r < k.rows; ++r) {
       const int pid = __ldg(t.ids + k.i0 + r);
-      if (in_range(pid, L))
+      if (in_range(pid, L) && last_of(t, k.i0 + r, pid))
         bulk_store(pool_row(L, k.p, pid) + k.off, s + r * L.row, k.len);
     }
   } else {  // each run of in-range rows is one contiguous slab range
@@ -272,7 +288,7 @@ __device__ void word_loop(const Table& t) {
     const long long p = r / t.n;
     const int i = static_cast<int>(r % t.n);
     const int pid = __ldg(t.ids + i);
-    if (!in_range(pid, L)) continue;
+    if (!in_range(pid, L) || (kUnpack && !last_of(t, i, pid))) continue;
     const long long off = (q % L.words) * L.unit;
     char* a = pool_row(L, p, pid) + off;
     char* b = slab_row(t, L, p, i) + off;

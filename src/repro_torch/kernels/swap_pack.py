@@ -210,8 +210,9 @@ def swap_pack_tree(leaves, page_ids, slab):
 
 def swap_unpack_tree(leaves, slab, page_ids):
     """Launch one scatter of every leaf's section of the uint8 ``slab``
-    into its pages ``page_ids``, in place, on the current stream; returns
-    the leaves."""
+    into its pages ``page_ids``, in place, on the current stream; ids out
+    of range write nothing, and a page named more than once takes the
+    last such row (``_unpack_rows``). Returns the leaves."""
     offs, rows = _check_tree("swap_unpack", leaves, slab, page_ids)
     _launch(swap_unpack, leaves, offs, rows, slab.data_ptr(), page_ids)
     return leaves

@@ -1,9 +1,11 @@
 """The production step functions of an architecture, counterpart of
 ``repro.launch.steps``: train_step, prefill_step and serve_step
 (single-token greedy decode). The serve steps run under
-``torch.no_grad``; prefill_step and serve_step take SSM models (their
-caches are the blocks' states), while attention blocks' slotted caches
-come with the gather-path slice and raise."""
+``torch.no_grad``. prefill_step runs the full-sequence forward (attention
+through the flash kernels) and returns the decode cache: attention
+blocks' slotted K/V caches of ``seq_len`` slots, SSM blocks' states;
+serve_step decodes over it (attention in plain PyTorch, the gather
+path)."""
 from __future__ import annotations
 
 import torch

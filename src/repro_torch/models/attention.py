@@ -1,17 +1,24 @@
-"""GQA attention: the full-sequence forward (training) over the flash
-kernels, and paged KV pools' fused mixed-batch path and per-call decode
-and chunked-prefill paths.
+"""GQA attention: the full-sequence forward (training, prefill) over the
+flash kernels; single-token decode and chunked prefill over slotted
+caches (the gather path); and paged KV pools' fused mixed-batch path and
+per-call decode and chunked-prefill paths.
 
 Counterpart of the ``init_gqa`` / ``gqa_qkv`` / ``gqa_forward`` /
-``attention_forward`` / ``gqa_mixed_paged`` / ``gqa_decode_paged`` /
-``gqa_extend_paged`` / ``init_cache_shapes`` slice of
-``repro.models.attention``. The per-layer pools are updated in
-place: every new token's K/V is appended (``kv_append``) before attention
-reads the pools, so one mask ``kv position <= token position`` gives both
-decode tokens and chunk-internal causality. A quantized pool (DESIGN.md
-§17) carries ``k_scale``/``v_scale`` (n_pages, Hkv) float32 beside its
-1-byte payload: the append is ``kv_append_quant`` and attention
-dequantizes with the scales.
+``attention_forward`` / ``gqa_decode`` / ``gqa_extend`` /
+``attention_decode`` / ``attention_extend`` / ``gqa_mixed_paged`` /
+``gqa_decode_paged`` / ``gqa_extend_paged`` / ``init_cache_shapes`` slice
+of ``repro.models.attention``. A slotted cache is {"k","v"}: (B, S, Hkv,
+hd), one row of S slots per sequence; decode and extend return new
+caches and leave theirs as they were, as the reference's ``.at[].set``
+does, and their attention is plain PyTorch (float32 scores, the
+reference's op order), which the reference leaves to XLA. The per-layer
+pools are updated in place: every new token's K/V is appended
+(``kv_append``) before attention reads the pools, so one mask ``kv
+position <= token position`` gives both decode tokens and chunk-internal
+causality. A quantized pool (DESIGN.md §17) carries
+``k_scale``/``v_scale`` (n_pages, Hkv) float32 beside its 1-byte payload:
+the append is ``kv_append_quant`` and attention dequantizes with the
+scales.
 """
 from __future__ import annotations
 
@@ -110,6 +117,95 @@ def attention_forward(p, a, x, positions, *, window_override="cfg"):
     if a.kind == "mla":
         raise NotImplementedError("MLA attention is not ported yet")
     return gqa_forward(p, a, x, positions, window_override=window_override)
+
+
+def _attend(q, k_cache, v_cache, live, a: AttentionCfg):
+    """Attention of q (B, T, Hkv, G, hd) over slotted caches (B, S, Hkv,
+    hd) where ``live`` (B, T, S) holds: float32 scores, the softcap, then
+    the mask, in the reference's order. Returns (B, T, Hq * hd) float32."""
+    B, T, Hkv, G, hd = q.shape
+    s = torch.einsum("bthgk,bshk->bhgts", q.float(),
+                     k_cache.float()) / math.sqrt(hd)
+    if a.logit_softcap is not None:
+        s = softcap(s, a.logit_softcap)
+    s = s.masked_fill(~live[:, None, None], NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgts,bshk->bthgk", w, v_cache.float())
+    return out.reshape(B, T, Hkv * G * hd)
+
+
+def gqa_decode(p, a: AttentionCfg, x, cache, pos, *, window_override="cfg"):
+    """One token per sequence over a slotted cache. x: (B, d); cache
+    {"k","v"}: (B, S, Hkv, hd); pos: (B,) the new token's absolute
+    position. Its K/V go to slot pos % S (a ring buffer when S is below
+    the positions: a slot then holds the latest position that maps to
+    it). Returns (out (B, d), the new cache)."""
+    if a.kind != "gqa":
+        raise NotImplementedError(f"{a.kind} attention is not ported yet")
+    window = effective_window(a, window_override)
+    B, d = x.shape
+    S = cache["k"].shape[1]
+    pos = pos.long()
+    q, k, v = (t[:, 0] for t in gqa_qkv(p, a, x[:, None], pos[:, None]))
+    slot = pos % S
+    bidx = torch.arange(B, device=x.device)
+    k_cache = cache["k"].index_put((bidx, slot), k.to(cache["k"].dtype))
+    v_cache = cache["v"].index_put((bidx, slot), v.to(cache["v"].dtype))
+    # the position of the token each slot holds (ring-buffer aware)
+    j = torch.arange(S, device=x.device)[None, :]
+    stored = torch.where(j <= slot[:, None], j, j - S) \
+        + (pos - slot)[:, None]
+    live = (stored >= 0) & (stored <= pos[:, None])
+    if window is not None:
+        live &= stored > pos[:, None] - window
+    Hkv = a.n_kv_heads
+    out = _attend(q.reshape(B, 1, Hkv, a.n_heads // Hkv, a.head_dim),
+                  k_cache, v_cache, live[:, None], a)[:, 0]
+    out = out.to(x.dtype) @ p["wo"].reshape(a.n_heads * a.head_dim, d)
+    return out, {"k": k_cache, "v": v_cache}
+
+
+def gqa_extend(p, a: AttentionCfg, x, cache, start, *,
+               window_override="cfg"):
+    """Chunked prefill or recompute over a slotted cache: x (B, T, d) at
+    absolute positions start[b] + t, attending to the cached prefix and
+    the chunk causally. No ring wrap: S >= start + T. Returns (out
+    (B, T, d), the new cache)."""
+    if a.kind != "gqa":
+        raise NotImplementedError(f"{a.kind} attention is not ported yet")
+    window = effective_window(a, window_override)
+    B, T, d = x.shape
+    S = cache["k"].shape[1]
+    positions = start.long()[:, None] + torch.arange(T, device=x.device)
+    q, k, v = gqa_qkv(p, a, x, positions)
+    bidx = torch.arange(B, device=x.device)[:, None].expand(B, T)
+    k_cache = cache["k"].index_put((bidx, positions),
+                                   k.to(cache["k"].dtype))
+    v_cache = cache["v"].index_put((bidx, positions),
+                                   v.to(cache["v"].dtype))
+    j = torch.arange(S, device=x.device)[None, None, :]
+    qpos = positions[:, :, None]
+    live = j <= qpos
+    if window is not None:
+        live &= j > qpos - window
+    Hkv = a.n_kv_heads
+    out = _attend(q.reshape(B, T, Hkv, a.n_heads // Hkv, a.head_dim),
+                  k_cache, v_cache, live, a)
+    out = out.to(x.dtype) @ p["wo"].reshape(a.n_heads * a.head_dim, d)
+    return out, {"k": k_cache, "v": v_cache}
+
+
+def attention_decode(p, a, x, cache, pos, *, window_override="cfg"):
+    if a.kind == "mla":
+        raise NotImplementedError("MLA attention is not ported yet")
+    return gqa_decode(p, a, x, cache, pos, window_override=window_override)
+
+
+def attention_extend(p, a, x, cache, start, *, window_override="cfg"):
+    if a.kind == "mla":
+        raise NotImplementedError("MLA attention is not ported yet")
+    return gqa_extend(p, a, x, cache, start,
+                      window_override=window_override)
 
 
 def _append(pool, k, v, pids, offs, valid):
@@ -241,40 +337,32 @@ def gqa_extend_paged(p, a: AttentionCfg, x, pool, block_tables, start,
     bt = block_tables.long()
     k_cache = _gather_cache(pool, "k", bt).reshape(B, S, Hkv, hd)
     v_cache = _gather_cache(pool, "v", bt).reshape(B, S, Hkv, hd)
-    G = a.n_heads // Hkv
-    qh = q.reshape(B, T, Hkv, G, hd).float()
-    s = torch.einsum("bthgk,bshk->bhgts", qh,
-                     k_cache.float()) / math.sqrt(hd)
-    if a.logit_softcap is not None:
-        s = softcap(s, a.logit_softcap)
     j = torch.arange(S, device=x.device)[None, None, :]
     qpos = positions[:, :, None]
     live = j <= qpos
     if window is not None:
         live &= j > qpos - window
-    s = s.masked_fill(~live[:, None, None], NEG_INF)
-    w = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgts,bshk->bthgk", w, v_cache.float())
-    out = out.reshape(B * T, a.n_heads * hd).to(x.dtype)
-    return (out @ p["wo"].reshape(a.n_heads * hd, d)).reshape(B, T, d)
+    out = _attend(q.reshape(B, T, Hkv, a.n_heads // Hkv, hd), k_cache,
+                  v_cache, live, a)
+    return out.to(x.dtype) @ p["wo"].reshape(a.n_heads * hd, d)
 
 
-def init_pool(a: AttentionCfg, n_pages: int, page: int, *,
-              dtype: torch.dtype, device, periods: int, kv_dtype=None):
-    """Zeroed paged K/V pools of one attention block, stacked over the
-    group's layer periods: {"k","v"}: (periods, n_pages, page, Hkv, hd).
-    ``kv_dtype`` (a name of ``kernels.kv_quant.KV_QUANT_DTYPES``) stores
-    the payload low-bit, with {"k_scale","v_scale"}: (periods, n_pages,
-    Hkv) float32, one scale per (page, kv head); the keys are in the JAX
-    tree's sorted order."""
+def init_cache_shapes(a: AttentionCfg, batch: int, max_len: int, *,
+                      dtype: torch.dtype, device, kv_dtype=None):
+    """Zeroed cache of one attention block: {"k","v"} (batch, max_len,
+    Hkv, hd), a slotted cache of ``batch`` sequences, or the page pool of
+    ``batch`` pages of ``max_len`` slots. ``kv_dtype`` (a name of
+    ``kernels.kv_quant.KV_QUANT_DTYPES``, pools only) stores the payload
+    low-bit, with {"k_scale","v_scale"}: (batch, Hkv) float32, one scale
+    per (page, kv head); the keys are in the JAX tree's sorted order."""
     if a.kind != "gqa":
         raise NotImplementedError(f"{a.kind} attention is not ported yet")
-    shape = (periods, n_pages, page, a.n_kv_heads, a.head_dim)
+    shape = (batch, max_len, a.n_kv_heads, a.head_dim)
     if kv_dtype is None:
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
     qd = kv_quant_dtype(kv_dtype)
-    scale = (periods, n_pages, a.n_kv_heads)
+    scale = (batch, a.n_kv_heads)
     return {"k": torch.zeros(shape, dtype=qd, device=device),
             "k_scale": torch.zeros(scale, dtype=torch.float32, device=device),
             "v": torch.zeros(shape, dtype=qd, device=device),

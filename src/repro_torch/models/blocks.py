@@ -1,13 +1,12 @@
 """Residual blocks, counterpart of the ``init_block`` / ``block_forward``
-/ ``block_decode`` / ``init_block_cache`` / ``block_mixed_paged`` /
-``block_decode_paged`` / ``block_extend_paged`` slice of
-``repro.models.blocks``: attention plus a dense FFN, over the full
-sequence (training) and on the paged paths; and the SSM blocks (mamba2,
-mLSTM, sLSTM) over the full sequence and in single-token decode. MoE and
-post-norms are not ported yet and raise, so the auxiliary (MoE balance)
-loss is always 0. Attention blocks in single-token decode (the gather
-path) raise too, and the paged paths refuse SSM blocks, as the reference
-does."""
+/ ``block_decode`` / ``block_extend`` / ``init_block_cache`` /
+``block_mixed_paged`` / ``block_decode_paged`` / ``block_extend_paged``
+slice of ``repro.models.blocks``: attention plus a dense FFN, and the SSM
+blocks (mamba2, mLSTM, sLSTM), over the full sequence, in single-token
+decode and in chunked prefill (attention over slotted caches: the gather
+path), and attention on the paged paths. MoE and post-norms are not
+ported yet and raise, so the auxiliary (MoE balance) loss is always 0;
+the paged paths refuse SSM blocks, as the reference does."""
 from __future__ import annotations
 
 import torch
@@ -25,8 +24,6 @@ _DECODE = {"mamba2": ssm.mamba2_decode, "mlstm": ssm.mlstm_decode,
            "slstm": ssm.slstm_decode}
 _STATE = {"mamba2": ssm.mamba2_state_shapes,
           "mlstm": ssm.mlstm_state_shapes, "slstm": ssm.slstm_state_shapes}
-GATHER_SLICE = ("the gather path for attention blocks (decode_step, "
-                "slotted caches; ROADMAP, 'Modules to port' item 2)")
 
 
 def _check_ported(blk: BlockCfg):
@@ -72,38 +69,72 @@ def block_forward(p, cfg: ModelConfig, blk: BlockCfg, x, ctx):
         h, state = _FORWARD[blk.kind](p["cell"], blk.ssm, cfg.d_model,
                                       rms_norm(x, p["norm"], eps))
         return x + h.to(x.dtype), state, torch.zeros((), device=x.device)
-    h, kv = attention.attention_forward(
-        p["attn"], blk.attn, rms_norm(x, p["norm1"], eps), ctx["positions"],
-        window_override=ctx.get("window_override", "cfg"))
+    x, kv = _attn_ffn(p, cfg, blk, x, lambda xn: attention.attention_forward(
+        p["attn"], blk.attn, xn, ctx["positions"],
+        window_override=ctx.get("window_override", "cfg")))
+    return x, kv, torch.zeros((), device=x.device)
+
+
+def _attn_ffn(p, cfg: ModelConfig, blk: BlockCfg, x, attn):
+    """An attention block around ``attn`` (normed x -> (h, cache entry or
+    None)): residual attention, then the residual dense FFN. Returns
+    (x, the cache entry)."""
+    eps = cfg.norm_eps
+    h, kv = attn(rms_norm(x, p["norm1"], eps))
     x = x + h.to(x.dtype)
     h = mlp.mlp_forward(p["mlp"], blk.ffn, rms_norm(x, p["norm2"], eps))
-    return x + h.to(x.dtype), kv, torch.zeros((), device=x.device)
+    return x + h.to(x.dtype), kv
 
 
 def block_decode(p, cfg: ModelConfig, blk: BlockCfg, x, cache, ctx):
-    """Single-token pass. x: (B, d); cache: the block's state. Returns
-    (x, new state). SSM blocks only: attention blocks decode through the
-    paged pools (``block_decode_paged``); their slotted caches come with
-    the gather-path slice."""
+    """Single-token pass at positions ctx["pos"] (B,). x: (B, d); cache:
+    the block's slotted cache or state. Returns (x, new cache or
+    state)."""
     _check_ported(blk)
-    if blk.kind not in SSM_KINDS:
-        raise NotImplementedError(f"block_decode of an attention block: "
-                                  f"{GATHER_SLICE}")
-    h, state = _DECODE[blk.kind](p["cell"], blk.ssm, cfg.d_model,
-                                 rms_norm(x, p["norm"], cfg.norm_eps), cache)
-    return x + h.to(x.dtype), state
+    if blk.kind in SSM_KINDS:
+        h, state = _DECODE[blk.kind](p["cell"], blk.ssm, cfg.d_model,
+                                     rms_norm(x, p["norm"], cfg.norm_eps),
+                                     cache)
+        return x + h.to(x.dtype), state
+    return _attn_ffn(p, cfg, blk, x, lambda xn: attention.attention_decode(
+        p["attn"], blk.attn, xn, cache, ctx["pos"],
+        window_override=ctx.get("window_override", "cfg")))
 
 
-def init_block_cache(cfg: ModelConfig, blk: BlockCfg, batch: int, *,
-                     dtype: torch.dtype, device):
-    """Zeroed decode state of one SSM block for ``batch`` sequences (an
-    attention block's pool is ``attention.init_pool``)."""
+def block_extend(p, cfg: ModelConfig, blk: BlockCfg, x, cache, ctx):
+    """Chunked-prefill pass: x (B, T, d) appended at positions
+    ctx["start"][b] + t, attending to the cached prefix (an SSM block
+    continues from its state). Returns (x, new cache or state, aux loss
+    0)."""
     _check_ported(blk)
-    if blk.kind not in SSM_KINDS:
-        raise NotImplementedError(f"slotted attention caches: "
-                                  f"{GATHER_SLICE}")
-    return _STATE[blk.kind](blk.ssm, cfg.d_model, batch, dtype,
-                            device=device)
+    aux = torch.zeros((), device=x.device)
+    if blk.kind in SSM_KINDS:
+        h, state = _FORWARD[blk.kind](p["cell"], blk.ssm, cfg.d_model,
+                                      rms_norm(x, p["norm"], cfg.norm_eps),
+                                      initial_state=cache)
+        return x + h.to(x.dtype), state, aux
+    x, kv = _attn_ffn(p, cfg, blk, x, lambda xn: attention.attention_extend(
+        p["attn"], blk.attn, xn, cache, ctx["start"],
+        window_override=ctx.get("window_override", "cfg")))
+    return x, kv, aux
+
+
+def init_block_cache(cfg: ModelConfig, blk: BlockCfg, batch: int,
+                     cache_len: int, *, dtype: torch.dtype, device,
+                     window_override="cfg", kv_dtype=None):
+    """Zeroed decode cache of one block: an attention block's slotted
+    cache of ``batch`` rows of ``cache_len`` slots (no more than its
+    window), or its page pool (``batch`` pages of ``cache_len`` slots,
+    ``kv_dtype`` storing it low-bit; DESIGN.md §17); an SSM block's zero
+    state for ``batch`` sequences (``cache_len`` does not apply)."""
+    _check_ported(blk)
+    if blk.kind in SSM_KINDS:
+        return _STATE[blk.kind](blk.ssm, cfg.d_model, batch, dtype,
+                                device=device)
+    window = attention.effective_window(blk.attn, window_override)
+    n = cache_len if window is None else min(cache_len, window)
+    return attention.init_cache_shapes(blk.attn, batch, n, dtype=dtype,
+                                       device=device, kv_dtype=kv_dtype)
 
 
 def block_mixed_paged(p, cfg: ModelConfig, blk: BlockCfg, x, pool, ctx):
@@ -112,14 +143,10 @@ def block_mixed_paged(p, cfg: ModelConfig, blk: BlockCfg, x, pool, ctx):
     routed through ctx["block_tables"] by ctx["tok_seq"] / ctx["tok_pos"].
     Returns x (N, d)."""
     _check_paged(blk)
-    eps = cfg.norm_eps
-    h = attention.gqa_mixed_paged(
-        p["attn"], blk.attn, rms_norm(x, p["norm1"], eps), pool,
-        ctx["block_tables"], ctx["tok_seq"], ctx["tok_pos"],
-        window_override=ctx.get("window_override", "cfg"))
-    x = x + h.to(x.dtype)
-    h = mlp.mlp_forward(p["mlp"], blk.ffn, rms_norm(x, p["norm2"], eps))
-    return x + h.to(x.dtype)
+    return _attn_ffn(p, cfg, blk, x, lambda xn: (attention.gqa_mixed_paged(
+        p["attn"], blk.attn, xn, pool, ctx["block_tables"], ctx["tok_seq"],
+        ctx["tok_pos"], window_override=ctx.get("window_override", "cfg")),
+        None))[0]
 
 
 def block_decode_paged(p, cfg: ModelConfig, blk: BlockCfg, x, pool, ctx):
@@ -127,14 +154,9 @@ def block_decode_paged(p, cfg: ModelConfig, blk: BlockCfg, x, pool, ctx):
     place. x: (B, d), one row per sequence, routed through
     ctx["block_tables"] / ctx["ctx_lens"]. Returns x (B, d)."""
     _check_paged(blk)
-    eps = cfg.norm_eps
-    h = attention.gqa_decode_paged(
-        p["attn"], blk.attn, rms_norm(x, p["norm1"], eps), pool,
-        ctx["block_tables"], ctx["ctx_lens"],
-        window_override=ctx.get("window_override", "cfg"))
-    x = x + h.to(x.dtype)
-    h = mlp.mlp_forward(p["mlp"], blk.ffn, rms_norm(x, p["norm2"], eps))
-    return x + h.to(x.dtype)
+    return _attn_ffn(p, cfg, blk, x, lambda xn: (attention.gqa_decode_paged(
+        p["attn"], blk.attn, xn, pool, ctx["block_tables"], ctx["ctx_lens"],
+        window_override=ctx.get("window_override", "cfg")), None))[0]
 
 
 def block_extend_paged(p, cfg: ModelConfig, blk: BlockCfg, x, pool, ctx):
@@ -142,11 +164,7 @@ def block_extend_paged(p, cfg: ModelConfig, blk: BlockCfg, x, pool, ctx):
     x: (B, T, d) at positions ctx["start"][b] + t; only the first
     ctx["n_new"][b] tokens of each row are real. Returns x (B, T, d)."""
     _check_paged(blk)
-    eps = cfg.norm_eps
-    h = attention.gqa_extend_paged(
-        p["attn"], blk.attn, rms_norm(x, p["norm1"], eps), pool,
-        ctx["block_tables"], ctx["start"], ctx["n_new"],
-        window_override=ctx.get("window_override", "cfg"))
-    x = x + h.to(x.dtype)
-    h = mlp.mlp_forward(p["mlp"], blk.ffn, rms_norm(x, p["norm2"], eps))
-    return x + h.to(x.dtype)
+    return _attn_ffn(p, cfg, blk, x, lambda xn: (attention.gqa_extend_paged(
+        p["attn"], blk.attn, xn, pool, ctx["block_tables"], ctx["start"],
+        ctx["n_new"], window_override=ctx.get("window_override", "cfg")),
+        None))[0]

@@ -1,8 +1,8 @@
 """The language model: the full-sequence forward and its loss
-(training), the prefill's decode-ready caches and single-token decode of
-SSM models, and the paged paths — the fused mixed-batch iteration and the
-per-call decode and chunked prefill — counterpart of
-``repro.models.model.LM``.
+(training), the prefill's decode-ready caches, single-token decode and
+chunked prefill over them (the gather path), and the paged paths — the
+fused mixed-batch iteration and the per-call decode and chunked prefill —
+counterpart of ``repro.models.model.LM``.
 
 Parameter tree, the JAX layout:
   {"embed": (V, d), "final_norm": (d,), "groups": (g0, g1, ...),
@@ -10,9 +10,11 @@ Parameter tree, the JAX layout:
 Each group gi = {"scan": {"b<j>": params stacked over n_periods}}. A
 Python loop over the periods takes the place of ``lax.scan``; each
 layer's pool is a contiguous slice of its group's stacked pool tensor and
-is updated in place. SSM states (``init_cache``, ``forward``'s
-``return_cache_len``, ``decode_step``) are stacked over the periods the
-same way, and ``decode_step`` returns new ones.
+is updated in place. Decode caches (``init_cache``, ``forward``'s
+``return_cache_len``, ``decode_step``, ``extend_step``) are stacked over
+the periods the same way: an attention block's slotted K/V (n_periods,
+B, S, Hkv, hd), an SSM block's state; ``decode_step`` and
+``extend_step`` return new ones.
 """
 from __future__ import annotations
 
@@ -24,7 +26,6 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks as B
-from repro_torch.models.attention import init_pool
 from repro_torch.models.common import (chunked_cross_entropy,
                                        cross_entropy_logits, embed_init,
                                        rms_norm, softcap)
@@ -100,13 +101,10 @@ class LM:
         each period in the backward (``torch.utils.checkpoint``,
         non-reentrant), as ``jax.checkpoint`` on the scan body does, so
         only the periods' inputs are kept. ``return_cache_len`` returns
-        the decode cache in ``out.cache``: each SSM block's final state,
-        stacked over the periods (its length matters only to attention
-        blocks' slotted caches, which come with the gather-path slice and
-        raise). Embedding prefixes and other positions are not ported
-        yet."""
-        if return_cache_len is not None:
-            self._check_ssm_only("return_cache_len")
+        the decode cache in ``out.cache``: each attention block's K/V in
+        slotted caches of that length, each SSM block's final state,
+        stacked over the periods. Embedding prefixes and other positions
+        are not ported yet."""
         if embeds is not None:
             raise NotImplementedError(
                 "embeds: embedding prefixes come with the other "
@@ -145,22 +143,46 @@ class LM:
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         cache = None
         if return_cache_len is not None:
-            cache = self._materialize_cache(caches)
+            cache = self._materialize_cache(caches, x.shape[0], x.shape[1],
+                                            return_cache_len,
+                                            window_override)
         return ForwardOut(hidden=x, aux_loss=torch.zeros((), device=x.device),
                           cache=cache)
 
-    def _check_ssm_only(self, what: str) -> None:
-        if any(blk.kind not in B.SSM_KINDS for blk in self.cfg.blocks):
-            raise NotImplementedError(f"{what} with attention blocks: "
-                                      f"{B.GATHER_SLICE}")
-
-    def _materialize_cache(self, raw_caches):
+    def _materialize_cache(self, raw_caches, batch, T, cache_len,
+                           window_override):
         """Per-block forward outputs, a list over the periods per group,
-        into the decode cache: an SSM block's final state is ready as it
-        is, and is stacked over the periods. (Attention blocks' K/V would
-        go into slotted caches: the gather-path slice.)"""
-        self._check_ssm_only("slotted decode caches")
-        return tuple(_stack_periods(per) for per in raw_caches)
+        into the decode cache. An attention block's K/V (B, T, Hkv, hd)
+        are copied into zeroed slotted caches of ``cache_len`` slots (no
+        more than its window): the last min(T, S) positions, position t in
+        slot t % S. An SSM block's final state is ready as it is. Both are
+        stacked over the periods."""
+        cfg = self.cfg
+        out = []
+        for g, per in zip(cfg.groups, raw_caches):
+            entry = {}
+            for j, blk in enumerate(g.period):
+                key = f"b{j}"
+                if blk.kind in B.SSM_KINDS:
+                    entry[key] = _stack_periods(per, key)
+                    continue
+                first = per[0][key]["k"]
+                tmpl = B.init_block_cache(cfg, blk, batch, cache_len,
+                                          dtype=first.dtype,
+                                          device=first.device,
+                                          window_override=window_override)
+                stacked = {name: z.new_zeros((g.n_periods, *z.shape))
+                           for name, z in tmpl.items()}
+                for name, z in stacked.items():
+                    S = z.shape[2]
+                    n = min(T, S)
+                    slots = torch.arange(T - n, T, device=z.device) % S
+                    for layer, e in enumerate(per):
+                        z[layer, :, slots] = e[key][name][:, T - n:].to(
+                            z.dtype)
+                entry[key] = stacked
+            out.append(entry)
+        return tuple(out)
 
     def loss(self, params, tokens=None, labels=None, embeds=None,
              label_mask=None, *, remat=True, window_override="cfg"):
@@ -184,40 +206,32 @@ class LM:
     # Paged pools and the fused iteration
     # ------------------------------------------------------------------
     def init_cache(self, batch: int, cache_len: int, *,
-                   dtype: torch.dtype, device, kv_dtype=None):
+                   dtype: torch.dtype, device, window_override="cfg",
+                   kv_dtype=None):
         """Zeroed decode cache, per group {"b<j>": leaves stacked over the
-        n_periods}, the JAX layout. An attention block's entry is its page
-        pool (``batch`` pages of ``cache_len`` slots, as the engine calls
-        it): {"k","v"} (n_periods, n_pages, page, Hkv, hd); ``kv_dtype``
-        stores K/V low-bit with (n_periods, n_pages, Hkv) float32
-        ``k_scale``/``v_scale`` leaves beside them (DESIGN.md §17). An SSM
+        n_periods}, the JAX layout. An attention block's entry is
+        {"k","v"} (n_periods, batch, cache_len, Hkv, hd): the slotted
+        caches of ``batch`` sequences, or the page pool of ``batch``
+        pages of ``cache_len`` slots, as the engine calls it; ``kv_dtype``
+        stores a pool low-bit with (n_periods, n_pages, Hkv) float32
+        ``k_scale``/``v_scale`` leaves beside it (DESIGN.md §17). An SSM
         block's entry is its zero state for ``batch`` sequences
         (``cache_len`` does not apply)."""
         def entry(g, blk):
-            if blk.kind in B.SSM_KINDS:
-                state = B.init_block_cache(self.cfg, blk, batch, dtype=dtype,
-                                           device=device)
-                return tree_map(lambda z: torch.stack([z] * g.n_periods),
-                                state)
-            return init_pool(blk.attn, batch, cache_len, dtype=dtype,
-                             device=device, periods=g.n_periods,
-                             kv_dtype=kv_dtype)
+            tmpl = B.init_block_cache(self.cfg, blk, batch, cache_len,
+                                      dtype=dtype, device=device,
+                                      window_override=window_override,
+                                      kv_dtype=kv_dtype)
+            return tree_map(lambda z: torch.stack([z] * g.n_periods), tmpl)
         return tuple({f"b{j}": entry(g, blk) for j, blk in enumerate(g.period)}
                      for g in self.cfg.groups)
 
-    def decode_step(self, params, tokens, pos, cache, *,
-                    window_override="cfg"):
-        """One token per sequence through every layer. tokens (B,) int32;
-        pos (B,) absolute position of the new token (SSM blocks do not
-        read it); cache as from init_cache or a prefill's
-        ``out.cache``. Returns (logits (B, V), the new cache: states
-        stacked over the periods, the input left as it was). SSM blocks
-        only: attention blocks' slotted caches come with the gather-path
-        slice and raise."""
-        self._check_ssm_only("decode_step")
+    def _steps(self, params, cache, block_fn, x, ctx):
+        """Run ``block_fn`` (x, cache entry -> x, new entry, ...) over every
+        layer in order, each layer's cache entry a view of its group's
+        stacked cache; then the final norm. Returns (x, the new caches
+        stacked over the periods)."""
         cfg = self.cfg
-        x = self.embed(params, tokens)
-        ctx = {"pos": pos, "window_override": window_override}
         new_caches = []
         for gi, g in enumerate(cfg.groups):
             scan = params["groups"][gi]["scan"]
@@ -227,12 +241,38 @@ class LM:
                 for j, blk in enumerate(g.period):
                     pj = tree_map(lambda t: t[layer], scan[f"b{j}"])
                     cj = tree_map(lambda t: t[layer], cache[gi][f"b{j}"])
-                    x, entries[f"b{j}"] = B.block_decode(pj, cfg, blk, x, cj,
-                                                         ctx)
+                    x, entries[f"b{j}"] = block_fn(pj, cfg, blk, x, cj,
+                                                   ctx)[:2]
                 per.append(entries)
-            new_caches.append(_stack_periods(per))
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        return self.logits(params, x), tuple(new_caches)
+            new_caches.append({k: _stack_periods(per, k) for k in per[0]})
+        return rms_norm(x, params["final_norm"], cfg.norm_eps), \
+            tuple(new_caches)
+
+    def decode_step(self, params, tokens, pos, cache, *,
+                    window_override="cfg"):
+        """One token per sequence through every layer. tokens (B,) int32;
+        pos (B,) absolute position of the new token (SSM blocks do not
+        read it); cache as from init_cache or a prefill's ``out.cache``.
+        Returns (logits (B, V), the new cache; the input is left as it
+        was)."""
+        x, new = self._steps(params, cache, B.block_decode,
+                             self.embed(params, tokens),
+                             {"pos": pos, "window_override": window_override})
+        return self.logits(params, x), new
+
+    def extend_step(self, params, tokens, start, cache, *,
+                    window_override="cfg", logits_index=None):
+        """Chunked prefill or recompute: tokens (B, T) int32 appended at
+        absolute positions start[b] + t, attending to the cached prefix
+        (an SSM block continues from its state). Attention caches need
+        S >= start + T (no ring wrap). Returns (logits (B, V) at
+        logits_index (B,) — default the last position — and the new
+        cache; the input is left as it was)."""
+        x, new = self._steps(params, cache, B.block_extend,
+                             self.embed(params, tokens),
+                             {"start": start,
+                              "window_override": window_override})
+        return self.logits(params, _last(x, logits_index)), new
 
     def forward_mixed_paged(self, params, tokens, tok_seq, tok_pos, q_last,
                             pools, block_tables, sampling=None, *,
@@ -297,12 +337,7 @@ class LM:
                "window_override": window_override}
         x = self._layers(params, pools, B.block_extend_paged, x, ctx)
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
-        if logits_index is None:
-            last = x[:, -1]
-        else:
-            last = x[torch.arange(x.shape[0], device=x.device),
-                     logits_index.long()]
-        return self.logits(params, last), pools
+        return self.logits(params, _last(x, logits_index)), pools
 
     def _layers(self, params, pools, block_fn, x, ctx):
         """Run ``block_fn`` over every layer in order: a Python loop over
@@ -320,8 +355,14 @@ class LM:
         return x
 
 
-def _stack_periods(per):
-    """[{"b<j>": tree} for each period] -> {"b<j>": tree stacked over the
-    periods}."""
-    return {k: tree_map(lambda *xs: torch.stack(xs), *[e[k] for e in per])
-            for k in per[0]}
+def _last(x, logits_index):
+    """x (B, T, d) at each row's logits_index (B,), default the last."""
+    if logits_index is None:
+        return x[:, -1]
+    return x[torch.arange(x.shape[0], device=x.device), logits_index.long()]
+
+
+def _stack_periods(per, key):
+    """[{"b<j>": tree} for each period] -> the ``key`` tree stacked over
+    the periods."""
+    return tree_map(lambda *xs: torch.stack(xs), *[e[key] for e in per])

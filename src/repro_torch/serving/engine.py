@@ -1,5 +1,5 @@
 """The continuous-batching serving engine on PyTorch: the port of
-``repro.serving.engine`` for the paged paths.
+``repro.serving.engine``.
 
 Executes the InferCept scheduler's per-iteration plans on the model with
 paged KV storage:
@@ -18,6 +18,13 @@ paged KV storage:
                     prefill chunk and one bucketed LM.decode_step_paged
                     call for the decodes (the paged_attention kernel),
                     their logits fetched and sampled on the host at commit.
+  * gather        — paged=False (the differential oracle; implies
+                    fused=False): each call gathers the requests' block
+                    tables into a slotted (periods, B, max_pages * page,
+                    ...) cache, runs LM.extend_step / LM.decode_step on it
+                    and scatters only the new tokens' K/V back into the
+                    pools, so it moves O(context) bytes per call where the
+                    paged paths move O(new tokens).
   * swap_out/in   — page-granular device<->host movement staged through ONE
                     contiguous slab per request (the §4.1 coalesced
                     transfer): one swap_pack launch gathers every pool
@@ -62,8 +69,11 @@ DESIGN.md §17) keep one float32 scale per (page, kv head) in the same
 pool tree, so COW copies and swap slabs carry scales with the payload;
 a page's scales are zeroed when its refcount reaches 0.
 
-Not ported yet, and refused at construction: the gather oracle
-(``paged=False``) and the sanitizer.
+``sanitize=True`` attaches the invariant checks of DESIGN.md §16: the
+KV-page ownership sanitizer (audited at every plan phase, every planned
+write checked at dispatch) and the request lifecycle checker, and makes
+the counter view refuse undeclared keys. They only observe: streams and
+counters are those of ``sanitize=False``.
 """
 from __future__ import annotations
 
@@ -222,10 +232,6 @@ class Engine:
             if not paged:
                 raise ValueError("kv_dtype requires the paged engine "
                                  "(paged=True)")
-        unported = {"paged=False": not paged, "sanitize=True": sanitize}
-        for mode, asked in unported.items():
-            if asked:
-                raise NotImplementedError(f"{mode} is not ported yet")
         self.kv_dtype = kv_dtype
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -245,10 +251,26 @@ class Engine:
         self.scratch_page = self.blocks.allocate(1)[0]  # block-table padding
         # scale lifetime == page lifetime: zero a page's scales the moment
         # its refcount drops to 0, so a recycled page never inherits its
-        # prior occupant's (coarser) scale. Installed before the prefix
-        # cache below captures ``blocks.free`` as its release callback.
+        # prior occupant's (coarser) scale and the sanitizer can audit
+        # "freed => zero scales". Installed INNERMOST: the sanitizer's own
+        # free wrap (below) filters double frees before they reach it, and
+        # the prefix cache captures the fully wrapped chain as its release
+        # callback.
         if kv_dtype is not None:
             self._wrap_free_for_quant()
+        # invariant enforcement (DESIGN.md §16): attached only under
+        # sanitize=True, so the default path allocates nothing for it.
+        # Created BEFORE the prefix cache below, which captures
+        # ``blocks.free`` as its release callback: the sanitizer must
+        # already have wrapped it to tag cache frees.
+        self.sanitize = bool(sanitize)
+        self.sanitizer = None
+        self._lifecycle_checker = None
+        if self.sanitize:
+            from repro_torch.analysis.lifecycle import LifecycleChecker
+            from repro_torch.analysis.ownership import KVSanitizer
+            self.sanitizer = KVSanitizer(self)
+            self._lifecycle_checker = LifecycleChecker()
         self.cost = CostModel(cfg=cfg, chip=chip, n_chips=1,
                               kv_dtype=kv_dtype)
         cap = max(page_size, (n_pages - 8) * page_size)
@@ -335,7 +357,8 @@ class Engine:
         # pipelined step (DESIGN.md §12): dispatch-phase swap-outs staged
         # through the SwapStager and collected at commit; overlap=False is
         # the serial execute-then-sync oracle
-        self.fused = bool(fused)
+        self.paged = paged
+        self.fused = bool(fused and paged)   # the fused path runs on pools
         self.overlap = overlap
         self.stager = SwapStager()
         # speculative resume past intercepts (DESIGN.md §14): at an
@@ -366,8 +389,11 @@ class Engine:
         # as the reference engine so the two can be compared: KV bytes
         # copied between buffers per phase, dispatch density, the bytes
         # that crossed the sampling boundary, and overlap accounting.
-        # Stored as a CounterView over the registry ("engine_" prefix).
-        self.counters = self.metrics.view("engine_")
+        # Stored as a CounterView over the registry ("engine_" prefix);
+        # under sanitize=True the view fails fast on any undeclared write.
+        self.counters = self.metrics.view(
+            "engine_", schema=ENGINE_COUNTER_SCHEMA if self.sanitize
+            else None)
         self.counters.update(ENGINE_COUNTER_SCHEMA)
         # rid -> (t_start, phase) while a request sits in a wait state
         # (queued after admission / swapped_wait after a swap-out resume);
@@ -428,6 +454,8 @@ class Engine:
                 toks = list(map(int, prompt_token_ids(
                     req.rid, req.prompt_len, self.cfg.vocab_size)))
             self.kv[req.rid] = ReqKV(tokens=toks, pages=[])
+            if self._lifecycle_checker is not None:
+                req.__dict__["_lifecycle"] = self._lifecycle_checker
             self.sched.submit(req)
             self._wait_marks[req.rid] = (req.arrival, "queued")
 
@@ -1023,8 +1051,10 @@ class Engine:
         self.counters["kv_quant_scale_reset_pages"] += len(pages)
 
     def _stale_scale_pages(self) -> List[int]:
-        """Pages violating the freed => zero-scales invariant. Reads the
-        scales to the host: for checks at the end of a run."""
+        """Pages violating the freed => zero-scales invariant (the
+        sanitizer's per-page scale audit reads it at every plan phase).
+        Reads the scales to the host: a sync, so only for the sanitizer
+        and checks at the end of a run."""
         if self.kv_dtype is None:
             return []
         mx = torch.zeros(self.blocks.n_pages)
@@ -1336,41 +1366,93 @@ class Engine:
             bt[b, :len(ids)] = ids
         return bt
 
+    def _gather_cache(self, bt_d: torch.Tensor):
+        """The gather oracle's view: block tables bt_d (B, P) on the device
+        -> a slotted cache (periods, B, P * page, ...) copied out of the
+        pools."""
+        Bsz, P = bt_d.shape
+        ids = bt_d.reshape(-1).long()
+
+        def g(leaf):
+            out = leaf.index_select(1, ids)
+            return out.reshape(leaf.shape[0], Bsz, P * self.page,
+                               *leaf.shape[3:])
+        return tree_map(g, self.pools)
+
+    def _scatter_tokens(self, cache, bt: np.ndarray, batch_idx: np.ndarray,
+                        positions: np.ndarray):
+        """Write the cache entries at (batch_idx[i], positions[i]) back into
+        the pools, at the pages of each row's block table ``bt`` (host).
+        Only the real entries are given: a padded row or token is never
+        built into the index tensors, so it never touches a physical page
+        (where the reference pads to a jit shape and drops the padding
+        with an out-of-range page id)."""
+        pids = bt[batch_idx, positions // self.page]
+        pids_d, offs_d, bidx_d, pos_d = (
+            t.long() for t in self._to_device(
+                pids.astype(np.int32),
+                (positions % self.page).astype(np.int32),
+                batch_idx.astype(np.int32), positions.astype(np.int32)))
+
+        def s(pool_leaf, cache_leaf):
+            pool_leaf[:, pids_d, offs_d] = \
+                cache_leaf[:, bidx_d, pos_d].to(pool_leaf.dtype)
+        tree_map(s, self.pools, cache)
+
     def _extend_call(self, st: ReqKV, start: int, n: int) -> torch.Tensor:
-        """Issue one LM.extend_step_paged call over positions
-        [start, start + n) of ``st``'s context. The chunk is padded to a
+        """Issue one chunk call over positions [start, start + n) of
+        ``st``'s context: LM.extend_step_paged on the pools, or, on the
+        gather oracle, LM.extend_step over the gathered block table, then
+        the n real tokens' K/V scattered back. The chunk is padded to a
         bucketed length as in the reference; padding tokens sit past the
-        real range, causally invisible, and their pool writes are
-        dropped. Returns the last real token's logits (1, V), still on
-        the device."""
+        real range, causally invisible, and their writes are dropped (or
+        land only in the throwaway view). Returns the last real token's
+        logits (1, V), still on the device."""
         n_pad = max(n, min(self._bucket(n),
                            self.max_pages * self.page - start))
         toks = np.zeros((1, n_pad), np.int32)
         toks[0, :n] = st.tokens[start:start + n]
+        bt = self._block_table([st], 1)
         toks_d, meta_d, bt_d = self._to_device(
-            toks, np.array([start, n, n - 1], np.int32),
-            self._block_table([st], 1))
-        logits, _ = self.model.extend_step_paged(
-            self.params, toks_d, meta_d[0:1], meta_d[1:2], self.pools, bt_d,
+            toks, np.array([start, n, n - 1], np.int32), bt)
+        if self.paged:
+            logits, _ = self.model.extend_step_paged(
+                self.params, toks_d, meta_d[0:1], meta_d[1:2], self.pools,
+                bt_d, logits_index=meta_d[2:3])
+            return logits
+        logits, cache = self.model.extend_step(
+            self.params, toks_d, meta_d[0:1], self._gather_cache(bt_d),
             logits_index=meta_d[2:3])
+        self._scatter_tokens(cache, bt, np.zeros(n, np.int64),
+                             np.arange(start, start + n))
         return logits
 
     def _decode_call(self, sts: Sequence[ReqKV],
                      pos: Sequence[int]) -> torch.Tensor:
-        """Issue one LM.decode_step_paged call over a bucketed batch: row b
-        feeds ``sts[b].tokens[pos[b]]`` at position pos[b]; padded rows
-        carry ctx_lens 0, so nothing is written for them. Returns logits
-        (B_pad, V), still on the device."""
+        """Issue one decode call over a bucketed batch: row b feeds
+        ``sts[b].tokens[pos[b]]`` at position pos[b]. LM.decode_step_paged
+        on the pools, where padded rows carry ctx_lens 0 and write
+        nothing; or, on the gather oracle, LM.decode_step over the
+        gathered block tables (padded rows: the scratch page's view at
+        position 0) and the real rows' new K/V scattered back. Returns
+        logits (B_pad, V), still on the device."""
         B_pad = self._bucket(len(sts))
         feed = np.zeros(B_pad, np.int32)
         ctx_lens = np.zeros(B_pad, np.int32)   # counts the new token
         for b, (st, p) in enumerate(zip(sts, pos)):
             feed[b] = st.tokens[p]
             ctx_lens[b] = p + 1
-        feed_d, cl_d, bt_d = self._to_device(
-            feed, ctx_lens, self._block_table(sts, B_pad))
-        logits, _ = self.model.decode_step_paged(self.params, feed_d, cl_d,
-                                                 self.pools, bt_d)
+        bt = self._block_table(sts, B_pad)
+        feed_d, cl_d, bt_d = self._to_device(feed, ctx_lens, bt)
+        if self.paged:
+            logits, _ = self.model.decode_step_paged(self.params, feed_d,
+                                                     cl_d, self.pools, bt_d)
+            return logits
+        logits, cache = self.model.decode_step(
+            self.params, feed_d, (cl_d - 1).clamp(min=0),
+            self._gather_cache(bt_d))
+        self._scatter_tokens(cache, bt, np.arange(len(sts)),
+                             np.asarray(pos, np.int64))
         return logits
 
     def _exec_chunk(self, req: Request, n: int):
@@ -1387,7 +1469,9 @@ class Engine:
         # COW tail); pages past it were freshly allocated above
         self._ensure_writable(st, start)
         logits = self._extend_call(st, start, n)
-        self.counters["prefill_bytes"] += n * self.kv_token_bytes
+        # the gather oracle round-trips the whole block-table view
+        self.counters["prefill_bytes"] += (n if self.paged else (
+            self.max_pages * self.page + n)) * self.kv_token_bytes
         self.counters["prefill_tokens"] += n
         self.counters["device_dispatches"] += 1
         st.computed = start + n
@@ -1399,8 +1483,8 @@ class Engine:
             self._register_in_cache(st)
 
     def _exec_decode(self, reqs: List[Request]):
-        """Unfused decode: one bucketed paged decode call for every
-        decoding request, issue-only. The full B_pad x vocab logits cross
+        """Unfused decode: one bucketed paged (or gather) decode call for
+        every decoding request, issue-only. The full B_pad x vocab logits cross
         to the host at commit (the per-step cost the fused path's
         on-device sampling removes)."""
         if not reqs:
@@ -1411,8 +1495,11 @@ class Engine:
             self._ensure_writable(st, r.target_ctx)
         pos = [r.target_ctx for r in reqs]
         logits = self._decode_call(sts, pos)
-        # O(1) appends per generated token
-        self.counters["decode_bytes"] += len(reqs) * self.kv_token_bytes
+        # O(1) appends per generated token; the gather oracle round-trips
+        # the whole block-table view, O(context)
+        self.counters["decode_bytes"] += (len(reqs) if self.paged else (
+            self._bucket(len(reqs)) * self.max_pages * self.page
+            + len(reqs))) * self.kv_token_bytes
         self.counters["decode_tokens"] += len(reqs)
         self.counters["device_dispatches"] += 1
         self._pending_oracle.append(("decode", list(reqs), logits))
@@ -1812,6 +1899,9 @@ class Engine:
         matching, the scheduler's iteration plan, and page-aligning its
         token-granular swap amounts. Pure host bookkeeping — nothing is
         dispatched to the device yet."""
+        if self.sanitizer is not None:
+            # safe point: post-commit state is stable, audit ownership
+            self.sanitizer.audit("plan")
         self._admit()
         self._prefill_emits = []
         # fault machinery (§15) runs at this safe point, in dependency
@@ -1958,6 +2048,9 @@ class Engine:
                 self._swap_in_failed(req)
         plan.swap_in = ok_in
         self._back_plan(plan)
+        if self.sanitizer is not None:
+            # every page this plan writes must now be live + exclusive
+            self.sanitizer.check_plan(plan)
         if plan.chunks or plan.decode:
             self.counters["mixed_iterations"] += 1
         if self.fused:

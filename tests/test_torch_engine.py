@@ -141,14 +141,6 @@ def test_default_chip_is_h100(setup):
     assert eng.pools[0]["b0"]["k"].device.type == "cpu"
 
 
-@pytest.mark.parametrize("mode", [dict(paged=False), dict(sanitize=True)])
-def test_unported_modes_raise(setup, mode):
-    _, cfg, params, _ = setup
-    with pytest.raises(NotImplementedError):
-        Engine(cfg, POLICIES["infercept"], params=params, device="cpu",
-               **ENGINE_KW, **mode)
-
-
 def test_stochastic_sampling_raises(setup):
     _, cfg, params, reqs = setup
     eng = Engine(cfg, POLICIES["infercept"], params=params, device="cpu",

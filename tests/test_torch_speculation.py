@@ -12,7 +12,7 @@ CPU, mirroring ``tests/test_speculation.py``.
   forks skip the returned-token re-prefill (token conservation against
   the baseline); rejected forks charge ``speculation_wasted``; the
   session API surfaces each outcome (``SessionHandle.speculation``); no
-  predictor means no speculation.
+  predictor, or no paging (``paged=False``), means no speculation.
 """
 import copy
 
@@ -141,6 +141,10 @@ def test_speculation_disabled_without_predictor(setup):
     assert Engine(cfg, POLICIES["infercept"], speculate=True,
                   predictor=OracleToolResultPredictor(cfg.vocab_size),
                   **kw).speculate is True
+    # nor without paging: forks are page refcounts
+    assert Engine(cfg, POLICIES["infercept"], paged=False, speculate=True,
+                  predictor=OracleToolResultPredictor(cfg.vocab_size),
+                  **kw).speculate is False
 
 
 def test_streams_identical_across_speculation_modes(spec_diff):

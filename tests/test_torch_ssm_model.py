@@ -14,9 +14,7 @@ same token ids, in float32 on the CPU.
   the reference's float32 leaves float32, and a bf16 prefill gives the
   reference's dtypes.
 * Refusals: the port's ``Engine`` refuses xLSTM (the reference's
-  assertion), the paged paths refuse SSM blocks, and attention blocks in
-  ``decode_step`` / ``return_cache_len`` raise, naming the gather-path
-  slice.
+  assertion), and the paged paths refuse SSM blocks.
 * ``chip_smoke.py``'s SSM phases rehearsed at the tiny config on the CPU.
 """
 import sys
@@ -290,28 +288,6 @@ def test_paged_paths_refuse_ssm_blocks(tiny):
             fn(params, cfg, blk, x, {}, {})
 
 
-def test_attention_blocks_raise_naming_the_gather_slice():
-    cfg = get_config("llama3.2-1b", tiny=True)
-    lm = LM(cfg)
-    params = lm.init(torch.Generator().manual_seed(0), dtype=torch.float32,
-                     device="cpu")
-    toks = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="gather path"):
-        lm.forward(params, toks, return_cache_len=8)
-    with pytest.raises(NotImplementedError, match="gather path"):
-        build_prefill_step(cfg, 4)[1](params, toks)
-    with pytest.raises(NotImplementedError, match="gather path"):
-        lm.decode_step(params, toks[:, 0], toks[:, 0], None)
-    with pytest.raises(NotImplementedError, match="gather path"):
-        build_serve_step(cfg)[1](params, None, toks[:, 0], toks[:, 0])
-    blk = cfg.groups[0].period[0]
-    with pytest.raises(NotImplementedError, match="gather path"):
-        B.block_decode(params, cfg, blk, torch.zeros((1, cfg.d_model)),
-                       None, {})
-    with pytest.raises(NotImplementedError, match="gather path"):
-        B.init_block_cache(cfg, blk, 1, dtype=torch.float32, device="cpu")
-
-
 # ---------------------------------------------------------------------------
 # chip_smoke.py's SSM phases, rehearsed on the CPU
 # ---------------------------------------------------------------------------
@@ -337,8 +313,8 @@ def test_chip_smoke_ssm_rehearsals():
     cs.check_tiny_ssm(device="cpu")
     cs.check_ssm_parity(tiny=True, device="cpu", seq=70)
     rec = cs.GLARecorder()
-    res = cs.ssm_serve(rec, tiny=True, device="cpu", batch=2, seq=90,
-                       steps=4)
+    res = cs.model_serve("ssm_serve", rec, tiny=True, device="cpu",
+                         batch=2, seq=90, steps=4, profile=True)
     assert res["finite"] and res["max_memory_allocated"] is None
     assert all(v == 0 for v in res["launches"].values())
     q, k, v, la, kw = rec.args

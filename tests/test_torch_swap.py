@@ -10,8 +10,9 @@ every leaf of a pool tree, one byte slab per swap.
   one buffer. (The launchers' refusal of CPU tensors is in
   ``tests/test_torch_kernels.py``.)
 * On a CUDA card (``-m gpu``): the tree kernel against its plain version
-  over unaligned sections, rows larger than a stage and n == 0, one
-  launch per stager pack and unpack, the collected slab pinned. The
+  over unaligned sections, rows larger than a stage and n == 0, an
+  unpack with repeated and out-of-range ids, one launch per stager pack
+  and unpack, the collected slab pinned. The
   card's machine has no JAX, so the reference is imported inside the CPU
   tests only:
   ``PYTHONPATH=src python -m pytest -q --noconftest -m gpu
@@ -295,6 +296,31 @@ def test_gpu_tree_kernel_matches_plain(cuda, picks, n, shift):
     assert all(_same(a, b) for a, b in zip(mine, leaves))
     assert (swap_pack.launches - before[0], swap_unpack.launches
             - before[1]) == ((0, 0) if n == 0 else (1, 1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("picks", [[0, 1], [4, 5, 8, 2], [2, 3]])
+@pytest.mark.parametrize("n", [7, 34, 100])
+def test_gpu_unpack_repeated_ids_write_the_last(cuda, picks, n):
+    """An unpack whose ids repeat pages and run out of range, on the bulk
+    copies, rows larger than a stage and the word path: byte for byte the
+    plain version's result, where the last row naming a page wins
+    (``_unpack_rows``, the reference's sequential grid)."""
+    rng = np.random.default_rng(11 * n + len(picks))
+    leaves = [_leaf(rng, 3, GPU_LEAVES[i][0], GPU_LEAVES[i][1], 128, cuda)
+              for i in picks]
+    _, size = slab_layout(leaves, n)
+    buf = torch.from_numpy(rng.integers(0, 256, size,
+                                        dtype=np.uint8)).to(cuda)
+    ids = rng.integers(0, 10, n).astype(np.int32)   # every page repeated
+    ids[::5] = rng.integers(-3, 0, len(ids[::5]))
+    ids[1::7] = 128 + rng.integers(0, 4, len(ids[1::7]))
+    ids = torch.from_numpy(ids).to(cuda)
+    mine = [leaf.clone() for leaf in leaves]
+    swap_unpack_tree(mine, buf, ids)
+    swap_unpack_tree_ref(leaves, buf, ids)
+    torch.cuda.synchronize()
+    assert all(_same(a, b) for a, b in zip(mine, leaves))
 
 
 @pytest.mark.gpu
