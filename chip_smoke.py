@@ -42,7 +42,9 @@ Phases; any failure ends the run with a non-zero exit and no result line:
   4. tiny          — tiny-config f32 forward_mixed_paged, decode_step_paged
                      and extend_step_paged, kernels on the card against
                      plain versions on the CPU, same weights and pools,
-                     over float pools and over int8 pools
+                     over float pools and over int8 pools; two sampled
+                     sessions (top-k, top-p) through the engine, fused
+                     and unfused: the card's streams equal the CPU's
   5. tiny_train    — one tiny-config f32 make_train_step, kernels on the
                      card against plain versions on the CPU: loss,
                      gradients, grad_norm
@@ -96,21 +98,32 @@ Phases; any failure ends the run with a non-zero exit and no result line:
  17. sanitize      — the serve run with Engine(sanitize=True): no
      sanitize_quant  findings, and the streams and counters of the serve
                      (quant) run of this process
- 18. train         — full-width llama3.2-1b training through
+ 18. sample        — the serve run with every request sampled
+                     (temperature 0.7, top-k 50, top-p 0.9, seed 1000 + i)
+                     on the card by models.model.sample_tokens: every
+                     request finishes and every page comes back, at least
+                     10 of 13 streams differ from serve's; the sampler's
+                     host and stream ms per fused step, its device ms by
+                     graph replay, tok/s beside serve's; the first two
+                     sampled calls and the largest batch's against the
+                     CPU (threefry words equal, Gumbel noise within 1e-6,
+                     ids equal but at reported near-ties below 1e-5, two
+                     card calls equal) and a chi-square of 65536 draws
+ 19. train         — full-width llama3.2-1b training through
                      make_train_step: bf16 params, f32 AdamW, remat,
                      SyntheticLM batches of 4 x 2048, 2 warm-up and 8
                      timed steps; finite, falling loss
- 19. ssm_serve     — full-width xlstm-350m in bf16 (seed-0 port init)
+ 20. ssm_serve     — full-width xlstm-350m in bf16 (seed-0 port init)
                      through prefill_step of 8 x 2000 random tokens and 64
                      greedy serve_step calls: tok/s of each, peak memory,
                      21 gla_scan launches, finite logits
- 20. dense_serve   — full-width llama3.2-1b in bf16 (seed-0 port init)
+ 21. dense_serve   — full-width llama3.2-1b in bf16 (seed-0 port init)
                      through prefill_step of 8 x 1024 random tokens (the
                      flash kernel, 16 launches) and 32 greedy serve_step
                      calls over slotted caches: tok/s of each, peak
                      memory, finite logits (one function serves both
                      models, MODEL_SERVES)
- 21. timing        — each kernel, its plain version and the one-call PyTorch
+ 22. timing        — each kernel, its plain version and the one-call PyTorch
                      yardstick, timed with CUDA events on the inputs the
                      serve, train and ssm_serve runs gave it, launched
                      from the host (ms); the paged attention and append
@@ -131,7 +144,7 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      with --parent DIR, another checkout's attention,
                      append, gla_scan and tree swap wrappers in turns
                      with these
- 22. profile       — torch.profiler over a window of serve steps (bf16 and
+ 23. profile       — torch.profiler over a window of serve steps (bf16 and
                      int8 pools), over one train step, and over one
                      prefill and one window of serve steps of each of
                      xlstm and llama: device busy share, device time by
@@ -142,9 +155,10 @@ Launch counts are read from the kernel wrappers: set to 0 just before
 each serve run, the train run and the timed xlstm and llama prefills, and
 read just after each. The kernels line's launches are those of the timed
 serve phases (serve, swap, unfused, spec, quant, quant_unfused), train
-and ssm_serve; those of gather, the sanitized runs and dense_serve are
-logged apart. The last three lines are the kernels JSON, the card's
-name and power limit, and {"ok": true, "device": {...}}.
+and ssm_serve; those of gather, the sanitized runs, sample and
+dense_serve are logged apart. The last three lines are the kernels
+JSON, the card's name and power limit, and {"ok": true, "device":
+{...}}.
 """
 from __future__ import annotations
 
@@ -163,7 +177,7 @@ T_START = time.perf_counter()
 PHASES = ("kernels", "tiny", "tiny_train", "tiny_ssm", "decode_parity",
           "train_parity", "ssm_parity", "serve", "swap", "unfused", "spec",
           "quant", "quant_unfused", "gather", "sanitize", "sanitize_quant",
-          "train", "ssm_serve", "dense_serve", "timing", "profile")
+          "sample", "train", "ssm_serve", "dense_serve", "timing", "profile")
 SERVE_PHASES = {"serve": ("infercept", {}), "swap": ("swap", {}),
                 "unfused": ("infercept", {"fused": False}),
                 "spec": ("infercept", {"speculate": True,
@@ -174,7 +188,8 @@ SERVE_PHASES = {"serve": ("infercept", {}), "swap": ("swap", {}),
                 "gather": ("infercept", {"paged": False}),
                 "sanitize": ("infercept", {"sanitize": True}),
                 "sanitize_quant": ("infercept", {"kv_dtype": "int8",
-                                                 "sanitize": True})}
+                                                 "sanitize": True}),
+                "sample": ("infercept", {"sampled": True})}
 # the serve phases whose recorded calls the timing phase's rows 1-6 (and
 # 3q, 4q) take their inputs from
 TIMED_SERVE_PHASES = ("serve", "swap", "unfused", "spec", "quant",
@@ -1410,12 +1425,15 @@ def reset_counts() -> None:
 
 
 def agent_engine(policy: str, *, tiny: bool, device: str,
-                 closed_loop: bool = False, **engine_kw):
+                 closed_loop: bool = False, sampled: bool = False,
+                 **engine_kw):
     """A fresh engine (llama3.2-1b, random weights from seed 0) with the
     agent workload submitted through a ScriptedClient, or straight to the
     engine with ``closed_loop``. ``engine_kw`` selects the path
     (``fused=False``, ``kv_dtype="int8"``, or ``speculate=True``, which
-    gets the oracle tool-result predictor). Returns (engine, client or None, handles or
+    gets the oracle tool-result predictor); ``sampled`` samples request i
+    at temperature 0.7, top-k 50, top-p 0.9 with seed 1000 + i, else
+    every request is greedy. Returns (engine, client or None, handles or
     requests)."""
     import torch
     from repro_torch.configs import get_config
@@ -1433,6 +1451,11 @@ def agent_engine(policy: str, *, tiny: bool, device: str,
         n_templates=2, system_prompt_len=160, turns=(1, 2), turn_gap_s=5.0,
         hist_per_turn=96, gen_tokens=(24, 8), final_gen=(32, 8),
         max_tool_calls=2, max_ctx=1024)
+    if sampled:
+        from repro_torch.core.request import SamplingParams
+        for i, r in enumerate(reqs):
+            r.sampling = SamplingParams(temperature=0.7, top_k=50, top_p=0.9,
+                                        seed=1000 + i)
     gc.collect()                  # the previous run's engine, if any
     if on_card:
         torch.cuda.empty_cache()
@@ -1551,6 +1574,235 @@ def serve(policy: str, recorder: Recorder, *, tiny: bool = False,
     assert res["stale_scale_pages"] == [], "freed pages kept their scales"
     eng.close()
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the sampled serve (threefry-exact Gumbel-max, top-k, nucleus)
+# ---------------------------------------------------------------------------
+class SamplerProbe:
+    """Brackets every ``sample_tokens`` call of the fused dispatch (the
+    module global that ``LM.forward_mixed_paged`` calls) with the host
+    clock and, on the card, CUDA events; keeps the inputs and the ids of
+    the first two calls and of the first call of each larger batch as
+    device clones (no sync). On leaving, reads the events and moves the
+    kept calls to the host, the first two and the largest batch's."""
+
+    def __init__(self, on_card: bool):
+        self.on_card = on_card
+        self.host_ms, self.device_ms, self.kept = [], [], []
+        self._events, self._largest, self._rows = [], None, 0
+
+    def __enter__(self):
+        import torch
+        import repro_torch.models.model as model
+        self._model, self._orig = model, model.sample_tokens
+
+        def wrapped(*args):
+            t0 = time.perf_counter()
+            if self.on_card:
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+            out = self._orig(*args)
+            if self.on_card:
+                ev[1].record()
+                self._events.append(ev)
+            self.host_ms.append((time.perf_counter() - t0) * 1e3)
+            rows = args[0].shape[0]
+            if len(self.kept) < 2 or rows > self._rows:
+                call = tuple(t.clone() for t in (*args, out))
+                if len(self.kept) < 2:
+                    self.kept.append(call)
+                else:
+                    self._largest = call
+                self._rows = max(self._rows, rows)
+            return out
+        model.sample_tokens = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        self._model.sample_tokens = self._orig
+        if self.on_card:
+            torch.cuda.synchronize()
+        self.device_ms = [a.elapsed_time(b) for a, b in self._events]
+        if self._largest is not None:
+            self.kept.append(self._largest)
+        self.kept = [tuple(t.cpu() for t in call) for call in self.kept]
+
+
+def chi_square_p(counts, probs) -> float:
+    """The chi-square test's p-value of ``counts`` against ``probs``."""
+    import torch
+    want = probs.double() * counts.sum()
+    stat = ((counts.double() - want) ** 2 / want).sum()
+    df = torch.tensor(float(len(counts) - 1), dtype=torch.float64)
+    return float(torch.special.gammaincc(df / 2, stat / 2))
+
+
+def check_sampler(kept, device: str = "cuda") -> list:
+    """The kept ``sample_tokens`` calls of a run on ``device``, against the
+    plain ops on the CPU over the same logits: threefry words equal on
+    every (row, vocab) entry, Gumbel noise within 1e-6 + 1e-6 relative,
+    ids equal but where the top-two margin of the perturbed scores on
+    ``device`` is below 1e-5 (every such row is reported), and two calls
+    on ``device`` give the same ids. Returns the near-tie rows."""
+    import torch
+    from repro_torch.models.model import perturbed_scores, sample_tokens
+    from repro_torch.utils import threefry
+    ties = []
+    for i, (*args, ids) in enumerate(kept):
+        flat, temps, _, _, seeds, pos = args
+        V = flat.shape[1]
+        dev_args = [t.to(device) for t in args]
+        key_c = threefry.fold_in(threefry.prng_key(seeds), pos)
+        key_d = threefry.fold_in(threefry.prng_key(dev_args[4]),
+                                 dev_args[5])
+        bits_c = threefry.random_bits(key_c, V)
+        assert torch.equal(threefry.random_bits(key_d, V).cpu(), bits_c), i
+        g_c = threefry.gumbel(key_c, V)
+        g_diff = (threefry.gumbel(key_d, V).cpu() - g_c).abs()
+        g_err = float(g_diff.max())
+        assert bool((g_diff <= 1e-6 + 1e-6 * g_c.abs()).all()), (i, g_err)
+        want = sample_tokens(*args)
+        again = sample_tokens(*dev_args).cpu()
+        assert torch.equal(again, ids) and torch.equal(
+            sample_tokens(*dev_args).cpu(), again), i
+        scores = perturbed_scores(*dev_args)[0].cpu()
+        for b in torch.nonzero(ids != want).flatten().tolist():
+            top2 = torch.topk(scores[b], 2).values
+            margin = float(top2[0] - top2[1])
+            ties.append({"call": i, "row": b, "card": int(ids[b]),
+                         "cpu": int(want[b]), "margin": margin})
+            assert temps[b] > 0 and margin < 1e-5, ties[-1]
+        log(f"  sampler call {i}: B {flat.shape[0]} V {V}, threefry words "
+            f"equal on {bits_c.numel()} entries, gumbel max_abs_err {g_err}"
+            f" (tol 1e-6 + 1e-6 rel), ids equal to the CPU's on "
+            f"{int((ids == want).sum())} of {len(ids)} rows")
+    log(f"  near-ties (ids parted, margin < 1e-5): {json.dumps(ties)}")
+    return ties
+
+
+def check_sample_draws(device: str = "cuda", n: int = 65536,
+                       V: int = 32) -> float:
+    """One sample_tokens call of n rows over one fixed V row (temperature
+    1, no filter, positions 0..n-1): the draws' chi-square against the
+    softmax must pass at p > 1e-3. Returns p."""
+    import torch
+    from repro_torch.models.model import sample_tokens
+    row = torch.randn(V, generator=torch.Generator().manual_seed(3))
+    ids = sample_tokens(
+        row.to(device).expand(n, V), torch.ones(n, device=device),
+        torch.zeros(n, dtype=torch.int32, device=device),
+        torch.ones(n, device=device),
+        torch.full((n,), 5, dtype=torch.int32, device=device),
+        torch.arange(n, dtype=torch.int32, device=device))
+    p = chi_square_p(torch.bincount(ids.long().cpu(), minlength=V),
+                     torch.softmax(row, 0))
+    log(f"  chi-square of {n} draws over V {V} against softmax: p {p:.4g} "
+        "(must exceed 1e-3)")
+    assert p > 1e-3, p
+    return p
+
+
+def check_sample_phase(res: dict, probe: SamplerProbe, greedy,
+                       device: str = "cuda") -> None:
+    """The sample phase's checks beyond serve()'s: the sampler's cost per
+    fused step, tok/s beside serve's, streams apart from the greedy ones,
+    the kept calls against the CPU and the draws' distribution."""
+    import statistics
+    n = len(probe.host_ms)
+    assert n == res["steps"], (n, res["steps"])
+    # host: the call's issue time; stream: CUDA events recorded around the
+    # call, so it includes any wait of the stream for the host's launches
+    for clock, ms in (("host", probe.host_ms), ("stream", probe.device_ms)):
+        if ms:
+            log(f"  sampler {clock} ms per fused step over {len(ms)} steps: "
+                f"median {statistics.median(ms)}, mean "
+                f"{statistics.fmean(ms)}, max {max(ms)}")
+    launches = res["launches"]
+    if device == "cuda":
+        assert launches["ragged_paged_attention"] > 0 and \
+            launches["kv_append"] > 0, launches
+    if greedy is not None:
+        apart = sum(a != b for a, b in zip(res["streams"],
+                                           greedy["streams"]))
+        log(f"  {res['tokens_per_s']} tok/s, "
+            f"{res['tokens_per_s'] / greedy['tokens_per_s']}x serve's "
+            f"{greedy['tokens_per_s']}; {apart} of {len(res['streams'])} "
+            f"streams differ from serve's greedy ones")
+        assert apart >= 10, apart
+    check_sampler(probe.kept, device)
+    check_sample_draws(device)
+    if device == "cuda":
+        # the sampler alone at the run's largest call: launched from the
+        # host in a loop, and its device time by CUDA graph replays
+        from repro_torch.models.model import sample_tokens
+        args = [t.cuda() for t in probe.kept[-1][:-1]]
+        log(f"  sampler at B {args[0].shape[0]} V {args[0].shape[1]}: "
+            f"host-launched {cuda_ms(lambda: sample_tokens(*args), 50)} "
+            f"ms, device {graph_ms(lambda: sample_tokens(*args), 20)} ms")
+
+
+def tiny_sampled_streams(params, device: str, fused: bool) -> tuple:
+    """Two sampled sessions on the tiny config in float32 (top-k 6 and
+    top-p 0.3, a detector intercepts each at its 5th token and a
+    virtual-time tool returns 5 ids): (streams, launch counts)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import POLICIES
+    from repro_torch.core.request import InterceptDirective, SamplingParams
+    from repro_torch.serving.api_executor import VirtualTimeToolExecutor
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.session import InferCeptClient
+    cfg = get_config("llama3.2-1b", tiny=True)
+    eng = Engine(cfg, POLICIES["infercept"], page_size=16, n_pages=96,
+                 max_model_len=256, params=params, device=device,
+                 dtype=torch.float32, fused=fused)
+    cl = InferCeptClient(eng)
+    tool = VirtualTimeToolExecutor(cfg.vocab_size, n_tokens=5, duration=0.3)
+
+    def det(req, tid, now):
+        if req.output_tokens == 5 and req.seg_idx == 0:
+            return InterceptDirective("qa", 0.3, reason="detector")
+        return None
+
+    reset_counts()
+    hs = [cl.submit(list(range(r, r + 20)), sp, detector=det,
+                    max_new_tokens=14, tools=tool)
+          for r, sp in enumerate((
+              SamplingParams(temperature=0.8, top_k=6, seed=11),
+              SamplingParams(temperature=0.8, top_p=0.3, seed=12)))]
+    cl.poll()
+    assert all(h.finished for h in hs)
+    assert eng.blocks.num_free == eng.blocks.n_pages - 1
+    counts = launch_counts()
+    eng.close()
+    return [cl.token_ids(h) for h in hs], counts
+
+
+def check_tiny_sampled(device: str = "cuda") -> None:
+    """The tiny config's sampled sessions, fused and unfused: the card's
+    kernels give the CPU's plain versions' streams, and fused equals
+    unfused on each."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+    params = LM(get_config("llama3.2-1b", tiny=True)).init(
+        torch.Generator().manual_seed(0), dtype=torch.float32, device="cpu")
+    runs = {}
+    for fused in (True, False):
+        for dev in ("cpu", device):
+            runs[(dev, fused)] = tiny_sampled_streams(params, dev, fused)
+    for fused in (True, False):
+        streams, counts = runs[(device, fused)]
+        assert streams == runs[("cpu", fused)][0], fused
+        assert streams == runs[(device, True)][0], fused
+        if device == "cuda":
+            kernel = "ragged_paged_attention" if fused else "paged_attention"
+            assert counts[kernel] > 0, counts
+    log(f"  tiny sampled streams equal, card and CPU, fused and unfused: "
+        f"{sum(len(s) for s in runs[(device, True)][0])} ids")
 
 
 # ---------------------------------------------------------------------------
@@ -3356,8 +3608,10 @@ def main() -> int:
                           worst)
     if "tiny" in phases:
         log("[tiny] forward_mixed_paged, decode_step_paged and "
-            "extend_step_paged, card kernels vs CPU plain versions")
+            "extend_step_paged, card kernels vs CPU plain versions; sampled "
+            "sessions, fused and unfused")
         check_tiny()
+        check_tiny_sampled()
     if "tiny_train" in phases:
         log("[tiny_train] one train step of the tiny config in f32, card "
             "kernels vs CPU plain versions")
@@ -3396,9 +3650,13 @@ def main() -> int:
             f"{''.join(f', {k}={v}' for k, v in engine_kw.items())}")
         # the timing phase's records and per-size launch counts are the
         # timed phases' own, as the kernels line's totals are
-        res = results[phase] = serve(
-            policy, recorder if phase in TIMED_SERVE_PHASES else Recorder(),
-            **engine_kw)
+        probe = SamplerProbe(on_card=True) if phase == "sample" \
+            else contextlib.nullcontext()
+        with probe:
+            res = results[phase] = serve(
+                policy,
+                recorder if phase in TIMED_SERVE_PHASES else Recorder(),
+                **engine_kw)
         if phase in TIMED_SERVE_PHASES:
             for k, v in res["launches"].items():
                 total[row_key(k, res["kv_dtype"])] += v
@@ -3407,7 +3665,8 @@ def main() -> int:
             # phases and train, as they were before these phases came
             log(f"  launches (not in the kernels line): "
                 f"{json.dumps(res['launches'])}")
-        if phase in ("serve", "swap", "quant", "gather", *SANITIZED_OF):
+        if phase in ("serve", "swap", "quant", "gather", "sample",
+                     *SANITIZED_OF):
             # every swapped page came back, one launch per pack and unpack
             # (serve() holds the launches to the stager's counts)
             assert res["swapped_out_tokens"] > 0, "nothing was swapped"
@@ -3418,6 +3677,8 @@ def main() -> int:
                 res["stager"]["packed_pages"], res["stager"]
         if phase == "swap":
             res["stager_ms"] = time_stager(recorder, parent)
+        if phase == "sample":
+            check_sample_phase(res, probe, results.get("serve"))
         if phase == "spec":
             assert res["spec"]["spec_accepted"] > 0, res["spec"]
             assert res["launches"]["ragged_paged_attention"] > 0

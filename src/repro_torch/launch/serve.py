@@ -12,9 +12,8 @@ Mirrors ``repro.launch.serve``. Two clients share one engine:
   * one live session with caller-driven interception: a detector pauses it
     mid-generation and a ``WallClockToolExecutor`` round-trips a real
     Python "tool", its measured wall-clock latency becoming the
-    interception's virtual duration.
-
-Sampling is greedy: stochastic sampling is not ported yet.
+    interception's virtual duration; it samples with ``--temperature``
+    (0, the default, is greedy), top-k 16 and ``--top-p``.
 """
 from __future__ import annotations
 
@@ -30,7 +29,8 @@ from repro_torch.obs.trace import SpanTracer
 from repro_torch.serving.api_executor import (AsyncToolRuntime,
                                               WallClockToolExecutor)
 from repro_torch.serving.engine import Engine
-from repro_torch.serving.session import InterceptEvent, ScriptedClient
+from repro_torch.serving.session import (InterceptEvent, SamplingParams,
+                                         ScriptedClient)
 from repro_torch.serving.workloads import make_workload
 
 
@@ -69,6 +69,10 @@ def main(argv=None):
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--pages", type=int, default=128)
     ap.add_argument("--max-len", type=int, default=256)
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature for the live demo session")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="nucleus sampling mass for the live demo session")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain "
                          "PyTorch versions")
@@ -112,9 +116,12 @@ def main(argv=None):
     def calculator(call):
         return [(call.trigger_token_id or 0) % cfg.vocab_size, 7, 42]
 
-    live = client.submit(list(range(32)), detector=detector,
-                         max_new_tokens=24,
-                         tools=WallClockToolExecutor(calculator))
+    live = client.submit(
+        list(range(32)),
+        SamplingParams(temperature=args.temperature, top_k=16,
+                       top_p=args.top_p, seed=1),
+        detector=detector, max_new_tokens=24,
+        tools=WallClockToolExecutor(calculator))
 
     t0 = time.perf_counter()
     if args.stats_every > 0:

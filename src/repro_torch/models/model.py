@@ -29,6 +29,7 @@ from repro_torch.models import blocks as B
 from repro_torch.models.common import (chunked_cross_entropy,
                                        cross_entropy_logits, embed_init,
                                        rms_norm, softcap)
+from repro_torch.utils import threefry
 from repro_torch.utils.tree import tree_map
 
 
@@ -37,6 +38,57 @@ class ForwardOut:
     hidden: Any            # (B, T, d) final hidden states (pre-head)
     aux_loss: Any          # scalar (MoE load balance): 0 for dense FFNs
     cache: Any             # decode cache (SSM states) or None
+
+
+def sample_tokens(flat_logits, temps, top_ks, top_ps, seeds, positions):
+    """Per-row token sampling, shared by the fused on-device path and the
+    per-call paths (DESIGN.md §11); the reference's op order.
+
+    flat_logits (B, V); temps (B,) float32, <= 0 means greedy argmax;
+    top_ks (B,) int, <= 0 means the full vocabulary; top_ps (B,) float32,
+    values outside (0, 1) disable the nucleus; seeds (B,) int32;
+    positions (B,) int32, the context index the sampled token will take.
+
+    A stochastic row keeps the top k logits (ties at the k-th kept), then
+    the smallest prefix of the temperature-scaled distribution, sorted
+    descending, whose mass reaches top_p (ties at its last logit kept),
+    and takes the argmax of ``perturbed_scores``. Its Gumbel noise is
+    keyed only by (seed, position), so a request's stream is a function
+    of its context, seed and positions alone, the same under every
+    policy, batch and path.
+    """
+    scores, greedy = perturbed_scores(flat_logits, temps, top_ks, top_ps,
+                                      seeds, positions)
+    stoch = torch.argmax(scores, dim=-1).to(torch.int32)
+    return torch.where(temps > 0, stoch, greedy)
+
+
+def perturbed_scores(flat_logits, temps, top_ks, top_ps, seeds, positions):
+    """``sample_tokens``' scores and greedy ids: (B, V) float32, the
+    logits kept by top-k and the nucleus over the temperature (-inf
+    elsewhere) plus Gumbel noise from threefry, bit for bit the
+    reference's ``fold_in(PRNGKey(seed), position)`` draw; and the
+    argmax of the logits, (B,) int32."""
+    flat = flat_logits.float()
+    V = flat.shape[1]
+    greedy = torch.argmax(flat, dim=-1).to(torch.int32)
+    k = torch.where(top_ks > 0, top_ks, V).long()
+    srt = torch.sort(flat, dim=-1, descending=True).values
+    kth = srt.gather(1, (k - 1).clamp(0, V - 1)[:, None])
+    masked = torch.where(flat >= kth, flat, -torch.inf)     # ties kept
+    # the nucleus over softmax(srt / t) as jax.nn.softmax computes it;
+    # disabled rows get p = 2.0, above any cumulative mass, so every token
+    # survives
+    t = torch.clamp(temps.float(), min=1e-6)[:, None]
+    p = torch.where((top_ps > 0) & (top_ps < 1), top_ps.float(), 2.0)[:, None]
+    z = srt / t
+    unnorm = torch.exp(z - z.amax(dim=-1, keepdim=True))
+    probs = unnorm / unnorm.sum(dim=-1, keepdim=True)
+    keep = (torch.cumsum(probs, dim=-1) - probs) < p
+    pth = torch.where(keep, srt, torch.inf).amin(dim=-1, keepdim=True)
+    masked = torch.where(flat >= pth, masked, -torch.inf)
+    key = threefry.fold_in(threefry.prng_key(seeds), positions)
+    return masked / t + threefry.gumbel(key, V), greedy
 
 
 class LM:
@@ -280,28 +332,31 @@ class LM:
         """One scheduler iteration's every prefill-chunk token and decode
         token as one ragged batch (DESIGN.md §10): per layer one
         kv_append into the pools and one ragged paged-attention pass,
-        then greedy argmax on the device, so only int32 ids need to cross
-        to the host.
+        then sampling on the device, so only int32 ids need to cross to
+        the host.
 
         tokens (N,) int32 flat token ids; tok_seq (N,) int32 block-table
         row of each token; tok_pos (N,) int32 absolute position (-1 marks
         a padded row); q_last (B,) int32 flat index of each sequence's
         last real token; pools as from init_cache, written in place;
-        block_tables (B, max_pages) int32. ``sampling`` other than None
-        (greedy) is not ported yet.
+        block_tables (B, max_pages) int32. ``sampling`` is None for
+        all-greedy batches (argmax alone), or a (temps, top_ks, top_ps,
+        seeds) tuple of (B,) tensors for ``sample_tokens``, each row's
+        token sampled at position tok_pos[q_last] + 1.
 
         Returns (sampled (B,) int32, logits (B, V), pools).
         """
-        if sampling is not None:
-            raise NotImplementedError("stochastic sampling is not ported "
-                                      "yet; only greedy (sampling=None)")
         x = self.embed(params, tokens)
         ctx = {"block_tables": block_tables, "tok_seq": tok_seq,
                "tok_pos": tok_pos, "window_override": window_override}
         x = self._layers(params, pools, B.block_mixed_paged, x, ctx)
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         logits = self.logits(params, x[q_last.long()])
-        sampled = torch.argmax(logits, dim=-1).to(torch.int32)
+        if sampling is None:
+            sampled = torch.argmax(logits, dim=-1).to(torch.int32)
+        else:
+            sampled = sample_tokens(logits, *sampling,
+                                    tok_pos[q_last.long()] + 1)
         return sampled, logits, pools
 
     def decode_step_paged(self, params, tokens, ctx_lens, pools,

@@ -11,7 +11,7 @@ paged KV storage:
                     flattened into ONE ragged token batch and executed by a
                     single LM.forward_mixed_paged call — one kv_append per
                     layer covering every new token, one ragged
-                    paged-attention pass, greedy argmax ON DEVICE so only B
+                    paged-attention pass, sampling ON DEVICE so only B
                     int32 ids cross to the host (DESIGN.md §10).
                     fused=False keeps the per-call paths as the
                     differential oracle: one LM.extend_step_paged call per
@@ -62,7 +62,10 @@ Time is virtual (the same cost model as the simulator, on the chip spec
 given as ``chip``); tensor math is real. On a CUDA device the paged path
 launches the port's hand-written kernels (``repro_torch.kernels``); on
 the CPU it runs their plain PyTorch versions, which follow the JAX
-reference's CPU math op for op. Sampling is greedy argmax.
+reference's CPU math op for op. Sampling is greedy argmax by default, or
+per-request SamplingParams (temperature, top-k, top-p, seed) through
+``models.model.sample_tokens`` on the engine's device, its noise keyed by
+(seed, position) alone, so the §6 identity holds for sampled streams too.
 
 Quantized pools (``kv_dtype="int8" | "float8_e4m3" | "float8_e5m2"``,
 DESIGN.md §17) keep one float32 scale per (page, kv head) in the same
@@ -96,7 +99,7 @@ from repro_torch.core.scheduler import Scheduler
 from repro_torch.kernels.kv_quant import KV_QUANT_DTYPES
 from repro_torch.kernels.swap_pack import SwapStager, slab_pages
 from repro_torch.memory.block_manager import BlockManager
-from repro_torch.models.model import LM
+from repro_torch.models.model import LM, sample_tokens
 from repro_torch.obs.ledger import WasteLedger
 from repro_torch.obs.metrics import ENGINE_COUNTER_SCHEMA, MetricsRegistry
 from repro_torch.obs.trace import NullTracer, SpanTracer
@@ -320,7 +323,7 @@ class Engine:
         # unfused oracle paths: logits fetches + host-side sampling issued
         # at dispatch are parked here and resolved at the commit phase's
         # single sync point (entries: ("chunk", req, st, logits) /
-        # ("decode", reqs, logits))
+        # ("decode", reqs, logits, pos))
         self._pending_oracle: List[tuple] = []
         # kept sorted by DESCENDING arrival: the next request to admit is
         # at the tail, so intake is one bisect + shift and admission is an
@@ -422,10 +425,7 @@ class Engine:
         pending arrivals plus the scheduler's waiting queue — is already
         at the bound: bounded backpressure instead of unbounded queue
         growth (DESIGN.md §15). max_queued=None keeps the legacy
-        always-accept behavior. Only greedy sampling is ported."""
-        if req.sampling is not None and not req.sampling.greedy:
-            raise NotImplementedError("stochastic sampling is not ported "
-                                      "yet; only greedy requests")
+        always-accept behavior."""
         if self.max_queued is not None and \
                 (len(self._pending_arrivals) + len(self.sched.waiting)
                  >= self.max_queued):
@@ -923,11 +923,44 @@ class Engine:
             tr.span(("req", req.rid), "swap_in", start, end,
                     {"tokens": n})
 
-    def _sample_row(self, req: Request, flat_row: np.ndarray) -> int:
+    def _sample_row(self, req: Request, flat_row: np.ndarray,
+                    position: int) -> int:
         """Sample one token from a host-fetched logits row on the per-call
-        paths: greedy argmax, as the fused path's on-device argmax (only
-        greedy requests are ported)."""
-        return int(np.argmax(flat_row))
+        paths, bit for bit as the fused path samples it: greedy requests
+        keep the host np.argmax; a stochastic row runs sample_tokens on
+        the engine's device with the same (seed, position) noise key."""
+        sp = req.sampling
+        if sp is None or sp.greedy:
+            return int(np.argmax(flat_row))
+        dev = self.device
+        out = sample_tokens(
+            torch.from_numpy(np.ascontiguousarray(flat_row))[None].to(dev),
+            torch.tensor([sp.temperature], dtype=torch.float32, device=dev),
+            torch.tensor([sp.top_k], dtype=torch.int32, device=dev),
+            torch.tensor([sp.top_p], dtype=torch.float32, device=dev),
+            torch.tensor([sp.seed], dtype=torch.int32, device=dev),
+            torch.tensor([position], dtype=torch.int32, device=dev))
+        return int(out[0])
+
+    def _sampling_rows(self, reqs: Sequence[Request], B_pad: int):
+        """Per-row (temps, top_ks, top_ps, seeds) host arrays for the
+        fused dispatch; None when every row is greedy, which keeps the
+        argmax-only graph."""
+        if all(r.sampling is None or r.sampling.greedy for r in reqs):
+            return None
+        temps = np.zeros(B_pad, np.float32)
+        ks = np.zeros(B_pad, np.int32)
+        ps = np.ones(B_pad, np.float32)
+        seeds = np.zeros(B_pad, np.int32)
+        for b, r in enumerate(reqs):
+            sp = r.sampling
+            if sp is None:
+                continue
+            temps[b] = sp.temperature
+            ks[b] = sp.top_k
+            ps[b] = sp.top_p
+            seeds[b] = sp.seed
+        return temps, ks, ps, seeds
 
     # ------------------------------------------------------------------
     # page plumbing
@@ -1502,7 +1535,7 @@ class Engine:
             + len(reqs))) * self.kv_token_bytes
         self.counters["decode_tokens"] += len(reqs)
         self.counters["device_dispatches"] += 1
-        self._pending_oracle.append(("decode", list(reqs), logits))
+        self._pending_oracle.append(("decode", list(reqs), logits, pos))
         for st, p in zip(sts, pos):
             st.computed = p + 1
 
@@ -1512,9 +1545,10 @@ class Engine:
         flattened ids + per-token (sequence, position) routing + a stacked
         block-table matrix, bucketed to powers of two as in the reference —
         and execute it with a single LM.forward_mixed_paged call. The
-        routing crosses to the device as one pinned int32 buffer. Greedy
-        sampling runs on device, so the only device->host transfer is B
-        int32 ids; full logits stay resident (never fetched here).
+        routing, and the sampling rows of a batch with a stochastic
+        request, cross to the device as one pinned int32 buffer. Sampling
+        runs on device, so the only device->host transfer is B int32 ids;
+        full logits stay resident (never fetched here).
         Issue-only (DESIGN.md §12): returns (entries, sampled_dev) with the
         sampled ids still on device — _commit_mixed fetches them, so staged
         swap copies drain behind the model call in between."""
@@ -1552,11 +1586,21 @@ class Engine:
             tpos[off:off + n] = np.arange(start, start + n)
             qlast[b] = off + n - 1
             off += n
-        toks_d, tseq_d, tpos_d, qlast_d, bt_d = self._to_device(
-            toks, tseq, tpos, qlast,
-            self._block_table([e[1] for e in entries], B_pad))
+        samp = self._sampling_rows([e[0] for e in entries], B_pad)
+        routing = [toks, tseq, tpos, qlast,
+                   self._block_table([e[1] for e in entries], B_pad)]
+        if samp is not None:
+            # the float rows cross as their int32 bits in the same copy
+            routing += [a.view(np.int32) for a in samp]
+        dev = self._to_device(*routing)
+        toks_d, tseq_d, tpos_d, qlast_d, bt_d = dev[:5]
+        if samp is not None:
+            temps_d, ks_d, ps_d, seeds_d = dev[5:]
+            samp = (temps_d.view(torch.float32), ks_d,
+                    ps_d.view(torch.float32), seeds_d)
         sampled, _logits, _ = self.model.forward_mixed_paged(
-            self.params, toks_d, tseq_d, tpos_d, qlast_d, self.pools, bt_d)
+            self.params, toks_d, tseq_d, tpos_d, qlast_d, self.pools, bt_d,
+            samp)
 
         n_chunk = sum(n for _, _, _, n, c in entries if c)
         n_dec = B - len(plan.chunks)
@@ -1605,18 +1649,21 @@ class Engine:
     def _commit_oracle(self):
         """Resolve the unfused paths' deferred logits fetches at the
         commit sync point, in dispatch order (chunks before decode — a
-        request never has both in one plan)."""
+        request never has both in one plan), each token sampled at the
+        position it will take: a chunk's st.computed, a decode's
+        pos + 1."""
         pending, self._pending_oracle = self._pending_oracle, []
         for entry in pending:
             if entry[0] == "chunk":
                 _, req, st, logits = entry
-                tid = self._sample_row(req, self._fetch_logits(logits[0]))
+                tid = self._sample_row(req, self._fetch_logits(logits[0]),
+                                       st.computed)
                 st.tokens.append(tid)
                 self._prefill_emits.append((req, tid))
             else:
-                _, reqs, logits = entry
+                _, reqs, logits, pos = entry
                 rows = self._fetch_logits(logits)
-                self._decode_ids = [self._sample_row(r, rows[b])
+                self._decode_ids = [self._sample_row(r, rows[b], pos[b] + 1)
                                     for b, r in enumerate(reqs)]
 
     # ------------------------------------------------------------------
@@ -1748,10 +1795,10 @@ class Engine:
         The first call prefills the predicted returned tokens and emits
         the fork's first sampled token — exactly the chunk-end emit the
         real resume path would produce; later calls decode one token each
-        through the paged decode. Greedy sampling depends only on the
-        context, so an ACCEPTED fork's tokens are the ones the baseline
-        would decode after the real resume: speculation moves them
-        earlier in virtual time, it cannot change them."""
+        through the paged decode. Sampling depends only on the context,
+        the seed and the position, so an ACCEPTED fork's tokens are the
+        ones the baseline would decode after the real resume: speculation
+        moves them earlier in virtual time, it cannot change them."""
         if fork.dead or fork.emitted >= fork.max_emit:
             return False
         req, st = fork.req, fork.st
@@ -1765,7 +1812,7 @@ class Engine:
             logits = self._extend_call(st, start, n)
             st.computed = start + n
             st.tokens.append(self._sample_row(
-                req, logits[0].cpu().float().numpy()))
+                req, logits[0].cpu().float().numpy(), st.computed))
             fork.emitted = 1
             self.counters["spec_prefill_tokens"] += n
             return True
@@ -1777,7 +1824,7 @@ class Engine:
         logits = self._decode_call([st], [pos])
         st.computed = pos + 1
         st.tokens.append(self._sample_row(
-            req, logits[0].cpu().float().numpy()))
+            req, logits[0].cpu().float().numpy(), pos + 1))
         fork.emitted += 1
         self.counters["spec_decode_tokens"] += 1
         return True

@@ -141,14 +141,33 @@ def test_default_chip_is_h100(setup):
     assert eng.pools[0]["b0"]["k"].device.type == "cpu"
 
 
-def test_stochastic_sampling_raises(setup):
-    _, cfg, params, reqs = setup
-    eng = Engine(cfg, POLICIES["infercept"], params=params, device="cpu",
-                 **ENGINE_KW)
-    req = copy.deepcopy(reqs[0])
-    req.sampling = SamplingParams(temperature=0.7, seed=1)
-    with pytest.raises(NotImplementedError):
-        eng.add_request(req)
+def _sampled(reqs, sampling_cls):
+    """The agent workload with every request sampled: temperature, top-k
+    and nucleus, a seed of its own."""
+    reqs = copy.deepcopy(reqs)
+    for r in reqs:
+        r.sampling = sampling_cls(temperature=0.7, top_k=50, top_p=0.9,
+                                  seed=1000 + r.rid)
+    return reqs
+
+
+@pytest.mark.parametrize("policy", ["infercept", "swap"])
+def test_sampled_agent_workload_matches_jax_engine(setup, policy):
+    """Stochastic requests through the closed loop: the port's fused
+    engine gives the JAX engine's streams and counters."""
+    from repro.core.request import SamplingParams as JaxSamplingParams
+    jcfg, cfg, params, reqs = setup
+    jeng = JaxEngine(jcfg, JAX_POLICIES[policy], seed=0, **ENGINE_KW)
+    for r in _sampled(jax_workload(vocab=jcfg.vocab_size, **WORKLOAD_KW),
+                      JaxSamplingParams):
+        jeng.add_request(r)
+    want = {r.rid: jeng.generated_text(r) for r in jeng.run(strict=True)}
+    got, eng = _port(cfg, params, _sampled(reqs, SamplingParams), policy)
+    assert got == want
+    assert dict(eng.counters) == dict(jeng.counters)
+    assert eng.now == jeng.now
+    greedy, _ = _port(cfg, params, reqs, policy)
+    assert sum(got[k] != greedy[k] for k in got) >= len(got) // 2
 
 
 def test_serve_cli_on_cpu(capsys):

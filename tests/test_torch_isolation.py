@@ -36,7 +36,8 @@ COPIED = [
     "serving/api_executor.py", "serving/session.py",
     "serving/workloads.py", "training/data.py",
     "analysis/__init__.py", "analysis/lint.py", "sim/__init__.py",
-    "sim/simulator.py", "obs/check.py",
+    "sim/simulator.py", "obs/check.py", "launch/analytic.py",
+    "launch/roofline.py", "launch/report.py",
 ]
 # the one allowed difference: lines inserted into utils/hw.py that
 # define the H100 spec

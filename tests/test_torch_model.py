@@ -127,12 +127,36 @@ def test_forward_mixed_paged_matches_jax(tiny, seed):
         assert changed.sum() == 12 * tl.shape[0]
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_forward_mixed_paged_samples_as_jax(tiny, seed):
+    """``sampling=(temps, top_ks, top_ps, seeds)``: each row is sampled on
+    the device at tok_pos[q_last] + 1; a greedy row, top-k, nucleus and
+    both; the padded sequence row greedy. Ids equal the reference's."""
+    jcfg, cfg, jm, jparams = tiny
+    rng = np.random.default_rng(seed)
+    tokens, tok_seq, tok_pos, q_last, bt = _routing(rng, cfg, 48, 16, 8)
+    pools = _pools(rng, jm, 48, 16)
+    samp = (np.array([0.0, 0.7, 1.3, 0.0], np.float32),
+            np.array([0, 5, 0, 0], np.int32),
+            np.array([1.0, 0.9, 0.3, 1.0], np.float32),
+            np.array([3, -7, 2**31 - 1, 0], np.int32))
+    j_ids, j_logits, _ = jm.forward_mixed_paged(
+        jparams, *map(jnp.asarray, (tokens, tok_seq, tok_pos, q_last)),
+        jax.tree.map(jnp.asarray, pools), jnp.asarray(bt),
+        tuple(map(jnp.asarray, samp)))
+    params = from_jax_params(jax.tree.map(np.asarray, jparams), cfg)
+    t_ids, t_logits, _ = LM(cfg).forward_mixed_paged(
+        params, *map(torch.from_numpy, (tokens, tok_seq, tok_pos, q_last)),
+        tree_map(lambda a: torch.from_numpy(a.copy()), pools),
+        torch.from_numpy(bt), tuple(map(torch.from_numpy, samp)))
+    assert t_ids.dtype == torch.int32
+    np.testing.assert_array_equal(t_ids.numpy(), np.asarray(j_ids))
+    # the greedy rows are the argmax of the logits
+    greedy = np.argmax(t_logits.numpy(), axis=-1)
+    assert t_ids[0] == greedy[0] and t_ids[3] == greedy[3]
+
+
 def test_forward_mixed_paged_refuses_unported(tiny):
-    _, cfg, _, _ = tiny
-    lm = LM(cfg)
-    with pytest.raises(NotImplementedError):
-        lm.forward_mixed_paged(None, None, None, None, None, None, None,
-                               sampling=(None,) * 4)
     with pytest.raises(NotImplementedError):
         LM(get_config("deepseek-moe-16b", tiny=True)).init(
             torch.Generator(), dtype=torch.float32, device="cpu")
