@@ -38,7 +38,17 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      them out, read in place, with log_a at the clamp
                      over whole chunks, and with an initial state), a
                      Mamba2 call (stride-0 q and k), a carried initial
-                     state and dk 8 with chunks of 5
+                     state and dk 8 with chunks of 5; and head_dim 256
+                     (GPT-J's 16 kv heads x G 1, gemma2's 8 x G 2),
+                     through the same case functions: the ragged and
+                     paged kernels in bf16 and float32 over float, int8,
+                     float8_e4m3 and float8_e5m2 pools (split and tile
+                     edges, windows 7 and 40, softcap 50), kv_append and
+                     kv_append_quant at Hkv {8, 16}, the tree swap over
+                     gemma2's and GPT-J's own bf16 and int8 pool trees,
+                     the flash forward (causal, windows, softcap 50,
+                     Tq < Tk, no causal mask), and the flash backward's
+                     refusal
   4. tiny          — tiny-config f32 forward_mixed_paged, decode_step_paged
                      and extend_step_paged, kernels on the card against
                      plain versions on the CPU, same weights and pools,
@@ -59,7 +69,9 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      slotted cache, per sequence) against both; held in
                      f32, the prefill and the gather leg on weights
                      conditioned for soft attention; reported with the
-                     reference's init
+                     reference's init; layer 0's K/V of both prefill legs
+                     held against each other and against a float64
+                     witness (layer0_exact) on both inits
   8. train_parity  — full width in f32, B 1 x T 512: loss and gradients
                      with the flash kernels against the plain attention on
                      the card; held on conditioned weights, reported with
@@ -68,6 +80,13 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      logits and final states with gla_scan against the
                      plain chunked_gla_ref on the card, and serve_step at
                      T against a T+1 prefill
+  9b. wide_parity  — decode_parity on gemma2-9b and GPT-J-6B at full
+                     width, contexts 37, 160, 4700 and 16 (one past
+                     gemma2's 4096-token window: the local layers' window
+                     bites on every leg; the tables that long hold only
+                     the pages a sequence fills), the same holds, and
+                     layer 0's K/V of both prefill legs against a
+                     float64 witness
  10. serve         — full-width llama3.2-1b in bf16, random weights from a
                      seed, agent sessions through ScriptedClient under
                      InferCept
@@ -109,6 +128,15 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      CPU (threefry words equal, Gumbel noise within 1e-6,
                      ids equal but at reported near-ties below 1e-5, two
                      card calls equal) and a chi-square of 65536 draws
+ 18b. gemma2_serve, gemma2_unfused, gemma2_quant, gptj_serve
+                   — the serve run's workload and checks on full-width
+                     gemma2-9b (fused; fused=False; int8 pools) and
+                     GPT-J-6B (fused) in bf16, random weights from seed 0:
+                     every request finishes and every page comes back;
+                     launches by kernel (logged apart), tok/s,
+                     max_memory_allocated and the pools' bytes; over the
+                     four runs rows 1, 2, 3-4, 5, 1q and 2q launch at
+                     head_dim 256
  19. train         — full-width llama3.2-1b training through
                      make_train_step: bf16 params, f32 AdamW, remat,
                      SyntheticLM batches of 4 x 2048, 2 warm-up and 8
@@ -123,6 +151,9 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      calls over slotted caches: tok/s of each, peak
                      memory, finite logits (one function serves both
                      models, MODEL_SERVES)
+ 21b. wide_dense   — the same for gemma2-9b: prefill_step of 8 x 1024
+                     (flash with window 4096 and softcap 50, 42 launches),
+                     32 greedy serve_step calls
  22. timing        — each kernel, its plain version and the one-call PyTorch
                      yardstick, timed with CUDA events on the inputs the
                      serve, train and ssm_serve runs gave it, launched
@@ -142,8 +173,14 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      (after a 64 MB write) by both measures, the library
                      calls' device time and the slab's pinned host copy;
                      with --parent DIR, another checkout's attention,
-                     append, gla_scan and tree swap wrappers in turns
-                     with these
+                     append, gla_scan, flash forward and tree swap
+                     wrappers in turns with these, and rows 1, 1d, 5 and
+                     7's calls again at head_dim 128 in turns; rows 1w, 1wd, 1wq and 5w (the attention
+                     kernels at gemma2_serve's largest and largest
+                     decode-only calls, at gemma2_quant's largest and at
+                     gemma2_unfused's largest)
+                     and 7w (flash at wide_dense's first prefill call),
+                     their launches those runs' own
  23. profile       — torch.profiler over a window of serve steps (bf16 and
                      int8 pools), over one train step, and over one
                      prefill and one window of serve steps of each of
@@ -155,8 +192,9 @@ Launch counts are read from the kernel wrappers: set to 0 just before
 each serve run, the train run and the timed xlstm and llama prefills, and
 read just after each. The kernels line's launches are those of the timed
 serve phases (serve, swap, unfused, spec, quant, quant_unfused), train
-and ssm_serve; those of gather, the sanitized runs, sample and
-dense_serve are logged apart. The last three lines are the kernels
+and ssm_serve, and the head_dim-256 rows' from their own runs; those
+of gather, the sanitized runs, sample, dense_serve and the other
+head_dim-256 runs are logged apart. The last three lines are the kernels
 JSON, the card's name and power limit, and {"ok": true, "device":
 {...}}.
 """
@@ -175,9 +213,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 T_START = time.perf_counter()
 PHASES = ("kernels", "tiny", "tiny_train", "tiny_ssm", "decode_parity",
-          "train_parity", "ssm_parity", "serve", "swap", "unfused", "spec",
-          "quant", "quant_unfused", "gather", "sanitize", "sanitize_quant",
-          "sample", "train", "ssm_serve", "dense_serve", "timing", "profile")
+          "train_parity", "ssm_parity", "wide_parity", "serve", "swap",
+          "unfused", "spec", "quant", "quant_unfused", "gather", "sanitize",
+          "sanitize_quant", "sample", "gemma2_serve", "gemma2_unfused",
+          "gemma2_quant", "gptj_serve", "train", "ssm_serve", "dense_serve",
+          "wide_dense", "timing", "profile")
 SERVE_PHASES = {"serve": ("infercept", {}), "swap": ("swap", {}),
                 "unfused": ("infercept", {"fused": False}),
                 "spec": ("infercept", {"speculate": True,
@@ -194,6 +234,19 @@ SERVE_PHASES = {"serve": ("infercept", {}), "swap": ("swap", {}),
 # 3q, 4q) take their inputs from
 TIMED_SERVE_PHASES = ("serve", "swap", "unfused", "spec", "quant",
                       "quant_unfused")
+# the head_dim-256 serve phases: (model, policy, engine options), each the
+# serve run's workload and checks at that model's full width; their
+# launches are logged apart from the kernels line's sums, and the gemma2
+# runs' recorded calls give the timing phase's head_dim-256 rows
+WIDE_SERVE_PHASES = {
+    "gemma2_serve": ("gemma2-9b", "infercept", {}),
+    "gemma2_unfused": ("gemma2-9b", "infercept", {"fused": False}),
+    "gemma2_quant": ("gemma2-9b", "infercept", {"kv_dtype": "int8"}),
+    "gptj_serve": ("gpt-j-6b", "infercept", {})}
+# wide_parity's models and sequence lengths: one past gemma2's 4096-token
+# local window, so the window bites on the fused, per-call and gather legs
+WIDE_PARITY_MODELS = ("gemma2-9b", "gpt-j-6b")
+WIDE_PARITY_LENS = [37, 160, 4700, 16]
 # a sanitized phase and the phase whose streams and counters it repeats
 SANITIZED_OF = {"sanitize": "serve", "sanitize_quant": "quant"}
 # the rows of the kernels line: an attention kernel over int8 pools is a
@@ -209,6 +262,15 @@ KERNELS = ("ragged_paged_attention", "paged_attention", "kv_append",
            "ragged_paged_attention_int8", "paged_attention_int8",
            "ragged_paged_attention_decode",
            "flash_attention", "flash_attention_bwd", "gla_scan")
+# the head_dim-256 rows (gemma2-9b's widths): the ragged kernel at
+# gemma2_serve's largest call, at its largest decode-only call and at
+# gemma2_quant's largest call (int8 pools), the paged kernel at
+# gemma2_unfused's largest call, and the flash forward at wide_dense's
+# prefill; their launches are those phases' own
+WIDE_KERNELS = ("ragged_paged_attention_hd256",
+                "ragged_paged_attention_hd256_decode",
+                "ragged_paged_attention_hd256_int8",
+                "paged_attention_hd256", "flash_attention_hd256")
 # the TPU kernel of each flash row; the backward has none: the reference
 # differentiates its XLA blocked_attention
 FLASH_REPLACES = {
@@ -354,19 +416,27 @@ def ragged_inputs(gen, *, N, B, Hkv, G, hd, page, max_pages, n_pages,
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
-def check_kernels() -> dict:
+def attention_tol() -> dict:
+    """The paged attention kernels' tolerance against their plain
+    versions: 1e-4 for float32 (sums in another order), 3e-2 for bf16
+    (both round one float32 result once, and the kernel rounds P to bf16
+    before P.V)."""
     import torch
-    from repro_torch.kernels.kv_append import kv_append, kv_append_ref
+    return {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+def attention_cases(gen, worst, suffix: str = ""):
+    """(ragged_case, paged_case): each draws random inputs (``ragged_inputs``)
+    of the given widths, runs the kernel and its plain version on the card,
+    holds them to ``attention_tol`` with padded rows zero, and keeps the
+    largest error in ``worst[kernel + suffix]``."""
+    import torch
     from repro_torch.kernels.paged_attention import (paged_attention,
                                                      paged_attention_ref)
     from repro_torch.kernels.ragged_paged_attention import (
         ragged_paged_attention, ragged_paged_attention_ref)
-    from repro_torch.kernels.swap_pack import (swap_pack, swap_pack_ref,
-                                               swap_unpack, swap_unpack_ref)
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
-    tol = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
-    worst = {k: 0.0 for k in KERNELS}
+    tol = attention_tol()
 
     def ragged_case(label, dtype, **kw):
         window, softcap = kw.pop("window", None), kw.pop("softcap", None)
@@ -381,8 +451,8 @@ def check_kernels() -> dict:
             f"max_abs_err {err:.3g} (tol {tol[dtype]:g})"
             f"{'' if zero_ok else ' PADDED ROWS NOT ZERO'}")
         assert err <= tol[dtype] and zero_ok, label
-        worst["ragged_paged_attention"] = max(
-            worst["ragged_paged_attention"], err)
+        key = "ragged_paged_attention" + suffix
+        worst[key] = max(worst[key], err)
 
     def paged_case(label, dtype, *, B, ctx_lens=None, window=None,
                    softcap=None, **kw):
@@ -402,7 +472,19 @@ def check_kernels() -> dict:
             f"{err:.3g} (tol {tol[dtype]:g})"
             f"{'' if zero_ok else ' PADDED ROWS NOT ZERO'}")
         assert err <= tol[dtype] and zero_ok, label
-        worst["paged_attention"] = max(worst["paged_attention"], err)
+        key = "paged_attention" + suffix
+        worst[key] = max(worst[key], err)
+    return ragged_case, paged_case
+
+
+def check_kernels() -> dict:
+    import torch
+    from repro_torch.kernels.swap_pack import (swap_pack, swap_pack_ref,
+                                               swap_unpack, swap_unpack_ref)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    worst = {k: 0.0 for k in KERNELS + WIDE_KERNELS}
+    ragged_case, paged_case = attention_cases(gen, worst)
 
     full = dict(Hkv=8, G=4, hd=64, page=16, max_pages=64, n_pages=2048)
     for dtype in (torch.bfloat16, torch.float32):
@@ -444,37 +526,7 @@ def check_kernels() -> dict:
                         **dict(full, hd=hd, G=G))
         tile_edge_cases(ragged_case, paged_case, dtype, full)
 
-        # kv_append: distinct slots, random validity, the 8-row blocks'
-        # edges, then all invalid
-        n_pages, page, Hkv, hd = 64, 16, 8, 64
-        for label, n, all_invalid in (("N=37", 37, False),
-                                      ("N=1", 1, False), ("N=7", 7, False),
-                                      ("N=8", 8, False), ("N=9", 9, False),
-                                      ("N=512", 512, False),
-                                      ("all invalid", 16, True)):
-            kp = torch.randn((n_pages, page, Hkv, hd), generator=gen,
-                             device=dev).to(dtype)
-            vp = torch.randn_like(kp)
-            kn = torch.randn((n, Hkv, hd), generator=gen,
-                             device=dev).to(dtype)
-            vn = torch.randn_like(kn)
-            slots = torch.randperm(n_pages * page, generator=gen,
-                                   device=dev)[:n]
-            ids = (slots // page).to(torch.int32)
-            offs = (slots % page).to(torch.int32)
-            valid = torch.zeros(n, dtype=torch.int32, device=dev) \
-                if all_invalid else torch.randint(
-                    0, 2, (n,), generator=gen, device=dev,
-                    dtype=torch.int32)
-            want_k, want_v = kv_append_ref(kp.clone(), vp.clone(), kn, vn,
-                                           ids, offs, valid)
-            got_k, got_v = kv_append(kp, vp, kn, vn, ids, offs, valid)
-            torch.cuda.synchronize()
-            err = max(max_err(got_k, want_k), max_err(got_v, want_v))
-            log(f"  kv_append {label} {str(dtype)[6:]}: max_abs_err "
-                f"{err:.3g} (tol 0, a copy)")
-            assert err == 0.0, label
-            worst["kv_append"] = max(worst["kv_append"], err)
+        check_append(gen, worst, dtype, Hkv=8, hd=64)
 
         # swap pack/unpack over a stacked (16 periods) payload and a
         # scale-shaped leaf, round trip exact
@@ -499,7 +551,43 @@ def check_kernels() -> dict:
             worst["swap_unpack"] = max(worst["swap_unpack"], err_u, err_r)
     check_quant_kernels(gen, worst)
     check_swap_kernels(gen)
+    check_wide_kernels(gen, worst)
     return worst
+
+
+def check_append(gen, worst, dtype, *, Hkv, hd) -> None:
+    """kv_append at (Hkv, hd) in ``dtype``, exact against its plain version:
+    distinct slots, random validity, the 8-row blocks' edges, then all
+    invalid."""
+    import torch
+    from repro_torch.kernels.kv_append import kv_append, kv_append_ref
+    dev = torch.device("cuda")
+    n_pages, page = 64, 16
+    for label, n, all_invalid in (("N=37", 37, False), ("N=1", 1, False),
+                                  ("N=7", 7, False), ("N=8", 8, False),
+                                  ("N=9", 9, False), ("N=512", 512, False),
+                                  ("all invalid", 16, True)):
+        kp = torch.randn((n_pages, page, Hkv, hd), generator=gen,
+                         device=dev).to(dtype)
+        vp = torch.randn_like(kp)
+        kn = torch.randn((n, Hkv, hd), generator=gen, device=dev).to(dtype)
+        vn = torch.randn_like(kn)
+        slots = torch.randperm(n_pages * page, generator=gen,
+                               device=dev)[:n]
+        ids = (slots // page).to(torch.int32)
+        offs = (slots % page).to(torch.int32)
+        valid = torch.zeros(n, dtype=torch.int32, device=dev) \
+            if all_invalid else torch.randint(
+                0, 2, (n,), generator=gen, device=dev, dtype=torch.int32)
+        want_k, want_v = kv_append_ref(kp.clone(), vp.clone(), kn, vn, ids,
+                                       offs, valid)
+        got_k, got_v = kv_append(kp, vp, kn, vn, ids, offs, valid)
+        torch.cuda.synchronize()
+        err = max(max_err(got_k, want_k), max_err(got_v, want_v))
+        log(f"  kv_append Hkv={Hkv} hd={hd} {label} {str(dtype)[6:]}: "
+            f"max_abs_err {err:.3g} (tol 0, a copy)")
+        assert err == 0.0, (Hkv, hd, label)
+        worst["kv_append"] = max(worst["kv_append"], err)
 
 
 def layout(lens, starts, pad=0, order=None):
@@ -515,48 +603,52 @@ def layout(lens, starts, pad=0, order=None):
             torch.tensor(pos, dtype=torch.int32))
 
 
-def tile_edge_cases(ragged_case, paged_case, dtype, full) -> None:
+def tile_edge_cases(ragged_case, paged_case, dtype, full, Gs=(1, 4, 8),
+                    hds=(32, 64, 128)) -> None:
     """The bf16 sweep's edges (csrc/paged_tc.cuh), held like every other
-    case: chunks of one sequence of tq - 1, tq and tq + 1 tokens (tq = 64 /
-    G) at G {1, 4, 8} and hd {32, 128}; two sequences inside one tile;
-    unsorted tok_seq; decode-only buckets whose contexts end at a split's
-    edge, one past it and at the full 64-page table; the paged kernel at
-    B = 1 (a split a 64-key stage) and B = 3 over the same edges; a G
-    past a tile's rows (the CUDA-core kernel); and the split-KV arrival
-    counters zero after all of them."""
+    case, at ``full``'s widths and over G in ``Gs`` x hd in ``hds``:
+    chunks of one sequence of tq - 1, tq and tq + 1 tokens (tq = 64 / G);
+    two sequences inside one tile; unsorted tok_seq; decode-only buckets
+    whose contexts end at a split's edge, one past it and at the full
+    64-page table; the paged kernel at B = 1 (a split a 64-key stage) and
+    B = 3 over the same edges; a G past a tile's rows (the CUDA-core
+    kernel); and the split-KV arrival counters zero after all of them."""
     import torch
     from repro_torch.kernels.ragged_paged_attention import (_COUNTERS,
                                                             TILE_ROWS,
                                                             tile_tokens)
-    for G, hd in ((1, 64), (4, 64), (8, 64), (4, 32), (8, 128)):
-        kw = dict(full, G=G, hd=hd)
-        tq = tile_tokens(G)
-        for n in (tq - 1, tq, tq + 1):
-            for start in (100, 1024 - n):
-                ts, tp = layout([n], [start], pad=1)
-                ragged_case(f"chunk {n} at {start} G={G} hd={hd}", dtype,
-                            N=n + 1, B=1, tok_seq=ts, tok_pos=tp, **kw)
+    for G in Gs:
+        for hd in hds:
+            kw = dict(full, G=G, hd=hd)
+            tq = tile_tokens(G)
+            for n in (tq - 1, tq, tq + 1):
+                for start in (100, 1024 - n):
+                    ts, tp = layout([n], [start], pad=1)
+                    ragged_case(f"chunk {n} at {start} G={G} hd={hd}",
+                                dtype, N=n + 1, B=1, tok_seq=ts, tok_pos=tp,
+                                **kw)
+    tag = f"Hkv={full['Hkv']} G={full['G']} hd={full['hd']}"
     ts, tp = layout([3, 5, 20], [30, 700, 0], pad=4)
-    ragged_case("two sequences in one tile", dtype, N=32, B=3, tok_seq=ts,
-                tok_pos=tp, **full)
+    ragged_case(f"two sequences in one tile {tag}", dtype, N=32, B=3,
+                tok_seq=ts, tok_pos=tp, **full)
     order = torch.randperm(40, generator=torch.Generator().manual_seed(0))
     ts, tp = layout([1, 17, 9, 1, 12], [63, 0, 250, 1023, 500],
                     order=order.tolist())
-    ragged_case("unsorted tok_seq", dtype, N=40, B=5, tok_seq=ts,
+    ragged_case(f"unsorted tok_seq {tag}", dtype, N=40, B=5, tok_seq=ts,
                 tok_pos=tp, **full)
     edges = [64, 65, 256, 257, 768, 769, 1024, 1]
     ts, tp = layout([1] * 8, [c - 1 for c in edges])
-    ragged_case(f"decode-only ctx {edges}", dtype, N=8, B=8, tok_seq=ts,
-                tok_pos=tp, **full)
-    for G in (1, 4, 8):
+    ragged_case(f"decode-only ctx {edges} {tag}", dtype, N=8, B=8,
+                tok_seq=ts, tok_pos=tp, **full)
+    for G in Gs:
         ts, tp = layout([1] * 8, [c - 1 for c in edges])
-        ragged_case(f"decode-only G={G}", dtype, N=8, B=8, tok_seq=ts,
+        ragged_case(f"decode-only G={G} {tag}", dtype, N=8, B=8, tok_seq=ts,
                     tok_pos=tp, **dict(full, G=G))
-    for ctx in (64, 65, 128, 129, 687, 1024):
-        paged_case(f"B=1 ctx={ctx}", dtype, B=1, ctx_lens=torch.tensor([ctx]),
-                   **full)
-    for G in (1, 4, 8):
-        for hd in (32, 64, 128):
+    for ctx in (1, 64, 65, 128, 129, 687, 1024):
+        paged_case(f"B=1 ctx={ctx} {tag}", dtype, B=1,
+                   ctx_lens=torch.tensor([ctx]), **full)
+    for G in Gs:
+        for hd in hds:
             paged_case(f"B=3 ctx 65/1024/0 G={G} hd={hd}", dtype, B=3,
                        ctx_lens=torch.tensor([65, 1024, 0]),
                        **dict(full, G=G, hd=hd))
@@ -571,6 +663,135 @@ def tile_edge_cases(ragged_case, paged_case, dtype, full) -> None:
     torch.cuda.synchronize()
     assert all(int(c.abs().sum()) == 0 for c in _COUNTERS.values()), \
         "split counters left nonzero"
+
+
+def check_wide_kernels(gen, worst) -> None:
+    """Head dim 256, the widths of GPT-J-6B (16 kv heads, G 1) and
+    gemma2-9b (8 kv heads, G 2), through the narrower widths' case
+    functions: the ragged and paged kernels in bf16 (the tensor-core
+    sweep) and float32 (the CUDA-core kernels) over float pools — a
+    decode batch, windows 7 and 40, softcap 50 (gemma2's) alone and with
+    window 40, a mixed iteration, a decode-only bucket with window and
+    softcap, and ``tile_edge_cases`` at these widths — then over int8,
+    float8_e4m3 and float8_e5m2 pools (``scaled_attention_cases``);
+    kv_append (``check_append``) and kv_append_quant
+    (``check_append_quant``) at Hkv {8, 16} x hd 256; the tree swap
+    (``swap_tree_case``) over gemma2's and GPT-J's own pool trees, bf16
+    and int8 (payload rows of 64 and 128 KB, float32 scale leaves), n {1,
+    7, 34}; the flash forward (out and lse) causal, with windows 33 and
+    100, softcap 50, Tq < Tk and no causal mask; and the flash backward's
+    refusal of head_dim 256. Tolerances as the narrower cases':
+    ``attention_tol``, lse 1e-4; appends and swaps bit for bit."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_fwd,
+                                                     flash_attention_fwd_ref)
+    from repro_torch.kernels.kv_quant import KV_QUANT_DTYPES
+    from repro_torch.models.model import LM
+    from repro_torch.utils.tree import tree_leaves
+    dev = torch.device("cuda")
+    tol = attention_tol()
+    ragged_case, paged_case = attention_cases(gen, worst, "_hd256")
+    edges = [64, 65, 256, 257, 768, 769, 1024, 1]
+    widths = ((16, 1), (8, 2))                 # (Hkv, G): GPT-J, gemma2
+    for dtype in (torch.bfloat16, torch.float32):
+        for Hkv, G in widths:
+            full = dict(Hkv=Hkv, G=G, hd=256, page=16, max_pages=64,
+                        n_pages=2048)
+            tag = f"hd=256 Hkv={Hkv} G={G}"
+            paged_case(f"B=8 {tag}", dtype, B=8, **full)
+            for window, softcap in ((7, None), (40, None), (None, 50.0),
+                                    (40, 50.0)):
+                paged_case(f"window={window} softcap={softcap} {tag}",
+                           dtype, B=5, window=window, softcap=softcap,
+                           **full)
+                ragged_case(f"window={window} softcap={softcap} {tag}",
+                            dtype, N=32, B=3, window=window,
+                            softcap=softcap, **full)
+            ragged_case(f"mixed N=264 {tag}", dtype, N=264, B=9, **full)
+            ts, tp = layout([1] * 8, [c - 1 for c in edges])
+            ragged_case(f"decode-only window=40 softcap=50 {tag}", dtype,
+                        N=8, B=8, tok_seq=ts, tok_pos=tp, window=40,
+                        softcap=50.0, **full)
+            tile_edge_cases(ragged_case, paged_case, dtype, full, Gs=(G,),
+                            hds=(256,))
+        check_append(gen, worst, dtype, Hkv=8, hd=256)
+        check_append(gen, worst, dtype, Hkv=16, hd=256)
+
+    # quantized pools at head_dim 256: attention and the fused append
+    for name in sorted(KV_QUANT_DTYPES):
+        for Hkv, G in widths:
+            pools = quant_pools(gen, name, n_pages=2048, page=16, Hkv=Hkv,
+                                hd=256, device=dev)
+            scaled_attention_cases(gen, worst, name, pools, Gs=(G,),
+                                   capped=((7, None), (None, 50.0),
+                                           (40, 50.0)), suffix="_hd256")
+            del pools
+        check_append_quant(gen, name, heads=(8, 16), head_dims=(256,))
+
+    # the tree swap over the models' own pool trees
+    for model in ("gemma2-9b", "gpt-j-6b"):
+        lm = LM(get_config(model))
+        for kv_dtype in (None, "int8"):
+            leaves = tree_leaves(lm.init_cache(40, 16, dtype=torch.bfloat16,
+                                               device=dev, kv_dtype=kv_dtype))
+            for leaf in leaves:
+                leaf.view(torch.uint8).copy_(torch.randint(
+                    0, 256, leaf.view(torch.uint8).shape, generator=gen,
+                    device=dev, dtype=torch.uint8))
+            for n in (1, 7, 34):
+                for shift in (0, 8):
+                    swap_tree_case(gen, leaves, n, shift)
+            log(f"  swap_pack/swap_unpack over {model}'s "
+                f"{kv_dtype or 'bf16'} pool tree "
+                f"{[tuple(t.shape) for t in leaves]}: n {{1, 7, 34}}, "
+                "aligned and shifted slabs, distinct and repeated ids, "
+                "byte for byte against the plain versions")
+            del leaves
+
+    # the flash forward at head_dim 256; its backward refuses it
+    cases = [
+        ("gemma2 T=1", dict(B=2, Hkv=8, G=2, Tq=1, Tk=1), {}),
+        ("gemma2 T=129", dict(B=2, Hkv=8, G=2, Tq=129, Tk=129), {}),
+        ("gemma2 B=2 T=1024 softcap=50", dict(B=2, Hkv=8, G=2, Tq=1024,
+                                              Tk=1024), dict(softcap=50.0)),
+        ("gemma2 window=100 softcap=50", dict(B=1, Hkv=8, G=2, Tq=300,
+                                              Tk=300),
+         dict(window=100, softcap=50.0)),
+        ("gemma2 window=33 Tq<Tk", dict(B=1, Hkv=8, G=2, Tq=150, Tk=500),
+         dict(window=33)),
+        ("gptj G=1 T=200", dict(B=2, Hkv=16, G=1, Tq=200, Tk=200), {}),
+        ("gptj G=1 non-causal", dict(B=1, Hkv=16, G=1, Tq=90, Tk=130),
+         dict(causal=False)),
+        ("G=16 T=100", dict(B=1, Hkv=1, G=16, Tq=100, Tk=100), {})]
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, shape, kw in cases:
+            B, Hkv, G, Tq, Tk = (shape[k] for k in ("B", "Hkv", "G", "Tq",
+                                                    "Tk"))
+            q = torch.randn((B, Hkv, G, Tq, 256), generator=gen,
+                            device=dev).to(dtype)
+            k, v = (torch.randn((B, Hkv, Tk, 256), generator=gen,
+                                device=dev).to(dtype) for _ in range(2))
+            out, lse = flash_attention_fwd(q, k, v, **kw)
+            want, want_lse = flash_attention_fwd_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err, lse_err = max_err(out, want), max_err(lse, want_lse)
+            log(f"  flash_attention hd=256 {label} {str(dtype)[6:]}: out "
+                f"max_abs_err {err:.3g} (tol {tol[dtype]:g}), lse "
+                f"{lse_err:.3g} (tol 1e-4)")
+            assert err <= tol[dtype] and lse_err <= 1e-4, label
+            worst["flash_attention_hd256"] = max(
+                worst["flash_attention_hd256"], err)
+        try:
+            flash_attention_bwd(q, k, v, out, lse, torch.ones_like(out),
+                                **kw)
+        except ValueError as e:
+            log(f"  flash_attention_bwd at hd 256 refused: {e}")
+        else:
+            raise AssertionError("flash_attention_bwd took head_dim 256")
+        del q, k, v, out, lse, want, want_lse
+    torch.cuda.empty_cache()
 
 
 def same_bytes(a, b) -> bool:
@@ -651,30 +872,145 @@ def append_quant_case(gen, name, rdtype, *, N, Hkv, hd, device,
                               valid)
 
 
+def check_append_quant(gen, name, *, heads, head_dims) -> None:
+    """kv_append_quant over ``name`` pools, Hkv in ``heads`` x hd in
+    ``head_dims`` x N {1, 7, 16, 17, 512} with bf16 and f32 rows
+    (``append_quant_case``: pages named by several rows in any order,
+    invalid rows on valid rows' pages, ids out of range, zero-scale pages,
+    an all-zero row, rows that grow the scales and rows that mostly do
+    not), payload and scales bit for bit against the plain version on the
+    card and on the CPU."""
+    import torch
+    from repro_torch.kernels.kv_quant import (kv_append_quant,
+                                              kv_append_quant_ref)
+    dev = torch.device("cuda")
+    for rdtype in (torch.bfloat16, torch.float32):
+        for kv_heads in heads:
+            for head_dim in head_dims:
+                for n in (1, 7, 16, 17, 512):
+                    state, args = append_quant_case(
+                        gen, name, rdtype, N=n, Hkv=kv_heads, hd=head_dim,
+                        device=dev)
+                    want = kv_append_quant_ref(*(t.clone() for t in state),
+                                               *args)
+                    # the plain version on the CPU, which the tests hold
+                    # against the JAX reference: a witness that the card's
+                    # plain version is not the kernel's twin
+                    on_cpu = kv_append_quant_ref(
+                        *(t.cpu() for t in (*state, *args)))
+                    got = kv_append_quant(*state, *args)
+                    torch.cuda.synchronize()
+                    ok = all(same_bytes(a, b) for a, b in zip(got, want))
+                    assert ok, (name, rdtype, kv_heads, head_dim, n,
+                                differing(got, want))
+                    got = [t.cpu() for t in got]
+                    ok = all(same_bytes(a, b) for a, b in zip(got, on_cpu))
+                    assert ok, (name, rdtype, kv_heads, head_dim, n,
+                                "against the CPU", differing(got, on_cpu))
+        log(f"  kv_append_quant {name}, rows {str(rdtype)[6:]}: Hkv "
+            f"{set(heads)} x hd {set(head_dims)} x N {{1, 7, 16, 17, 512}}, "
+            "payload and scales bit-exact against the plain version on the "
+            "card and on the CPU")
+
+
+def scaled_attention_cases(gen, worst, name, pools, *, Gs,
+                           capped=((7, None), (None, 30.0), (9, 25.0)),
+                           suffix="") -> None:
+    """The paged and ragged kernels over ``name`` pools (kq, vq, ks, vs),
+    bf16 and float32 q, within ``attention_tol`` (the same sums, the
+    dequantizing multiply exact in both), padded rows zero: contexts {1,
+    16, 17, 65, 1024} x G in ``Gs``, each batch ending in a padded row;
+    at the last G, the (window, softcap) pairs of ``capped`` and the bf16
+    sweep's edges over the payload (a chunk one past a tile, two
+    sequences in one tile, a decode-only bucket at split edges). int8
+    pools' errors go to ``worst[kernel + suffix + "_int8"]`` where the
+    kernels line has that row."""
+    import torch
+    from repro_torch.kernels.paged_attention import (
+        paged_attention, paged_attention_quant_ref)
+    from repro_torch.kernels.ragged_paged_attention import (
+        ragged_paged_attention, ragged_paged_attention_quant_ref,
+        tile_tokens)
+    dev = torch.device("cuda")
+    i32 = dict(dtype=torch.int32, device=dev)
+    tol = attention_tol()
+    kq, vq, ks, vs = pools
+    n_pages, _, Hkv, hd = kq.shape
+    G = Gs[-1]
+
+    def keep(kernel, err):
+        key = f"{kernel}{suffix}_int8"
+        if name == "int8" and key in worst:
+            worst[key] = max(worst[key], err)
+
+    for qdtype in (torch.bfloat16, torch.float32):
+        label = f"{name} pools, Hkv={Hkv} hd={hd} q {str(qdtype)[6:]}"
+        cases = [(torch.tensor([ctx, max(1, ctx - 1), 0], **i32), g, {})
+                 for ctx in (1, 16, 17, 65, 1024) for g in Gs]
+        cases += [(torch.randint(1, 1025, (5,), generator=gen, **i32), G,
+                   dict(window=window, softcap=softcap))
+                  for window, softcap in capped]
+        for ctx_lens, g, kw in cases:
+            B = ctx_lens.numel()
+            q = torch.randn((B, Hkv, g, hd), generator=gen,
+                            device=dev).to(qdtype)
+            bt = torch.randint(0, n_pages, (B, 64), generator=gen, **i32)
+            for kernel, plain, extra, key in (
+                    (paged_attention, paged_attention_quant_ref,
+                     (ctx_lens,), "paged_attention"),
+                    (ragged_paged_attention,
+                     ragged_paged_attention_quant_ref,
+                     (torch.arange(B, **i32), ctx_lens - 1),
+                     "ragged_paged_attention")):
+                got = kernel(q, kq, vq, bt, *extra, k_scale=ks, v_scale=vs,
+                             **kw)
+                want = plain(q, kq, vq, ks, vs, bt, *extra, **kw)
+                torch.cuda.synchronize()
+                err = max_err(got, want)
+                zero = bool((got[ctx_lens == 0] == 0).all())
+                assert err <= tol[qdtype] and zero, (label, g, kw, key, err)
+                keep(key, err)
+        # the bf16 sweep's edges over the payload
+        for lens, starts, pad in (([tile_tokens(G) + 1], [100], 1),
+                                  ([3, 5, 20], [30, 700, 0], 4),
+                                  ([1] * 8, [63, 64, 255, 256, 767, 768,
+                                             1023, 0], 0)):
+            ts, tp = (t.to(dev) for t in layout(lens, starts, pad))
+            n = ts.numel()
+            q = torch.randn((n, Hkv, G, hd), generator=gen,
+                            device=dev).to(qdtype)
+            bt = torch.randint(0, n_pages, (len(lens), 64), generator=gen,
+                               **i32)
+            got = ragged_paged_attention(q, kq, vq, bt, ts, tp, k_scale=ks,
+                                         v_scale=vs)
+            want = ragged_paged_attention_quant_ref(q, kq, vq, ks, vs, bt,
+                                                    ts, tp)
+            err = max_err(got, want)
+            assert err <= tol[qdtype] and bool((got[tp < 0] == 0).all()), \
+                (label, lens, err)
+            keep("ragged_paged_attention", err)
+        log(f"  scaled paged/ragged attention, {label}: ctx {{1, 16, 17, "
+            f"65, 1024}} x G {set(Gs)}, (window, softcap) {list(capped)}, "
+            f"a chunk past a tile, two sequences in a tile, decode at split "
+            f"edges within {tol[qdtype]:g}, padded rows zero")
+
+
 def check_quant_kernels(gen, worst) -> None:
     """The quantized pools' kernels on the card: page_requant and the
     fused kv_append_quant bit for bit against their plain versions
     (the same float32 multiply, round-half-to-even and clip, and a
     round-to-nearest-even float8 cast), kv_append_quant also against its
-    plain version run on the CPU; the attention kernels over int8,
-    float8_e4m3 and float8_e5m2 pools within the float pools' tolerances
-    (1e-4 for float32 q, 3e-2 for bf16 q: the same sums, the dequantizing
-    multiply exact in both); a SwapStager round trip of a quantized pool
-    tree, exact."""
+    plain version run on the CPU (``check_append_quant``); the attention
+    kernels over int8, float8_e4m3 and float8_e5m2 pools within the float
+    pools' tolerances (``scaled_attention_cases``); a SwapStager round
+    trip of a quantized pool tree, exact."""
     import torch
-    from repro_torch.kernels.kv_quant import (KV_QUANT_DTYPES,
-                                              kv_append_quant,
-                                              kv_append_quant_ref,
-                                              page_requant, page_requant_ref)
-    from repro_torch.kernels.paged_attention import (
-        paged_attention, paged_attention_quant_ref)
-    from repro_torch.kernels.ragged_paged_attention import (
-        ragged_paged_attention, ragged_paged_attention_quant_ref)
+    from repro_torch.kernels.kv_quant import (KV_QUANT_DTYPES, page_requant,
+                                              page_requant_ref)
     from repro_torch.kernels.swap_pack import (SwapStager, slab_pages,
                                                swap_pack, swap_unpack)
     dev = torch.device("cuda")
     i32 = dict(dtype=torch.int32, device=dev)
-    tol = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
     n_pages, page, Hkv, hd = 256, 16, 8, 64
     for name in sorted(KV_QUANT_DTYPES):
         # page_requant: 512 rows over 256 pages, so most pages are named
@@ -693,111 +1029,12 @@ def check_quant_kernels(gen, worst) -> None:
         log(f"  page_requant {name} N={N}: bit-exact {ok}")
         assert ok, name
         # kv_append_quant, the fused kernel, over Hkv {1, 8} x hd {32, 64,
-        # 128} x N {1, 7, 16, 17, 512} with bf16 and f32 rows: pages named
-        # by several rows in any order, invalid rows on valid rows' pages,
-        # ids out of range, zero-scale pages, an all-zero row, rows that
-        # grow the scales (8x a page's span) and rows that mostly do not
-        for rdtype in (torch.bfloat16, torch.float32):
-            for kv_heads in (1, 8):
-                for head_dim in (32, 64, 128):
-                    for n in (1, 7, 16, 17, 512):
-                        state, args = append_quant_case(
-                            gen, name, rdtype, N=n, Hkv=kv_heads,
-                            hd=head_dim, device=dev)
-                        want = kv_append_quant_ref(
-                            *(t.clone() for t in state), *args)
-                        # the plain version on the CPU, which the tests
-                        # hold against the JAX reference: a witness that
-                        # the card's plain version is not the kernel's twin
-                        on_cpu = kv_append_quant_ref(
-                            *(t.cpu() for t in (*state, *args)))
-                        got = kv_append_quant(*state, *args)
-                        torch.cuda.synchronize()
-                        ok = all(same_bytes(a, b) for a, b in zip(got, want))
-                        assert ok, (name, rdtype, kv_heads, head_dim, n,
-                                    differing(got, want))
-                        got = [t.cpu() for t in got]
-                        ok = all(same_bytes(a, b)
-                                 for a, b in zip(got, on_cpu))
-                        assert ok, (name, rdtype, kv_heads, head_dim, n,
-                                    "against the CPU",
-                                    differing(got, on_cpu))
-            log(f"  kv_append_quant {name}, rows {str(rdtype)[6:]}: Hkv "
-                "{1, 8} x hd {32, 64, 128} x N {1, 7, 16, 17, 512}, payload "
-                "and scales bit-exact against the plain version on the card "
-                "and on the CPU")
+        # 128}
+        check_append_quant(gen, name, heads=(1, 8), head_dims=(32, 64, 128))
         # the scaled attention kernels
-        kq, vq, ks, vs = quant_pools(gen, name, n_pages=2048, page=page,
-                                     Hkv=Hkv, hd=hd, device=dev)
-        for qdtype in (torch.bfloat16, torch.float32):
-            label = f"{name} pools, q {str(qdtype)[6:]}"
-            for ctx in (1, 16, 17, 64 * 16):
-                for G in (1, 4):
-                    q = torch.randn((3, Hkv, G, hd), generator=gen,
-                                    device=dev).to(qdtype)
-                    bt = torch.randint(0, 2048, (3, 64), generator=gen, **i32)
-                    ctx_lens = torch.tensor([ctx, max(1, ctx - 1), 0], **i32)
-                    for kernel, plain, extra, key in (
-                            (paged_attention, paged_attention_quant_ref,
-                             (ctx_lens,), "paged_attention_int8"),
-                            (ragged_paged_attention,
-                             ragged_paged_attention_quant_ref,
-                             (torch.arange(3, **i32), ctx_lens - 1),
-                             "ragged_paged_attention_int8")):
-                        got = kernel(q, kq, vq, bt, *extra, k_scale=ks,
-                                     v_scale=vs)
-                        want = plain(q, kq, vq, ks, vs, bt, *extra)
-                        torch.cuda.synchronize()
-                        err = max_err(got, want)
-                        zero = bool((got[2] == 0).all())
-                        assert err <= tol[qdtype] and zero, (label, ctx, G,
-                                                             key)
-                        if name == "int8":
-                            worst[key] = max(worst[key], err)
-            for window, softcap in ((7, None), (None, 30.0), (9, 25.0)):
-                q = torch.randn((5, Hkv, 4, hd), generator=gen,
-                                device=dev).to(qdtype)
-                bt = torch.randint(0, 2048, (5, 64), generator=gen, **i32)
-                ctx_lens = torch.randint(1, 1025, (5,), generator=gen, **i32)
-                kw = dict(window=window, softcap=softcap)
-                errs = (
-                    max_err(paged_attention(q, kq, vq, bt, ctx_lens,
-                                            k_scale=ks, v_scale=vs, **kw),
-                            paged_attention_quant_ref(q, kq, vq, ks, vs, bt,
-                                                      ctx_lens, **kw)),
-                    max_err(ragged_paged_attention(
-                        q, kq, vq, bt, torch.arange(5, **i32), ctx_lens - 1,
-                        k_scale=ks, v_scale=vs, **kw),
-                        ragged_paged_attention_quant_ref(
-                            q, kq, vq, ks, vs, bt, torch.arange(5, **i32),
-                            ctx_lens - 1, **kw)))
-                assert max(errs) <= tol[qdtype], (label, window, softcap)
-            # the bf16 sweep's edges over the payload: a chunk past a tile,
-            # two sequences in one tile, a decode-only bucket at split edges
-            for lens, starts, pad in (([17], [100], 1),
-                                      ([3, 5, 20], [30, 700, 0], 4),
-                                      ([1] * 8, [63, 64, 255, 256, 767, 768,
-                                                 1023, 0], 0)):
-                ts, tp = (t.to(dev) for t in layout(lens, starts, pad))
-                n = ts.numel()
-                q = torch.randn((n, Hkv, 4, hd), generator=gen,
-                                device=dev).to(qdtype)
-                bt = torch.randint(0, 2048, (len(lens), 64), generator=gen,
-                                   **i32)
-                got = ragged_paged_attention(q, kq, vq, bt, ts, tp,
-                                             k_scale=ks, v_scale=vs)
-                want = ragged_paged_attention_quant_ref(q, kq, vq, ks, vs,
-                                                        bt, ts, tp)
-                err = max_err(got, want)
-                assert err <= tol[qdtype] and bool(
-                    (got[tp < 0] == 0).all()), (label, lens)
-                if name == "int8":
-                    worst["ragged_paged_attention_int8"] = max(
-                        worst["ragged_paged_attention_int8"], err)
-            log(f"  scaled paged/ragged attention, {label}: ctx {{1, 16, "
-                f"17, 1024}} x G {{1, 4}}, window and softcap, a 17-token "
-                f"chunk, two sequences in a tile, decode at split edges "
-                f"within {tol[qdtype]:g}, padded rows zero")
+        pools = quant_pools(gen, name, n_pages=2048, page=page, Hkv=Hkv,
+                            hd=hd, device=dev)
+        scaled_attention_cases(gen, worst, name, pools, Gs=(1, 4))
     # the stager moves a quantized pool tree's scale leaves with its
     # payload: pack, collect, clobber, unpack, compare
     kq, vq, ks, vs = quant_pools(gen, "int8", n_pages=128, page=page,
@@ -852,22 +1089,65 @@ def swap_leaf(gen, P, n_pages, trailing, dtype, device):
     return raw.view(dtype)
 
 
-def check_swap_kernels(gen) -> None:
-    """The tree pack and unpack (rows 3, 4, 3q, 4q) byte for byte against
-    their plain versions on the card over a ragged grid: trees of 1-4
-    leaves from SWAP_LEAVES (bulk and word-path rows, rows larger than a
-    stage, the int8 pools' tree of payload and scale leaves), P {1, 3},
-    n {0, 1, 7, 34, 100} with repeated and out-of-range ids (an unpack
-    of distinct ids, then one of repeated ids, where the last row naming
-    a page wins), slabs with 128-byte aligned sections and slabs that
-    start 8 bytes into their buffer; one launch per call, none at n 0.
-    Skipped rows keep the slab's bytes."""
+def swap_tree_case(gen, leaves, n: int, shift: int) -> None:
+    """One tree pack and two unpacks of ``leaves`` (P, n_pages, ...) byte
+    for byte against the plain versions: a pack of n random ids, some out
+    of range, into a slab that starts ``shift`` bytes into its buffer; an
+    unpack of distinct ids, some out of range; an unpack of repeated ids
+    (pages 0-9), where the last row naming a page wins. One launch per
+    call, none at n 0. Skipped rows keep the slab's bytes."""
     import torch
     from repro_torch.kernels.swap_pack import (slab_layout, swap_pack,
                                                swap_pack_tree,
                                                swap_pack_tree_ref,
                                                swap_unpack, swap_unpack_tree,
                                                swap_unpack_tree_ref)
+    dev = leaves[0].device
+    i32 = dict(device=dev, dtype=torch.int32)
+    n_pages = leaves[0].shape[1]
+    what = ([tuple(t.shape) for t in leaves], n, shift)
+    _, size = slab_layout(leaves, n)
+    buf = torch.randint(0, 256, (size + shift,), generator=gen, device=dev,
+                        dtype=torch.uint8)
+    ids = torch.randint(-3, n_pages + 4, (n,), generator=gen, **i32)
+    before = (swap_pack.launches, swap_unpack.launches)
+    got = buf.clone()
+    want = buf.clone()
+    swap_pack_tree(leaves, ids, got[shift:])
+    swap_pack_tree_ref(leaves, ids, want[shift:])
+    torch.cuda.synchronize()
+    assert byte_equal(got, want), ("pack", what)
+    # unpack: distinct ids, some out of range
+    uids = torch.randperm(n_pages + 8, generator=gen, device=dev)[:n].to(
+        torch.int32)
+    mine = [leaf.clone() for leaf in leaves]
+    swap_unpack_tree(mine, buf[shift:], uids)
+    swap_unpack_tree_ref(leaves, buf[shift:], uids)
+    torch.cuda.synchronize()
+    assert all(byte_equal(a, b) for a, b in zip(mine, leaves)), \
+        ("unpack", what)
+    # unpack: ids repeated (pages 0-9 only) and out of range
+    rids = torch.randint(0, 10, (n,), generator=gen, **i32)
+    rids[::5] = -1
+    rids[1::7] = n_pages
+    swap_unpack_tree(mine, buf[shift:], rids)
+    swap_unpack_tree_ref(leaves, buf[shift:], rids)
+    torch.cuda.synchronize()
+    assert all(byte_equal(a, b) for a, b in zip(mine, leaves)), \
+        ("repeated", what)
+    launched = (swap_pack.launches - before[0],
+                swap_unpack.launches - before[1])
+    assert launched == ((0, 0) if n == 0 else (1, 2)), (what, launched)
+
+
+def check_swap_kernels(gen) -> None:
+    """The tree pack and unpack (rows 3, 4, 3q, 4q) byte for byte against
+    their plain versions on the card (``swap_tree_case``) over a ragged
+    grid: trees of 1-4 leaves from SWAP_LEAVES (bulk and word-path rows,
+    rows larger than a stage, the int8 pools' tree of payload and scale
+    leaves), P {1, 3}, n {0, 1, 7, 34, 100}, slabs with 128-byte aligned
+    sections and slabs that start 8 bytes into their buffer."""
+    import torch
     dev = torch.device("cuda")
     n_pages = 128
     trees = [[0], [1, 4], [0, 5, 1, 5], [2, 3], [6, 7, 8, 9], [0, 6, 1, 9],
@@ -879,47 +1159,7 @@ def check_swap_kernels(gen) -> None:
                 for shift in (0, 8):
                     leaves = [swap_leaf(gen, P, n_pages, *SWAP_LEAVES[i],
                                         dev) for i in picks]
-                    _, size = slab_layout(leaves, n)
-                    buf = torch.randint(0, 256, (size + shift,),
-                                        generator=gen, device=dev,
-                                        dtype=torch.uint8)
-                    ids = torch.randint(-3, n_pages + 4, (n,),
-                                        generator=gen, device=dev,
-                                        dtype=torch.int32)
-                    before = (swap_pack.launches, swap_unpack.launches)
-                    got = buf.clone()
-                    want = buf.clone()
-                    swap_pack_tree(leaves, ids, got[shift:])
-                    swap_pack_tree_ref(leaves, ids, want[shift:])
-                    torch.cuda.synchronize()
-                    assert byte_equal(got, want), ("pack", picks, P, n,
-                                                   shift)
-                    # unpack: distinct ids, some out of range
-                    uids = torch.randperm(n_pages + 8, generator=gen,
-                                          device=dev)[:n].to(torch.int32)
-                    mine = [leaf.clone() for leaf in leaves]
-                    swap_unpack_tree(mine, buf[shift:], uids)
-                    swap_unpack_tree_ref(leaves, buf[shift:], uids)
-                    torch.cuda.synchronize()
-                    assert all(byte_equal(a, b) for a, b in
-                               zip(mine, leaves)), ("unpack", picks, P, n,
-                                                    shift)
-                    # unpack: ids repeated (pages 0-9 only) and out of
-                    # range; the last row naming a page wins
-                    rids = torch.randint(0, 10, (n,), generator=gen,
-                                         device=dev, dtype=torch.int32)
-                    rids[::5] = -1
-                    rids[1::7] = n_pages
-                    swap_unpack_tree(mine, buf[shift:], rids)
-                    swap_unpack_tree_ref(leaves, buf[shift:], rids)
-                    torch.cuda.synchronize()
-                    assert all(byte_equal(a, b) for a, b in
-                               zip(mine, leaves)), ("repeated", picks, P,
-                                                    n, shift)
-                    launched = (swap_pack.launches - before[0],
-                                swap_unpack.launches - before[1])
-                    assert launched == ((0, 0) if n == 0 else (1, 2)), \
-                        (picks, P, n, launched)
+                    swap_tree_case(gen, leaves, n, shift)
                     cases += 1
     log(f"  swap_pack/swap_unpack trees: {cases} cases ({len(trees)} trees "
         "of 1-4 leaves, rows 4 B to 24 KB, P {1, 3}, n {0, 1, 7, 34, 100}, "
@@ -1079,11 +1319,39 @@ def condition_attention(params) -> None:
             attn["wo"] *= 1.0 / math.sqrt(hd)
 
 
+def layer0_exact(lm, params, tokens, positions):
+    """Layer 0's K and V, (n, Hkv, hd) each, of ``tokens`` at
+    ``positions``, in float64 from the embeddings: RMSNorm, the K and V
+    projections (and biases) and the rotation, at the float32 rotation
+    angles that every path of the port computes alike. A witness for the
+    pools' float32 K/V: each path's distance from it is its own rounding."""
+    import torch
+    from repro_torch.models.common import rope_freqs
+    cfg = lm.cfg
+    a = cfg.groups[0].period[0].attn
+    p = params["groups"][0]["scan"]["b0"]
+    f64 = torch.float64
+    x = lm.embed(params, tokens).to(f64)
+    x = x * torch.rsqrt(x.square().mean(-1, keepdim=True) + cfg.norm_eps) \
+        * (1.0 + p["norm1"][0].to(f64))
+    k, v = (torch.einsum("nd,dhe->nhe", x, p["attn"][w][0].to(f64))
+            for w in ("wk", "wv"))
+    if a.qkv_bias:
+        k = k + p["attn"]["bk"][0].to(f64)
+        v = v + p["attn"]["bv"][0].to(f64)
+    angles = (positions.float()[:, None] * rope_freqs(
+        a.head_dim, a.rope_theta, device=x.device)).to(f64)
+    cos, sin = angles.cos()[:, None], angles.sin()[:, None]
+    k1, k2 = k.chunk(2, dim=-1)
+    return torch.cat([k1 * cos - k2 * sin, k1 * sin + k2 * cos], dim=-1), v
+
+
 def paths_parity(dtype, *, conditioned: bool, tiny: bool = False,
-                 device: str = "cuda") -> dict:
+                 device: str = "cuda", model: str = "llama3.2-1b",
+                 lens=None) -> dict:
     """The fused and the per-call paths against each other, from the same
-    weights (random, seed 0), on four sequences of 37, 160, 513 and 16
-    tokens:
+    weights of ``model`` (random, seed 0), on four sequences of ``lens``
+    tokens (by default 37, 160, 513 and 16):
       prefill — one ragged batch through forward_mixed_paged, and one
                 extend_step_paged call per sequence (padded to a bucket,
                 as the engine pads a chunk) on a second, zeroed pool;
@@ -1101,30 +1369,47 @@ def paths_parity(dtype, *, conditioned: bool, tiny: bool = False,
     that is a hard max, and paths that part wherever float32 rounding of
     differently shaped products flips one. Returns each comparison's
     logits error, greedy ids and pool error (all layers, and layer 0,
-    whose K/V no attention has touched yet), and a control: the fused
+    whose K/V no attention has touched yet; and layer 0's K/V of each
+    prefill leg against ``layer0_exact``), and a control: the fused
     prefill's logits against the same prefill padded to twice the
-    rows."""
+    rows. Tables longer than 64 pages (a prompt past 1024 tokens) give
+    each sequence only the pages its tokens and its decode token fill,
+    the rest of its row page 0 (never read), so that the pools stay at
+    512 pages; the gather leg's slotted caches hold every position (a
+    local layer's window masks, as the engine's gather path has it)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.model import LM
     from repro_torch.utils.tree import tree_leaves, tree_map
     dev = torch.device(device)
-    cfg = get_config("llama3.2-1b", tiny=tiny)
+    cfg = get_config(model, tiny=tiny)
     lm = LM(cfg)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = lm.init(gen, dtype=dtype, device=dev)
     if conditioned:
         condition_attention(params)
-    page, max_pages, n_pages = 16, 64, 512
-    pools = lm.init_cache(n_pages, page, dtype=dtype, device=dev)
-    pools_u = lm.init_cache(n_pages, page, dtype=dtype, device=dev)
-    lens = [37, 160, 513, 16]
+    lens = [37, 160, 513, 16] if lens is None else list(lens)
     B = len(lens)
-    bt = torch.randperm(n_pages - 1, generator=gen, device=dev)[
-        :(B + 1) * max_pages].reshape(B + 1, max_pages).to(torch.int32) + 1
+    page, n_pages = 16, 512
+    # the per-call leg pads each prompt to a power of two, all of whose
+    # positions must lie inside the table
+    max_pages = max(64, (1 << (max(lens) - 1).bit_length()) // page)
+    pools = lm.init_cache(n_pages, page, dtype=dtype, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
-    # prefill: every prompt token as one ragged batch, padded to 1024
-    N = 1024
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
+    if (B + 1) * max_pages <= n_pages - 1:
+        bt = perm[:(B + 1) * max_pages].reshape(B + 1, max_pages).to(
+            torch.int32)
+    else:
+        bt = torch.zeros((B + 1, max_pages), **i32)
+        used = 0
+        for b, n in enumerate(lens):
+            need = -(-(n + 1) // page)
+            bt[b, :need] = perm[used:used + need].to(torch.int32)
+            used += need
+    # prefill: every prompt token as one ragged batch, padded to a power
+    # of two (1024 by default)
+    N = 1 << (sum(lens) - 1).bit_length()
     tok_seq = torch.zeros(N, **i32)
     tok_pos = torch.full((N,), -1, **i32)
     off, q_last = 0, []
@@ -1137,15 +1422,6 @@ def paths_parity(dtype, *, conditioned: bool, tiny: bool = False,
     first, logits_f, _ = lm.forward_mixed_paged(
         params, tokens, tok_seq, tok_pos, torch.tensor(q_last + [0], **i32),
         pools, bt)
-    logits_u = []
-    for b, n in enumerate(lens):
-        chunk = torch.zeros((1, 1 << (n - 1).bit_length()), **i32)
-        chunk[0, :n] = tokens[q_last[b] + 1 - n:q_last[b] + 1]
-        lu, _ = lm.extend_step_paged(
-            params, chunk, torch.zeros(1, **i32), torch.tensor([n], **i32),
-            pools_u, bt[b:b + 1], logits_index=torch.tensor([n - 1], **i32))
-        logits_u.append(lu[0])
-    logits_u = torch.stack(logits_u)
     # control: the fused prefill again, padded to twice the rows — the
     # same path with products of another shape
     pad = dict(dtype=torch.int32, device=dev)
@@ -1155,13 +1431,41 @@ def paths_parity(dtype, *, conditioned: bool, tiny: bool = False,
         torch.cat([tok_pos, torch.full((N,), -1, **pad)]),
         torch.tensor(q_last + [0], **i32),
         lm.init_cache(n_pages, page, dtype=dtype, device=dev), bt)
+    pools_u = lm.init_cache(n_pages, page, dtype=dtype, device=dev)
+    logits_u = []
+    for b, n in enumerate(lens):
+        chunk = torch.zeros((1, 1 << (n - 1).bit_length()), **i32)
+        chunk[0, :n] = tokens[q_last[b] + 1 - n:q_last[b] + 1]
+        lu, _ = lm.extend_step_paged(
+            params, chunk, torch.zeros(1, **i32), torch.tensor([n], **i32),
+            pools_u, bt[b:b + 1], logits_index=torch.tensor([n - 1], **i32))
+        logits_u.append(lu[0])
+    logits_u = torch.stack(logits_u)
 
     def pool_err(a, b, layers=slice(None)):
         pairs = list(zip(tree_leaves(a), tree_leaves(b)))
         return (max(max_err(x[layers], y[layers]) for x, y in pairs),
                 max(float(y[layers].abs().max()) for _, y in pairs))
     prefill_pools = pool_err(pools_u, pools)
-    layer0_pools = pool_err(pools_u, pools, slice(0, 1))
+    # layer 0's K/V, which no attention has touched yet: the legs against
+    # each other and each against a float64 witness, at every prompt token
+    def layer0(tree):
+        return {k: v[0] for k, v in tree[0]["b0"].items()}
+    layer0_pools = pool_err(layer0(pools_u), layer0(pools))
+    real = tok_pos >= 0
+    pos = tok_pos[real]
+    slots = (bt[tok_seq[real].long(), (pos // page).long()].long(),
+             (pos % page).long())
+    exact = layer0_exact(lm, params, tokens[real], pos)
+
+    def witness_err(tree):
+        return max(float((leaf[slots].double() - want).abs().max())
+                   for leaf, want in zip(layer0(tree).values(), exact))
+    layer0_witness = (witness_err(pools), witness_err(pools_u),
+                      max(float(w.abs().max()) for w in exact))
+    del pools_u, exact
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     # one decode step, row B padded, on two copies of the pools
     ctx = torch.tensor(lens + [0], **i32)
     feed = torch.cat([first[:B], torch.zeros(1, **i32)])
@@ -1177,7 +1481,8 @@ def paths_parity(dtype, *, conditioned: bool, tiny: bool = False,
     S = max_pages * page
     gather_logits, gather_cache = [], (0.0, 0.0)
     for b, n in enumerate(lens):
-        cache = lm.init_cache(1, S, dtype=dtype, device=dev)
+        cache = lm.init_cache(1, S, dtype=dtype, device=dev,
+                              window_override=None)
         lg, cache = lm.extend_step(
             params, tokens[None, q_last[b] + 1 - n:q_last[b] + 1],
             torch.zeros(1, **i32), cache)
@@ -1194,12 +1499,13 @@ def paths_parity(dtype, *, conditioned: bool, tiny: bool = False,
     paired = torch.stack([x for b in range(B)
                           for x in (logits_f[b], logits_r[b])])
     top2 = torch.topk(logits_f[:B].float(), 2).values
-    res = {"lens": lens,
+    res = {"model": cfg.name, "lens": lens,
            "prefill_err": max_err(logits_u, logits_f[:B]),
            "control_err": max_err(logits_c[:B], logits_f[:B]),
            "prefill_ids": (logits_u.argmax(-1).tolist(),
                            logits_f[:B].argmax(-1).tolist()),
            "prefill_pools": prefill_pools, "layer0_pools": layer0_pools,
+           "layer0_witness": layer0_witness,
            "top2_gap": (top2[:, 0] - top2[:, 1]).tolist(),
            "decode_err": max_err(logits_p[:B], logits_r[:B]),
            "decode_ids": (logits_p[:B].argmax(-1).tolist(),
@@ -1212,32 +1518,37 @@ def paths_parity(dtype, *, conditioned: bool, tiny: bool = False,
            "finite": bool(torch.isfinite(logits_p[:B]).all()
                           and torch.isfinite(logits_u).all()
                           and torch.isfinite(gather_logits).all())}
-    del params, pools, pools_u, pools_r, pools_p, cache
+    del params, pools, pools_r, pools_p, cache
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return res
 
 
-def check_decode_parity(*, tiny: bool = False, device: str = "cuda") -> None:
-    """paths_parity three times. Held, in float32 with conditioned
-    weights: logits within 1e-3 (the paths sum in other orders), greedy
-    ids equal on every real row, pools within 1e-4 (prefill: products of
-    other shapes) and 1e-5 (decode: the two kernels) of their largest
-    magnitude. With the reference's init, in float32 and in bf16, the
-    prefill comparison is reported, not held: it shows how far rounding
-    alone parts the paths at a hard-max softmax, which the serve runs'
-    shares of identical streams reflect; layer 0's K/V (1e-5 in float32)
-    and the decode kernels (as above) are held in float32 there too. The
-    smoke run uses the defaults; ``tiny`` and ``device="cpu"`` rehearse
-    it on the plain versions."""
+def check_decode_parity(*, tiny: bool = False, device: str = "cuda",
+                        model: str = "llama3.2-1b", lens=None) -> None:
+    """paths_parity three times, on ``model`` (llama3.2-1b by default; the
+    wide_parity phase runs gemma2-9b and GPT-J-6B) over ``lens``. Held, in
+    float32 with conditioned weights: logits within 1e-3 (the paths sum in
+    other orders), greedy ids equal on every real row, pools within 1e-4
+    (prefill: products of other shapes) and 1e-5 (decode: the two
+    kernels) of their largest magnitude. With the reference's init, in
+    float32 and in bf16, the prefill comparison is reported, not held: it
+    shows how far rounding alone parts the paths at a hard-max softmax,
+    which the serve runs' shares of identical streams reflect; layer 0's
+    K/V and the decode kernels (as above) are held in float32 there too.
+    Layer 0's K/V are held two ways, each within 1e-5 of their largest
+    magnitude: the legs against each other, and each leg against the
+    float64 witness (``layer0_exact``), which shows that what parts them
+    is their own float32 rounding. The smoke run uses the defaults;
+    ``tiny`` and ``device="cpu"`` rehearse it on the plain versions."""
     import torch
     for dtype, conditioned in ((torch.float32, True),
                                (torch.float32, False),
                                (torch.bfloat16, False)):
         r = paths_parity(dtype, conditioned=conditioned, tiny=tiny,
-                         device=device)
-        name = (f"{str(dtype)[6:]}, "
+                         device=device, model=model, lens=lens)
+        name = (f"{r['model']} {str(dtype)[6:]}, "
                 f"{'conditioned' if conditioned else 'reference'} init")
         (pe, pt), (le, lt), (de, dt) = (r["prefill_pools"], r["layer0_pools"],
                                         r["decode_pools"])
@@ -1256,10 +1567,15 @@ def check_decode_parity(*, tiny: bool = False, device: str = "cuda") -> None:
             f"decode logits max_abs_err {r['gather_err']:.3g}, greedy ids "
             f"{r['gather_ids'][0]} vs {r['gather_ids'][1]}, cache {ge:.3g} "
             f"of max {gt:.3g}")
+        wf, wu, wt = r["layer0_witness"]
+        log(f"  {name}: layer 0's K/V against the float64 witness: fused "
+            f"{wf:.3g}, per-call {wu:.3g} of max {wt:.3g} (relative "
+            f"{wf / wt:.3g}, {wu / wt:.3g}; the legs' gap {le / lt:.3g})")
         assert r["finite"], name
         if dtype != torch.float32:
             continue
-        assert le <= 1e-5 * lt, name
+        assert le <= 1e-5 * lt, (name, le / lt)
+        assert max(wf, wu) <= 1e-5 * wt, (name, wf / wt, wu / wt)
         assert r["decode_err"] <= 1e-3 and de <= 1e-5 * dt, name
         assert r["decode_ids"][0] == r["decode_ids"][1], name
         if conditioned:
@@ -1269,7 +1585,8 @@ def check_decode_parity(*, tiny: bool = False, device: str = "cuda") -> None:
             assert r["gather_ids"][0] == r["gather_ids"][1], name
         log(f"  {name}: held (logits 1e-3 and equal ids"
             f"{', prefill and gather too' if conditioned else ' for decode'}"
-            "; layer-0 pools 1e-5, decode pools 1e-5"
+            "; layer-0 pools 1e-5 apart and of the witness, decode pools "
+            "1e-5"
             f"{', prefill pools and gather cache 1e-4' if conditioned else ''}"
             " of max)")
 
@@ -1370,9 +1687,20 @@ class Recorder:
         from repro_torch.utils.tree import tree_map
         for (mod, name), orig in self._orig.items():
             setattr(mod, name, orig)
+        # one host copy of each tensor however many records hold it: the
+        # last call of every size is mostly the last layer's, so its pools
+        # are one pair (at head_dim 256 a layer's pool is 134 MB)
+        copies = {}
+
+        def host(t):
+            key = (t.data_ptr(), tuple(t.shape), tuple(t.stride()), t.dtype)
+            if key not in copies:
+                copies[key] = t.to("cpu")
+            return copies[key]
+
         def to_host(tree):
-            return tree_map(lambda t: t.to("cpu") if hasattr(t, "to")
-                            else t, tree)
+            return tree_map(lambda t: host(t) if hasattr(t, "to") and
+                            t.is_cuda else t, tree)
         for key, (size, args, kw) in self.calls.items():
             self.calls[key] = (size, *to_host((args, kw)))
         self.decode_call = (self.decode_call[0],
@@ -1426,8 +1754,9 @@ def reset_counts() -> None:
 
 def agent_engine(policy: str, *, tiny: bool, device: str,
                  closed_loop: bool = False, sampled: bool = False,
-                 **engine_kw):
-    """A fresh engine (llama3.2-1b, random weights from seed 0) with the
+                 model: str = "llama3.2-1b", **engine_kw):
+    """A fresh engine (``model``, llama3.2-1b by default, random weights
+    from seed 0) with the
     agent workload submitted through a ScriptedClient, or straight to the
     engine with ``closed_loop``. ``engine_kw`` selects the path
     (``fused=False``, ``kv_dtype="int8"``, or ``speculate=True``, which
@@ -1442,7 +1771,7 @@ def agent_engine(policy: str, *, tiny: bool, device: str,
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.session import ScriptedClient
     from repro_torch.serving.workloads import make_agent_workload
-    cfg = get_config("llama3.2-1b", tiny=tiny)
+    cfg = get_config(model, tiny=tiny)
     if engine_kw.get("speculate"):
         engine_kw["predictor"] = OracleToolResultPredictor(cfg.vocab_size)
     on_card = device == "cuda"
@@ -1473,18 +1802,20 @@ def agent_engine(policy: str, *, tiny: bool, device: str,
     return eng, client.client, handles
 
 
-def serve(policy: str, recorder: Recorder, *, tiny: bool = False,
-          device: str = "cuda", **engine_kw) -> dict:
+def serve(policy: str, recorder: Recorder = None, *, tiny: bool = False,
+          device: str = "cuda", model: str = "llama3.2-1b",
+          **engine_kw) -> dict:
     """Serve agent sessions through ScriptedClient (or the closed loop,
     ``closed_loop=True`` among ``engine_kw``) and check the run. The
     smoke run uses the defaults; ``tiny`` and ``device="cpu"`` rehearse
-    the same control flow without a card."""
+    the same control flow without a card. ``recorder`` keeps the kernels'
+    calls for the timing phase (None: a run that nothing times)."""
     import torch
     from repro_torch.utils.tree import tree_leaves
     on_card = device == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     eng, client, handles = agent_engine(policy, tiny=tiny, device=device,
-                                        **engine_kw)
+                                        model=model, **engine_kw)
     cfg = eng.cfg
     sync()
     # the engine's construction (weights made in float32, then cast) sets
@@ -1494,7 +1825,7 @@ def serve(policy: str, recorder: Recorder, *, tiny: bool = False,
         torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    with recorder:
+    with recorder or contextlib.nullcontext():
         if client is None:
             done = eng.run(strict=True)
             drained, finished = done.drained, len(done)
@@ -1509,7 +1840,7 @@ def serve(policy: str, recorder: Recorder, *, tiny: bool = False,
     reqs = [getattr(h, "request", h) for h in handles]
     out_tokens = sum(r.output_tokens for r in reqs)
     streams = [eng.generated_text(r) for r in reqs]
-    res = {"policy": policy, "finished": finished,
+    res = {"model": cfg.name, "policy": policy, "finished": finished,
            "requests": len(handles), "steps": eng.counters[
                "mixed_iterations"], "output_tokens": out_tokens,
            "wall_s": wall, "tokens_per_s": out_tokens / wall,
@@ -1812,8 +2143,8 @@ def parent_kernels(parent: Path):
     """The kernel wrappers of another checkout of the port at ``parent``
     (the parent commit's, for timing both versions in one run): ragged and
     paged attention, kv_append, page_requant, the whole quantized append,
-    gla_scan's launcher, the tree swap_pack / swap_unpack and the
-    SwapStager. Its ``repro_torch`` modules are imported from its own
+    gla_scan's launcher, the flash forward, the tree swap_pack /
+    swap_unpack and the SwapStager. Its ``repro_torch`` modules are imported from its own
     source tree, so its kernels build there by its own ``_build.py`` and
     are called through its own wrappers, whatever their C signatures
     (``build`` builds them). This tree's modules are put back afterwards;
@@ -1838,6 +2169,7 @@ def parent_kernels(parent: Path):
         ka = importlib.import_module("repro_torch.kernels.kv_append")
         kq = importlib.import_module("repro_torch.kernels.kv_quant")
         gs = importlib.import_module("repro_torch.kernels.gla_scan")
+        fa = importlib.import_module("repro_torch.kernels.flash_attention")
         sp = importlib.import_module("repro_torch.kernels.swap_pack")
         ops = importlib.import_module("repro_torch.kernels.ops")
     finally:
@@ -1864,6 +2196,7 @@ def parent_kernels(parent: Path):
                                  page_requant=kq.page_requant,
                                  kv_append_quant=kq.kv_append_quant,
                                  gla_scan=gs.gla_scan_fwd,
+                                 flash=fa.flash_attention_fwd,
                                  swap_pack_tree=sp.swap_pack_tree,
                                  swap_unpack_tree=sp.swap_unpack_tree,
                                  SwapStager=sp.SwapStager,
@@ -1907,8 +2240,8 @@ def swap_work(leaves, n: int) -> int:
                * leaf.element_size() for leaf in leaves) + 4 * n
 
 
-def time_swap(recorder: Recorder, launches: dict, parent, suffix: str, row,
-              device_time) -> None:
+def time_swap(recorder: Recorder, launches: dict, parent, suffix: str,
+              row) -> None:
     """Rows 3 and 4 (``suffix`` "") or 3q and 4q ("_int8"): the tree pack
     and unpack at their largest main-path call, one launch for every
     leaf, bit-exact against the plain tree versions and, leaf by leaf,
@@ -2096,6 +2429,95 @@ def time_stager(recorder: Recorder, parent) -> dict:
     return out
 
 
+def attention_bytes(q, kp, n_pages_read, n_idx):
+    """Each live page of K and V read once (and its two scales for a
+    quantized pool), q read and out written once, the int32 routing
+    read once."""
+    page, Hkv, hd = kp.shape[1:]
+    scales = 2 * n_pages_read * Hkv * 4 if kp.element_size() == 1 else 0
+    return (2 * n_pages_read * page * Hkv * hd * kp.element_size()
+            + scales + 2 * q.numel() * q.element_size() + 4 * n_idx)
+
+
+def ragged_work(q, kp, bt, tok_seq, tok_pos, window):
+    """(bytes, operations) of a ragged call from its data: the pages
+    its live rows see, 4 hd operations per visible (query, key)
+    pair and G head."""
+    N, Hkv, G, hd = q.shape
+    page = kp.shape[1]
+    pos, seqs, table = tok_pos.tolist(), tok_seq.tolist(), bt.tolist()
+    pages, visible = set(), 0
+    for p, sq in zip(pos, seqs):
+        if p < 0:
+            continue
+        lo = 0 if window is None else max(0, p + 1 - window)
+        visible += p + 1 - lo
+        pages.update(table[sq][i] for i in range(lo // page,
+                                                 p // page + 1))
+    return (attention_bytes(q, kp, len(pages), bt.numel() + 2 * N),
+            4 * visible * Hkv * G * hd)
+
+
+def kernel_row(name, src, replaces, launches, err, ms, plain_ms, lib_ms,
+             nbytes, ops, dtype, shape) -> dict:
+    """A row of the kernels line, its bound by PERF.md §6's rule (bytes at
+    the HBM rate against operations at the type's peak)."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_OPS[dtype] * 1e3
+    bound = max(by_bytes, by_ops)
+    row = {"name": name, "route": "cuda", "source": src,
+           "replaces": replaces, "launches": launches, "max_abs_err": err,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+           "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+           "library_ms": lib_ms, "shape": shape}
+    log(f"  {name} {shape}: kernel {ms:.4f} ms ({ms / bound:.1f}x bound), "
+        f"plain {plain_ms:.4f} ms, library {lib_ms} ms, bound {bound:.5f} "
+        f"ms ({row['bound_by']}), {launches} launches, main-path "
+        f"max_abs_err {err:.3g}")
+    return row
+
+
+def ulp_err(name, got, want) -> float:
+    """Both round one float32 result to the working type once: within one
+    unit in the last place at the output's largest magnitude (2^-7 of it
+    in bf16, 2^-16 in float32)."""
+    import torch
+    ulp = {torch.bfloat16: 2.0 ** -7, torch.float32: 2.0 ** -16}[want.dtype]
+    err = max_err(got, want)
+    tol = ulp * float(want.float().abs().max())
+    log(f"  {name} main-path call: max_abs_err {err:.3g} (tol {tol:.3g})")
+    assert err <= tol, name
+    return err
+
+
+def device_time(row_, kernel_fn, old_fn, iters):
+    """The row's device time, ``device_ms`` (graph_ms: no host time per
+    call), beside its ``ms`` (cuda_ms over calls launched from Python,
+    as every row is timed), and the wrapper's host time, ``host_ms``,
+    the difference. With the parent's kernel, both measures of both
+    kernels in turns, parent, change, change, parent: ``parent_ms``,
+    ``parent_device_ms`` and ``parent_host_ms``."""
+    if old_fn is None:
+        row_["device_ms"] = graph_ms(kernel_fn, iters)
+        row_["host_ms"] = row_["ms"] - row_["device_ms"]
+        log(f"    device time {row_['device_ms']:.4f} ms (launched "
+            f"from the host {row_['ms']:.4f} ms, host time "
+            f"{row_['host_ms']:.4f} ms)")
+        return
+    order = (old_fn, kernel_fn, kernel_fn, old_fn)
+    loop = [cuda_ms(f, iters) for f in order]
+    dev = [graph_ms(f, iters) for f in order]
+    row_["device_ms"] = min(dev[1:3])
+    row_["parent_ms"] = min(loop[0], loop[3])
+    row_["parent_device_ms"] = min(dev[0], dev[3])
+    row_["host_ms"] = row_["ms"] - row_["device_ms"]
+    row_["parent_host_ms"] = row_["parent_ms"] - row_["parent_device_ms"]
+    log(f"    in turns with the parent's kernel: launched from the "
+        f"host {row_['parent_ms']:.4f} -> {min(loop[1:3]):.4f} ms, "
+        f"device time {row_['parent_device_ms']:.4f} -> "
+        f"{row_['device_ms']:.4f} ms")
+
+
 def time_kernels(recorder: Recorder, worst: dict, launches: dict,
                  parent=None) -> list:
     """Rows 1-6 (and 1d, 2q), each ``ms`` launched from the host as
@@ -2145,90 +2567,16 @@ def time_kernels(recorder: Recorder, worst: dict, launches: dict,
     }
 
     def row(name, ms, plain_ms, lib_ms, nbytes, ops, dtype, err, shape):
-        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        by_ops = ops / PEAK_OPS[dtype] * 1e3 if ops else 0.0
         src, rep = meta[name]
-        rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": rep, "launches": launches[name],
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": max(by_bytes, by_ops),
-                     "bound_by": "bytes" if by_bytes >= by_ops
-                     else "operations",
-                     "library_ms": lib_ms, "shape": shape})
-        log(f"  {name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-            f"ms, library {lib_ms} ms, bound {max(by_bytes, by_ops):.4f} "
-            f"ms, main-path max_abs_err {err:.3g}")
+        rows.append(kernel_row(name, src, rep, launches[name], err, ms,
+                               plain_ms, lib_ms, nbytes, ops, dtype, shape))
         return rows[-1]
 
     def main_path_err(name, got, want):
-        """Both round one float32 result to the working type once: within
-        one bf16 unit in the last place at the output's largest magnitude
-        (in float32, 2^-16 of it for the different order of the sums)."""
-        ulp = {torch.bfloat16: 2.0 ** -7, torch.float32: 2.0 ** -16}[
-            want.dtype]
-        err = max_err(got, want)
-        tol = ulp * float(want.float().abs().max())
-        log(f"  {name} main-path call: max_abs_err {err:.3g} (tol "
-            f"{tol:.3g})")
-        assert err <= tol, name
-        return max(worst[name], err)
-
-    def attention_bytes(q, kp, n_pages_read, n_idx):
-        """Each live page of K and V read once (and its two scales for a
-        quantized pool), q read and out written once, the int32 routing
-        read once."""
-        page, Hkv, hd = kp.shape[1:]
-        scales = 2 * n_pages_read * Hkv * 4 if kp.element_size() == 1 else 0
-        return (2 * n_pages_read * page * Hkv * hd * kp.element_size()
-                + scales + 2 * q.numel() * q.element_size() + 4 * n_idx)
-
-    def ragged_work(q, kp, bt, tok_seq, tok_pos, window):
-        """(bytes, operations) of a ragged call from its data: the pages
-        its live rows see, 4 hd operations per visible (query, key)
-        pair and G head."""
-        N, Hkv, G, hd = q.shape
-        page = kp.shape[1]
-        pos, seqs, table = tok_pos.tolist(), tok_seq.tolist(), bt.tolist()
-        pages, visible = set(), 0
-        for p, sq in zip(pos, seqs):
-            if p < 0:
-                continue
-            lo = 0 if window is None else max(0, p + 1 - window)
-            visible += p + 1 - lo
-            pages.update(table[sq][i] for i in range(lo // page,
-                                                     p // page + 1))
-        return (attention_bytes(q, kp, len(pages), bt.numel() + 2 * N),
-                4 * visible * Hkv * G * hd)
+        return max(worst[name], ulp_err(name, got, want))
 
     def bound_ms(nbytes, ops, dtype):
         return max(nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]) * 1e3
-
-    def device_time(row_, kernel_fn, old_fn, iters):
-        """The row's device time, ``device_ms`` (graph_ms: no host time per
-        call), beside its ``ms`` (cuda_ms over calls launched from Python,
-        as every row is timed), and the wrapper's host time, ``host_ms``,
-        the difference. With the parent's kernel, both measures of both
-        kernels in turns, parent, change, change, parent: ``parent_ms``,
-        ``parent_device_ms`` and ``parent_host_ms``."""
-        if old_fn is None:
-            row_["device_ms"] = graph_ms(kernel_fn, iters)
-            row_["host_ms"] = row_["ms"] - row_["device_ms"]
-            log(f"    device time {row_['device_ms']:.4f} ms (launched "
-                f"from the host {row_['ms']:.4f} ms, host time "
-                f"{row_['host_ms']:.4f} ms)")
-            return
-        order = (old_fn, kernel_fn, kernel_fn, old_fn)
-        loop = [cuda_ms(f, iters) for f in order]
-        dev = [graph_ms(f, iters) for f in order]
-        row_["device_ms"] = min(dev[1:3])
-        row_["parent_ms"] = min(loop[0], loop[3])
-        row_["parent_device_ms"] = min(dev[0], dev[3])
-        row_["host_ms"] = row_["ms"] - row_["device_ms"]
-        row_["parent_host_ms"] = row_["parent_ms"] - row_["parent_device_ms"]
-        log(f"    in turns with the parent's kernel: launched from the "
-            f"host {row_['parent_ms']:.4f} -> {min(loop[1:3]):.4f} ms, "
-            f"device time {row_['parent_device_ms']:.4f} -> "
-            f"{row_['device_ms']:.4f} ms")
 
     def size_gaps(name, key, prepare):
         """launches x (time - bound) at every N the serve runs gave
@@ -2421,7 +2769,7 @@ def time_kernels(recorder: Recorder, worst: dict, launches: dict,
     # launch each; the yardstick is index_select / index_copy_ over the
     # same leaves, the parent's tree launch in turns
     for suffix in ("", "_int8"):
-        time_swap(recorder, launches, parent, suffix, row, device_time)
+        time_swap(recorder, launches, parent, suffix, row)
 
     # page_requant: its call inside the largest quantized append, rebuilt
     # from that append's inputs (phase A on copies gives the ratios); no
@@ -2485,7 +2833,7 @@ class AppendRange:
             setattr(attention, name, orig)
 
 
-def profile_serve(warm_steps: int = 100, steps: int = 100,
+def profile_serve(warm_steps: int = 50, steps: int = 50,
                   **engine_kw) -> None:
     """torch.profiler over ``steps`` engine steps of the InferCept serve
     run (``engine_kw``: e.g. ``kv_dtype="int8"``), after ``warm_steps``:
@@ -2757,8 +3105,9 @@ def check_train_parity(*, tiny: bool = False, device: str = "cuda") -> None:
 # ---------------------------------------------------------------------------
 class FlashRecorder:
     """Keeps, for the timing phase, the q, k and v of the first flash call
-    of a train step and the gradient that reaches its output. Wraps the
-    op the model calls and adds nothing to the launch counts."""
+    of a run (a train step's, or a prefill's) and, where its output takes
+    part in a backward, the gradient that reaches it. Wraps the op the
+    model calls and adds nothing to the launch counts."""
 
     def __enter__(self):
         import repro_torch.models.attention as attention
@@ -2767,14 +3116,14 @@ class FlashRecorder:
 
         def wrapped(q, k, v, **kw):
             out = orig(q, k, v, **kw)
-            if self.args is None and out.requires_grad:
+            if self.args is None:
                 self.args = (q.detach().clone(), k.detach().clone(),
                              v.detach().clone(), kw)
-
-                def keep(g):
-                    if self.dout is None:
-                        self.dout = g.detach().contiguous().clone()
-                out.register_hook(keep)
+                if out.requires_grad:
+                    def keep(g):
+                        if self.dout is None:
+                            self.dout = g.detach().contiguous().clone()
+                    out.register_hook(keep)
             return out
         attention.flash_attention_op = wrapped
         return self
@@ -2899,7 +3248,8 @@ def log_device_time(prof, wall: float, window: str) -> tuple:
     return dev_us, total
 
 
-def time_flash(recorder: FlashRecorder, worst: dict, launches: dict) -> list:
+def time_flash(recorder: FlashRecorder, worst: dict, launches: dict,
+               parent=None) -> list:
     """The flash rows: forward and backward kernels, their plain versions
     and the library yardstick (scaled_dot_product_attention with
     is_causal and enable_gqa, forward, and its backward; timed here and
@@ -2907,7 +3257,8 @@ def time_flash(recorder: FlashRecorder, worst: dict, launches: dict) -> list:
     call and the gradient that reached its output. Bound: the visible
     (query, key) pairs' operations (4 hd per pair forward, 10 hd
     backward: five products) at the bf16 tensor-core peak, against each
-    operand read and each result written once."""
+    operand read and each result written once. With ``parent``, its
+    forward in turns with this one (``device_time``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
@@ -2928,39 +3279,17 @@ def time_flash(recorder: FlashRecorder, worst: dict, launches: dict) -> list:
     rows = []
 
     def row(name, ms, plain_ms, lib_ms, nbytes, ops, err):
-        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        by_ops = ops / PEAK_OPS[dtype] * 1e3
-        rows.append({"name": name, "route": "cuda",
-                     "source": "src/repro_torch/kernels/csrc/"
-                               "flash_attention.cu",
-                     "replaces": FLASH_REPLACES[name],
-                     "launches": launches[name], "max_abs_err": err,
-                     "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": max(by_bytes, by_ops),
-                     "bound_by": "bytes" if by_bytes >= by_ops
-                     else "operations", "library_ms": lib_ms,
-                     "shape": [B, Hkv, G, T, hd]})
-        log(f"  {name} {[B, Hkv, G, T, hd]} {dtype}: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms (kernel / "
-            f"library {ms / lib_ms:.2f}x), bound {max(by_bytes, by_ops):.4f}"
-            f" ms ({ms / max(by_bytes, by_ops):.1f}x), main-path max_abs_err"
-            f" {err:.3g}")
-
-    def ulp_check(name, got, want):
-        # both round one float32 result once: one unit in the last place
-        # at the largest magnitude (2^-16 of it in float32)
-        ulp = {"bfloat16": 2.0 ** -7, "float32": 2.0 ** -16}[dtype]
-        err = max_err(got, want)
-        t = ulp * float(want.float().abs().max())
-        log(f"  {name} main-path call: max_abs_err {err:.3g} (tol {t:.3g})")
-        assert err <= t, name
-        return err
+        rows.append(kernel_row(
+            name, "src/repro_torch/kernels/csrc/flash_attention.cu",
+            FLASH_REPLACES[name], launches[name], err, ms, plain_ms, lib_ms,
+            nbytes, ops, dtype, [B, Hkv, G, T, hd]))
+        log(f"    kernel / library {ms / lib_ms:.2f}x")
 
     fwd = lambda: flash_attention_fwd(q, k, v, **kw)          # noqa: E731
     fwd_plain = lambda: flash_attention_fwd_ref(q, k, v, **kw)  # noqa: E731
     out, lse = fwd()
     err = max(worst["flash_attention"],
-              ulp_check("flash_attention", out, fwd_plain()[0]))
+              ulp_err("flash_attention", out, fwd_plain()[0]))
     ms, plain_ms = in_turns(fwd_plain, fwd, 3)
     q4 = q.reshape(B, Hkv * G, T, hd)
     assert kw.get("window") is None and kw.get("softcap") is None
@@ -2970,12 +3299,14 @@ def time_flash(recorder: FlashRecorder, worst: dict, launches: dict) -> list:
     row("flash_attention", ms, plain_ms, lib_ms,
         (2 * q.numel() + 2 * k.numel()) * esz + lse.numel() * 4,
         4 * hd * pairs, err)
+    if parent is not None:
+        device_time(rows[-1], fwd, lambda: parent.flash(q, k, v, **kw), 20)
 
     bwd = lambda: flash_attention_bwd(q, k, v, out, lse, do, **kw)  # noqa
     bwd_plain = lambda: flash_attention_bwd_ref(                 # noqa: E731
         q, k, v, out, lse, do, **kw)
     err = max(worst["flash_attention_bwd"],
-              *(ulp_check("flash_attention_bwd", g, w)
+              *(ulp_err("flash_attention_bwd", g, w)
                 for g, w in zip(bwd(), bwd_plain())))
     ms, plain_ms = in_turns(bwd_plain, bwd, 3)
     q4r, kr, vr = (t.detach().clone().requires_grad_(True)
@@ -2991,6 +3322,174 @@ def time_flash(recorder: FlashRecorder, worst: dict, launches: dict) -> list:
     del out4, q4r, kr, vr
     torch.cuda.empty_cache()
     return rows
+
+
+def time_hd128_twins(recorder: Recorder, flash_rec: FlashRecorder,
+                     parent) -> None:
+    """With ``--parent``: the calls of rows 1, 1d, 5 and 7 again at head_dim
+    128, a width no model of this run has — the recorded routing,
+    contexts and options, with random q and pools (or q, k and v) of the
+    same heads and G at head_dim 128 — this tree's kernel and the
+    parent's in turns by both measures (``device_time``), logged."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.ragged_paged_attention import (
+        ragged_paged_attention)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def twin(t):
+        return torch.randn((*t.shape[:-1], 128), generator=gen,
+                           device="cuda").to(t.dtype)
+
+    def compare(label, fn, old_fn):
+        row = {"ms": cuda_ms(fn, 20)}
+        log(f"  {label} at head_dim 128:")
+        device_time(row, fn, old_fn, 20)
+
+    for label, key, kernel, old in (
+            ("row 1", "ragged_paged_attention", ragged_paged_attention,
+             parent.ragged),
+            ("row 1d", "ragged_paged_attention_decode",
+             ragged_paged_attention, parent.ragged),
+            ("row 5", "paged_attention", paged_attention, parent.paged)):
+        args, kw = recorder.call(key)
+        wide = (*(twin(t) for t in args[:3]), *args[3:])
+        compare(f"{label} {list(wide[0].shape)}",
+                lambda: kernel(*wide, **kw), lambda: old(*wide, **kw))
+    q, k, v, kw = flash_rec.args
+    q, k, v = (twin(t.cuda()) for t in (q, k, v))
+    compare(f"row 7 {list(q.shape)}", lambda: flash_attention_fwd(
+        q, k, v, **kw), lambda: parent.flash(q, k, v, **kw))
+    del q, k, v
+    torch.cuda.empty_cache()
+
+
+def time_wide(recorder: Recorder, worst: dict, launches: dict) -> list:
+    """Rows 1w, 1wd, 1wq and 5w: the ragged kernel at gemma2_serve's
+    largest call, at its largest decode-only call and at gemma2_quant's
+    largest call (int8 pools), the paged kernel at gemma2_unfused's
+    largest call (head_dim 256, gemma2's window 4096 or none, softcap
+    50). Each against its plain version (one unit in the
+    last place), launched from the host in turns with the plain version
+    (``ms``), and as device time by CUDA graph replays (``device_ms``);
+    the bound from the call's data (the pages its rows see, 4 hd
+    operations per visible pair)."""
+    import torch
+    from repro_torch.kernels.paged_attention import (paged_attention,
+                                                     paged_attention_ref)
+    from repro_torch.kernels.ragged_paged_attention import (
+        ragged_paged_attention, ragged_paged_attention_quant_ref,
+        ragged_paged_attention_ref, sm_count, split_count, tile_grid)
+    ragged = ("src/repro_torch/kernels/csrc/ragged_paged_attention.cu",
+              "src/repro/kernels/ragged_paged_attention.py:105")
+    paged = ("src/repro_torch/kernels/csrc/paged_attention.cu",
+             "src/repro/kernels/paged_attention.py:93")
+    rows = []
+    for name, key, kernel, plain, (src, rep) in (
+            ("ragged_paged_attention_hd256", "ragged_paged_attention",
+             ragged_paged_attention, ragged_paged_attention_ref, ragged),
+            ("ragged_paged_attention_hd256_decode",
+             "ragged_paged_attention_decode", ragged_paged_attention,
+             ragged_paged_attention_ref, ragged),
+            ("ragged_paged_attention_hd256_int8",
+             "ragged_paged_attention_int8", ragged_paged_attention,
+             ragged_paged_attention_quant_ref, ragged),
+            ("paged_attention_hd256", "paged_attention", paged_attention,
+             paged_attention_ref, paged)):
+        args, kw = recorder.call(key)
+        q, kp, bt = args[0], args[1], args[3]
+        assert q.shape[-1] == 256, q.shape
+        scales = {k: kw.pop(k) for k in ("k_scale", "v_scale") if k in kw}
+        plain_args = (*args[:3], *scales.values(), *args[3:])
+
+        def kernel_fn():
+            return kernel(*args, **scales, **kw)
+
+        def plain_fn():
+            return plain(*plain_args, **kw)
+        err = max(worst[name], ulp_err(name, kernel_fn(), plain_fn()))
+        ms, plain_ms = in_turns(plain_fn, kernel_fn, 10)
+        N, Hkv, G, hd = q.shape
+        if kernel is paged_attention:
+            ctx_lens = args[4]
+            tok_seq, tok_pos = torch.arange(N), ctx_lens - 1
+            tiles = N
+            where = f"ctx {ctx_lens.tolist()}"
+        else:
+            tok_seq, tok_pos = args[4], args[5]
+            tiles = tile_grid(N, G, bt.shape[0])
+            where = f"ctx up to {int(tok_pos.max()) + 1}"
+        splits = split_count(tiles * Hkv, bt.shape[1] * kp.shape[1],
+                             sm_count(0))
+        nbytes, ops = ragged_work(q, kp, bt, tok_seq, tok_pos,
+                                  kw.get("window"))
+        row = kernel_row(name, src, rep, launches[name], err, ms, plain_ms,
+                       None, nbytes, ops, str(q.dtype)[6:],
+                       list(q.shape) + [where, f"window {kw.get('window')}",
+                                        f"softcap {kw.get('softcap')}",
+                                        f"{tiles} tiles x {Hkv} heads x "
+                                        f"{splits} splits"])
+        row["device_ms"] = graph_ms(kernel_fn, 20)
+        row["host_ms"] = ms - row["device_ms"]
+        log(f"    device time {row['device_ms']:.4f} ms "
+            f"({row['device_ms'] / row['bound_ms']:.1f}x bound), host time "
+            f"{row['host_ms']:.4f} ms")
+        rows.append(row)
+    torch.cuda.synchronize()
+    return rows
+
+
+def time_wide_flash(recorder: FlashRecorder, worst: dict,
+                    launches: dict) -> list:
+    """Row 7w: the flash forward on the first attention call of
+    wide_dense's gemma2 prefill (8 x 1024, 8 kv heads x G 2 x 256, window
+    4096, softcap 50), against its plain version (one unit in the last
+    place), and the library yardstick, scaled_dot_product_attention at
+    head_dim 256 with is_causal and enable_gqa: it has no softcap, so it
+    computes the uncapped function on the same inputs (timed here, never
+    on the path). Bound: 4 hd operations per visible pair at the bf16
+    peak, against each operand read and the output and lse written
+    once."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                     flash_attention_fwd_ref)
+    q, k, v, kw = recorder.args
+    q, k, v = (t.cuda() for t in (q, k, v))
+    B, Hkv, G, T, hd = q.shape
+    Tk = k.shape[2]
+    mask = torch.ones((T, Tk), dtype=torch.bool, device=q.device).tril(
+        Tk - T)
+    if kw.get("window") is not None:
+        mask &= ~torch.ones_like(mask).tril(Tk - T - kw["window"])
+    pairs = int(mask.sum()) * B * Hkv * G
+
+    def fwd():
+        return flash_attention_fwd(q, k, v, **kw)
+
+    def fwd_plain():
+        return flash_attention_fwd_ref(q, k, v, **kw)
+    out, lse = fwd()
+    err = max(worst["flash_attention_hd256"],
+              ulp_err("flash_attention_hd256", out, fwd_plain()[0]))
+    ms, plain_ms = in_turns(fwd_plain, fwd, 3)
+    q4 = q.reshape(B, Hkv * G, T, hd)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q4, k, v, is_causal=True, enable_gqa=True), 3)
+    row = kernel_row("flash_attention_hd256",
+                   "src/repro_torch/kernels/csrc/flash_attention.cu",
+                   FLASH_REPLACES["flash_attention"],
+                   launches["flash_attention_hd256"], err, ms, plain_ms,
+                   lib_ms, (2 * q.numel() + 2 * k.numel()) *
+                   q.element_size() + lse.numel() * 4, 4 * hd * pairs,
+                   str(q.dtype)[6:],
+                   [B, Hkv, G, T, hd, f"window {kw.get('window')}",
+                    f"softcap {kw.get('softcap')}"])
+    log(f"    kernel / library (no softcap) {ms / lib_ms:.2f}x")
+    del q4, out, lse
+    torch.cuda.empty_cache()
+    return [row]
 
 
 # ---------------------------------------------------------------------------
@@ -3286,7 +3785,12 @@ MODEL_SERVES = {
                       seq=2000, steps=64, slots=False, profile_steps=0),
     "dense_serve": dict(model="llama3.2-1b", kernel="flash_attention",
                         kind="attn", seq=1024, steps=32, slots=True,
-                        profile_steps=32)}
+                        profile_steps=16),
+    # gemma2's 42 layers alternate a local (window 4096) and a global
+    # layer, both with softcap 50: one flash launch a layer a prefill
+    "wide_dense": dict(model="gemma2-9b", kernel="flash_attention",
+                       kind="attn", seq=1024, steps=32, slots=True,
+                       profile_steps=8)}
 
 
 def model_serve(phase: str, recorder=None, *, tiny: bool = False,
@@ -3589,7 +4093,7 @@ def main() -> int:
                              if build_log.exists() else ""):
         log(f"  {line}")
     import ctypes
-    for hd in (32, 64, 128):
+    for hd in (32, 64, 128, 256):
         for code, pool in enumerate(("bf16", "int8", "float8_e4m3",
                                      "float8_e5m2")):
             smem = ctypes.c_int(0)
@@ -3598,7 +4102,7 @@ def main() -> int:
             log(f"  paged_tc_kernel hd {hd} {pool} pools: {smem.value} B "
                 f"of shared memory, {n} blocks of 128 threads per SM")
 
-    worst = {k: 0.0 for k in KERNELS}
+    worst = {k: 0.0 for k in KERNELS + WIDE_KERNELS}
     if "kernels" in phases:
         log("[kernels] each kernel against its plain version on the card")
         worst = check_kernels()
@@ -3633,6 +4137,11 @@ def main() -> int:
             "with gla_scan vs the plain chunked_gla_ref on the card, and "
             "decode continuation")
         check_ssm_parity()
+    if "wide_parity" in phases:
+        log(f"[wide_parity] {' and '.join(WIDE_PARITY_MODELS)} full width: "
+            f"fused vs per-call vs gather, contexts {WIDE_PARITY_LENS}")
+        for model in WIDE_PARITY_MODELS:
+            check_decode_parity(model=model, lens=WIDE_PARITY_LENS)
     parent = None
     if args.parent:
         t0 = time.perf_counter()
@@ -3641,7 +4150,7 @@ def main() -> int:
         log(f"[parent] its kernels built from {args.parent} in "
             f"{time.perf_counter() - t0:.1f} s")
     recorder = Recorder()
-    total = {k: 0 for k in KERNELS}
+    total = {k: 0 for k in KERNELS + WIDE_KERNELS}
     results = {}
     for phase, (policy, engine_kw) in SERVE_PHASES.items():
         if phase not in phases:
@@ -3707,6 +4216,42 @@ def main() -> int:
                                               results["serve"]["streams"]))
             log(f"  streams identical to the serve run: {same} of "
                 f"{len(res['streams'])}")
+    # the head_dim-256 serve runs; the gemma2 runs' attention calls give the
+    # timing phase's rows 1w, 1wd, 1wq and 5w
+    wide_rec = Recorder()
+    wide = {}
+    for phase, (model, policy, engine_kw) in WIDE_SERVE_PHASES.items():
+        if phase not in phases:
+            continue
+        log(f"[{phase}] {model} full width, bf16, policy {policy}"
+            f"{''.join(f', {k}={v}' for k, v in engine_kw.items())}")
+        res = wide[phase] = serve(
+            policy, wide_rec if model == "gemma2-9b" else None, model=model,
+            **engine_kw)
+        log(f"  launches (not in the kernels line): "
+            f"{json.dumps(res['launches'])}")
+        log(f"  {smi}: {res['tokens_per_s']:.2f} tok/s over "
+            f"{res['steps']} steps, max_memory_allocated "
+            f"{res['max_memory_allocated']} B, KV pools "
+            f"{res['kv_pool_bytes']} B, swapped "
+            f"{res['swapped_out_tokens']} tokens out and "
+            f"{res['swapped_in_tokens']} in")
+        # every swapped page came back (serve() holds one launch per pack
+        # and unpack, and every page back in the pool)
+        assert res["swapped_in_tokens"] == res["swapped_out_tokens"]
+        assert res["stager"]["unpacked_pages"] == \
+            res["stager"]["packed_pages"], res["stager"]
+    if set(WIDE_SERVE_PHASES) <= phases:
+        # rows 1, 2, 3-4, 5, 1q and 2q all launched at head_dim 256
+        summed = {k: sum(r["launches"][k] for r in wide.values())
+                  for k in ("ragged_paged_attention", "kv_append",
+                            "swap_pack", "swap_unpack", "paged_attention",
+                            "kv_append_quant")}
+        assert all(v > 0 for v in summed.values()), summed
+        assert wide["gemma2_quant"]["launches"][
+            "ragged_paged_attention"] > 0, wide["gemma2_quant"]
+        log(f"  head_dim-256 launches over the four runs: "
+            f"{json.dumps(summed)}")
     flash_rec = FlashRecorder()
     if "train" in phases:
         log("[train] llama3.2-1b full width, bf16 params, f32 AdamW, remat, "
@@ -3715,16 +4260,22 @@ def main() -> int:
         for k in ("flash_attention", "flash_attention_bwd"):
             total[k] += res["launches"][k]
     gla_rec = GLARecorder()
+    wide_flash = FlashRecorder()
     for phase, spec in MODEL_SERVES.items():
         if phase not in phases:
             continue
         log(f"[{phase}] {spec['model']} full width, bf16, seed-0 port init: "
             f"prefill_step of 8 x {spec['seq']}, then {spec['steps']} "
             f"greedy serve_step calls")
-        res = model_serve(phase, gla_rec if phase == "ssm_serve" else None,
+        res = model_serve(phase, {"ssm_serve": gla_rec,
+                                  "wide_dense": wide_flash}.get(phase),
                           profile="profile" in phases)
         if phase == "ssm_serve":
             total["gla_scan"] = res["launches"]["gla_scan"]
+        elif phase == "wide_dense":
+            total["flash_attention_hd256"] = res["launches"][
+                "flash_attention"]
+            log("  (its launches are row 7w's in the kernels line)")
         else:
             log("  (its launches are not in the kernels line, whose flash "
                 "row is the train step's)")
@@ -3740,14 +4291,39 @@ def main() -> int:
     if "timing" in phases and "train" in phases:
         log("[timing] flash attention on the train step's first attention "
             "call")
-        rows += time_flash(flash_rec, worst, total)
+        rows += time_flash(flash_rec, worst, total, parent)
+    if parent and "timing" in phases and "train" in phases and \
+            set(TIMED_SERVE_PHASES) <= phases:
+        log("[timing] rows 1, 1d, 5 and 7 at head_dim 128, in turns with "
+            "the parent's kernels")
+        time_hd128_twins(recorder, flash_rec, parent)
     if "timing" in phases and "ssm_serve" in phases:
         log("[timing] gla_scan on the first mLSTM call of the xlstm "
             "prefill")
         rows += time_gla(gla_rec, worst, total, parent)
-    if "timing" in phases and \
-            set(TIMED_SERVE_PHASES) | {"train", "ssm_serve"} <= phases:
-        assert sorted(r["name"] for r in rows) == sorted(KERNELS), rows
+    if "timing" in phases and {"gemma2_serve", "gemma2_unfused",
+                               "gemma2_quant"} <= phases:
+        log("[timing] head_dim 256: the attention kernels on gemma2's "
+            "largest calls")
+        total["ragged_paged_attention_hd256"] = wide["gemma2_serve"][
+            "launches"]["ragged_paged_attention"]
+        total["ragged_paged_attention_hd256_decode"] = \
+            wide_rec.decode_launches
+        total["ragged_paged_attention_hd256_int8"] = wide.get(
+            "gemma2_quant", {"launches": {"ragged_paged_attention": 0}})[
+            "launches"]["ragged_paged_attention"]
+        total["paged_attention_hd256"] = wide["gemma2_unfused"][
+            "launches"]["paged_attention"]
+        rows += time_wide(wide_rec, worst, total)
+    if "timing" in phases and "wide_dense" in phases:
+        log("[timing] head_dim 256: flash attention on the first attention "
+            "call of the gemma2 prefill")
+        rows += time_wide_flash(wide_flash, worst, total)
+    if "timing" in phases and set(TIMED_SERVE_PHASES) | {
+            "train", "ssm_serve", "gemma2_serve", "gemma2_unfused",
+            "gemma2_quant", "wide_dense"} <= phases:
+        assert sorted(r["name"] for r in rows) == sorted(
+            KERNELS + WIDE_KERNELS), rows
         # every kernel of the main path launched; page_requant is the
         # reference's standalone op, which the fused append replaced there
         assert all(r["launches"] > 0 for r in rows

@@ -120,6 +120,14 @@ def lib() -> ctypes.CDLL:
     return handle
 
 
+def require_cuda(kernel: str, t) -> None:
+    """Raise unless ``t`` lies on the card: a launcher runs its kernel or
+    raises, and never falls back to the plain version."""
+    if not t.is_cuda:
+        raise ValueError(f"{kernel} launches a CUDA kernel; got a tensor on "
+                         f"{t.device}")
+
+
 def check(err: int, kernel: str) -> None:
     """Raise on a non-zero cudaError_t returned by a launch."""
     if err != 0:

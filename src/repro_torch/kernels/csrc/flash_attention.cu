@@ -35,7 +35,12 @@
 //    or P = exp(s - lse) and dS (dQ) run in float32 on the accumulator
 //    fragments, and P or dS is packed to bf16 in registers as the A operand
 //    of P V or dS K: it never goes through shared memory. The forward keeps
-//    its Q fragments in registers for the whole sweep. The dQ kernel first
+//    its Q fragments in registers for the whole sweep, but at hd 256, where
+//    a warp's 16 x 256 float32 accumulator alone takes 128 registers a
+//    thread, it reads them from shared memory at every key tile and scores
+//    each tile in two halves of 32 keys. The
+//    backward takes hd up to 128 (at 256 its dK/dV accumulators would be
+//    256 registers a thread: it needs its own design). The dQ kernel first
 //    forms delta for its rows and writes it for the dK/dV kernel, which
 //    runs after it on the same stream.
 //  * dK/dV: one block per (b, kv head, 64-key tile), which loops over the G
@@ -580,6 +585,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_tc_kernel(
   load_kv<HD>(kv_s, kg, vg, 0, b.t_lo, p.Tk);
   cp_async_commit();
   const float mul = p.scale * kLog2e;  // without a softcap
+  constexpr bool kLean = HD > 128;     // Q fragments read at every tile
   uint32_t qf[KS][4];
   float acc[DT][4] = {};
   float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
@@ -589,73 +595,87 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_tc_kernel(
     cp_async_commit();
     cp_async_wait<1>();  // tile t (and q) have landed
     __syncthreads();
-    if (t == b.t_lo) {
+    if (!kLean && t == b.t_lo) {
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk)
         ldsm_a<P>(qf[kk], q_s, warp * 16, kk * 16);
     }
     const bf16* k_s = kv_s + st * 2 * kBK * P;
     const bf16* v_s = k_s + kBK * P;
-    float s[NT][4] = {};
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-      for (int n = 0; n < NT; n += 2) {
-        uint32_t f[4];
-        ldsm_b<P>(f, k_s, n * 8, kk * 16);
-        mma16816(s[n], qf[kk], f[0], f[1]);
-        mma16816(s[n + 1], qf[kk], f[2], f[3]);
-      }
-    }
-    // scores in the log2 domain, masked to -inf on edge tiles
     const bool edge = b.edge(t, p);
-    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+    // at head_dim 256 the tile's 64 keys are scored in two halves, so that
+    // the score tile fits in registers beside the accumulator
+    constexpr int PARTS = kLean ? 2 : 1, NP = NT / PARTS;
+#pragma unroll 1
+    for (int part = 0; part < PARTS; ++part) {
+      const int kb = part * NP * 8;  // the part's first key in the tile
+      float s[NP][4] = {};
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t qa[4];
+        if constexpr (kLean) {
+          ldsm_a<P>(qa, q_s, warp * 16, kk * 16);
+        } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = p.softcap > 0.f ? capped(s[n][e], p) * kLog2e
-                                  : s[n][e] * mul;
-        if (edge && !visible(t * kBK + n * 8 + lane % 4 * 2 + (e & 1),
-                             b.q_first + r_lo + (e >> 1) * 8, p))
-          x = -CUDART_INF_F;
-        s[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+          for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+        }
+#pragma unroll
+        for (int n = 0; n < NP; n += 2) {
+          uint32_t f[4];
+          ldsm_b<P>(f, k_s, kb + n * 8, kk * 16);
+          mma16816(s[n], qa, f[0], f[1]);
+          mma16816(s[n + 1], qa, f[2], f[3]);
+        }
       }
-    }
-    float base[2];
+      // scores in the log2 domain, masked to -inf on edge tiles
+      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float m_new = fmaxf(m[h], quad_max(mx[h]));
-      base[h] = m_new == -CUDART_INF_F ? 0.f : m_new;  // no key seen yet
-      const float corr = exp2f(m[h] - base[h]);
-      m[h] = m_new;
-      l[h] *= corr;
+      for (int n = 0; n < NP; ++n) {
 #pragma unroll
-      for (int d = 0; d < DT; ++d) {
-        acc[d][2 * h] *= corr;
-        acc[d][2 * h + 1] *= corr;
+        for (int e = 0; e < 4; ++e) {
+          float x = p.softcap > 0.f ? capped(s[n][e], p) * kLog2e
+                                    : s[n][e] * mul;
+          const int key = t * kBK + kb + n * 8 + lane % 4 * 2 + (e & 1);
+          if (edge && !visible(key, b.q_first + r_lo + (e >> 1) * 8, p))
+            x = -CUDART_INF_F;
+          s[n][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
       }
-    }
+      float base[2];
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
+      for (int h = 0; h < 2; ++h) {
+        const float m_new = fmaxf(m[h], quad_max(mx[h]));
+        base[h] = m_new == -CUDART_INF_F ? 0.f : m_new;  // no key seen yet
+        const float corr = exp2f(m[h] - base[h]);
+        m[h] = m_new;
+        l[h] *= corr;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = exp2f(s[n][e] - base[e >> 1]);
-        l[e >> 1] += s[n][e];
+        for (int d = 0; d < DT; ++d) {
+          acc[d][2 * h] *= corr;
+          acc[d][2 * h + 1] *= corr;
+        }
       }
-    }
-    // O += P V, P from registers, 16 keys a step
 #pragma unroll
-    for (int kk = 0; kk < NT / 2; ++kk) {
-      uint32_t a[4];
-      c_to_a(a, s[2 * kk], s[2 * kk + 1]);
+      for (int n = 0; n < NP; ++n) {
 #pragma unroll
-      for (int d = 0; d < DT; d += 2) {
-        uint32_t f[4];
-        ldsm_bt<P>(f, v_s, kk * 16, d * 8);
-        mma16816(acc[d], a, f[0], f[1]);
-        mma16816(acc[d + 1], a, f[2], f[3]);
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] = exp2f(s[n][e] - base[e >> 1]);
+          l[e >> 1] += s[n][e];
+        }
+      }
+      // O += P V, P from registers, 16 keys a step
+#pragma unroll
+      for (int kk = 0; kk < NP / 2; ++kk) {
+        uint32_t a[4];
+        c_to_a(a, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+        for (int d = 0; d < DT; d += 2) {
+          uint32_t f[4];
+          ldsm_bt<P>(f, v_s, kb + kk * 16, d * 8);
+          mma16816(acc[d], a, f[0], f[1]);
+          mma16816(acc[d + 1], a, f[2], f[3]);
+        }
       }
     }
     __syncthreads();  // stage st is consumed before tile t + 2 refills it
@@ -951,6 +971,11 @@ int dispatch(bool bwd, int hd, const Params& p, int B, cudaStream_t s) {
     case 32: return run<32>(bwd, p, B, s);
     case 64: return run<64>(bwd, p, B, s);
     case 128: return run<128>(bwd, p, B, s);
+    case 256:  // the forward only
+      if (bwd) return static_cast<int>(cudaErrorInvalidValue);
+      return launch(flash_fwd_tc_kernel<256>,
+                    dim3((p.Tq + kRows - 1) / kRows, p.Hkv * p.G, B),
+                    fwd_smem<256>(), p, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -988,6 +1013,9 @@ int dispatch(bool bwd, int hd, const Params& p, int B, cudaStream_t s) {
     case 32: return bwd ? launch_bwd<T, 32>(p, B, s) : launch_fwd<T, 32>(p, B, s);
     case 64: return bwd ? launch_bwd<T, 64>(p, B, s) : launch_fwd<T, 64>(p, B, s);
     case 128: return bwd ? launch_bwd<T, 128>(p, B, s) : launch_fwd<T, 128>(p, B, s);
+    case 256:  // the forward only
+      return bwd ? static_cast<int>(cudaErrorInvalidValue)
+                 : launch_fwd<T, 256>(p, B, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1007,7 +1035,7 @@ int run(bool bwd, const Params& p, int B, int hd, int dtype, void* stream) {
 }  // namespace
 
 // dtype (q, k, v, out): 0 = float32 (CUDA cores), 1 = bfloat16 (tensor
-// cores); hd in {32, 64, 128};
+// cores); hd in {32, 64, 128, 256} (the backward: {32, 64, 128});
 // G at most 128 / (hd / 32); Tq <= Tk. causal 0 or 1; window <= 0 and
 // softcap <= 0 mean none. Returns the cudaError_t of the launch.
 extern "C" int flash_attention_fwd_launch(

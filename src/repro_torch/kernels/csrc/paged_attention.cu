@@ -198,6 +198,7 @@ int launch_hd(int hd, const Params& prm, int B, cudaStream_t stream) {
     case 32: return launch<T, P, 32>(prm, B, stream);
     case 64: return launch<T, P, 64>(prm, B, stream);
     case 128: return launch<T, P, 128>(prm, B, stream);
+    case 256: return launch<T, P, 256>(prm, B, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

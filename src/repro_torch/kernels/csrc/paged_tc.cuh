@@ -33,6 +33,13 @@
 //   e4m3 and e5m2), multiplies the page's k_scale into the scores and folds
 //   v_scale into P before the P.V product. P is rounded once to bf16 over
 //   a bf16 pool; P * v_scale goes in as a bf16 hi/lo pair (two products).
+// - At head_dim 256 (gemma2, GPT-J) a warp's 16 x 256 float32 accumulator
+//   alone is 128 registers a thread, so the sweep holds nothing else across
+//   stages: the query fragments are read from shared memory at each stage
+//   (ldmatrix, not kept in registers), the page ids are loaded as each
+//   stage is issued (not a stage ahead), and a warp that takes a whole
+//   stage scores its 64 keys in two halves. Shared memory: 169,536 B (bf16,
+//   two stages) and 201,792 B (1-byte payloads, three), one block an SM.
 #pragma once
 
 #include <climits>
@@ -80,6 +87,8 @@ struct Cfg {
   static constexpr bool kQuant = sizeof(P) == 1;
   static constexpr int kPitch = HD + 8;            // bf16 row, 16-byte pad
   static constexpr int NS = (kQuant || HD <= 64) ? 3 : 2;
+  // registers: no query fragments or page ids held across stages
+  static constexpr bool kLean = HD > 128;
   static constexpr int CH = HD * (int)sizeof(P) / 16;  // 16-byte pieces a row
   static constexpr int U = kBK * CH / kThreads;    // pieces a thread a tile
   static constexpr int kRowBytes = kQuant ? HD : kPitch * 2;
@@ -273,15 +282,19 @@ __device__ void sweep(const Params& p, const Tile& t, unsigned char* smem,
 
   // page id and slot of this thread's key rows of stage j (page 0 where
   // not visible), resolved a stage ahead; a row's quotient and remainder
-  // by the page size are fixed, so a stage costs one division
+  // by the page size are fixed, so a stage costs one division. The lean
+  // configuration resolves them in issue() instead
   int pid[U], sl[U], rq[U], rm[U];
+  if constexpr (!C::kLean) {
 #pragma unroll
-  for (int u = 0; u < U; ++u) {
-    const int r = (tid + u * kThreads) / CH;
-    rq[u] = r / p.page;
-    rm[u] = r % p.page;
+    for (int u = 0; u < U; ++u) {
+      const int r = (tid + u * kThreads) / CH;
+      rq[u] = r / p.page;
+      rm[u] = r % p.page;
+    }
   }
   auto fetch = [&](int j) {
+    if constexpr (C::kLean) return;
     const int k0 = j * kBK, kq = k0 / p.page, km = k0 - kq * p.page;
 #pragma unroll
     for (int u = 0; u < U; ++u) {
@@ -297,14 +310,23 @@ __device__ void sweep(const Params& p, const Tile& t, unsigned char* smem,
     for (int u = 0; u < U; ++u) {
       const int c = tid + u * kThreads, r = c / CH, ch = c % CH;
       const bool in = j * kBK + r < t.k_end;
+      int id, at_slot;
+      if constexpr (C::kLean) {
+        const int kp = j * kBK + r;
+        id = in ? bt[kp / p.page] : 0;
+        at_slot = kp % p.page;
+      } else {
+        id = pid[u];
+        at_slot = sl[u];
+      }
       const long long el =
-          (((long long)pid[u] * p.page + sl[u]) * p.Hkv + h) * HD + ch * EL;
+          (((long long)id * p.page + at_slot) * p.Hkv + h) * HD + ch * EL;
       cp_async16(kd + r * C::kRowBytes + ch * 16, kpool + el, in);
       cp_async16(kd + C::kTile + r * C::kRowBytes + ch * 16, vpool + el, in);
       if constexpr (C::kQuant) {
         if (ch == 0) {  // the page's scales, one a key row
           float* s = sc_s + slot * 2 * kBK;
-          const long long at = (long long)pid[u] * p.Hkv + h;
+          const long long at = (long long)id * p.Hkv + h;
           cp_async4(s + r, p.k_scale + at, in);
           cp_async4(s + kBK + r, p.v_scale + at, in);
         }
@@ -337,7 +359,7 @@ __device__ void sweep(const Params& p, const Tile& t, unsigned char* smem,
       fetch(j + NS);
     }
     cp_async_commit();
-    if (j == j0) {
+    if (!C::kLean && j == j0) {
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk)
         ldsm_a<PIT>(qf[kk], q_s, rg * 16, kk * 16);
@@ -361,110 +383,125 @@ __device__ void sweep(const Params& p, const Tile& t, unsigned char* smem,
     const float* ks_s = sc_s + slot * 2 * kBK;
     const float* vs_s = ks_s + kBK;
 
-    float s[NTW][4] = {};
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-      for (int n = 0; n < NTW; n += 2) {
-        uint32_t f[4];
-        ldsm_b<PIT>(f, k_s, key_w + n * 8, kk * 16);
-        mma16816(s[n], qf[kk], f[0], f[1]);
-        mma16816(s[n + 1], qf[kk], f[2], f[3]);
-      }
-    }
     const int k0 = j * kBK;
     const bool edge = k0 + kBK > t.k_end || k0 + kBK - 1 > t.pos_min ||
                       k0 < t.lo_max;
-    // scores in the log2 domain; the softcap's branch is uniform
+    // at head_dim 256 a warp that takes all 64 keys of a stage scores them
+    // in two halves, so that its score tile fits in registers beside the
+    // accumulator
+    constexpr int PARTS = (C::kLean && NTW > 4) ? 2 : 1, NP = NTW / PARTS;
+#pragma unroll 1
+    for (int part = 0; part < PARTS; ++part) {
+      const int kb = key_w + part * NP * 8;  // the part's first key
+      float s[NP][4] = {};
 #pragma unroll
-    for (int n = 0; n < NTW; ++n) {
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t qa[4];
+        if constexpr (C::kLean) {
+          ldsm_a<PIT>(qa, q_s, rg * 16, kk * 16);
+        } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if constexpr (C::kQuant)
-          s[n][e] *= ks_s[key_w + n * 8 + lane % 4 * 2 + (e & 1)];
+          for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+        }
+#pragma unroll
+        for (int n = 0; n < NP; n += 2) {
+          uint32_t f[4];
+          ldsm_b<PIT>(f, k_s, kb + n * 8, kk * 16);
+          mma16816(s[n], qa, f[0], f[1]);
+          mma16816(s[n + 1], qa, f[2], f[3]);
+        }
       }
-    }
-    if (p.softcap > 0.f) {
+      // scores in the log2 domain; the softcap's branch is uniform
 #pragma unroll
-      for (int n = 0; n < NTW; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[n][e] = cap_log2e * tanhf(s[n][e] * cap_in);
-      }
-    } else {
-#pragma unroll
-      for (int n = 0; n < NTW; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] *= mul;
-      }
-    }
-    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
-#pragma unroll
-    for (int n = 0; n < NTW; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = key_w + n * 8 + lane % 4 * 2 + (e & 1);
-        float x = s[n][e];
-        const int kp = k0 + key, hh = e >> 1;
-        if (edge && !(kp >= r_lo[hh] && kp <= r_pos[hh] && kp < t.k_end))
-          x = -CUDART_INF_F;
-        s[n][e] = x;
-        mx[hh] = fmaxf(mx[hh], x);
-      }
-    }
-    float base[2];
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const float m_new = fmaxf(m[hh], quad_max(mx[hh]));
-      base[hh] = m_new == -CUDART_INF_F ? 0.f : m_new;  // no key seen yet
-      const float corr = exp2f(m[hh] - base[hh]);
-      m[hh] = m_new;
-      l[hh] *= corr;
-#pragma unroll
-      for (int d = 0; d < DT; ++d) {
-        acc[d][2 * hh] *= corr;
-        acc[d][2 * hh + 1] *= corr;
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < NTW; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float pr = exp2f(s[n][e] - base[e >> 1]);
-        l[e >> 1] += pr;
-        if constexpr (C::kQuant)
-          pr *= vs_s[key_w + n * 8 + lane % 4 * 2 + (e & 1)];
-        s[n][e] = pr;
-      }
-    }
-    // O += P V, P from registers, 16 keys a step. P * v_scale is not in
-    // [0, 1] and one rounding of it would carry to the output (a single
-    // visible key gives v_scale * v, off by bf16's 2^-9), so a 1-byte
-    // payload's P goes in as bf16 hi + lo parts, two products
-#pragma unroll
-    for (int kk = 0; kk < NTW / 2; ++kk) {
-      uint32_t a[4], lo[4];
-      c_to_a(a, s[2 * kk], s[2 * kk + 1]);
-      if constexpr (C::kQuant) {
-        float r0[4], r1[4];
+      for (int n = 0; n < NP; ++n) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          r0[e] = s[2 * kk][e] -
-                  __bfloat162float(__float2bfloat16(s[2 * kk][e]));
-          r1[e] = s[2 * kk + 1][e] -
-                  __bfloat162float(__float2bfloat16(s[2 * kk + 1][e]));
+          if constexpr (C::kQuant)
+            s[n][e] *= ks_s[kb + n * 8 + lane % 4 * 2 + (e & 1)];
         }
-        c_to_a(lo, r0, r1);
+      }
+      if (p.softcap > 0.f) {
+#pragma unroll
+        for (int n = 0; n < NP; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[n][e] = cap_log2e * tanhf(s[n][e] * cap_in);
+        }
+      } else {
+#pragma unroll
+        for (int n = 0; n < NP; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[n][e] *= mul;
+        }
+      }
+      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+      for (int n = 0; n < NP; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = kb + n * 8 + lane % 4 * 2 + (e & 1);
+          float x = s[n][e];
+          const int kp = k0 + key, hh = e >> 1;
+          if (edge && !(kp >= r_lo[hh] && kp <= r_pos[hh] && kp < t.k_end))
+            x = -CUDART_INF_F;
+          s[n][e] = x;
+          mx[hh] = fmaxf(mx[hh], x);
+        }
+      }
+      float base[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const float m_new = fmaxf(m[hh], quad_max(mx[hh]));
+        base[hh] = m_new == -CUDART_INF_F ? 0.f : m_new;  // no key seen yet
+        const float corr = exp2f(m[hh] - base[hh]);
+        m[hh] = m_new;
+        l[hh] *= corr;
+#pragma unroll
+        for (int d = 0; d < DT; ++d) {
+          acc[d][2 * hh] *= corr;
+          acc[d][2 * hh + 1] *= corr;
+        }
       }
 #pragma unroll
-      for (int d = 0; d < DT; d += 2) {
-        uint32_t f[4];
-        ldsm_bt<PIT>(f, v_s, key_w + kk * 16, d * 8);
-        mma16816(acc[d], a, f[0], f[1]);
-        mma16816(acc[d + 1], a, f[2], f[3]);
+      for (int n = 0; n < NP; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float pr = exp2f(s[n][e] - base[e >> 1]);
+          l[e >> 1] += pr;
+          if constexpr (C::kQuant)
+            pr *= vs_s[kb + n * 8 + lane % 4 * 2 + (e & 1)];
+          s[n][e] = pr;
+        }
+      }
+      // O += P V, P from registers, 16 keys a step. P * v_scale is not in
+      // [0, 1] and one rounding of it would carry to the output (a single
+      // visible key gives v_scale * v, off by bf16's 2^-9), so a 1-byte
+      // payload's P goes in as bf16 hi + lo parts, two products
+#pragma unroll
+      for (int kk = 0; kk < NP / 2; ++kk) {
+        uint32_t a[4], lo[4];
+        c_to_a(a, s[2 * kk], s[2 * kk + 1]);
         if constexpr (C::kQuant) {
-          mma16816(acc[d], lo, f[0], f[1]);
-          mma16816(acc[d + 1], lo, f[2], f[3]);
+          float r0[4], r1[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            r0[e] = s[2 * kk][e] -
+                    __bfloat162float(__float2bfloat16(s[2 * kk][e]));
+            r1[e] = s[2 * kk + 1][e] -
+                    __bfloat162float(__float2bfloat16(s[2 * kk + 1][e]));
+          }
+          c_to_a(lo, r0, r1);
+        }
+#pragma unroll
+        for (int d = 0; d < DT; d += 2) {
+          uint32_t f[4];
+          ldsm_bt<PIT>(f, v_s, kb + kk * 16, d * 8);
+          mma16816(acc[d], a, f[0], f[1]);
+          mma16816(acc[d + 1], a, f[2], f[3]);
+          if constexpr (C::kQuant) {
+            mma16816(acc[d], lo, f[0], f[1]);
+            mma16816(acc[d + 1], lo, f[2], f[3]);
+          }
         }
       }
     }
@@ -711,6 +748,8 @@ int by_hd(int hd, const Params& p, int tiles, cudaStream_t s, int* smem) {
     case 64: return smem ? occupancy<P, 64>(smem) : launch<P, 64>(p, tiles, s);
     case 128:
       return smem ? occupancy<P, 128>(smem) : launch<P, 128>(p, tiles, s);
+    case 256:
+      return smem ? occupancy<P, 256>(smem) : launch<P, 256>(p, tiles, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -197,6 +197,7 @@ int launch_hd(int hd, const Params& prm, int N, cudaStream_t stream) {
     case 32: return launch<T, P, 32>(prm, N, stream);
     case 64: return launch<T, P, 64>(prm, N, stream);
     case 128: return launch<T, P, 128>(prm, N, stream);
+    case 256: return launch<T, P, 256>(prm, N, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -28,7 +28,11 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
+# the backward kernels' head dims: at 256 their dK/dV accumulators would
+# take 256 registers a thread, so that head_dim waits for its own design
+# (ROADMAP.md queue 2, "row 7b at head_dim 256")
+BWD_HEAD_DIMS = (32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -107,11 +111,9 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal=True,
 
 
 def _check(kernel, *tensors):
-    """Raise on any operand the kernels do not take."""
+    """Raise on any operand the kernels do not take (the device is checked
+    by the launchers)."""
     q, k = tensors[0], tensors[1]
-    if not q.is_cuda:
-        raise ValueError(f"{kernel} launches a CUDA kernel; got a tensor on "
-                         f"{q.device}")
     if q.dtype not in DTYPES:
         raise TypeError(f"{kernel} takes float32 or bfloat16, got {q.dtype}")
     if q.dim() != 5 or k.dim() != 4:
@@ -151,6 +153,7 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=None, softcap=None,
     """Launch the forward kernel on the current stream; returns (out like
     q, lse (B, Hkv, G, Tq) float32). Raises on any operand the kernel does
     not take, a CPU tensor included."""
+    _build.require_cuda("flash_attention", q)
     _check("flash_attention", q, k, v)
     opts = _opts(q, causal, window, softcap, scale)
     B, Hkv, G, Tq, hd = q.shape
@@ -173,7 +176,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
     """Launch the backward kernels (dQ, which also forms delta, then
     dK/dV) on the current stream; returns (dq, dk, dv) like q, k and v.
     Raises on any operand the kernels do not take, a CPU tensor
-    included."""
+    included (the head_dim refusal comes first, on any device)."""
+    if q.shape[-1] not in BWD_HEAD_DIMS:
+        raise ValueError(
+            f"flash_attention_bwd takes head_dim in {BWD_HEAD_DIMS}, got "
+            f"{q.shape[-1]}: head_dim 256 waits for the backward's own "
+            "design (ROADMAP.md queue 2, row 7b at head_dim 256)")
+    _build.require_cuda("flash_attention_bwd", q)
     _check("flash_attention_bwd", q, k, v, o, do, lse)
     if o.shape != q.shape or do.shape != q.shape \
             or lse.shape != q.shape[:4] or lse.dtype != torch.float32 \

@@ -30,7 +30,7 @@ from repro_torch.kernels.ragged_paged_attention import (sm_count,
                                                         tensor_cores)
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 48 * 1024      # the CUDA-core kernel's shared memory, no opt-in
 
@@ -95,11 +95,8 @@ def _smem_bytes(G: int, page: int, hd: int) -> int:
 
 def _check(q, k_pool, v_pool, k_scale, v_scale, block_tables,
            ctx_lens) -> int:
-    """Raise on any operand the kernel does not take; returns the pool
-    code."""
-    if not q.is_cuda:
-        raise ValueError("paged_attention launches a CUDA kernel; got a "
-                         f"tensor on {q.device}")
+    """Raise on any operand the kernel does not take (the device is checked
+    by the launcher); returns the pool code."""
     if q.dtype not in DTYPES:
         raise TypeError(f"paged_attention takes float32 or bfloat16, got "
                         f"{q.dtype}")
@@ -143,6 +140,7 @@ def paged_attention(q, k_pool, v_pool, block_tables, ctx_lens, *,
     (B, Hkv, G, hd) in q's dtype. Quantized pools need ``k_scale`` and
     ``v_scale``. Raises on any operand the kernel does not take, a CPU
     tensor included."""
+    _build.require_cuda("paged_attention", q)
     pool_code = _check(q, k_pool, v_pool, k_scale, v_scale, block_tables,
                        ctx_lens)
     B, Hkv, G, hd = q.shape

@@ -34,7 +34,7 @@ from repro_torch.kernels.kv_quant import (attention_pool_code,
                                           dequant_gathered, gather_pages)
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 48 * 1024      # the CUDA-core kernel's shared memory, no opt-in
 # the bf16 (tensor-core) sweep: a tile is at most TILE_ROWS query rows
@@ -253,11 +253,8 @@ def ragged_paged_attention_quant_ref(q, k_pool, v_pool, k_scale, v_scale,
 
 def _check(q, k_pool, v_pool, k_scale, v_scale, block_tables, tok_seq,
            tok_pos) -> int:
-    """Raise on any operand the kernel does not take; returns the pool
-    code."""
-    if not q.is_cuda:
-        raise ValueError("ragged_paged_attention launches a CUDA kernel; "
-                         f"got a tensor on {q.device}")
+    """Raise on any operand the kernel does not take (the device is checked
+    by the launcher); returns the pool code."""
     if q.dtype not in DTYPES:
         raise TypeError(f"ragged_paged_attention takes float32 or bfloat16, "
                         f"got {q.dtype}")
@@ -286,7 +283,8 @@ def _check(q, k_pool, v_pool, k_scale, v_scale, block_tables, tok_seq,
             raise ValueError("the pools must start on a 16-byte boundary")
     if tensor_cores(q):
         # the tensor-core sweep's shared memory depends on hd and the
-        # payload only (at most ~100 KB, opted in by the launcher)
+        # payload only (at most ~197 KB, at hd 256, opted in by the
+        # launcher)
         return pool_code
     # the CUDA-core kernel's staged tiles: a 16-byte load carries 16 /
     # element size elements, dequantized to float32 as they are stored
@@ -342,6 +340,7 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, tok_seq,
     (N, Hkv, G, hd) in q's dtype. Quantized pools need ``k_scale`` and
     ``v_scale``. Raises on any operand the kernel does not take, a CPU
     tensor included."""
+    _build.require_cuda("ragged_paged_attention", q)
     pool_code = _check(q, k_pool, v_pool, k_scale, v_scale, block_tables,
                        tok_seq, tok_pos)
     N, Hkv, G, hd = q.shape

@@ -4,9 +4,11 @@
 slice of ``repro.models.blocks``: attention plus a dense FFN, and the SSM
 blocks (mamba2, mLSTM, sLSTM), over the full sequence, in single-token
 decode and in chunked prefill (attention over slotted caches: the gather
-path), and attention on the paged paths. MoE and post-norms are not
-ported yet and raise, so the auxiliary (MoE balance) loss is always 0;
-the paged paths refuse SSM blocks, as the reference does."""
+path), and attention on the paged paths, with gemma2's post-norms
+(``post_norm1`` / ``post_norm2`` on each sublayer's output before its
+residual add). MoE is not ported yet and raises, so the auxiliary (MoE
+balance) loss is always 0; the paged paths refuse SSM blocks, as the
+reference does."""
 from __future__ import annotations
 
 import torch
@@ -31,9 +33,8 @@ def _check_ported(blk: BlockCfg):
         return
     if blk.kind not in ("attn", "shared_attn"):
         raise ValueError(f"unknown block kind {blk.kind}")
-    if blk.ffn.kind != "dense" or blk.post_norms:
-        raise NotImplementedError("MoE FFNs and post-norms are not ported "
-                                  "yet")
+    if blk.ffn.kind != "dense":
+        raise NotImplementedError("MoE FFNs are not ported yet")
 
 
 def _check_paged(blk: BlockCfg):
@@ -51,12 +52,16 @@ def init_block(generator: torch.Generator, cfg: ModelConfig, blk: BlockCfg,
         return {"norm": torch.zeros((d,), dtype=dtype, device=device),
                 "cell": _INIT[blk.kind](generator, d, blk.ssm, dtype=dtype,
                                         device=device)}
-    return {"norm1": torch.zeros((d,), dtype=dtype, device=device),
-            "attn": attention.init_gqa(generator, d, blk.attn, dtype=dtype,
-                                       device=device),
-            "norm2": torch.zeros((d,), dtype=dtype, device=device),
-            "mlp": mlp.init_mlp(generator, d, blk.ffn, dtype=dtype,
-                                device=device)}
+    p = {"norm1": torch.zeros((d,), dtype=dtype, device=device),
+         "attn": attention.init_gqa(generator, d, blk.attn, dtype=dtype,
+                                    device=device),
+         "norm2": torch.zeros((d,), dtype=dtype, device=device),
+         "mlp": mlp.init_mlp(generator, d, blk.ffn, dtype=dtype,
+                             device=device)}
+    if blk.post_norms:
+        p["post_norm1"] = torch.zeros((d,), dtype=dtype, device=device)
+        p["post_norm2"] = torch.zeros((d,), dtype=dtype, device=device)
+    return p
 
 
 def block_forward(p, cfg: ModelConfig, blk: BlockCfg, x, ctx):
@@ -77,12 +82,18 @@ def block_forward(p, cfg: ModelConfig, blk: BlockCfg, x, ctx):
 
 def _attn_ffn(p, cfg: ModelConfig, blk: BlockCfg, x, attn):
     """An attention block around ``attn`` (normed x -> (h, cache entry or
-    None)): residual attention, then the residual dense FFN. Returns
-    (x, the cache entry)."""
+    None)): residual attention, then the residual dense FFN, each
+    sublayer's output normed by its post-norm before the add where the
+    block has them (gemma2), in the output's own dtype. Returns (x, the
+    cache entry)."""
     eps = cfg.norm_eps
     h, kv = attn(rms_norm(x, p["norm1"], eps))
+    if blk.post_norms:
+        h = rms_norm(h, p["post_norm1"], eps)
     x = x + h.to(x.dtype)
     h = mlp.mlp_forward(p["mlp"], blk.ffn, rms_norm(x, p["norm2"], eps))
+    if blk.post_norms:
+        h = rms_norm(h, p["post_norm2"], eps)
     return x + h.to(x.dtype), kv
 
 
