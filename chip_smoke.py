@@ -48,7 +48,13 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      gemma2's and GPT-J's own bf16 and int8 pool trees,
                      the flash forward (causal, windows, softcap 50,
                      Tq < Tk, no causal mask), and the flash backward's
-                     refusal
+                     refusal; the MoE experts (moe_experts) at
+                     deepseek-moe-16b's tiny and full widths in bf16
+                     and float32: a decode (8 groups of one token), a
+                     fused prefill (512 groups of one) and an extend
+                     call (4 x 128 at cf 1.25, dropped pairs, route's
+                     validity equal to the plain capacity step's), then
+                     moe_forward once under set_sync_debug_mode("error")
   4. tiny          — tiny-config f32 forward_mixed_paged, decode_step_paged
                      and extend_step_paged, kernels on the card against
                      plain versions on the CPU, same weights and pools,
@@ -81,12 +87,17 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      plain chunked_gla_ref on the card, and serve_step at
                      T against a T+1 prefill
   9b. wide_parity  — decode_parity on gemma2-9b and GPT-J-6B at full
-                     width, contexts 37, 160, 4700 and 16 (one past
+                     width cut to 8 layers each (4 local/global pairs
+                     of gemma2), contexts 37, 160, 4700 and 16 (one past
                      gemma2's 4096-token window: the local layers' window
                      bites on every leg; the tables that long hold only
                      the pages a sequence fills), the same holds, and
                      layer 0's K/V of both prefill legs against a
                      float64 witness
+  9c. moe_parity   — decode_parity on deepseek-moe-16b at full width,
+                     cut to the dense layer and 3 MoE layers: the
+                     prefill legs at capacity factor E / k (nothing
+                     drops), the decode steps at the config's 1.25
  10. serve         — full-width llama3.2-1b in bf16, random weights from a
                      seed, agent sessions through ScriptedClient under
                      InferCept
@@ -137,6 +148,13 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      max_memory_allocated and the pools' bytes; over the
                      four runs rows 1, 2, 3-4, 5, 1q and 2q launch at
                      head_dim 256
+ 18c. moe_serve, moe_unfused
+                   — the serve run's workload and checks on full-width
+                     deepseek-moe-16b in bf16 (fused; fused=False):
+                     every request finishes and every page comes back;
+                     tok/s, construction and run peaks, launches by
+                     kernel (logged apart); over the two runs rows 1, 2,
+                     3-4, 5 and the MoE kernels launch
  19. train         — full-width llama3.2-1b training through
                      make_train_step: bf16 params, f32 AdamW, remat,
                      SyntheticLM batches of 4 x 2048, 2 warm-up and 8
@@ -180,9 +198,13 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      decode-only calls, at gemma2_quant's largest and at
                      gemma2_unfused's largest)
                      and 7w (flash at wide_dense's first prefill call),
-                     their launches those runs' own
+                     their launches those runs' own; rows 9 and 9d (the
+                     MoE kernels at moe_serve's largest call and its
+                     largest decode-only call, the grouped product of
+                     the installed torch as the library column)
  23. profile       — torch.profiler over a window of serve steps (bf16 and
-                     int8 pools), over one train step, and over one
+                     int8 pools, and deepseek-moe-16b's with the MoE
+                     kernels' share), over one train step, and over one
                      prefill and one window of serve steps of each of
                      xlstm and llama: device busy share, device time by
                      kernel, the append's share of the serve's device
@@ -193,8 +215,9 @@ each serve run, the train run and the timed xlstm and llama prefills, and
 read just after each. The kernels line's launches are those of the timed
 serve phases (serve, swap, unfused, spec, quant, quant_unfused), train
 and ssm_serve, and the head_dim-256 rows' from their own runs; those
-of gather, the sanitized runs, sample, dense_serve and the other
-head_dim-256 runs are logged apart. The last three lines are the kernels
+of gather, the sanitized runs, sample, dense_serve, the other
+head_dim-256 runs and the MoE runs are logged apart (rows 9 and 9d take
+moe_serve's). The last three lines are the kernels
 JSON, the card's name and power limit, and {"ok": true, "device":
 {...}}.
 """
@@ -213,11 +236,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 T_START = time.perf_counter()
 PHASES = ("kernels", "tiny", "tiny_train", "tiny_ssm", "decode_parity",
-          "train_parity", "ssm_parity", "wide_parity", "serve", "swap",
-          "unfused", "spec", "quant", "quant_unfused", "gather", "sanitize",
-          "sanitize_quant", "sample", "gemma2_serve", "gemma2_unfused",
-          "gemma2_quant", "gptj_serve", "train", "ssm_serve", "dense_serve",
-          "wide_dense", "timing", "profile")
+          "train_parity", "ssm_parity", "wide_parity", "moe_parity",
+          "serve", "swap", "unfused", "spec", "quant", "quant_unfused",
+          "gather", "sanitize", "sanitize_quant", "sample", "gemma2_serve",
+          "gemma2_unfused", "gemma2_quant", "gptj_serve", "moe_serve",
+          "moe_unfused", "train", "ssm_serve", "dense_serve", "wide_dense",
+          "timing", "profile")
 SERVE_PHASES = {"serve": ("infercept", {}), "swap": ("swap", {}),
                 "unfused": ("infercept", {"fused": False}),
                 "spec": ("infercept", {"speculate": True,
@@ -247,6 +271,17 @@ WIDE_SERVE_PHASES = {
 # local window, so the window bites on the fused, per-call and gather legs
 WIDE_PARITY_MODELS = ("gemma2-9b", "gpt-j-6b")
 WIDE_PARITY_LENS = [37, 160, 4700, 16]
+# their depth, cut to 8 layers each (gemma2: 4 local/global pairs) so
+# that the run with the MoE phases stays inside its time limit
+WIDE_PARITY_PERIODS = {"gemma2-9b": (4,), "gpt-j-6b": (8,)}
+# the MoE model's serve phases (policy, engine options): the serve run's
+# workload and checks; launches logged apart, and moe_serve's MoE calls
+# give the timing phase's rows 9 and 9d
+MOE_MODEL = "deepseek-moe-16b"
+MOE_SERVE_PHASES = {"moe_serve": ("infercept", {}),
+                    "moe_unfused": ("infercept", {"fused": False})}
+# moe_parity's depth: the dense layer and 3 MoE layers
+MOE_PARITY_PERIODS = (1, 3)
 # a sanitized phase and the phase whose streams and counters it repeats
 SANITIZED_OF = {"sanitize": "serve", "sanitize_quant": "quant"}
 # the rows of the kernels line: an attention kernel over int8 pools is a
@@ -271,6 +306,10 @@ WIDE_KERNELS = ("ragged_paged_attention_hd256",
                 "ragged_paged_attention_hd256_decode",
                 "ragged_paged_attention_hd256_int8",
                 "paged_attention_hd256", "flash_attention_hd256")
+# the MoE kernels (one launch: the three kernels of one call) at
+# moe_serve's largest call and at its largest decode-only call (row 9d;
+# its launches: the calls of decode-only fused steps)
+MOE_KERNELS = ("moe_experts", "moe_experts_decode")
 # the TPU kernel of each flash row; the backward has none: the reference
 # differentiates its XLA blocked_attention
 FLASH_REPLACES = {
@@ -483,7 +522,7 @@ def check_kernels() -> dict:
                                                swap_unpack, swap_unpack_ref)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    worst = {k: 0.0 for k in KERNELS + WIDE_KERNELS}
+    worst = {k: 0.0 for k in KERNELS + WIDE_KERNELS + MOE_KERNELS}
     ragged_case, paged_case = attention_cases(gen, worst)
 
     full = dict(Hkv=8, G=4, hd=64, page=16, max_pages=64, n_pages=2048)
@@ -1348,7 +1387,7 @@ def layer0_exact(lm, params, tokens, positions):
 
 def paths_parity(dtype, *, conditioned: bool, tiny: bool = False,
                  device: str = "cuda", model: str = "llama3.2-1b",
-                 lens=None) -> dict:
+                 lens=None, periods=None, prefill_cf=None) -> dict:
     """The fused and the per-call paths against each other, from the same
     weights of ``model`` (random, seed 0), on four sequences of ``lens``
     tokens (by default 37, 160, 513 and 16):
@@ -1376,14 +1415,20 @@ def paths_parity(dtype, *, conditioned: bool, tiny: bool = False,
     each sequence only the pages its tokens and its decode token fill,
     the rest of its row page 0 (never read), so that the pools stay at
     512 pages; the gather leg's slotted caches hold every position (a
-    local layer's window masks, as the engine's gather path has it)."""
+    local layer's window masks, as the engine's gather path has it).
+    ``periods`` cuts each group's depth (``cut_config``); ``prefill_cf``
+    runs the prefill legs and the gather leg's extend_step with every MoE
+    capacity factor at that value, the decode steps at the config's own
+    (a decode token is a group of one, which never drops)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.model import LM
     from repro_torch.utils.tree import tree_leaves, tree_map
     dev = torch.device(device)
-    cfg = get_config(model, tiny=tiny)
+    cfg = cut_config(get_config(model, tiny=tiny), periods=periods)
     lm = LM(cfg)
+    lm_p = lm if prefill_cf is None else LM(
+        cut_config(cfg, capacity_factor=prefill_cf))
     gen = torch.Generator(device=dev).manual_seed(0)
     params = lm.init(gen, dtype=dtype, device=dev)
     if conditioned:
@@ -1419,13 +1464,13 @@ def paths_parity(dtype, *, conditioned: bool, tiny: bool = False,
         off += n
         q_last.append(off - 1)
     tokens = torch.randint(0, cfg.vocab_size, (N,), generator=gen, **i32)
-    first, logits_f, _ = lm.forward_mixed_paged(
+    first, logits_f, _ = lm_p.forward_mixed_paged(
         params, tokens, tok_seq, tok_pos, torch.tensor(q_last + [0], **i32),
         pools, bt)
     # control: the fused prefill again, padded to twice the rows — the
     # same path with products of another shape
     pad = dict(dtype=torch.int32, device=dev)
-    _, logits_c, _ = lm.forward_mixed_paged(
+    _, logits_c, _ = lm_p.forward_mixed_paged(
         params, torch.cat([tokens, torch.zeros(N, **pad)]),
         torch.cat([tok_seq, torch.zeros(N, **pad)]),
         torch.cat([tok_pos, torch.full((N,), -1, **pad)]),
@@ -1436,7 +1481,7 @@ def paths_parity(dtype, *, conditioned: bool, tiny: bool = False,
     for b, n in enumerate(lens):
         chunk = torch.zeros((1, 1 << (n - 1).bit_length()), **i32)
         chunk[0, :n] = tokens[q_last[b] + 1 - n:q_last[b] + 1]
-        lu, _ = lm.extend_step_paged(
+        lu, _ = lm_p.extend_step_paged(
             params, chunk, torch.zeros(1, **i32), torch.tensor([n], **i32),
             pools_u, bt[b:b + 1], logits_index=torch.tensor([n - 1], **i32))
         logits_u.append(lu[0])
@@ -1483,7 +1528,7 @@ def paths_parity(dtype, *, conditioned: bool, tiny: bool = False,
     for b, n in enumerate(lens):
         cache = lm.init_cache(1, S, dtype=dtype, device=dev,
                               window_override=None)
-        lg, cache = lm.extend_step(
+        lg, cache = lm_p.extend_step(
             params, tokens[None, q_last[b] + 1 - n:q_last[b] + 1],
             torch.zeros(1, **i32), cache)
         gather_logits.append(lg[0])
@@ -1526,7 +1571,8 @@ def paths_parity(dtype, *, conditioned: bool, tiny: bool = False,
 
 
 def check_decode_parity(*, tiny: bool = False, device: str = "cuda",
-                        model: str = "llama3.2-1b", lens=None) -> None:
+                        model: str = "llama3.2-1b", lens=None, periods=None,
+                        prefill_cf=None) -> None:
     """paths_parity three times, on ``model`` (llama3.2-1b by default; the
     wide_parity phase runs gemma2-9b and GPT-J-6B) over ``lens``. Held, in
     float32 with conditioned weights: logits within 1e-3 (the paths sum in
@@ -1541,13 +1587,16 @@ def check_decode_parity(*, tiny: bool = False, device: str = "cuda",
     magnitude: the legs against each other, and each leg against the
     float64 witness (``layer0_exact``), which shows that what parts them
     is their own float32 rounding. The smoke run uses the defaults;
-    ``tiny`` and ``device="cpu"`` rehearse it on the plain versions."""
+    ``tiny`` and ``device="cpu"`` rehearse it on the plain versions;
+    ``periods`` and ``prefill_cf`` go to paths_parity (the moe_parity
+    phase)."""
     import torch
     for dtype, conditioned in ((torch.float32, True),
                                (torch.float32, False),
                                (torch.bfloat16, False)):
         r = paths_parity(dtype, conditioned=conditioned, tiny=tiny,
-                         device=device, model=model, lens=lens)
+                         device=device, model=model, lens=lens,
+                         periods=periods, prefill_cf=prefill_cf)
         name = (f"{r['model']} {str(dtype)[6:]}, "
                 f"{'conditioned' if conditioned else 'reference'} init")
         (pe, pt), (le, lt), (de, dt) = (r["prefill_pools"], r["layer0_pools"],
@@ -1730,6 +1779,7 @@ def kernel_wrappers() -> dict:
                                      ragged_paged_attention)
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gla_scan as gs
+    from repro_torch.kernels import moe_experts as me
     from repro_torch.kernels import swap_pack as sp
     return {"flash_attention": fa.flash_attention_fwd,
             "flash_attention_bwd": fa.flash_attention_bwd,
@@ -1740,7 +1790,8 @@ def kernel_wrappers() -> dict:
             "kv_append": kv_append.kv_append,
             "kv_append_quant": kv_quant.kv_append_quant,
             "swap_pack": sp.swap_pack, "swap_unpack": sp.swap_unpack,
-            "page_requant": kv_quant.page_requant}
+            "page_requant": kv_quant.page_requant,
+            "moe_experts": me.moe_experts}
 
 
 def launch_counts() -> dict:
@@ -1849,6 +1900,7 @@ def serve(policy: str, recorder: Recorder = None, *, tiny: bool = False,
            if on_card else None,
            "run_peak_bytes":
                torch.cuda.max_memory_allocated() if on_card else None,
+           "init_peak_bytes": init_peak if on_card else None,
            "swapped_out_tokens": st.swapped_out_tokens,
            "swapped_in_tokens": st.swapped_in_tokens,
            "free_pages": eng.blocks.num_free, "n_pages": eng.blocks.n_pages,
@@ -1896,6 +1948,10 @@ def serve(policy: str, recorder: Recorder = None, *, tiny: bool = False,
         elif eng.paged:
             assert counts["kv_append_quant"] > 0 and counts["kv_append"] \
                 == counts["page_requant"] == 0, counts
+        # an MoE model's FFNs launch the MoE kernels, others never
+        assert (counts["moe_experts"] > 0) == any(
+            b.ffn is not None and b.ffn.kind == "moe"
+            for b in cfg.blocks), counts
         # one pack and one unpack launch per swap, whatever the leaf count
         assert (counts["swap_pack"], counts["swap_unpack"]) == (
             res["stager"]["packs"], res["stager"]["unpacks"]), res["stager"]
@@ -2854,6 +2910,10 @@ def profile_serve(warm_steps: int = 50, steps: int = 50,
     label = f"{steps} serve steps" + "".join(
         f", {k}={v}" for k, v in engine_kw.items())
     dev_us, total = log_device_time(prof, wall, label)
+    moe_us = sum(us for k, (us, _) in dev_us.items() if "moe_" in k)
+    if moe_us:
+        log(f"  the MoE kernels: {moe_us / 1e3:.2f} ms = "
+            f"{moe_us / max(total, 1e-9):.3f} of device time")
     # the PyTorch ops' kernels add up under the range's host-side events
     # (its device-side twin spans idle gaps too); kernels launched through
     # ctypes are not attributed to it, so the append's own CUDA kernels
@@ -4053,6 +4113,308 @@ def time_gla(recorder: GLARecorder, worst: dict, launches: dict,
              "float32_bound_ms": f32_bound}]
 
 
+# ---------------------------------------------------------------------------
+# the MoE FFN: deepseek-moe-16b's routed experts (rows 9 and 9d)
+# ---------------------------------------------------------------------------
+MOE_SRC = "src/repro_torch/kernels/csrc/moe_experts.cu"
+MOE_REPLACES = ("none of its own: the reference's dense einsum dispatch, "
+                "src/repro/models/moe.py:85-94")
+
+
+def cut_config(cfg, periods=None, capacity_factor=None):
+    """``cfg`` with each group cut to ``periods[i]`` periods and every MoE
+    FFN's capacity factor set to ``capacity_factor`` (None: as it is);
+    the name says so."""
+    import dataclasses
+    groups = []
+    for i, g in enumerate(cfg.groups):
+        period = tuple(
+            dataclasses.replace(b, ffn=dataclasses.replace(
+                b.ffn, capacity_factor=capacity_factor))
+            if capacity_factor is not None and b.ffn is not None
+            and b.ffn.kind == "moe" else b for b in g.period)
+        groups.append(dataclasses.replace(
+            g, period=period,
+            n_periods=g.n_periods if periods is None else periods[i]))
+    name = cfg.name
+    if periods is not None:
+        name += f"-periods{'x'.join(map(str, periods))}"
+    if capacity_factor is not None:
+        name += f"-cf{capacity_factor:.3g}"
+    return dataclasses.replace(cfg, groups=tuple(groups), name=name)
+
+
+def moe_ffn(model: str = MOE_MODEL, tiny: bool = False):
+    """The MoE FFN config of ``model``."""
+    from repro_torch.configs import get_config
+    return next(b.ffn for b in get_config(model, tiny=tiny).blocks
+                if b.ffn is not None and b.ffn.kind == "moe")
+
+
+def moe_case(gen, f, *, G, T, d, dtype, device):
+    """Random rows (G groups of T tokens at width d) through a random
+    router and ``route`` at f's capacity: (the kernel's operands, gate
+    ids, capacity)."""
+    import torch
+    from repro_torch.models import moe
+    E, fe = f.n_routed_experts, f.d_ff_expert
+    x = torch.randn((G, T, d), generator=gen, device=device).to(dtype)
+    router = torch.randn((d, E), generator=gen, device=device) / math.sqrt(d)
+    gate_w, gate_idx, _ = moe.router({"router": router}, f, x)
+    C = moe._capacity(T, f)
+    w = [(torch.randn(shape, generator=gen, device=device)
+          / math.sqrt(shape[1])).to(dtype)
+         for shape in ((E, d, fe), (E, d, fe), (E, fe, d))]
+    args = (x.reshape(G * T, d), *w, gate_w.reshape(G * T, f.top_k),
+            *moe.route(gate_idx, C, E))
+    return args, gate_idx, C
+
+
+def check_moe_kernels(gen, worst) -> None:
+    """The MoE kernels against moe_experts_ref on the card, bf16 (3e-2 of
+    the largest entry, the other kernels' tolerance) and float32 (1e-4),
+    at the tiny and full widths of deepseek-moe-16b: a decode (8 groups
+    of one token), a fused prefill (512 groups of one) and an extend call
+    (4 rows of 128 tokens at cf 1.25, 0.5 at the tiny width, which drops
+    pairs: route's ``valid`` equals the plain capacity step's, route_ref,
+    on the CPU); then
+    moe_forward once under torch.cuda.set_sync_debug_mode("error"): the
+    routing and the launches never sync with the host."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels.moe_experts import moe_experts, moe_experts_ref
+    from repro_torch.models import moe
+    dev = torch.device("cuda")
+    for tiny in (True, False):
+        f = moe_ffn(tiny=tiny)
+        d = 256 if tiny else 2048
+        for dtype in (torch.bfloat16, torch.float32):
+            # the extend call drops pairs at the full width's cf 1.25;
+            # the tiny width's 4 experts need cf 0.5 for it
+            for label, G, T, cf in (("decode", 8, 1, f.capacity_factor),
+                                    ("fused prefill", 512, 1,
+                                     f.capacity_factor),
+                                    ("extend", 4, 128, 0.5 if tiny
+                                     else 1.25)):
+                fc = dataclasses.replace(f, capacity_factor=cf)
+                args, idx, C = moe_case(gen, fc, G=G, T=T, d=d, dtype=dtype,
+                                        device=dev)
+                valid = args[6]
+                dropped = int((~valid).sum())
+                assert torch.equal(valid.cpu(), moe.route_ref(
+                    idx.cpu(), C, fc.n_routed_experts)), label
+                if label == "extend":
+                    assert dropped > 0, "the extend case drops no pair"
+                got = moe_experts(*args, activation=f.activation)
+                want = moe_experts_ref(*args, activation=f.activation)
+                torch.cuda.synchronize()
+                err = max_err(got, want)
+                tol = (3e-2 if dtype == torch.bfloat16 else 1e-4) * float(
+                    want.float().abs().max())
+                log(f"  moe_experts {'tiny' if tiny else 'full'} {label} "
+                    f"{G} x {T} x d {d}, E {fc.n_routed_experts} k "
+                    f"{fc.top_k} fe {fc.d_ff_expert}, capacity {C}, "
+                    f"{dropped} of {valid.numel()} pairs dropped, "
+                    f"{str(dtype)[6:]}: max_abs_err {err:.3g} (tol "
+                    f"{tol:.3g})")
+                assert err <= tol, (label, err, tol)
+                if dtype == torch.bfloat16 and not tiny:
+                    key = "moe_experts_decode" if label == "decode" \
+                        else "moe_experts"
+                    worst[key] = max(worst[key], err)
+    # the routing and the launches under the sync debugger
+    f = moe_ffn()
+    p = moe.init_moe(gen, 2048, f, dtype=torch.bfloat16, device=dev)
+    x = torch.randn((4, 128, 2048), generator=gen, device=dev).to(
+        torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, aux = moe.moe_forward(p, f, x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(aux))
+    log("  moe_forward (4 x 128, full width, bf16) under "
+        "set_sync_debug_mode('error'): no sync")
+    del p
+
+
+class MoERecorder:
+    """Keeps the inputs of the MoE kernels' largest call (by pairs) on the
+    main path, and of their largest call in a decode-only fused step (no
+    more tokens than block-table rows), and counts the calls of those
+    steps: the timing phase's rows 9 and 9d. Wraps the op that
+    ``models.moe`` calls and ``LM.forward_mixed_paged``; adds nothing to
+    the launch counts. The routing and rows are copied at the call, the
+    weights kept by reference; on leaving, the records move to host
+    memory (the weights are views of the engine's stacked leaves)."""
+
+    def __init__(self):
+        self.calls = {}
+        self.decode_launches = 0
+        self._decode = False
+
+    def __enter__(self):
+        import repro_torch.models.moe as moe
+        from repro_torch.models.model import LM
+        self._moe, self._lm = moe, LM
+        self._op, self._mixed = moe.moe_experts_op, LM.forward_mixed_paged
+        rec = self
+
+        def mixed(lm, params, tokens, tok_seq, tok_pos, q_last, pools,
+                  block_tables, *args, **kw):
+            rec._decode = tokens.shape[0] <= block_tables.shape[0]
+            try:
+                return rec._mixed(lm, params, tokens, tok_seq, tok_pos,
+                                  q_last, pools, block_tables, *args, **kw)
+            finally:
+                rec._decode = False
+
+        def op(*args, **kw):
+            keys = ["moe_experts"]
+            if rec._decode:
+                rec.decode_launches += 1
+                keys.append("moe_experts_decode")
+            P = args[5].shape[0]
+            for key in keys:
+                if P > rec.calls.get(key, (-1,))[0]:
+                    rec.calls[key] = (P, tuple(
+                        a if i in (1, 2, 3) else a.clone()
+                        for i, a in enumerate(args)), dict(kw))
+            return rec._op(*args, **kw)
+        moe.moe_experts_op = op
+        LM.forward_mixed_paged = mixed
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.moe_experts_op = self._op
+        self._lm.forward_mixed_paged = self._mixed
+        self.calls = {k: (P, tuple(a.to("cpu") for a in args), kw)
+                      for k, (P, args, kw) in self.calls.items()}
+
+    def call(self, key: str, device="cuda"):
+        _, args, kw = self.calls[key]
+        return tuple(a.to(device) for a in args), kw
+
+
+def moe_work(args) -> tuple:
+    """(bytes, operations, experts touched, pairs kept) of one moe_experts
+    call from its data: the weights of each expert with a kept pair, read
+    once, the token rows read and the output rows written, the gates and
+    the routing; 2 d fe operations a kept pair for each of the three
+    products."""
+    import torch
+    x, wg, wu, wd, gw, pair, valid, offsets = (a.cpu() for a in args)
+    N, d = x.shape
+    E, _, fe = wg.shape
+    keep = valid[pair.long()]
+    expert = torch.repeat_interleave(torch.arange(E), offsets.diff().long())
+    touched = int(torch.unique(expert[keep]).numel())
+    kept = int(keep.sum())
+    es = x.element_size()
+    nbytes = (touched * 3 * d * fe * es + 2 * N * d * es + gw.numel() * es
+              + pair.numel() * 5 + offsets.numel() * 4)
+    return nbytes, 2 * kept * d * fe * 3, touched, kept
+
+
+def grouped_mm_fn(args, activation: str):
+    """The same function as moe_experts through the installed torch's
+    grouped product (``torch._grouped_mm`` or
+    ``torch.nn.functional.grouped_mm``) over the same sorted rows: the
+    gather, the three grouped products, the activation and the combine;
+    the timing phase's library column, which the port never calls.
+    Returns (that function, the three products alone) or None where torch
+    has none or refuses these operands (logged)."""
+    import torch
+    from repro_torch.models.common import activation_fn
+    gmm = getattr(torch, "_grouped_mm", None) or getattr(
+        torch.nn.functional, "grouped_mm", None)
+    if gmm is None:
+        log("  no grouped product in this torch: library_ms null")
+        return None
+    x, wg, wu, wd, gw, pair, valid, offsets = args
+    N, d = x.shape
+    k = gw.shape[1]
+    pid = pair.long()
+    ends = offsets[1:].contiguous()
+    keep = valid[pid][:, None]
+    act = activation_fn(activation)
+
+    def fn():
+        xs = x[pid // k]
+        h = act(gmm(xs, wg, offs=ends)) * gmm(xs, wu, offs=ends)
+        ys = gmm(h, wd, offs=ends) * keep
+        y = torch.empty_like(ys).index_copy_(0, pid, ys)
+        return (y.view(N, k, d).float() * gw.float()[..., None]).sum(
+            1).to(x.dtype)
+    try:
+        fn()
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError) as e:
+        log(f"  {gmm.__name__} refuses these operands ({e}): library_ms "
+            "null")
+        return None
+    xs = x[pid // k]
+    h = act(gmm(xs, wg, offs=ends)) * gmm(xs, wu, offs=ends)
+
+    def products():
+        gmm(xs, wg, offs=ends)
+        gmm(xs, wu, offs=ends)
+        return gmm(h, wd, offs=ends)
+    return fn, products
+
+
+def time_moe(recorder: MoERecorder, worst: dict, launches: dict) -> list:
+    """Rows 9 and 9d: the MoE kernels at moe_serve's largest call and at
+    its largest decode-only call, against moe_experts_ref (3e-2 of the
+    largest entry), launched from the host in turns with the plain version
+    (``ms``) and as device time by CUDA graph replays (``device_ms``); the
+    bound from the call's data (``moe_work``); the grouped product of
+    ``grouped_mm_fn`` as the library column."""
+    import torch
+    from repro_torch.kernels.moe_experts import moe_experts, moe_experts_ref
+    f = moe_ffn()
+    rows = []
+    for name in MOE_KERNELS:
+        args, kw = recorder.call(name)
+
+        def kernel_fn():
+            return moe_experts(*args, **kw)
+
+        def plain_fn():
+            return moe_experts_ref(*args, **kw)
+        got, want = kernel_fn(), plain_fn()
+        err = max_err(got, want)
+        assert err <= 3e-2 * float(want.float().abs().max()), (name, err)
+        err = max(worst[name], err)
+        ms, plain_ms = in_turns(plain_fn, kernel_fn, 10)
+        lib = grouped_mm_fn(args, f.activation)
+        lib_ms = products_ms = None
+        if lib is not None:
+            log(f"    the grouped product's max_abs_err against the "
+                f"kernel: {max_err(lib[0](), got):.3g}")
+            lib_ms = cuda_ms(lib[0], 10)
+            products_ms = cuda_ms(lib[1], 10)
+        nbytes, ops, touched, kept = moe_work(args)
+        N, d = args[0].shape
+        row = kernel_row(name, MOE_SRC, MOE_REPLACES, launches[name], err,
+                         ms, plain_ms, lib_ms, nbytes, ops, "bfloat16",
+                         [N, d, f.d_ff_expert, f"E {f.n_routed_experts}",
+                          f"k {f.top_k}", f"{kept} pairs kept",
+                          f"{touched} experts touched"])
+        row["device_ms"] = graph_ms(kernel_fn, 10)
+        row["host_ms"] = ms - row["device_ms"]
+        row["library_products_ms"] = products_ms
+        log(f"    device time {row['device_ms']:.4f} ms "
+            f"({row['device_ms'] / row['bound_ms']:.1f}x bound), host time "
+            f"{row['host_ms']:.4f} ms; the library's three grouped "
+            f"products alone {products_ms} ms")
+        rows.append(row)
+    torch.cuda.synchronize()
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -4102,13 +4464,15 @@ def main() -> int:
             log(f"  paged_tc_kernel hd {hd} {pool} pools: {smem.value} B "
                 f"of shared memory, {n} blocks of 128 threads per SM")
 
-    worst = {k: 0.0 for k in KERNELS + WIDE_KERNELS}
+    worst = {k: 0.0 for k in KERNELS + WIDE_KERNELS + MOE_KERNELS}
     if "kernels" in phases:
         log("[kernels] each kernel against its plain version on the card")
         worst = check_kernels()
         check_flash_kernels(torch.Generator(device="cuda").manual_seed(0),
                             worst)
         check_gla_kernels(torch.Generator(device="cuda").manual_seed(0),
+                          worst)
+        check_moe_kernels(torch.Generator(device="cuda").manual_seed(0),
                           worst)
     if "tiny" in phases:
         log("[tiny] forward_mixed_paged, decode_step_paged and "
@@ -4138,10 +4502,22 @@ def main() -> int:
             "decode continuation")
         check_ssm_parity()
     if "wide_parity" in phases:
-        log(f"[wide_parity] {' and '.join(WIDE_PARITY_MODELS)} full width: "
-            f"fused vs per-call vs gather, contexts {WIDE_PARITY_LENS}")
+        log(f"[wide_parity] {' and '.join(WIDE_PARITY_MODELS)} full width, "
+            f"8 layers each: fused vs per-call vs gather, contexts "
+            f"{WIDE_PARITY_LENS}")
         for model in WIDE_PARITY_MODELS:
-            check_decode_parity(model=model, lens=WIDE_PARITY_LENS)
+            check_decode_parity(model=model, lens=WIDE_PARITY_LENS,
+                                periods=WIDE_PARITY_PERIODS[model])
+    if "moe_parity" in phases:
+        f = moe_ffn()
+        cf = f.n_routed_experts / f.top_k
+        log(f"[moe_parity] {MOE_MODEL} full width f32, the dense layer and "
+            f"{MOE_PARITY_PERIODS[1]} MoE layers: fused vs per-call vs "
+            f"gather, prefill at capacity factor {cf:.4g} (a group's "
+            f"capacity above the pairs an expert can take from it), "
+            f"decode at {f.capacity_factor}")
+        check_decode_parity(model=MOE_MODEL, periods=MOE_PARITY_PERIODS,
+                            prefill_cf=cf)
     parent = None
     if args.parent:
         t0 = time.perf_counter()
@@ -4150,7 +4526,7 @@ def main() -> int:
         log(f"[parent] its kernels built from {args.parent} in "
             f"{time.perf_counter() - t0:.1f} s")
     recorder = Recorder()
-    total = {k: 0 for k in KERNELS + WIDE_KERNELS}
+    total = {k: 0 for k in KERNELS + WIDE_KERNELS + MOE_KERNELS}
     results = {}
     for phase, (policy, engine_kw) in SERVE_PHASES.items():
         if phase not in phases:
@@ -4252,6 +4628,37 @@ def main() -> int:
             "ragged_paged_attention"] > 0, wide["gemma2_quant"]
         log(f"  head_dim-256 launches over the four runs: "
             f"{json.dumps(summed)}")
+    # deepseek-moe-16b; moe_serve's MoE calls give the timing phase's rows
+    # 9 and 9d
+    moe_rec = MoERecorder()
+    moe_runs = {}
+    for phase, (policy, engine_kw) in MOE_SERVE_PHASES.items():
+        if phase not in phases:
+            continue
+        log(f"[{phase}] {MOE_MODEL} full width, bf16, policy {policy}"
+            f"{''.join(f', {k}={v}' for k, v in engine_kw.items())}")
+        with moe_rec if phase == "moe_serve" else contextlib.nullcontext():
+            res = moe_runs[phase] = serve(policy, model=MOE_MODEL, **engine_kw)
+        log(f"  launches (not in the kernels line): "
+            f"{json.dumps(res['launches'])}")
+        log(f"  {smi}: {res['tokens_per_s']:.2f} tok/s over "
+            f"{res['steps']} steps, construction peak "
+            f"{res['init_peak_bytes']} B, run peak {res['run_peak_bytes']} "
+            f"B, KV pools {res['kv_pool_bytes']} B, swapped "
+            f"{res['swapped_out_tokens']} tokens out and "
+            f"{res['swapped_in_tokens']} in")
+        assert res["swapped_in_tokens"] == res["swapped_out_tokens"]
+        assert res["stager"]["unpacked_pages"] == \
+            res["stager"]["packed_pages"], res["stager"]
+    if set(MOE_SERVE_PHASES) <= phases:
+        # rows 1, 2, 3-4, 5 and the MoE kernels all launched
+        summed = {k: sum(r["launches"][k] for r in moe_runs.values())
+                  for k in ("ragged_paged_attention", "kv_append",
+                            "swap_pack", "swap_unpack", "paged_attention",
+                            "moe_experts")}
+        assert all(v > 0 for v in summed.values()), summed
+        log(f"  {MOE_MODEL} launches over the two runs: "
+            f"{json.dumps(summed)}")
     flash_rec = FlashRecorder()
     if "train" in phases:
         log("[train] llama3.2-1b full width, bf16 params, f32 AdamW, remat, "
@@ -4319,11 +4726,18 @@ def main() -> int:
         log("[timing] head_dim 256: flash attention on the first attention "
             "call of the gemma2 prefill")
         rows += time_wide_flash(wide_flash, worst, total)
+    if "timing" in phases and "moe_serve" in phases:
+        log("[timing] the MoE kernels on moe_serve's largest call and its "
+            "largest decode-only call")
+        total["moe_experts"] = moe_runs["moe_serve"]["launches"][
+            "moe_experts"]
+        total["moe_experts_decode"] = moe_rec.decode_launches
+        rows += time_moe(moe_rec, worst, total)
     if "timing" in phases and set(TIMED_SERVE_PHASES) | {
             "train", "ssm_serve", "gemma2_serve", "gemma2_unfused",
-            "gemma2_quant", "wide_dense"} <= phases:
+            "gemma2_quant", "wide_dense", "moe_serve"} <= phases:
         assert sorted(r["name"] for r in rows) == sorted(
-            KERNELS + WIDE_KERNELS), rows
+            KERNELS + WIDE_KERNELS + MOE_KERNELS), rows
         # every kernel of the main path launched; page_requant is the
         # reference's standalone op, which the fused append replaced there
         assert all(r["launches"] > 0 for r in rows
@@ -4333,6 +4747,10 @@ def main() -> int:
         profile_serve()
         log("[profile] the same over int8 pools")
         profile_serve(kv_dtype="int8")
+        # a shorter window: 28 layers of the MoE model's ops make the
+        # profiler's own processing most of the phase's time
+        log(f"[profile] 20 serve steps after 20 on {MOE_MODEL}")
+        profile_serve(warm_steps=20, steps=20, model=MOE_MODEL)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -38,6 +38,7 @@ SIGNATURES = {
     "gla_scan_launch": [_P] * 10 + [_LL] * 9 + [_I] * 11 + [_P],
     "kv_append_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _P],
     "kv_append_quant_launch": [_P] * 9 + [_I] * 7 + [_P],
+    "moe_experts_launch": [_P] * 11 + [_I] * 7 + [_P],
     "swap_pack_launch": [_P, _I, _P, _P, _I, _P],
     "swap_unpack_launch": [_P, _I, _P, _P, _I, _P],
 }

@@ -10,6 +10,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gla_scan import chunked_gla_ref, gla_scan
 from repro_torch.kernels.kv_append import kv_append, kv_append_ref
 from repro_torch.kernels.kv_quant import kv_append_quant, kv_append_quant_ref
+from repro_torch.kernels.moe_experts import MoEExperts, moe_experts_ref
 from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_attention_quant_ref,
                                                  paged_attention_ref)
@@ -46,6 +47,19 @@ def gla_scan_op(q, k, v, log_a, *, chunk=128, initial_state=None):
     if _on_cpu(q):
         return chunked_gla_ref(q, k, v, log_a, chunk, initial_state)
     return gla_scan(q, k, v, log_a, chunk=chunk, initial_state=initial_state)
+
+
+def moe_experts_op(x, we_gate, we_up, we_down, gate_w, pair, valid,
+                   offsets, *, activation="silu"):
+    """The routed experts of an MoE FFN over the sorted (token, expert)
+    pairs (``models.moe.route``): x (N, d) -> (N, d). The plain version
+    (differentiable by autograd) for CPU tensors; the kernels for CUDA
+    tensors, whose backward raises: there is no gradient kernel yet."""
+    if _on_cpu(x):
+        return moe_experts_ref(x, we_gate, we_up, we_down, gate_w, pair,
+                               valid, offsets, activation=activation)
+    return MoEExperts.apply(x, we_gate, we_up, we_down, gate_w, pair, valid,
+                            offsets, activation)
 
 
 def paged_attention_op(q, k_pool, v_pool, block_tables, ctx_lens, *,

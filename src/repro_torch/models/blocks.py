@@ -1,20 +1,23 @@
 """Residual blocks, counterpart of the ``init_block`` / ``block_forward``
 / ``block_decode`` / ``block_extend`` / ``init_block_cache`` /
 ``block_mixed_paged`` / ``block_decode_paged`` / ``block_extend_paged``
-slice of ``repro.models.blocks``: attention plus a dense FFN, and the SSM
-blocks (mamba2, mLSTM, sLSTM), over the full sequence, in single-token
-decode and in chunked prefill (attention over slotted caches: the gather
-path), and attention on the paged paths, with gemma2's post-norms
-(``post_norm1`` / ``post_norm2`` on each sublayer's output before its
-residual add). MoE is not ported yet and raises, so the auxiliary (MoE
-balance) loss is always 0; the paged paths refuse SSM blocks, as the
-reference does."""
+slice of ``repro.models.blocks``: attention plus a dense or MoE FFN, and
+the SSM blocks (mamba2, mLSTM, sLSTM), over the full sequence, in
+single-token decode and in chunked prefill (attention over slotted
+caches: the gather path), and attention on the paged paths, with gemma2's
+post-norms (``post_norm1`` / ``post_norm2`` on each sublayer's output
+before its residual add). An MoE FFN takes each batch row as a dispatch
+group on the full-sequence and extend paths, and each token as a group of
+one on the decode and paged-decode paths and the fused mixed batch, as
+the reference does; its balance loss is the aux loss that the
+full-sequence and extend passes return. MLA attention is not ported yet
+and raises; the paged paths refuse SSM blocks, as the reference does."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import BlockCfg, ModelConfig
-from repro_torch.models import attention, mlp, ssm
+from repro_torch.models import attention, mlp, moe, ssm
 from repro_torch.models.common import rms_norm
 
 SSM_KINDS = ("mamba2", "mlstm", "slstm")
@@ -33,8 +36,11 @@ def _check_ported(blk: BlockCfg):
         return
     if blk.kind not in ("attn", "shared_attn"):
         raise ValueError(f"unknown block kind {blk.kind}")
-    if blk.ffn.kind != "dense":
-        raise NotImplementedError("MoE FFNs are not ported yet")
+    if blk.attn.kind != "gqa":
+        raise NotImplementedError(f"{blk.attn.kind} attention is not "
+                                  "ported yet")
+    if blk.ffn.kind not in ("dense", "moe"):
+        raise NotImplementedError(f"{blk.ffn.kind} FFNs are not ported")
 
 
 def _check_paged(blk: BlockCfg):
@@ -55,9 +61,13 @@ def init_block(generator: torch.Generator, cfg: ModelConfig, blk: BlockCfg,
     p = {"norm1": torch.zeros((d,), dtype=dtype, device=device),
          "attn": attention.init_gqa(generator, d, blk.attn, dtype=dtype,
                                     device=device),
-         "norm2": torch.zeros((d,), dtype=dtype, device=device),
-         "mlp": mlp.init_mlp(generator, d, blk.ffn, dtype=dtype,
-                             device=device)}
+         "norm2": torch.zeros((d,), dtype=dtype, device=device)}
+    if blk.ffn.kind == "moe":
+        p["moe"] = moe.init_moe(generator, d, blk.ffn, dtype=dtype,
+                                device=device)
+    else:
+        p["mlp"] = mlp.init_mlp(generator, d, blk.ffn, dtype=dtype,
+                                device=device)
     if blk.post_norms:
         p["post_norm1"] = torch.zeros((d,), dtype=dtype, device=device)
         p["post_norm2"] = torch.zeros((d,), dtype=dtype, device=device)
@@ -67,34 +77,48 @@ def init_block(generator: torch.Generator, cfg: ModelConfig, blk: BlockCfg,
 def block_forward(p, cfg: ModelConfig, blk: BlockCfg, x, ctx):
     """Full-sequence pass over x (B, T, d) at ctx["positions"]. Returns
     (x, cache entry — {"k", "v"} for attention, the final state for an
-    SSM block —, aux loss 0: no MoE here)."""
+    SSM block —, the MoE balance loss, 0 for other blocks)."""
     _check_ported(blk)
     eps = cfg.norm_eps
     if blk.kind in SSM_KINDS:
         h, state = _FORWARD[blk.kind](p["cell"], blk.ssm, cfg.d_model,
                                       rms_norm(x, p["norm"], eps))
-        return x + h.to(x.dtype), state, torch.zeros((), device=x.device)
-    x, kv = _attn_ffn(p, cfg, blk, x, lambda xn: attention.attention_forward(
+        return x + h.to(x.dtype), state, _no_aux(x)
+    return _attn_ffn(p, cfg, blk, x, lambda xn: attention.attention_forward(
         p["attn"], blk.attn, xn, ctx["positions"],
         window_override=ctx.get("window_override", "cfg")))
-    return x, kv, torch.zeros((), device=x.device)
 
 
-def _attn_ffn(p, cfg: ModelConfig, blk: BlockCfg, x, attn):
+def _no_aux(x):
+    return torch.zeros((), device=x.device)
+
+
+def _attn_ffn(p, cfg: ModelConfig, blk: BlockCfg, x, attn,
+              per_token: bool = False):
     """An attention block around ``attn`` (normed x -> (h, cache entry or
-    None)): residual attention, then the residual dense FFN, each
-    sublayer's output normed by its post-norm before the add where the
-    block has them (gemma2), in the output's own dtype. Returns (x, the
-    cache entry)."""
+    None)): residual attention, then the residual FFN, each sublayer's
+    output normed by its post-norm before the add where the block has
+    them (gemma2), in the output's own dtype. An MoE FFN takes each row of
+    x (B, T, d) as a dispatch group, or with ``per_token`` (x (N, d)) each
+    token as a group of one. Returns (x, the cache entry, the MoE balance
+    loss or 0)."""
     eps = cfg.norm_eps
     h, kv = attn(rms_norm(x, p["norm1"], eps))
     if blk.post_norms:
         h = rms_norm(h, p["post_norm1"], eps)
     x = x + h.to(x.dtype)
-    h = mlp.mlp_forward(p["mlp"], blk.ffn, rms_norm(x, p["norm2"], eps))
+    xin = rms_norm(x, p["norm2"], eps)
+    aux = _no_aux(x)
+    if blk.ffn.kind == "moe" and per_token:
+        h, aux = moe.moe_forward(p["moe"], blk.ffn, xin[:, None])
+        h = h[:, 0]
+    elif blk.ffn.kind == "moe":
+        h, aux = moe.moe_forward(p["moe"], blk.ffn, xin)
+    else:
+        h = mlp.mlp_forward(p["mlp"], blk.ffn, xin)
     if blk.post_norms:
         h = rms_norm(h, p["post_norm2"], eps)
-    return x + h.to(x.dtype), kv
+    return x + h.to(x.dtype), kv, aux
 
 
 def block_decode(p, cfg: ModelConfig, blk: BlockCfg, x, cache, ctx):
@@ -109,25 +133,24 @@ def block_decode(p, cfg: ModelConfig, blk: BlockCfg, x, cache, ctx):
         return x + h.to(x.dtype), state
     return _attn_ffn(p, cfg, blk, x, lambda xn: attention.attention_decode(
         p["attn"], blk.attn, xn, cache, ctx["pos"],
-        window_override=ctx.get("window_override", "cfg")))
+        window_override=ctx.get("window_override", "cfg")),
+        per_token=True)[:2]
 
 
 def block_extend(p, cfg: ModelConfig, blk: BlockCfg, x, cache, ctx):
     """Chunked-prefill pass: x (B, T, d) appended at positions
     ctx["start"][b] + t, attending to the cached prefix (an SSM block
-    continues from its state). Returns (x, new cache or state, aux loss
-    0)."""
+    continues from its state). Returns (x, new cache or state, the MoE
+    balance loss or 0)."""
     _check_ported(blk)
-    aux = torch.zeros((), device=x.device)
     if blk.kind in SSM_KINDS:
         h, state = _FORWARD[blk.kind](p["cell"], blk.ssm, cfg.d_model,
                                       rms_norm(x, p["norm"], cfg.norm_eps),
                                       initial_state=cache)
-        return x + h.to(x.dtype), state, aux
-    x, kv = _attn_ffn(p, cfg, blk, x, lambda xn: attention.attention_extend(
+        return x + h.to(x.dtype), state, _no_aux(x)
+    return _attn_ffn(p, cfg, blk, x, lambda xn: attention.attention_extend(
         p["attn"], blk.attn, xn, cache, ctx["start"],
         window_override=ctx.get("window_override", "cfg")))
-    return x, kv, aux
 
 
 def init_block_cache(cfg: ModelConfig, blk: BlockCfg, batch: int,
@@ -157,7 +180,7 @@ def block_mixed_paged(p, cfg: ModelConfig, blk: BlockCfg, x, pool, ctx):
     return _attn_ffn(p, cfg, blk, x, lambda xn: (attention.gqa_mixed_paged(
         p["attn"], blk.attn, xn, pool, ctx["block_tables"], ctx["tok_seq"],
         ctx["tok_pos"], window_override=ctx.get("window_override", "cfg")),
-        None))[0]
+        None), per_token=True)[0]
 
 
 def block_decode_paged(p, cfg: ModelConfig, blk: BlockCfg, x, pool, ctx):
@@ -167,7 +190,8 @@ def block_decode_paged(p, cfg: ModelConfig, blk: BlockCfg, x, pool, ctx):
     _check_paged(blk)
     return _attn_ffn(p, cfg, blk, x, lambda xn: (attention.gqa_decode_paged(
         p["attn"], blk.attn, xn, pool, ctx["block_tables"], ctx["ctx_lens"],
-        window_override=ctx.get("window_override", "cfg")), None))[0]
+        window_override=ctx.get("window_override", "cfg")), None),
+        per_token=True)[0]
 
 
 def block_extend_paged(p, cfg: ModelConfig, blk: BlockCfg, x, pool, ctx):

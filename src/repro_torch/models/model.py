@@ -36,7 +36,7 @@ from repro_torch.utils.tree import tree_map
 @dataclasses.dataclass
 class ForwardOut:
     hidden: Any            # (B, T, d) final hidden states (pre-head)
-    aux_loss: Any          # scalar (MoE load balance): 0 for dense FFNs
+    aux_loss: Any          # scalar (MoE load balance summed over layers)
     cache: Any             # decode cache (SSM states) or None
 
 
@@ -114,11 +114,20 @@ class LM:
                   "final_norm": torch.zeros((cfg.d_model,), **kw)}
         groups = []
         for g in cfg.groups:
-            periods = [{f"b{j}": B.init_block(generator, cfg, blk, **kw)
-                        for j, blk in enumerate(g.period)}
-                       for _ in range(g.n_periods)]
-            groups.append({"scan": tree_map(lambda *xs: torch.stack(xs),
-                                            *periods)})
+            # each group's stacked leaves are allocated once and each
+            # period's leaves written into them as they are made, so the
+            # init holds one period beside the weights
+            stacked = None
+            for layer in range(g.n_periods):
+                period = {f"b{j}": B.init_block(generator, cfg, blk, **kw)
+                          for j, blk in enumerate(g.period)}
+                if stacked is None:
+                    stacked = tree_map(
+                        lambda t: t.new_empty((g.n_periods, *t.shape)),
+                        period)
+                tree_map(lambda dst, t: dst[layer].copy_(t), stacked, period)
+                del period
+            groups.append({"scan": stacked})
         params["groups"] = tuple(groups)
         if not cfg.tie_embeddings:
             params["lm_head"] = embed_init(
@@ -171,24 +180,27 @@ class LM:
                                          device=x.device),
                "window_override": window_override}
         caches = []
+        aux = torch.zeros((), device=x.device)
         for gi, g in enumerate(cfg.groups):
             scan = params["groups"][gi]["scan"]
 
             def period(xx, pp, g=g):
-                entries = {}
+                entries, aa = {}, torch.zeros((), device=xx.device)
                 for j, blk in enumerate(g.period):
-                    xx, entries[f"b{j}"], _ = B.block_forward(
+                    xx, entries[f"b{j}"], a = B.block_forward(
                         pp[f"b{j}"], cfg, blk, xx, ctx)
-                return xx, entries
+                    aa = aa + a
+                return xx, entries, aa
 
             per = []
             for layer in range(g.n_periods):
                 pp = tree_map(lambda t: t[layer], scan)
                 if remat:
-                    x, entries = torch.utils.checkpoint.checkpoint(
+                    x, entries, a = torch.utils.checkpoint.checkpoint(
                         period, x, pp, use_reentrant=False)
                 else:
-                    x, entries = period(x, pp)
+                    x, entries, a = period(x, pp)
+                aux = aux + a
                 if return_cache_len is not None:
                     per.append(entries)
             caches.append(per)
@@ -198,8 +210,7 @@ class LM:
             cache = self._materialize_cache(caches, x.shape[0], x.shape[1],
                                             return_cache_len,
                                             window_override)
-        return ForwardOut(hidden=x, aux_loss=torch.zeros((), device=x.device),
-                          cache=cache)
+        return ForwardOut(hidden=x, aux_loss=aux, cache=cache)
 
     def _materialize_cache(self, raw_caches, batch, T, cache_len,
                            window_override):

@@ -99,6 +99,7 @@ from repro_torch.core.scheduler import Scheduler
 from repro_torch.kernels.kv_quant import KV_QUANT_DTYPES
 from repro_torch.kernels.swap_pack import SwapStager, slab_pages
 from repro_torch.memory.block_manager import BlockManager
+from repro_torch.models.bridge import cast_params
 from repro_torch.models.model import LM, sample_tokens
 from repro_torch.obs.ledger import WasteLedger
 from repro_torch.obs.metrics import ENGINE_COUNTER_SCHEMA, MetricsRegistry
@@ -242,8 +243,7 @@ class Engine:
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = self.model.init(gen, dtype=dtype, device=self.device)
-        self.params = tree_map(
-            lambda t: t.to(device=self.device, dtype=dtype), params)
+        self.params = cast_params(params, cfg, dtype, device=self.device)
         self.page = page_size
         # fixed per-request page-table width
         self.max_pages = -(-max_model_len // page_size)

@@ -143,6 +143,6 @@ def test_kernel_modules_import_without_a_toolchain():
     assert _build.lib.cache_info().currsize == 0
     assert sorted(p.name for p in _build.sources()) == [
         "flash_attention.cu", "gla_scan.cu", "kv_append.cu",
-        "kv_append_quant.cu", "page_requant.cu", "paged_attention.cu",
-        "ragged_paged_attention.cu", "swap_pack.cu"]
+        "kv_append_quant.cu", "moe_experts.cu", "page_requant.cu",
+        "paged_attention.cu", "ragged_paged_attention.cu", "swap_pack.cu"]
     assert _build.library_path().parent == ROOT / "build" / "kernels"

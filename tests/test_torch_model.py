@@ -158,7 +158,7 @@ def test_forward_mixed_paged_samples_as_jax(tiny, seed):
 
 def test_forward_mixed_paged_refuses_unported(tiny):
     with pytest.raises(NotImplementedError):
-        LM(get_config("deepseek-moe-16b", tiny=True)).init(
+        LM(get_config("deepseek-v3-671b", tiny=True)).init(
             torch.Generator(), dtype=torch.float32, device="cpu")
 
 
