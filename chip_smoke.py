@@ -54,7 +54,18 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      fused prefill (512 groups of one) and an extend
                      call (4 x 128 at cf 1.25, dropped pairs, route's
                      validity equal to the plain capacity step's), then
-                     moe_forward once under set_sync_debug_mode("error")
+                     moe_forward once under set_sync_debug_mode("error");
+                     the MLA slice: the ragged latent-attention kernel
+                     (row 10) at deepseek-v3's full (H 128, L 512, R 64)
+                     and tiny widths over bf16 and float32 pools (an
+                     N 512 call of a chunk, decodes at the table's end
+                     and on either side of a page boundary, padded rows;
+                     a decode-only call; rows alone, N 1, bit for bit as
+                     in the N 512 call), kv_append at the latent widths,
+                     the flash forward at head_dim 192 (B 2 x 128 heads x
+                     T 1024 causal among others) and its backward's
+                     refusal, and the tree swap over deepseek-v3's latent
+                     pool tree
   4. tiny          — tiny-config f32 forward_mixed_paged, decode_step_paged
                      and extend_step_paged, kernels on the card against
                      plain versions on the CPU, same weights and pools,
@@ -98,6 +109,10 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      cut to the dense layer and 3 MoE layers: the
                      prefill legs at capacity factor E / k (nothing
                      drops), the decode steps at the config's 1.25
+  9d. mla_parity   — decode_parity on deepseek-v3 at full width cut to
+                     its dense group (3 MLA layers), with a fourth leg:
+                     LM.forward per sequence (flash at head_dim 192)
+                     against the fused prefill, held as the prefill is
  10. serve         — full-width llama3.2-1b in bf16, random weights from a
                      seed, agent sessions through ScriptedClient under
                      InferCept
@@ -141,7 +156,8 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      card calls equal) and a chi-square of 65536 draws
  18b. gemma2_serve, gemma2_unfused, gemma2_quant, gptj_serve
                    — the serve run's workload and checks on full-width
-                     gemma2-9b (fused; fused=False; int8 pools) and
+                     gemma2-9b cut to 20 of its 42 layers (fused;
+                     fused=False; int8 pools) and
                      GPT-J-6B (fused) in bf16, random weights from seed 0:
                      every request finishes and every page comes back;
                      launches by kernel (logged apart), tok/s,
@@ -155,6 +171,11 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      tok/s, construction and run peaks, launches by
                      kernel (logged apart); over the two runs rows 1, 2,
                      3-4, 5 and the MoE kernels launch
+ 18d. mla_serve, mla_unfused
+                   — the same on full-width deepseek-v3 cut to its dense
+                     group and one MoE layer (3 + 1 layers), bf16: tok/s,
+                     step ms, construction and run peaks; over the two
+                     runs rows 10, 2 and 9 launch and rows 1 and 5 never
  19. train         — full-width llama3.2-1b training through
                      make_train_step: bf16 params, f32 AdamW, remat,
                      SyntheticLM batches of 4 x 2048, 2 warm-up and 8
@@ -201,10 +222,16 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      their launches those runs' own; rows 9 and 9d (the
                      MoE kernels at moe_serve's largest call and its
                      largest decode-only call, the grouped product of
-                     the installed torch as the library column)
+                     the installed torch as the library column); rows 10,
+                     10d and 2m (the latent-attention kernel at
+                     mla_serve's largest and largest decode-only calls,
+                     kv_append at its largest latent call) and 7m (flash
+                     at head_dim 192 on mla_parity's largest bf16
+                     forward call, SDPA as the library column)
  23. profile       — torch.profiler over a window of serve steps (bf16 and
-                     int8 pools, and deepseek-moe-16b's with the MoE
-                     kernels' share), over one train step, and over one
+                     int8 pools, deepseek-moe-16b's with the MoE kernels'
+                     share, and deepseek-v3's with row 10's), over one
+                     train step, and over one
                      prefill and one window of serve steps of each of
                      xlstm and llama: device busy share, device time by
                      kernel, the append's share of the serve's device
@@ -216,8 +243,9 @@ read just after each. The kernels line's launches are those of the timed
 serve phases (serve, swap, unfused, spec, quant, quant_unfused), train
 and ssm_serve, and the head_dim-256 rows' from their own runs; those
 of gather, the sanitized runs, sample, dense_serve, the other
-head_dim-256 runs and the MoE runs are logged apart (rows 9 and 9d take
-moe_serve's). The last three lines are the kernels
+head_dim-256 runs, the MoE runs and the MLA runs are logged apart (rows
+9 and 9d take moe_serve's, rows 10, 10d and 2m mla_serve's, row 7m
+mla_parity's flash launches). The last three lines are the kernels
 JSON, the card's name and power limit, and {"ok": true, "device":
 {...}}.
 """
@@ -237,11 +265,11 @@ ROOT = Path(__file__).resolve().parent
 T_START = time.perf_counter()
 PHASES = ("kernels", "tiny", "tiny_train", "tiny_ssm", "decode_parity",
           "train_parity", "ssm_parity", "wide_parity", "moe_parity",
-          "serve", "swap", "unfused", "spec", "quant", "quant_unfused",
-          "gather", "sanitize", "sanitize_quant", "sample", "gemma2_serve",
-          "gemma2_unfused", "gemma2_quant", "gptj_serve", "moe_serve",
-          "moe_unfused", "train", "ssm_serve", "dense_serve", "wide_dense",
-          "timing", "profile")
+          "mla_parity", "serve", "swap", "unfused", "spec", "quant",
+          "quant_unfused", "gather", "sanitize", "sanitize_quant", "sample",
+          "gemma2_serve", "gemma2_unfused", "gemma2_quant", "gptj_serve",
+          "moe_serve", "moe_unfused", "mla_serve", "mla_unfused", "train",
+          "ssm_serve", "dense_serve", "wide_dense", "timing", "profile")
 SERVE_PHASES = {"serve": ("infercept", {}), "swap": ("swap", {}),
                 "unfused": ("infercept", {"fused": False}),
                 "spec": ("infercept", {"speculate": True,
@@ -282,6 +310,17 @@ MOE_SERVE_PHASES = {"moe_serve": ("infercept", {}),
                     "moe_unfused": ("infercept", {"fused": False})}
 # moe_parity's depth: the dense layer and 3 MoE layers
 MOE_PARITY_PERIODS = (1, 3)
+# deepseek-v3 (MLA attention, 256 routed experts top-8): its serve phases
+# (policy, engine options) at the depth that fits one card, the dense
+# group's 3 layers and one MoE layer; launches logged apart, and
+# mla_serve's calls give the timing phase's rows 10, 10d and 2m
+MLA_MODEL = "deepseek-v3-671b"
+MLA_SERVE_PHASES = {"mla_serve": ("infercept", {}),
+                    "mla_unfused": ("infercept", {"fused": False})}
+MLA_SERVE_PERIODS = (3, 1)
+# mla_parity's depth: the dense group alone (the MoE layer at full width
+# is moe_parity's)
+MLA_PARITY_PERIODS = (3, 0)
 # a sanitized phase and the phase whose streams and counters it repeats
 SANITIZED_OF = {"sanitize": "serve", "sanitize_quant": "quant"}
 # the rows of the kernels line: an attention kernel over int8 pools is a
@@ -310,6 +349,12 @@ WIDE_KERNELS = ("ragged_paged_attention_hd256",
 # moe_serve's largest call and at its largest decode-only call (row 9d;
 # its launches: the calls of decode-only fused steps)
 MOE_KERNELS = ("moe_experts", "moe_experts_decode")
+# the MLA rows: the ragged latent-attention kernel at mla_serve's largest
+# call (row 10) and its largest decode-only call (10d), the flash forward
+# at head_dim 192 on mla_parity's forward (7m), and kv_append at the latent
+# widths, mla_serve's largest call (2m)
+MLA_KERNELS = ("mla_attention", "mla_attention_decode",
+               "flash_attention_hd192", "kv_append_latent")
 # the TPU kernel of each flash row; the backward has none: the reference
 # differentiates its XLA blocked_attention
 FLASH_REPLACES = {
@@ -522,7 +567,8 @@ def check_kernels() -> dict:
                                                swap_unpack, swap_unpack_ref)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    worst = {k: 0.0 for k in KERNELS + WIDE_KERNELS + MOE_KERNELS}
+    worst = {k: 0.0 for k in KERNELS + WIDE_KERNELS + MOE_KERNELS
+             + MLA_KERNELS}
     ragged_case, paged_case = attention_cases(gen, worst)
 
     full = dict(Hkv=8, G=4, hd=64, page=16, max_pages=64, n_pages=2048)
@@ -594,10 +640,13 @@ def check_kernels() -> dict:
     return worst
 
 
-def check_append(gen, worst, dtype, *, Hkv, hd) -> None:
-    """kv_append at (Hkv, hd) in ``dtype``, exact against its plain version:
-    distinct slots, random validity, the 8-row blocks' edges, then all
-    invalid."""
+def check_append(gen, worst, dtype, *, Hkv, hd, hd_v=None,
+                 key="kv_append") -> None:
+    """kv_append at (Hkv, hd) in ``dtype`` (the V pool's rows ``hd_v``
+    wide where given: MLA's latent c and rope key kr, row 2m under
+    ``key``), exact against its plain version: distinct slots, random
+    validity, the 8-row blocks' edges, then all invalid; one launch a
+    call."""
     import torch
     from repro_torch.kernels.kv_append import kv_append, kv_append_ref
     dev = torch.device("cuda")
@@ -606,11 +655,10 @@ def check_append(gen, worst, dtype, *, Hkv, hd) -> None:
                                   ("N=7", 7, False), ("N=8", 8, False),
                                   ("N=9", 9, False), ("N=512", 512, False),
                                   ("all invalid", 16, True)):
-        kp = torch.randn((n_pages, page, Hkv, hd), generator=gen,
-                         device=dev).to(dtype)
-        vp = torch.randn_like(kp)
-        kn = torch.randn((n, Hkv, hd), generator=gen, device=dev).to(dtype)
-        vn = torch.randn_like(kn)
+        kp, vp = (torch.randn((n_pages, page, Hkv, w), generator=gen,
+                              device=dev).to(dtype) for w in (hd, hd_v or hd))
+        kn, vn = (torch.randn((n, Hkv, w), generator=gen,
+                              device=dev).to(dtype) for w in (hd, hd_v or hd))
         slots = torch.randperm(n_pages * page, generator=gen,
                                device=dev)[:n]
         ids = (slots // page).to(torch.int32)
@@ -620,13 +668,16 @@ def check_append(gen, worst, dtype, *, Hkv, hd) -> None:
                 0, 2, (n,), generator=gen, device=dev, dtype=torch.int32)
         want_k, want_v = kv_append_ref(kp.clone(), vp.clone(), kn, vn, ids,
                                        offs, valid)
+        before = kv_append.launches
         got_k, got_v = kv_append(kp, vp, kn, vn, ids, offs, valid)
         torch.cuda.synchronize()
+        assert kv_append.launches == before + 1
         err = max(max_err(got_k, want_k), max_err(got_v, want_v))
-        log(f"  kv_append Hkv={Hkv} hd={hd} {label} {str(dtype)[6:]}: "
+        log(f"  kv_append Hkv={Hkv} hd={hd}"
+            f"{f' hd_v={hd_v}' if hd_v else ''} {label} {str(dtype)[6:]}: "
             f"max_abs_err {err:.3g} (tol 0, a copy)")
-        assert err == 0.0, (Hkv, hd, label)
-        worst["kv_append"] = max(worst["kv_append"], err)
+        assert err == 0.0, (Hkv, hd, hd_v, label)
+        worst[key] = max(worst[key], err)
 
 
 def layout(lens, starts, pad=0, order=None):
@@ -1348,10 +1399,20 @@ def condition_attention(params) -> None:
     """Rescale the attention projections, in place, to a fan-in over
     d_model (the reference's init takes it over the heads, which at full
     width gives attention logits of standard deviation ~128 and a softmax
-    that is a hard max)."""
+    that is a hard max). MLA's up-projections take it over their rank
+    (``w_uq`` over q_lora, ``w_uk`` and ``w_uv`` over kv_lora), ``wo``
+    over the heads' values."""
     for group in params["groups"]:
         for blk in group["scan"].values():       # leaves stacked by layer
             attn = blk["attn"]
+            if "w_uq" in attn:
+                q_lora, H = attn["w_uq"].shape[1:3]
+                L = attn["w_uk"].shape[1]
+                attn["w_uq"] *= math.sqrt(H / q_lora)
+                attn["w_uk"] *= math.sqrt(H / L)
+                attn["w_uv"] *= math.sqrt(H / L)
+                attn["wo"] *= 1.0 / math.sqrt(attn["wo"].shape[2])
+                continue
             d, H, hd = attn["wq"].shape[1:]
             for name in ("wq", "wk", "wv"):
                 attn[name] *= math.sqrt(attn[name].shape[2] / d)
@@ -1362,8 +1423,10 @@ def layer0_exact(lm, params, tokens, positions):
     """Layer 0's K and V, (n, Hkv, hd) each, of ``tokens`` at
     ``positions``, in float64 from the embeddings: RMSNorm, the K and V
     projections (and biases) and the rotation, at the float32 rotation
-    angles that every path of the port computes alike. A witness for the
-    pools' float32 K/V: each path's distance from it is its own rounding."""
+    angles that every path of the port computes alike; for MLA its latent
+    c (n, kv_lora) (the joint projection, then ``kv_norm`` at eps 1e-5)
+    and rope key kr (n, rope). A witness for the pools' float32 entries:
+    each path's distance from it is its own rounding."""
     import torch
     from repro_torch.models.common import rope_freqs
     cfg = lm.cfg
@@ -1373,21 +1436,33 @@ def layer0_exact(lm, params, tokens, positions):
     x = lm.embed(params, tokens).to(f64)
     x = x * torch.rsqrt(x.square().mean(-1, keepdim=True) + cfg.norm_eps) \
         * (1.0 + p["norm1"][0].to(f64))
+
+    def rotate(k, hd):
+        angles = (positions.float()[:, None] * rope_freqs(
+            hd, a.rope_theta, device=x.device)).to(f64)
+        cos, sin = angles.cos(), angles.sin()
+        if k.dim() == 3:
+            cos, sin = cos[:, None], sin[:, None]
+        k1, k2 = k.chunk(2, dim=-1)
+        return torch.cat([k1 * cos - k2 * sin, k1 * sin + k2 * cos], dim=-1)
+    if a.kind == "mla":
+        ckr = x @ p["attn"]["w_dkv"][0].to(f64)
+        c = ckr[:, :a.kv_lora_rank]
+        c = c * torch.rsqrt(c.square().mean(-1, keepdim=True) + 1e-5) \
+            * (1.0 + p["attn"]["kv_norm"][0].to(f64))
+        return c, rotate(ckr[:, a.kv_lora_rank:], a.qk_rope_head_dim)
     k, v = (torch.einsum("nd,dhe->nhe", x, p["attn"][w][0].to(f64))
             for w in ("wk", "wv"))
     if a.qkv_bias:
         k = k + p["attn"]["bk"][0].to(f64)
         v = v + p["attn"]["bv"][0].to(f64)
-    angles = (positions.float()[:, None] * rope_freqs(
-        a.head_dim, a.rope_theta, device=x.device)).to(f64)
-    cos, sin = angles.cos()[:, None], angles.sin()[:, None]
-    k1, k2 = k.chunk(2, dim=-1)
-    return torch.cat([k1 * cos - k2 * sin, k1 * sin + k2 * cos], dim=-1), v
+    return rotate(k, a.head_dim), v
 
 
 def paths_parity(dtype, *, conditioned: bool, tiny: bool = False,
                  device: str = "cuda", model: str = "llama3.2-1b",
-                 lens=None, periods=None, prefill_cf=None) -> dict:
+                 lens=None, periods=None, prefill_cf=None,
+                 forward_leg: bool = False, recorder=None) -> dict:
     """The fused and the per-call paths against each other, from the same
     weights of ``model`` (random, seed 0), on four sequences of ``lens``
     tokens (by default 37, 160, 513 and 16):
@@ -1419,7 +1494,11 @@ def paths_parity(dtype, *, conditioned: bool, tiny: bool = False,
     ``periods`` cuts each group's depth (``cut_config``); ``prefill_cf``
     runs the prefill legs and the gather leg's extend_step with every MoE
     capacity factor at that value, the decode steps at the config's own
-    (a decode token is a group of one, which never drops)."""
+    (a decode token is a group of one, which never drops).
+    ``forward_leg`` adds a fourth comparison, forward: per sequence,
+    ``LM.forward`` over its prompt (the flash kernels), its last
+    position's logits against the fused prefill's; ``recorder`` (a
+    FlashRecorder) is entered around that leg."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.model import LM
@@ -1541,6 +1620,12 @@ def paths_parity(dtype, *, conditioned: bool, tiny: bool = False,
                 got[:, :, :n + 1], want[:, :, :n + 1])), max(
                 gather_cache[1], float(want[:, :, :n + 1].abs().max())))
     gather_logits = torch.stack(gather_logits)
+    forward_logits = None
+    if forward_leg:
+        with recorder or contextlib.nullcontext():
+            forward_logits = torch.stack([lm.logits(params, lm_p.forward(
+                params, tokens[None, q_last[b] + 1 - n:q_last[b] + 1]
+            ).hidden[0, -1]) for b, n in enumerate(lens)])
     paired = torch.stack([x for b in range(B)
                           for x in (logits_f[b], logits_r[b])])
     top2 = torch.topk(logits_f[:B].float(), 2).values
@@ -1563,6 +1648,11 @@ def paths_parity(dtype, *, conditioned: bool, tiny: bool = False,
            "finite": bool(torch.isfinite(logits_p[:B]).all()
                           and torch.isfinite(logits_u).all()
                           and torch.isfinite(gather_logits).all())}
+    if forward_logits is not None:
+        res["forward_err"] = max_err(forward_logits, logits_f[:B])
+        res["forward_ids"] = (forward_logits.argmax(-1).tolist(),
+                              logits_f[:B].argmax(-1).tolist())
+        res["finite"] &= bool(torch.isfinite(forward_logits).all())
     del params, pools, pools_r, pools_p, cache
     gc.collect()
     if dev.type == "cuda":
@@ -1572,7 +1662,8 @@ def paths_parity(dtype, *, conditioned: bool, tiny: bool = False,
 
 def check_decode_parity(*, tiny: bool = False, device: str = "cuda",
                         model: str = "llama3.2-1b", lens=None, periods=None,
-                        prefill_cf=None) -> None:
+                        prefill_cf=None, forward_leg: bool = False,
+                        recorder=None) -> None:
     """paths_parity three times, on ``model`` (llama3.2-1b by default; the
     wide_parity phase runs gemma2-9b and GPT-J-6B) over ``lens``. Held, in
     float32 with conditioned weights: logits within 1e-3 (the paths sum in
@@ -1589,14 +1680,19 @@ def check_decode_parity(*, tiny: bool = False, device: str = "cuda",
     is their own float32 rounding. The smoke run uses the defaults;
     ``tiny`` and ``device="cpu"`` rehearse it on the plain versions;
     ``periods`` and ``prefill_cf`` go to paths_parity (the moe_parity
-    phase)."""
+    phase), and so do ``forward_leg`` (the mla_parity phase: LM.forward
+    held as the prefill is) and ``recorder``, which records the bf16
+    run's forward leg."""
     import torch
     for dtype, conditioned in ((torch.float32, True),
                                (torch.float32, False),
                                (torch.bfloat16, False)):
         r = paths_parity(dtype, conditioned=conditioned, tiny=tiny,
                          device=device, model=model, lens=lens,
-                         periods=periods, prefill_cf=prefill_cf)
+                         periods=periods, prefill_cf=prefill_cf,
+                         forward_leg=forward_leg,
+                         recorder=recorder if dtype == torch.bfloat16
+                         else None)
         name = (f"{r['model']} {str(dtype)[6:]}, "
                 f"{'conditioned' if conditioned else 'reference'} init")
         (pe, pt), (le, lt), (de, dt) = (r["prefill_pools"], r["layer0_pools"],
@@ -1616,6 +1712,10 @@ def check_decode_parity(*, tiny: bool = False, device: str = "cuda",
             f"decode logits max_abs_err {r['gather_err']:.3g}, greedy ids "
             f"{r['gather_ids'][0]} vs {r['gather_ids'][1]}, cache {ge:.3g} "
             f"of max {gt:.3g}")
+        if forward_leg:
+            log(f"  {name}: LM.forward (flash) vs fused prefill logits "
+                f"max_abs_err {r['forward_err']:.3g}, greedy ids "
+                f"{r['forward_ids'][0]} vs {r['forward_ids'][1]}")
         wf, wu, wt = r["layer0_witness"]
         log(f"  {name}: layer 0's K/V against the float64 witness: fused "
             f"{wf:.3g}, per-call {wu:.3g} of max {wt:.3g} (relative "
@@ -1632,6 +1732,9 @@ def check_decode_parity(*, tiny: bool = False, device: str = "cuda",
             assert r["prefill_ids"][0] == r["prefill_ids"][1], name
             assert r["gather_err"] <= 1e-3 and ge <= 1e-4 * gt, name
             assert r["gather_ids"][0] == r["gather_ids"][1], name
+            if forward_leg:
+                assert r["forward_err"] <= 1e-3, name
+                assert r["forward_ids"][0] == r["forward_ids"][1], name
         log(f"  {name}: held (logits 1e-3 and equal ids"
             f"{', prefill and gather too' if conditioned else ' for decode'}"
             "; layer-0 pools 1e-5 apart and of the witness, decode pools "
@@ -1779,6 +1882,7 @@ def kernel_wrappers() -> dict:
                                      ragged_paged_attention)
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gla_scan as gs
+    from repro_torch.kernels import mla_attention as ma
     from repro_torch.kernels import moe_experts as me
     from repro_torch.kernels import swap_pack as sp
     return {"flash_attention": fa.flash_attention_fwd,
@@ -1791,7 +1895,8 @@ def kernel_wrappers() -> dict:
             "kv_append_quant": kv_quant.kv_append_quant,
             "swap_pack": sp.swap_pack, "swap_unpack": sp.swap_unpack,
             "page_requant": kv_quant.page_requant,
-            "moe_experts": me.moe_experts}
+            "moe_experts": me.moe_experts,
+            "mla_attention": ma.ragged_latent_attention}
 
 
 def launch_counts() -> dict:
@@ -1805,9 +1910,9 @@ def reset_counts() -> None:
 
 def agent_engine(policy: str, *, tiny: bool, device: str,
                  closed_loop: bool = False, sampled: bool = False,
-                 model: str = "llama3.2-1b", **engine_kw):
-    """A fresh engine (``model``, llama3.2-1b by default, random weights
-    from seed 0) with the
+                 model: str = "llama3.2-1b", periods=None, **engine_kw):
+    """A fresh engine (``model``, llama3.2-1b by default, each group cut to
+    ``periods`` where given, random weights from seed 0) with the
     agent workload submitted through a ScriptedClient, or straight to the
     engine with ``closed_loop``. ``engine_kw`` selects the path
     (``fused=False``, ``kv_dtype="int8"``, or ``speculate=True``, which
@@ -1822,7 +1927,7 @@ def agent_engine(policy: str, *, tiny: bool, device: str,
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.session import ScriptedClient
     from repro_torch.serving.workloads import make_agent_workload
-    cfg = get_config(model, tiny=tiny)
+    cfg = cut_config(get_config(model, tiny=tiny), periods=periods)
     if engine_kw.get("speculate"):
         engine_kw["predictor"] = OracleToolResultPredictor(cfg.vocab_size)
     on_card = device == "cuda"
@@ -1895,6 +2000,8 @@ def serve(policy: str, recorder: Recorder = None, *, tiny: bool = False,
            "requests": len(handles), "steps": eng.counters[
                "mixed_iterations"], "output_tokens": out_tokens,
            "wall_s": wall, "tokens_per_s": out_tokens / wall,
+           "step_ms": 1e3 * wall / max(1, eng.counters[
+               "mixed_iterations"]),
            "max_memory_allocated": max(
                init_peak, torch.cuda.max_memory_allocated())
            if on_card else None,
@@ -1926,18 +2033,26 @@ def serve(policy: str, recorder: Recorder = None, *, tiny: bool = False,
     assert all(0 <= t < cfg.vocab_size for s in streams for t in s)
     assert res["findings"] in (None, []), res["findings"]
     if on_card:
+        # an MLA model's attention runs the latent kernel on every paged
+        # path, and never the GQA attention kernels
+        mla = any(b.attn is not None and b.attn.kind == "mla"
+                  for b in cfg.blocks)
         if not eng.paged:
             # the gather oracle: slotted caches in plain PyTorch, no paged
             # attention and no append kernel
             assert counts["ragged_paged_attention"] == counts[
                 "paged_attention"] == counts["kv_append"] == counts[
-                "kv_append_quant"] == 0, counts
+                "kv_append_quant"] == counts["mla_attention"] == 0, counts
+        elif mla:
+            assert counts["mla_attention"] > 0 and counts[
+                "ragged_paged_attention"] == counts["paged_attention"] == 0, \
+                counts
         elif eng.fused:
             assert counts["ragged_paged_attention"] > 0
         else:
             assert counts["ragged_paged_attention"] == 0 \
                 and counts["paged_attention"] > 0, counts
-        if eng.speculate:
+        if eng.speculate and not mla:
             assert counts["paged_attention"] > 0, counts
         # float pools launch kv_append and never the fused quantized
         # append; quantized pools launch the fused kernel on every append
@@ -2914,6 +3029,11 @@ def profile_serve(warm_steps: int = 50, steps: int = 50,
     if moe_us:
         log(f"  the MoE kernels: {moe_us / 1e3:.2f} ms = "
             f"{moe_us / max(total, 1e-9):.3f} of device time")
+    mla_us = sum(us for k, (us, _) in dev_us.items()
+                 if "mla_attention_kernel" in k)
+    if mla_us:
+        log(f"  the latent-attention kernel (row 10): {mla_us / 1e3:.2f} ms "
+            f"= {mla_us / max(total, 1e-9):.3f} of device time")
     # the PyTorch ops' kernels add up under the range's host-side events
     # (its device-side twin spans idle gaps too); kernels launched through
     # ctypes are not attributed to it, so the append's own CUDA kernels
@@ -3164,25 +3284,33 @@ def check_train_parity(*, tiny: bool = False, device: str = "cuda") -> None:
 # phase 14: full-width training steps
 # ---------------------------------------------------------------------------
 class FlashRecorder:
-    """Keeps, for the timing phase, the q, k and v of the first flash call
-    of a run (a train step's, or a prefill's) and, where its output takes
-    part in a backward, the gradient that reaches it. Wraps the op the
-    model calls and adds nothing to the launch counts."""
+    """Keeps, for the timing phase, the q, k and v of a run's flash call
+    with the most query rows (the first of equal ones: a train step's
+    first call, a prefill's longest sequence) and, where its output takes
+    part in a backward, the gradient that reaches it; and counts the
+    flash kernel's launches inside its ``with`` blocks (``launches``).
+    Wraps the op the model calls and adds nothing to the launch counts."""
+
+    def __init__(self):
+        self.args, self.dout = None, None
+        self.launches = 0
 
     def __enter__(self):
         import repro_torch.models.attention as attention
-        self.args, self.dout = None, None
         self._orig = orig = attention.flash_attention_op
+        self._start = launch_counts()["flash_attention"]
+        rec = self
 
         def wrapped(q, k, v, **kw):
             out = orig(q, k, v, **kw)
-            if self.args is None:
-                self.args = (q.detach().clone(), k.detach().clone(),
-                             v.detach().clone(), kw)
+            if rec.args is None or q.shape[3] > rec.args[0].shape[3]:
+                kept = rec.args = (q.detach().clone(), k.detach().clone(),
+                                   v.detach().clone(), kw)
+                rec.dout = None
                 if out.requires_grad:
                     def keep(g):
-                        if self.dout is None:
-                            self.dout = g.detach().contiguous().clone()
+                        if rec.args is kept and rec.dout is None:
+                            rec.dout = g.detach().contiguous().clone()
                     out.register_hook(keep)
             return out
         attention.flash_attention_op = wrapped
@@ -3191,6 +3319,7 @@ class FlashRecorder:
     def __exit__(self, *exc):
         import repro_torch.models.attention as attention
         attention.flash_attention_op = self._orig
+        self.launches += launch_counts()["flash_attention"] - self._start
 
 
 def train(recorder: FlashRecorder, *, tiny: bool = False,
@@ -4122,12 +4251,14 @@ MOE_REPLACES = ("none of its own: the reference's dense einsum dispatch, "
 
 
 def cut_config(cfg, periods=None, capacity_factor=None):
-    """``cfg`` with each group cut to ``periods[i]`` periods and every MoE
-    FFN's capacity factor set to ``capacity_factor`` (None: as it is);
-    the name says so."""
+    """``cfg`` with each group cut to ``periods[i]`` periods (a group cut
+    to 0 is dropped) and every MoE FFN's capacity factor set to
+    ``capacity_factor`` (None: as it is); the name says so."""
     import dataclasses
     groups = []
     for i, g in enumerate(cfg.groups):
+        if periods is not None and periods[i] == 0:
+            continue
         period = tuple(
             dataclasses.replace(b, ffn=dataclasses.replace(
                 b.ffn, capacity_factor=capacity_factor))
@@ -4240,15 +4371,22 @@ def check_moe_kernels(gen, worst) -> None:
     del p
 
 
-class MoERecorder:
-    """Keeps the inputs of the MoE kernels' largest call (by pairs) on the
-    main path, and of their largest call in a decode-only fused step (no
-    more tokens than block-table rows), and counts the calls of those
-    steps: the timing phase's rows 9 and 9d. Wraps the op that
-    ``models.moe`` calls and ``LM.forward_mixed_paged``; adds nothing to
-    the launch counts. The routing and rows are copied at the call, the
-    weights kept by reference; on leaving, the records move to host
-    memory (the weights are views of the engine's stacked leaves)."""
+class LargestCalls:
+    """Keeps the inputs of the largest call (by ``size``; the last of
+    equal ones, whose pools and contexts are the run's deepest at that
+    size) of each op in ``OPS`` on the main path, and of its largest call
+    in a decode-only fused step (no more tokens than block-table rows),
+    and counts the decode-only calls: the timing phase's inputs. Wraps
+    those ops in ``MODULE`` and ``LM.forward_mixed_paged``; adds nothing
+    to the launch counts. Each op's arguments at ``by_ref`` (weights and
+    pools, views of the engine's stacked leaves: they carry the run's
+    last contents) are kept by reference, the rest copied at the call; on
+    leaving, the records move to host memory.
+
+    ``OPS`` maps an op's attribute name to (key, by_ref, size of a call
+    from its arguments, key of its decode-only record or None)."""
+    MODULE: str
+    OPS: dict
 
     def __init__(self):
         self.calls = {}
@@ -4256,10 +4394,11 @@ class MoERecorder:
         self._decode = False
 
     def __enter__(self):
-        import repro_torch.models.moe as moe
+        import importlib
         from repro_torch.models.model import LM
-        self._moe, self._lm = moe, LM
-        self._op, self._mixed = moe.moe_experts_op, LM.forward_mixed_paged
+        self._module = module = importlib.import_module(self.MODULE)
+        self._lm, self._mixed = LM, LM.forward_mixed_paged
+        self._ops = {name: getattr(module, name) for name in self.OPS}
         rec = self
 
         def mixed(lm, params, tokens, tok_seq, tok_pos, q_last, pools,
@@ -4271,31 +4410,50 @@ class MoERecorder:
             finally:
                 rec._decode = False
 
-        def op(*args, **kw):
-            keys = ["moe_experts"]
-            if rec._decode:
-                rec.decode_launches += 1
-                keys.append("moe_experts_decode")
-            P = args[5].shape[0]
-            for key in keys:
-                if P > rec.calls.get(key, (-1,))[0]:
-                    rec.calls[key] = (P, tuple(
-                        a if i in (1, 2, 3) else a.clone()
-                        for i, a in enumerate(args)), dict(kw))
-            return rec._op(*args, **kw)
-        moe.moe_experts_op = op
+        def wrap(name):
+            key, by_ref, size, decode_key = self.OPS[name]
+            orig = self._ops[name]
+
+            def op(*args, **kw):
+                keys = [key]
+                if rec._decode and decode_key is not None:
+                    rec.decode_launches += 1
+                    keys.append(decode_key)
+                n = size(args)
+                for k in keys:
+                    if n >= rec.calls.get(k, (-1,))[0]:
+                        rec.calls[k] = (n, tuple(
+                            a if i in by_ref or not hasattr(a, "clone")
+                            else a.clone() for i, a in enumerate(args)),
+                            dict(kw))
+                return orig(*args, **kw)
+            return op
+        for name in self.OPS:
+            setattr(module, name, wrap(name))
         LM.forward_mixed_paged = mixed
         return self
 
     def __exit__(self, *exc):
-        self._moe.moe_experts_op = self._op
+        for name, orig in self._ops.items():
+            setattr(self._module, name, orig)
         self._lm.forward_mixed_paged = self._mixed
-        self.calls = {k: (P, tuple(a.to("cpu") for a in args), kw)
-                      for k, (P, args, kw) in self.calls.items()}
+        self.calls = {k: (n, tuple(a.to("cpu") if hasattr(a, "to") else a
+                                   for a in args), kw)
+                      for k, (n, args, kw) in self.calls.items()}
 
     def call(self, key: str, device="cuda"):
         _, args, kw = self.calls[key]
-        return tuple(a.to(device) for a in args), kw
+        return tuple(a.to(device) if hasattr(a, "to") else a
+                     for a in args), kw
+
+
+class MoERecorder(LargestCalls):
+    """The MoE kernels' largest call by pairs and their largest decode-only
+    call: rows 9 and 9d. The experts' weights are kept by reference."""
+    MODULE = "repro_torch.models.moe"
+    OPS = {"moe_experts_op": ("moe_experts", (1, 2, 3),
+                              lambda args: args[5].shape[0],
+                              "moe_experts_decode")}
 
 
 def moe_work(args) -> tuple:
@@ -4415,6 +4573,325 @@ def time_moe(recorder: MoERecorder, worst: dict, launches: dict) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the MLA slice: the ragged latent-attention kernel, and deepseek-v3
+# ---------------------------------------------------------------------------
+MLA_SRC = "src/repro_torch/kernels/csrc/mla_attention.cu"
+MLA_REPLACES = ("none of its own: the reference's XLA gather and einsums, "
+                "src/repro/models/attention.py:562-784")
+
+
+def latent_case(gen, *, H, L, R, dtype, device, page=16, max_pages=64,
+                decode_only=False):
+    """A ragged latent-attention call over random pools of ``dtype``: a
+    480-token chunk at positions 300-779, decodes at 1023 (the table's
+    last key), 15 (ending on a page boundary), 16 (the first key of a
+    page) and 0, then padded rows to N 512; ``decode_only``: 8 decodes at
+    contexts up to the table's end, one padded. Returns the kernel's
+    arguments (q_lat, q_rope, c_pool, kr_pool, block_tables, tok_seq,
+    tok_pos, scale)."""
+    import torch
+    if decode_only:
+        seq = list(range(8))
+        pos = [1023, 700, 511, 512, 15, 16, 0, -1]
+    else:
+        seq = [0] * 480 + [1, 2, 3, 4] + [0] * 28
+        pos = list(range(300, 780)) + [1023, 15, 16, 0] + [-1] * 28
+    B = max(seq) + 1
+    n_pages = B * max_pages + 1
+    f32 = dict(device=device, dtype=torch.float32)
+    c = torch.randn((n_pages, page, L), generator=gen, **f32).to(dtype)
+    kr = torch.randn((n_pages, page, R), generator=gen, **f32).to(dtype)
+    bt = (torch.randperm(n_pages - 1, generator=gen, device=device)[
+        :B * max_pages] + 1).reshape(B, max_pages).to(torch.int32)
+    i32 = dict(device=device, dtype=torch.int32)
+    N = len(seq)
+    return (torch.randn((N, H, L), generator=gen, **f32),
+            torch.randn((N, H, R), generator=gen, **f32), c, kr, bt,
+            torch.tensor(seq, **i32), torch.tensor(pos, **i32),
+            1.0 / math.sqrt(192))
+
+
+def check_mla_kernels(gen, worst) -> None:
+    """The MLA slice's kernels against their plain versions on the card:
+    the ragged latent-attention kernel (row 10) at deepseek-v3's full
+    widths (H 128, L 512, R 64) and the tiny config's (H 4, L 32, R 16),
+    over bf16 and float32 pools, on ``latent_case``'s ragged call (N 512:
+    a chunk, decodes at the table's end and on either side of a page
+    boundary, padded rows: zeros) and its decode-only call, within 1e-4
+    (the plain version reads the same latents; sums in other orders and
+    exp2 for exp); a row's bits in a call of N 1 equal to its bits in the
+    call of N 512; kv_append at the latent widths (``check_append``: c
+    512 and kr 64 wide, and the tiny config's 32 and 16);
+    the flash forward at head_dim 192 (out and lse) at B 1-2 x 128 heads x
+    G 1 x T 1024 causal, T 77, Tq < Tk and G 16 (the float32 kernel's
+    most heads at 192), ``attention_tol``, and the flash backward's
+    refusal of 192; the tree swap over deepseek-v3's latent pool tree
+    (its int8 engine's is the same: latent pools stay in the model
+    dtype), byte for byte (``swap_tree_case``)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_fwd,
+                                                     flash_attention_fwd_ref)
+    from repro_torch.kernels.mla_attention import (
+        ragged_latent_attention, ragged_latent_attention_ref)
+    from repro_torch.models.model import LM
+    from repro_torch.utils.tree import tree_leaves
+    dev = torch.device("cuda")
+    for H, L, R in ((128, 512, 64), (4, 32, 16)):
+        for dtype in (torch.bfloat16, torch.float32):
+            for decode_only in (False, True):
+                args = latent_case(gen, H=H, L=L, R=R, dtype=dtype,
+                                   device=dev, decode_only=decode_only)
+                before = ragged_latent_attention.launches
+                got = ragged_latent_attention(*args)
+                want = ragged_latent_attention_ref(*args)
+                torch.cuda.synchronize()
+                assert ragged_latent_attention.launches == before + 1
+                err = max_err(got, want)
+                pad = args[6] < 0
+                label = (f"H {H} L {L} R {R} {str(dtype)[6:]} pools, "
+                         f"{'decode-only N 8' if decode_only else 'N 512'}")
+                log(f"  ragged_latent_attention {label}: max_abs_err "
+                    f"{err:.3g} (tol 1e-4), padded rows zero")
+                assert err <= 1e-4, label
+                assert bool((got[pad] == 0).all()), label
+                if H == 128 and dtype == torch.bfloat16:
+                    key = "mla_attention_decode" if decode_only \
+                        else "mla_attention"
+                    worst[key] = max(worst[key], err)
+                if not decode_only and H == 128:
+                    # a row computes alone what it computes beside 511
+                    for i in (0, 479, 480, 481, 482, 483, 511):
+                        one = ragged_latent_attention(
+                            args[0][i:i + 1], args[1][i:i + 1], *args[2:5],
+                            args[5][i:i + 1], args[6][i:i + 1], args[7])
+                        assert torch.equal(one[0], got[i]), (label, i)
+                    log(f"  ragged_latent_attention {label}: rows 0, 479-483 "
+                        "and 511 alone (N 1) bit for bit as in the call of "
+                        "N 512")
+                del args, got, want
+    for dtype in (torch.bfloat16, torch.float32):
+        for L, R in ((512, 64), (32, 16)):
+            check_append(gen, worst, dtype, Hkv=1, hd=L, hd_v=R,
+                         key="kv_append_latent")
+    tol = attention_tol()
+    cases = [("B=2 H=128 T=1024", dict(B=2, Hkv=128, G=1, Tq=1024, Tk=1024),
+              {}),
+             ("B=1 H=128 T=77", dict(B=1, Hkv=128, G=1, Tq=77, Tk=77), {}),
+             ("Tq<Tk", dict(B=1, Hkv=8, G=1, Tq=100, Tk=300), {}),
+             ("G=16", dict(B=1, Hkv=2, G=16, Tq=130, Tk=130), {})]
+    scale = 1.0 / math.sqrt(192)
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, shape, kw in cases:
+            B, Hkv, G, Tq, Tk = (shape[k] for k in ("B", "Hkv", "G", "Tq",
+                                                    "Tk"))
+            q = torch.randn((B, Hkv, G, Tq, 192), generator=gen,
+                            device=dev).to(dtype)
+            k, v = (torch.randn((B, Hkv, Tk, 192), generator=gen,
+                                device=dev).to(dtype) for _ in range(2))
+            out, lse = flash_attention_fwd(q, k, v, scale=scale, **kw)
+            want, want_lse = flash_attention_fwd_ref(q, k, v, scale=scale,
+                                                     **kw)
+            torch.cuda.synchronize()
+            err, lse_err = max_err(out, want), max_err(lse, want_lse)
+            log(f"  flash_attention hd=192 {label} {str(dtype)[6:]}: out "
+                f"max_abs_err {err:.3g} (tol {tol[dtype]:g}), lse "
+                f"{lse_err:.3g} (tol 1e-4)")
+            assert err <= tol[dtype] and lse_err <= 1e-4, label
+            worst["flash_attention_hd192"] = max(
+                worst["flash_attention_hd192"], err)
+            del want, want_lse
+        try:
+            flash_attention_bwd(q, k, v, out, lse, torch.ones_like(out))
+        except ValueError as e:
+            log(f"  flash_attention_bwd at hd 192 refused: {e}")
+        else:
+            raise AssertionError("flash_attention_bwd took head_dim 192")
+        del q, k, v, out, lse
+    torch.cuda.empty_cache()
+    lm = LM(cut_config(get_config(MLA_MODEL), periods=MLA_SERVE_PERIODS))
+    for kv_dtype in (None, "int8"):
+        leaves = tree_leaves(lm.init_cache(40, 16, dtype=torch.bfloat16,
+                                           device=dev, kv_dtype=kv_dtype))
+        assert all(t.dtype == torch.bfloat16 for t in leaves)
+        for leaf in leaves:
+            leaf.view(torch.uint8).copy_(torch.randint(
+                0, 256, leaf.view(torch.uint8).shape, generator=gen,
+                device=dev, dtype=torch.uint8))
+        for n in (1, 7, 34):
+            for shift in (0, 8):
+                swap_tree_case(gen, leaves, n, shift)
+        log(f"  swap_pack/swap_unpack over {MLA_MODEL}'s "
+            f"{kv_dtype or 'bf16'} engine's latent pool tree "
+            f"{[tuple(t.shape) for t in leaves]}: n {{1, 7, 34}}, aligned "
+            "and shifted slabs, distinct and repeated ids, byte for byte, "
+            "one launch a call")
+        del leaves
+
+
+class MLARecorder(LargestCalls):
+    """The latent-attention kernel's largest call by rows and its largest
+    decode-only call (rows 10 and 10d), and kv_append's largest call at
+    the latent widths (row 2m). The latent pools are kept by reference."""
+    MODULE = "repro_torch.models.attention"
+    OPS = {"ragged_latent_attention_op": ("mla_attention", (2, 3),
+                                          lambda args: args[0].shape[0],
+                                          "mla_attention_decode"),
+           "kv_append_op": ("kv_append_latent", (0, 1),
+                            lambda args: args[2].shape[0], None)}
+
+
+def latent_work(args) -> tuple:
+    """(bytes, operations) of one ragged latent-attention call from its
+    data: the latent pages its live rows reach, read once (c and kr), the
+    live rows' queries read (a padded row's block writes zeros and reads
+    none), every row's output written, the routing and the table rows;
+    2 (2 L + R) operations per (live row, head, visible key)."""
+    q_lat, q_rope, c, kr, bt, seq, pos, _ = (
+        a.cpu() if hasattr(a, "cpu") else a for a in args)
+    N, H, L = q_lat.shape
+    R = q_rope.shape[2]
+    page = c.shape[1]
+    live = pos >= 0
+    n_live = int(live.sum())
+    keys = (pos[live].long() + 1).clamp(max=bt.shape[1] * page)
+    pages = set()
+    for s, k in zip(seq[live].tolist(), keys.tolist()):
+        pages.update(bt[s, :-(-k // page)].tolist())
+    es = c.element_size()
+    nbytes = (len(pages) * page * (L + R) * es + n_live * H * (L + R) * 4
+              + N * H * L * 4
+              + (seq.numel() + pos.numel() + bt.numel()) * 4)
+    return nbytes, int(keys.sum()) * H * 2 * (2 * L + R)
+
+
+def time_mla(recorder: MLARecorder, worst: dict, launches: dict) -> list:
+    """Rows 10, 10d and 2m: the latent-attention kernel at mla_serve's
+    largest call and its largest decode-only call, against
+    ragged_latent_attention_ref (1e-4), and kv_append at its largest
+    latent call (bit for bit); launched from the host in turns with the
+    plain version (``ms``) and as device time by CUDA graph replays
+    (``device_ms``). Bound (``latent_work``): bytes at the HBM rate against
+    operations at the bf16 tensor-core peak, with the float32 CUDA-core
+    figure beside it (``bound_f32_ms``: this kernel's own arithmetic). No
+    single PyTorch call computes either function: library_ms null."""
+    import torch
+    from repro_torch.kernels.kv_append import kv_append, kv_append_ref
+    from repro_torch.kernels.mla_attention import (
+        ragged_latent_attention, ragged_latent_attention_ref)
+    rows = []
+    for name in ("mla_attention", "mla_attention_decode"):
+        args, _ = recorder.call(name)
+
+        def kernel_fn():
+            return ragged_latent_attention(*args)
+
+        def plain_fn():
+            return ragged_latent_attention_ref(*args)
+        got = kernel_fn()
+        err = max_err(got, plain_fn())
+        assert err <= 1e-4, (name, err)
+        err = max(worst[name], err)
+        ms, plain_ms = in_turns(plain_fn, kernel_fn, 5)
+        nbytes, ops = latent_work(args)
+        N, H, L = args[0].shape
+        pos = args[6]
+        live = pos[pos >= 0]
+        row = kernel_row(name, MLA_SRC, MLA_REPLACES, launches[name], err,
+                         ms, plain_ms, None, nbytes, ops, "bfloat16",
+                         [N, H, L, args[1].shape[2], f"pools "
+                          f"{tuple(args[2].shape)} {str(args[2].dtype)[6:]}",
+                          f"{int(live.numel())} live rows, context "
+                          f"{int(live.min()) + 1}-{int(live.max()) + 1}"])
+        row["device_ms"] = graph_ms(kernel_fn, 10)
+        row["host_ms"] = ms - row["device_ms"]
+        row["bound_f32_ms"] = max(nbytes / HBM_BYTES_PER_S,
+                                  ops / PEAK_OPS["float32"]) * 1e3
+        log(f"    device time {row['device_ms']:.4f} ms "
+            f"({row['device_ms'] / row['bound_ms']:.1f}x the bf16 bound, "
+            f"{row['device_ms'] / row['bound_f32_ms']:.2f}x the float32 "
+            f"CUDA-core bound {row['bound_f32_ms']:.4f} ms), host time "
+            f"{row['host_ms']:.4f} ms")
+        rows.append(row)
+    args, _ = recorder.call("kv_append_latent")
+
+    def append_fn():
+        return kv_append(*args)
+
+    def append_plain():
+        return kv_append_ref(*args)
+    want = tuple(t.clone() for t in append_plain())
+    got = append_fn()
+    assert byte_equal(got[0], want[0]) and byte_equal(got[1], want[1])
+    ms, plain_ms = in_turns(append_plain, append_fn, 20)
+    cp, kp, cn, kn, ids, offs, valid = args
+    n_valid = int((valid != 0).sum())
+    es = cp.element_size()
+    nbytes = 2 * n_valid * (cp.shape[-1] + kp.shape[-1]) * es \
+        + 3 * ids.numel() * 4
+    row = kernel_row("kv_append_latent",
+                     "src/repro_torch/kernels/csrc/kv_append.cu",
+                     "src/repro/kernels/kv_append.py:60",
+                     launches["kv_append_latent"], 0.0, ms, plain_ms, None,
+                     nbytes, 0, "bfloat16",
+                     [cn.shape[0], f"c {cp.shape[-1]}", f"kr {kp.shape[-1]}",
+                      f"{n_valid} valid", str(cp.dtype)[6:]])
+    row["device_ms"] = graph_ms(append_fn, 20)
+    row["host_ms"] = ms - row["device_ms"]
+    log(f"    device time {row['device_ms']:.4f} ms "
+        f"({row['device_ms'] / row['bound_ms']:.1f}x bound)")
+    rows.append(row)
+    torch.cuda.synchronize()
+    return rows
+
+
+def time_mla_flash(recorder: FlashRecorder, worst: dict,
+                   launches: dict) -> list:
+    """Row 7m: the flash forward at head_dim 192 on the largest call of
+    mla_parity's bf16 forward leg (deepseek-v3's 128 heads, G 1, causal,
+    scale 1 / sqrt(192)), against its plain version (one unit in the last
+    place), and the library yardstick, scaled_dot_product_attention at
+    head_dim 192 (timed here, never on the path). Bound: 4 hd operations
+    per visible pair at the bf16 peak, against each operand read and the
+    output and lse written once."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                     flash_attention_fwd_ref)
+    q, k, v, kw = recorder.args
+    q, k, v = (t.cuda() for t in (q, k, v))
+    B, Hkv, G, T, hd = q.shape
+    pairs = T * (T + 1) // 2 * B * Hkv * G
+
+    def fwd():
+        return flash_attention_fwd(q, k, v, **kw)
+
+    def fwd_plain():
+        return flash_attention_fwd_ref(q, k, v, **kw)
+    out, lse = fwd()
+    err = max(worst["flash_attention_hd192"],
+              ulp_err("flash_attention_hd192", out, fwd_plain()[0]))
+    ms, plain_ms = in_turns(fwd_plain, fwd, 5)
+    q4 = q.reshape(B, Hkv * G, T, hd)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q4, k, v, is_causal=True, scale=kw.get("scale")), 5)
+    row = kernel_row("flash_attention_hd192",
+                     "src/repro_torch/kernels/csrc/flash_attention.cu",
+                     FLASH_REPLACES["flash_attention"],
+                     launches["flash_attention_hd192"], err, ms, plain_ms,
+                     lib_ms, (2 * q.numel() + 2 * k.numel())
+                     * q.element_size() + lse.numel() * 4, 4 * hd * pairs,
+                     str(q.dtype)[6:], [B, Hkv, G, T, hd, "causal"])
+    row["device_ms"] = graph_ms(fwd, 5)
+    log(f"    device time {row['device_ms']:.4f} ms; kernel / library "
+        f"{ms / lib_ms:.2f}x")
+    del q4, out, lse
+    torch.cuda.empty_cache()
+    return [row]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -4464,7 +4941,8 @@ def main() -> int:
             log(f"  paged_tc_kernel hd {hd} {pool} pools: {smem.value} B "
                 f"of shared memory, {n} blocks of 128 threads per SM")
 
-    worst = {k: 0.0 for k in KERNELS + WIDE_KERNELS + MOE_KERNELS}
+    worst = {k: 0.0 for k in KERNELS + WIDE_KERNELS + MOE_KERNELS
+             + MLA_KERNELS}
     if "kernels" in phases:
         log("[kernels] each kernel against its plain version on the card")
         worst = check_kernels()
@@ -4473,6 +4951,8 @@ def main() -> int:
         check_gla_kernels(torch.Generator(device="cuda").manual_seed(0),
                           worst)
         check_moe_kernels(torch.Generator(device="cuda").manual_seed(0),
+                          worst)
+        check_mla_kernels(torch.Generator(device="cuda").manual_seed(0),
                           worst)
     if "tiny" in phases:
         log("[tiny] forward_mixed_paged, decode_step_paged and "
@@ -4518,6 +4998,15 @@ def main() -> int:
             f"decode at {f.capacity_factor}")
         check_decode_parity(model=MOE_MODEL, periods=MOE_PARITY_PERIODS,
                             prefill_cf=cf)
+    # the flash forward at head_dim 192 on mla_parity's bf16 forward leg:
+    # the timing phase's row 7m, its launches that leg's
+    mla_flash = FlashRecorder()
+    if "mla_parity" in phases:
+        log(f"[mla_parity] {MLA_MODEL} full width f32, its dense group "
+            f"({MLA_PARITY_PERIODS[0]} layers): LM.forward (flash at "
+            "head_dim 192) vs fused vs per-call vs gather")
+        check_decode_parity(model=MLA_MODEL, periods=MLA_PARITY_PERIODS,
+                            forward_leg=True, recorder=mla_flash)
     parent = None
     if args.parent:
         t0 = time.perf_counter()
@@ -4526,7 +5015,8 @@ def main() -> int:
         log(f"[parent] its kernels built from {args.parent} in "
             f"{time.perf_counter() - t0:.1f} s")
     recorder = Recorder()
-    total = {k: 0 for k in KERNELS + WIDE_KERNELS + MOE_KERNELS}
+    total = {k: 0 for k in KERNELS + WIDE_KERNELS + MOE_KERNELS
+             + MLA_KERNELS}
     results = {}
     for phase, (policy, engine_kw) in SERVE_PHASES.items():
         if phase not in phases:
@@ -4659,6 +5149,43 @@ def main() -> int:
         assert all(v > 0 for v in summed.values()), summed
         log(f"  {MOE_MODEL} launches over the two runs: "
             f"{json.dumps(summed)}")
+    # deepseek-v3 at full width, cut to its dense group and one MoE layer;
+    # mla_serve's calls give the timing phase's rows 10, 10d and 2m
+    mla_rec = MLARecorder()
+    mla_runs = {}
+    for phase, (policy, engine_kw) in MLA_SERVE_PHASES.items():
+        if phase not in phases:
+            continue
+        log(f"[{phase}] {MLA_MODEL} full width, {MLA_SERVE_PERIODS[0]} dense"
+            f" + {MLA_SERVE_PERIODS[1]} MoE layers, bf16, policy {policy}"
+            f"{''.join(f', {k}={v}' for k, v in engine_kw.items())}")
+        with mla_rec if phase == "mla_serve" else contextlib.nullcontext():
+            res = mla_runs[phase] = serve(policy, model=MLA_MODEL,
+                                          periods=MLA_SERVE_PERIODS,
+                                          **engine_kw)
+        log(f"  launches (not in the kernels line): "
+            f"{json.dumps(res['launches'])}")
+        log(f"  {smi}: {res['tokens_per_s']:.2f} tok/s over "
+            f"{res['steps']} steps ({res['step_ms']:.1f} ms a step), "
+            f"construction peak {res['init_peak_bytes']} B, run peak "
+            f"{res['run_peak_bytes']} B, KV pools {res['kv_pool_bytes']} B, "
+            f"swapped {res['swapped_out_tokens']} tokens out and "
+            f"{res['swapped_in_tokens']} in")
+        assert res["swapped_in_tokens"] == res["swapped_out_tokens"]
+        assert res["stager"]["unpacked_pages"] == \
+            res["stager"]["packed_pages"], res["stager"]
+    if set(MLA_SERVE_PHASES) <= phases:
+        # rows 10, 2 and 9 (and the swaps) launched, rows 1 and 5 never
+        summed = {k: sum(r["launches"][k] for r in mla_runs.values())
+                  for k in ("mla_attention", "kv_append", "moe_experts",
+                            "swap_pack", "swap_unpack",
+                            "ragged_paged_attention", "paged_attention")}
+        assert all(summed[k] > 0 for k in ("mla_attention", "kv_append",
+                                           "moe_experts")), summed
+        assert summed["ragged_paged_attention"] == summed[
+            "paged_attention"] == 0, summed
+        log(f"  {MLA_MODEL} launches over the two runs: "
+            f"{json.dumps(summed)}")
     flash_rec = FlashRecorder()
     if "train" in phases:
         log("[train] llama3.2-1b full width, bf16 params, f32 AdamW, remat, "
@@ -4733,11 +5260,27 @@ def main() -> int:
             "moe_experts"]
         total["moe_experts_decode"] = moe_rec.decode_launches
         rows += time_moe(moe_rec, worst, total)
+    if "timing" in phases and "mla_serve" in phases:
+        log("[timing] the latent-attention kernel on mla_serve's largest "
+            "call and its largest decode-only call, and kv_append at the "
+            "latent widths")
+        total["mla_attention"] = mla_runs["mla_serve"]["launches"][
+            "mla_attention"]
+        total["mla_attention_decode"] = mla_rec.decode_launches
+        total["kv_append_latent"] = mla_runs["mla_serve"]["launches"][
+            "kv_append"]
+        rows += time_mla(mla_rec, worst, total)
+    if "timing" in phases and "mla_parity" in phases:
+        log("[timing] flash attention at head_dim 192 on mla_parity's "
+            "largest forward call")
+        total["flash_attention_hd192"] = mla_flash.launches
+        rows += time_mla_flash(mla_flash, worst, total)
     if "timing" in phases and set(TIMED_SERVE_PHASES) | {
             "train", "ssm_serve", "gemma2_serve", "gemma2_unfused",
-            "gemma2_quant", "wide_dense", "moe_serve"} <= phases:
+            "gemma2_quant", "wide_dense", "moe_serve", "mla_serve",
+            "mla_parity"} <= phases:
         assert sorted(r["name"] for r in rows) == sorted(
-            KERNELS + WIDE_KERNELS + MOE_KERNELS), rows
+            KERNELS + WIDE_KERNELS + MOE_KERNELS + MLA_KERNELS), rows
         # every kernel of the main path launched; page_requant is the
         # reference's standalone op, which the fused append replaced there
         assert all(r["launches"] > 0 for r in rows
@@ -4751,6 +5294,11 @@ def main() -> int:
         # profiler's own processing most of the phase's time
         log(f"[profile] 20 serve steps after 20 on {MOE_MODEL}")
         profile_serve(warm_steps=20, steps=20, model=MOE_MODEL)
+        log(f"[profile] 20 serve steps after 20 on {MLA_MODEL} "
+            f"({MLA_SERVE_PERIODS[0]} dense + {MLA_SERVE_PERIODS[1]} MoE "
+            "layers)")
+        profile_serve(warm_steps=20, steps=20, model=MLA_MODEL,
+                      periods=MLA_SERVE_PERIODS)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

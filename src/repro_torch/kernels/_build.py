@@ -36,8 +36,9 @@ SIGNATURES = {
     "flash_attention_fwd_launch": [_P] * 5 + [_I] * 8 + [_F, _F, _I, _P],
     "flash_attention_bwd_launch": [_P] * 10 + [_I] * 8 + [_F, _F, _I, _P],
     "gla_scan_launch": [_P] * 10 + [_LL] * 9 + [_I] * 11 + [_P],
-    "kv_append_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _P],
+    "kv_append_launch": [_P] * 7 + [_I] * 3 + [_LL, _LL, _P],
     "kv_append_quant_launch": [_P] * 9 + [_I] * 7 + [_P],
+    "mla_attention_launch": [_P] * 8 + [_I] * 7 + [_F, _I, _P],
     "moe_experts_launch": [_P] * 11 + [_I] * 7 + [_P],
     "swap_pack_launch": [_P, _I, _P, _P, _I, _P],
     "swap_unpack_launch": [_P, _I, _P, _P, _I, _P],

@@ -35,10 +35,10 @@
 //    or P = exp(s - lse) and dS (dQ) run in float32 on the accumulator
 //    fragments, and P or dS is packed to bf16 in registers as the A operand
 //    of P V or dS K: it never goes through shared memory. The forward keeps
-//    its Q fragments in registers for the whole sweep, but at hd 256, where
-//    a warp's 16 x 256 float32 accumulator alone takes 128 registers a
-//    thread, it reads them from shared memory at every key tile and scores
-//    each tile in two halves of 32 keys. The
+//    its Q fragments in registers for the whole sweep, but at hd 192 (MLA's
+//    qk width) and 256, where a warp's 16 x 256 float32 accumulator alone
+//    takes 128 registers a thread, it reads them from shared memory at
+//    every key tile and scores each tile in two halves of 32 keys. The
 //    backward takes hd up to 128 (at 256 its dK/dV accumulators would be
 //    256 registers a thread: it needs its own design). The dQ kernel first
 //    forms delta for its rows and writes it for the dK/dV kernel, which
@@ -55,11 +55,12 @@
 //
 // float32 operands run the first, CUDA-core kernels, kept for float32's
 // tolerances: a row of q (or of k, in the dK/dV kernel) is owned by
-// TPR = hd / 32 neighbouring threads, 32 of its dims each, held in
-// registers as float4s interleaved across the TPR threads; a dot product
-// is one shuffle reduction over them. One block of 128 threads per
-// (b, kv head, q tile) holds the G query heads that share one K/V stream,
-// with K/V tiles of 4096 / hd keys staged as float32; the dK/dV kernel
+// TPR = hd / 32 neighbouring threads, 32 of its dims each (at hd 192, 8
+// threads of 24), held in registers as float4s interleaved across the TPR
+// threads; a dot product is one shuffle reduction over them. One block of
+// 128 threads per (b, kv head, q tile) holds the G query heads that share
+// one K/V stream, with K/V tiles of 4096 / hd keys (rounded down to whole
+// chunks of 8) staged as float32; the dK/dV kernel
 // stages 4096 / hd rows of q and dO at a time.
 #include <math_constants.h>
 
@@ -70,6 +71,12 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kDS = 32;       // dims of a row held by one thread
 constexpr int kNM = kDS / 4;  // float4s of a row held by one thread
+
+// threads that own one row of a float32 block: hd / 32, but 8 at hd 192
+// (24 dims each), so that a row's threads are a power-of-two shuffle group
+constexpr __host__ __device__ int threads_per_row(int hd) {
+  return hd == 192 ? 8 : hd / kDS;
+}
 constexpr int kChunk = 8;     // keys scored together in forward and dQ
 constexpr float kNegInf = -1e30f;
 
@@ -178,9 +185,11 @@ __device__ __forceinline__ void stage(float* dst, const T* src, int n_rows) {
 // The q tile of a forward or dQ block and one thread's place in it.
 template <int HD>
 struct QTile {
-  static constexpr int TPR = HD / kDS;
-  static constexpr int R = kThreads / TPR;  // rows (heads x positions)
-  static constexpr int BK = 4096 / HD;      // keys per staged K/V tile
+  static constexpr int TPR = threads_per_row(HD);
+  static constexpr int NM = HD / (4 * TPR);  // float4s a thread holds
+  static constexpr int R = kThreads / TPR;   // rows (heads x positions)
+  // keys per staged K/V tile: 16 KB of float32, whole chunks of kChunk
+  static constexpr int BK = 4096 / HD / kChunk * kChunk;
   int BQ, part, g, i, qpos, k_lo, k_hi;
   bool active;
   long long bh, row;
@@ -208,15 +217,15 @@ struct QTile {
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
   using Tile = QTile<HD>;
-  constexpr int TPR = Tile::TPR, BK = Tile::BK;
+  constexpr int TPR = Tile::TPR, BK = Tile::BK, NM = Tile::NM;
   __shared__ __align__(16) float k_s[BK * HD];
   __shared__ __align__(16) float v_s[BK * HD];
   const Tile tl(p);
   const int part = tl.part;
   const T* qrow = static_cast<const T*>(p.q) + tl.row * HD;
-  float4 q[kNM], acc[kNM];
+  float4 q[NM], acc[NM];
 #pragma unroll
-  for (int m = 0; m < kNM; ++m) {
+  for (int m = 0; m < NM; ++m) {
     q[m] = tl.active ? load4(gslice<TPR>(qrow, part, m)) : zero4();
     acc[m] = zero4();
   }
@@ -238,7 +247,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
         const float* kr = k_s + (j0 + u) * HD;
         float4 a = zero4();
 #pragma unroll
-        for (int m = 0; m < kNM; ++m) fma4(a, q[m], slice4<TPR>(kr, part, m));
+        for (int m = 0; m < NM; ++m) fma4(a, q[m], slice4<TPR>(kr, part, m));
         s[u] = row_sum<TPR>(sum4(a));
       }
       unsigned vis = 0;
@@ -255,7 +264,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
       const float corr = expf(m_i - m_new);
       l_i *= corr;
 #pragma unroll
-      for (int m = 0; m < kNM; ++m) {
+      for (int m = 0; m < NM; ++m) {
         acc[m].x *= corr;
         acc[m].y *= corr;
         acc[m].z *= corr;
@@ -270,7 +279,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
       for (int u = 0; u < kChunk; ++u) {
         const float* vr = v_s + (j0 + u) * HD;
 #pragma unroll
-        for (int m = 0; m < kNM; ++m) axpy4(acc[m], s[u], slice4<TPR>(vr, part, m));
+        for (int m = 0; m < NM; ++m) axpy4(acc[m], s[u], slice4<TPR>(vr, part, m));
       }
       m_i = m_new;
     }
@@ -279,7 +288,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
   const float l = fmaxf(l_i, 1e-37f);
   T* orow = static_cast<T*>(p.out) + tl.row * HD;
 #pragma unroll
-  for (int m = 0; m < kNM; ++m) {
+  for (int m = 0; m < NM; ++m) {
     const float4 a = acc[m];
     store4(orow + 4 * (part + TPR * m),
            make_float4(a.x / l, a.y / l, a.z / l, a.w / l));
@@ -971,6 +980,11 @@ int dispatch(bool bwd, int hd, const Params& p, int B, cudaStream_t s) {
     case 32: return run<32>(bwd, p, B, s);
     case 64: return run<64>(bwd, p, B, s);
     case 128: return run<128>(bwd, p, B, s);
+    case 192:  // the forward only (MLA's qk head_dim)
+      if (bwd) return static_cast<int>(cudaErrorInvalidValue);
+      return launch(flash_fwd_tc_kernel<192>,
+                    dim3((p.Tq + kRows - 1) / kRows, p.Hkv * p.G, B),
+                    fwd_smem<192>(), p, s);
     case 256:  // the forward only
       if (bwd) return static_cast<int>(cudaErrorInvalidValue);
       return launch(flash_fwd_tc_kernel<256>,
@@ -983,7 +997,7 @@ int dispatch(bool bwd, int hd, const Params& p, int B, cudaStream_t s) {
 }  // namespace tc
 
 template <int HD>
-constexpr int q_rows() { return kThreads / (HD / kDS); }
+constexpr int q_rows() { return kThreads / threads_per_row(HD); }
 
 template <typename T, int HD>
 int launch_fwd(const Params& p, int B, cudaStream_t s) {
@@ -1013,6 +1027,9 @@ int dispatch(bool bwd, int hd, const Params& p, int B, cudaStream_t s) {
     case 32: return bwd ? launch_bwd<T, 32>(p, B, s) : launch_fwd<T, 32>(p, B, s);
     case 64: return bwd ? launch_bwd<T, 64>(p, B, s) : launch_fwd<T, 64>(p, B, s);
     case 128: return bwd ? launch_bwd<T, 128>(p, B, s) : launch_fwd<T, 128>(p, B, s);
+    case 192:  // the forward only (MLA's qk head_dim)
+      return bwd ? static_cast<int>(cudaErrorInvalidValue)
+                 : launch_fwd<T, 192>(p, B, s);
     case 256:  // the forward only
       return bwd ? static_cast<int>(cudaErrorInvalidValue)
                  : launch_fwd<T, 256>(p, B, s);
@@ -1024,7 +1041,7 @@ int run(bool bwd, const Params& p, int B, int hd, int dtype, void* stream) {
   if (B == 0 || p.Hkv == 0 || p.G == 0 || p.Tq == 0) return 0;
   // every row must see a key; a float32 tile holds all G heads of a
   // position, and both routes take the same shapes
-  if (p.Tq > p.Tk || hd < kDS || p.G > kThreads / (hd / kDS))
+  if (p.Tq > p.Tk || hd < kDS || p.G > kThreads / threads_per_row(hd))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch<float>(bwd, hd, p, B, s);
@@ -1035,8 +1052,8 @@ int run(bool bwd, const Params& p, int B, int hd, int dtype, void* stream) {
 }  // namespace
 
 // dtype (q, k, v, out): 0 = float32 (CUDA cores), 1 = bfloat16 (tensor
-// cores); hd in {32, 64, 128, 256} (the backward: {32, 64, 128});
-// G at most 128 / (hd / 32); Tq <= Tk. causal 0 or 1; window <= 0 and
+// cores); hd in {32, 64, 128, 192, 256} (the backward: {32, 64, 128});
+// G at most 128 / (hd / 32), 16 at hd 192; Tq <= Tk. causal 0 or 1; window <= 0 and
 // softcap <= 0 mean none. Returns the cudaError_t of the launch.
 extern "C" int flash_attention_fwd_launch(
     const void* q, const void* k, const void* v, void* out, float* lse,

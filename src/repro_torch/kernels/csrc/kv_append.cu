@@ -2,7 +2,10 @@
 //
 // Replaces: src/repro/kernels/kv_append.py, function kv_append (Pallas body
 // _append_kernel). Row i's K and V, (Hkv, head_dim) each, go into pool slot
-// (page_ids[i], offsets[i]) iff valid[i] != 0, in place.
+// (page_ids[i], offsets[i]) iff valid[i] != 0, in place. The two pools may
+// differ in their rows' width: MLA appends its latent c (512 wide at
+// deepseek-v3's widths) and its shared rope key kr (64) as the "K" and "V"
+// of one call.
 //
 // Bound on the H100: bytes, and per launch latency: each valid row reads and
 // writes 2 * Hkv * head_dim elements (2 KiB per row for llama3.2-1b in bf16),
@@ -45,47 +48,42 @@ __global__ void __launch_bounds__(kThreads) kv_append_kernel(
     const char* __restrict__ k_new, const char* __restrict__ v_new,
     const int* __restrict__ page_ids, const int* __restrict__ offsets,
     const int* __restrict__ valid, int n_rows, int n_pages, int page,
-    long long row_bytes, bool vec) {
+    long long k_bytes, long long v_bytes, bool vec) {
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
   if (i >= n_rows) return;
   const int ok = valid[i], pid = page_ids[i], off = offsets[i];
-  const long long row = (long long)i * row_bytes;
-  const long long slot = ((long long)pid * page + off) * row_bytes;
+  const long long slot = (long long)pid * page + off;
+  const char* ks = k_new + i * k_bytes;
+  const char* vs = v_new + i * v_bytes;
+  char* kd = k_pool + slot * k_bytes;
+  char* vd = v_pool + slot * v_bytes;
   if (vec) {
-    const int n16 = static_cast<int>(row_bytes / 16);
-    const uint4* ks = reinterpret_cast<const uint4*>(k_new + row);
-    const uint4* vs = reinterpret_cast<const uint4*>(v_new + row);
-    uint4* kd = reinterpret_cast<uint4*>(k_pool + slot);
-    uint4* vd = reinterpret_cast<uint4*>(v_pool + slot);
-    for (int base = lane; base < n16; base += 32 * kWords) {
+    const int nk = static_cast<int>(k_bytes / 16);
+    const int nv = static_cast<int>(v_bytes / 16);
+    for (int base = lane; base < max(nk, nv); base += 32 * kWords) {
       uint4 kw[kWords], vw[kWords];
 #pragma unroll
       for (int b = 0; b < kWords; ++b) {
         const int w = base + 32 * b;
-        if (w < n16) {
-          kw[b] = load16(ks + w);
-          vw[b] = load16(vs + w);
-        }
+        if (w < nk) kw[b] = load16(reinterpret_cast<const uint4*>(ks) + w);
+        if (w < nv) vw[b] = load16(reinterpret_cast<const uint4*>(vs) + w);
       }
       if (ok == 0 || pid < 0 || pid >= n_pages || off < 0 || off >= page)
         return;
 #pragma unroll
       for (int b = 0; b < kWords; ++b) {
         const int w = base + 32 * b;
-        if (w < n16) {
-          kd[w] = kw[b];
-          vd[w] = vw[b];
-        }
+        if (w < nk) reinterpret_cast<uint4*>(kd)[w] = kw[b];
+        if (w < nv) reinterpret_cast<uint4*>(vd)[w] = vw[b];
       }
     }
   } else {
     if (ok == 0 || pid < 0 || pid >= n_pages || off < 0 || off >= page)
       return;
-    for (long long j = lane; j < row_bytes; j += 32) {
-      const char k = k_new[row + j], v = v_new[row + j];
-      k_pool[slot + j] = k;
-      v_pool[slot + j] = v;
+    for (long long j = lane; j < max(k_bytes, v_bytes); j += 32) {
+      if (j < k_bytes) kd[j] = ks[j];
+      if (j < v_bytes) vd[j] = vs[j];
     }
   }
 }
@@ -96,20 +94,23 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
-// row_bytes = Hkv * head_dim * element size. Returns the launch's
-// cudaError_t.
+// k_bytes, v_bytes = a K and a V row's bytes (Hkv * head_dim * element
+// size for GQA pools). Returns the launch's cudaError_t.
 extern "C" int kv_append_launch(void* k_pool, void* v_pool, const void* k_new,
                                 const void* v_new, const int* page_ids,
                                 const int* offsets, const int* valid,
                                 int n_rows, int n_pages, int page,
-                                long long row_bytes, void* stream) {
+                                long long k_bytes, long long v_bytes,
+                                void* stream) {
   if (n_rows == 0) return 0;
-  const bool vec = row_bytes % 16 == 0 && aligned16(k_pool) &&
-                   aligned16(v_pool) && aligned16(k_new) && aligned16(v_new);
+  const bool vec = k_bytes % 16 == 0 && v_bytes % 16 == 0 &&
+                   aligned16(k_pool) && aligned16(v_pool) &&
+                   aligned16(k_new) && aligned16(v_new);
   const int blocks = (n_rows + kRowsPerBlock - 1) / kRowsPerBlock;
   kv_append_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<char*>(k_pool), static_cast<char*>(v_pool),
       static_cast<const char*>(k_new), static_cast<const char*>(v_new),
-      page_ids, offsets, valid, n_rows, n_pages, page, row_bytes, vec);
+      page_ids, offsets, valid, n_rows, n_pages, page, k_bytes, v_bytes,
+      vec);
   return static_cast<int>(cudaGetLastError());
 }

@@ -28,12 +28,21 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128, 256)
+# 192: MLA's qk width (128 + 64), deepseek-v3's full-sequence forward
+HEAD_DIMS = (32, 64, 128, 192, 256)
 # the backward kernels' head dims: at 256 their dK/dV accumulators would
 # take 256 registers a thread, so that head_dim waits for its own design
-# (ROADMAP.md queue 2, "row 7b at head_dim 256")
+# (ROADMAP.md queue 2, "row 7b at head_dim 256"), and so does MLA's 192
+# (queue 2, "the flash backward at head_dim 192")
 BWD_HEAD_DIMS = (32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def max_heads(hd: int) -> int:
+    """The most query heads G a kv head may have: a float32 kernel block
+    holds all G heads of a position in its 128 threads, hd / 32 threads a
+    row (8 at hd 192); the bf16 kernels take the same shapes."""
+    return 128 // (8 if hd == 192 else hd // 32)
 
 
 def _check_lengths(q, k):
@@ -120,14 +129,12 @@ def _check(kernel, *tensors):
         raise ValueError("q must be (B, Hkv, G, Tq, hd) and k, v "
                          "(B, Hkv, Tk, hd)")
     B, Hkv, G, Tq, hd = q.shape
-    # all G heads of a position share one float32 kernel block of
-    # 4096 / hd rows; the bf16 kernels take the same shapes
-    if hd not in HEAD_DIMS or G > 4096 // hd \
+    if hd not in HEAD_DIMS or G > max_heads(hd) \
             or tuple(k.shape[:2]) != (B, Hkv) or k.shape[3] != hd \
             or tensors[2].shape != k.shape:
         raise ValueError(f"shapes q {tuple(q.shape)} / k {tuple(k.shape)} "
                          f"/ v {tuple(tensors[2].shape)} not taken (head_dim "
-                         f"in {HEAD_DIMS}, G <= 4096 / head_dim)")
+                         f"in {HEAD_DIMS}, G <= max_heads(head_dim))")
     _check_lengths(q, k)
     for t in tensors:
         if t.device != q.device or not t.is_contiguous():
@@ -178,10 +185,12 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
     Raises on any operand the kernels do not take, a CPU tensor
     included (the head_dim refusal comes first, on any device)."""
     if q.shape[-1] not in BWD_HEAD_DIMS:
+        item = ("the flash backward at head_dim 192" if q.shape[-1] == 192
+                else "row 7b at head_dim 256")
         raise ValueError(
             f"flash_attention_bwd takes head_dim in {BWD_HEAD_DIMS}, got "
-            f"{q.shape[-1]}: head_dim 256 waits for the backward's own "
-            "design (ROADMAP.md queue 2, row 7b at head_dim 256)")
+            f"{q.shape[-1]}: it waits for the backward's own design "
+            f"(ROADMAP.md queue 2, {item})")
     _build.require_cuda("flash_attention_bwd", q)
     _check("flash_attention_bwd", q, k, v, o, do, lse)
     if o.shape != q.shape or do.shape != q.shape \

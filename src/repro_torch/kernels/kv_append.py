@@ -6,8 +6,10 @@ lands in pool slot ``(page_ids[i], offsets[i])`` iff ``valid[i] != 0``;
 one page-slot write per token, O(1) HBM traffic per generated token. Both
 versions update the pools in place and return them, keeping the JAX
 signature. Invalid rows write nothing: on a parallel grid the TPU
-kernel's discard-page write-back would race, so it is dropped. The kernel
-source is ``csrc/kv_append.cu``.
+kernel's discard-page write-back would race, so it is dropped. The two
+pools may differ in their last width (MLA's latent pools: c as (n_pages,
+page, 1, kv_lora), kr as (n_pages, page, 1, rope)). The kernel source is
+``csrc/kv_append.cu``.
 """
 from __future__ import annotations
 
@@ -34,17 +36,18 @@ def _raw_stream(t) -> int:
 
 
 def _check(k_pool, v_pool, k_new, v_new, page_ids, offsets, valid):
-    if not k_pool.is_cuda:
-        raise ValueError("kv_append launches a CUDA kernel; got a tensor on "
-                         f"{k_pool.device}")
+    """Raise on any operand the kernel does not take (the device is checked
+    by the launcher)."""
     n_pages, page, Hkv, hd = k_pool.shape
     N = k_new.shape[0]
-    if v_pool.shape != k_pool.shape or k_new.shape != (N, Hkv, hd) \
-            or v_new.shape != k_new.shape:
-        raise ValueError(f"pools {tuple(k_pool.shape)} / rows "
-                         f"{tuple(k_new.shape)} {tuple(v_new.shape)} not "
-                         "taken: pools (n_pages, page, Hkv, hd), rows "
-                         "(N, Hkv, hd)")
+    if v_pool.dim() != 4 or v_pool.shape[:3] != k_pool.shape[:3] \
+            or k_new.shape != (N, Hkv, hd) \
+            or v_new.shape != (N, *v_pool.shape[2:]):
+        raise ValueError(f"pools {tuple(k_pool.shape)} {tuple(v_pool.shape)}"
+                         f" / rows {tuple(k_new.shape)} "
+                         f"{tuple(v_new.shape)} not taken: pools (n_pages, "
+                         "page, Hkv, hd_k) and (n_pages, page, Hkv, hd_v), "
+                         "rows (N, Hkv, hd_k) and (N, Hkv, hd_v)")
     if not k_pool.dtype == v_pool.dtype == k_new.dtype == v_new.dtype:
         raise TypeError("pools and rows must share a dtype")
     if not (page_ids.dtype == offsets.dtype == valid.dtype == torch.int32
@@ -60,13 +63,16 @@ def kv_append(k_pool, v_pool, k_new, v_new, page_ids, offsets, valid):
     """Launch the CUDA kernel on the current stream, writing the pools in
     place; returns (k_pool, v_pool). Raises on any operand the kernel
     does not take, a CPU tensor included."""
+    _build.require_cuda("kv_append", k_pool)
     _check(k_pool, v_pool, k_new, v_new, page_ids, offsets, valid)
-    n_pages, page, Hkv, hd = k_pool.shape
+    n_pages, page = k_pool.shape[:2]
     err = _build.lib().kv_append_launch(
         k_pool.data_ptr(), v_pool.data_ptr(), k_new.data_ptr(),
         v_new.data_ptr(), page_ids.data_ptr(), offsets.data_ptr(),
         valid.data_ptr(), k_new.shape[0], n_pages, page,
-        Hkv * hd * k_pool.element_size(), _raw_stream(k_pool))
+        k_pool.shape[2] * k_pool.shape[3] * k_pool.element_size(),
+        v_pool.shape[2] * v_pool.shape[3] * v_pool.element_size(),
+        _raw_stream(k_pool))
     _build.check(err, "kv_append")
     kv_append.launches += 1
     return k_pool, v_pool

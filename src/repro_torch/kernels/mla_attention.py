@@ -1,0 +1,121 @@
+"""Ragged latent attention, MLA's absorbed attention over paged latent
+pools (deepseek-v3): the CUDA kernel's launcher and its plain PyTorch
+version.
+
+No Pallas kernel is its counterpart: the reference computes this
+attention as XLA ops inside ``repro.models.attention.mla_mixed_paged``
+(and ``mla_decode_paged`` / ``mla_extend_paged``), gathering each row's
+whole latent table. Row i belongs to sequence ``tok_seq[i]`` at position
+``tok_pos[i]``; for each head h it attends over the keys j <= tok_pos[i]
+of its block table with scores ``(q_lat[i, h] . c_j + q_rope[i, h] .
+kr_j) * scale`` and returns the softmax-weighted sum of the latents c_j.
+A row with ``tok_pos == -1`` gives zeros.
+
+Layout: q_lat (N, H, L) and q_rope (N, H, R) float32; pools c (n_pages,
+page, L) and kr (n_pages, page, R), float32 or bfloat16; block_tables
+(B, max_pages) int32; tok_seq, tok_pos (N,) int32; out (N, H, L)
+float32. The kernel source is ``csrc/mla_attention.cu``; it takes L a
+multiple of 16 up to 512 and R a multiple of 8 up to 64.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+NEG_INF = -1e30
+MAX_L, MAX_R = 512, 64
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def latent_attend(q_lat, q_rope, c_cache, kr_cache, live, scale):
+    """Absorbed attention over gathered latents, the reference's op order:
+    q_lat (B, T, H, L) and q_rope (B, T, H, R) float32 over c_cache
+    (B, S, L) and kr_cache (B, S, R) where ``live`` (B, T, S) holds:
+    float32 scores (q_lat . c + q_rope . kr) * scale, masked to -1e30,
+    softmax, then the weighted sum of the latents. Returns (B, T, H, L)
+    float32. The gather path's slotted caches and the plain version's
+    per-row gathers both go through it."""
+    c = c_cache.float()
+    s = (torch.einsum("bthl,bsl->bths", q_lat, c)
+         + torch.einsum("bthr,bsr->bths", q_rope, kr_cache.float())) * scale
+    s = s.masked_fill(~live[:, :, None, :], NEG_INF)
+    return torch.einsum("bths,bsl->bthl", torch.softmax(s, dim=-1), c)
+
+
+def ragged_latent_attention_ref(q_lat, q_rope, c_pool, kr_pool,
+                                block_tables, tok_seq, tok_pos, scale):
+    """The plain version, as the reference's ``mla_mixed_paged`` computes
+    the attention: gather each row's block table of latents, float32
+    scores, mask ``key <= tok_pos``, softmax, weighted sum. Rows with
+    ``tok_pos < 0`` are zeroed, the kernel's contract."""
+    N, H, L = q_lat.shape
+    S = block_tables.shape[1] * c_pool.shape[1]
+    bt_tok = block_tables[tok_seq.long()].long()           # (N, max_pages)
+    live = torch.arange(S, device=q_lat.device)[None, :] \
+        <= tok_pos.long()[:, None]
+    out = latent_attend(q_lat[:, None], q_rope[:, None],
+                        c_pool[bt_tok].reshape(N, S, L),
+                        kr_pool[bt_tok].reshape(N, S, -1), live[:, None],
+                        scale)[:, 0]
+    return out.masked_fill((tok_pos < 0)[:, None, None], 0.0)
+
+
+def _check(q_lat, q_rope, c_pool, kr_pool, block_tables, tok_seq, tok_pos):
+    """Raise on any operand the kernel does not take (the device is checked
+    by the launcher)."""
+    N, H, L = q_lat.shape
+    R = q_rope.shape[2]
+    if q_lat.dtype != torch.float32 or q_rope.dtype != torch.float32:
+        raise TypeError("q_lat and q_rope must be float32")
+    if c_pool.dtype not in DTYPES or kr_pool.dtype != c_pool.dtype:
+        raise TypeError(f"pools must be float32 or bfloat16 and share a "
+                        f"dtype, got {c_pool.dtype} / {kr_pool.dtype}")
+    if q_rope.shape[:2] != (N, H) or c_pool.dim() != 3 \
+            or kr_pool.shape[:2] != c_pool.shape[:2] \
+            or (c_pool.shape[2], kr_pool.shape[2]) != (L, R) \
+            or L % 16 or L > MAX_L or R % 8 or R == 0 or R > MAX_R:
+        raise ValueError(
+            f"shapes q_lat {tuple(q_lat.shape)} / q_rope "
+            f"{tuple(q_rope.shape)} / pools {tuple(c_pool.shape)} "
+            f"{tuple(kr_pool.shape)} not taken (L a multiple of 16 up to "
+            f"{MAX_L}, R a multiple of 8 up to {MAX_R})")
+    if block_tables.dim() != 2 or tok_seq.shape != (N,) \
+            or tok_pos.shape != (N,):
+        raise ValueError("block_tables must be (B, max_pages), tok_seq and "
+                         "tok_pos (N,)")
+    for t in (block_tables, tok_seq, tok_pos):
+        if t.dtype != torch.int32:
+            raise TypeError("block_tables, tok_seq and tok_pos must be int32")
+    ops = (q_lat, q_rope, c_pool, kr_pool, block_tables, tok_seq, tok_pos)
+    if not all(t.is_contiguous() for t in ops) \
+            or len({t.device for t in ops}) != 1:
+        raise ValueError("all operands must be contiguous on one device")
+    # rows are read with 16-byte loads and copies
+    if any(t.data_ptr() % 16 for t in ops[:4]):
+        raise ValueError("q_lat, q_rope and the pools must start on a "
+                         "16-byte boundary")
+
+
+def ragged_latent_attention(q_lat, q_rope, c_pool, kr_pool, block_tables,
+                            tok_seq, tok_pos, scale):
+    """Launch the CUDA kernel on the current stream; returns (N, H, L)
+    float32. Raises on any operand the kernel does not take, a CPU tensor
+    included."""
+    _build.require_cuda("ragged_latent_attention", q_lat)
+    _check(q_lat, q_rope, c_pool, kr_pool, block_tables, tok_seq, tok_pos)
+    N, H, L = q_lat.shape
+    n_pages, page, R = kr_pool.shape
+    out = torch.empty_like(q_lat)
+    err = _build.lib().mla_attention_launch(
+        q_lat.data_ptr(), q_rope.data_ptr(), c_pool.data_ptr(),
+        kr_pool.data_ptr(), block_tables.data_ptr(), tok_seq.data_ptr(),
+        tok_pos.data_ptr(), out.data_ptr(), N, H, L, R, page,
+        block_tables.shape[1], n_pages, float(scale), DTYPES[c_pool.dtype],
+        torch.cuda.current_stream(q_lat.device).cuda_stream)
+    _build.check(err, "ragged_latent_attention")
+    ragged_latent_attention.launches += 1
+    return out
+
+
+ragged_latent_attention.launches = 0

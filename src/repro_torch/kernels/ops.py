@@ -10,6 +10,8 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gla_scan import chunked_gla_ref, gla_scan
 from repro_torch.kernels.kv_append import kv_append, kv_append_ref
 from repro_torch.kernels.kv_quant import kv_append_quant, kv_append_quant_ref
+from repro_torch.kernels.mla_attention import (ragged_latent_attention,
+                                               ragged_latent_attention_ref)
 from repro_torch.kernels.moe_experts import MoEExperts, moe_experts_ref
 from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_attention_quant_ref,
@@ -28,13 +30,15 @@ def _on_cpu(t) -> bool:
     return t.device.type == "cpu"
 
 
-def flash_attention_op(q, k, v, *, causal=True, window=None, softcap=None):
+def flash_attention_op(q, k, v, *, causal=True, window=None, softcap=None,
+                       scale=None):
     """Dense GQA attention over full sequences, differentiable: q
-    (B, Hkv, G, Tq, hd), k and v (B, Hkv, Tk, hd). The autograd Function
-    runs the plain versions, forward and backward, for CPU tensors and
-    launches the kernels for CUDA tensors."""
+    (B, Hkv, G, Tq, hd), k and v (B, Hkv, Tk, hd); scores times ``scale``
+    (default 1 / sqrt(hd)). The autograd Function runs the plain versions,
+    forward and backward, for CPU tensors and launches the kernels for
+    CUDA tensors."""
     return flash_attention(q, k, v, causal=causal, window=window,
-                           softcap=softcap)
+                           softcap=softcap, scale=scale)
 
 
 def gla_scan_op(q, k, v, log_a, *, chunk=128, initial_state=None):
@@ -96,6 +100,16 @@ def ragged_paged_attention_op(q, k_pool, v_pool, block_tables, tok_seq,
     return ragged_paged_attention_ref(q, k_pool, v_pool, block_tables,
                                       tok_seq, tok_pos, softcap=softcap,
                                       window=window)
+
+
+def ragged_latent_attention_op(q_lat, q_rope, c_pool, kr_pool, block_tables,
+                               tok_seq, tok_pos, scale):
+    """MLA's absorbed attention of each flat row over its sequence's
+    latent pages: (N, H, L) float32."""
+    fn = ragged_latent_attention_ref if _on_cpu(q_lat) \
+        else ragged_latent_attention
+    return fn(q_lat, q_rope, c_pool, kr_pool, block_tables, tok_seq,
+              tok_pos, scale)
 
 
 def kv_append_op(k_pool, v_pool, k_new, v_new, page_ids, offsets, valid):

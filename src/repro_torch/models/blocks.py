@@ -10,8 +10,9 @@ before its residual add). An MoE FFN takes each batch row as a dispatch
 group on the full-sequence and extend paths, and each token as a group of
 one on the decode and paged-decode paths and the fused mixed batch, as
 the reference does; its balance loss is the aux loss that the
-full-sequence and extend passes return. MLA attention is not ported yet
-and raises; the paged paths refuse SSM blocks, as the reference does."""
+full-sequence and extend passes return. Attention is GQA or MLA
+(deepseek-v3's latent attention, whose caches and pools are the latent
+{"c","kr"}); the paged paths refuse SSM blocks, as the reference does."""
 from __future__ import annotations
 
 import torch
@@ -36,9 +37,8 @@ def _check_ported(blk: BlockCfg):
         return
     if blk.kind not in ("attn", "shared_attn"):
         raise ValueError(f"unknown block kind {blk.kind}")
-    if blk.attn.kind != "gqa":
-        raise NotImplementedError(f"{blk.attn.kind} attention is not "
-                                  "ported yet")
+    if blk.attn.kind not in ("gqa", "mla"):
+        raise ValueError(f"unknown attention kind {blk.attn.kind}")
     if blk.ffn.kind not in ("dense", "moe"):
         raise NotImplementedError(f"{blk.ffn.kind} FFNs are not ported")
 
@@ -59,8 +59,8 @@ def init_block(generator: torch.Generator, cfg: ModelConfig, blk: BlockCfg,
                 "cell": _INIT[blk.kind](generator, d, blk.ssm, dtype=dtype,
                                         device=device)}
     p = {"norm1": torch.zeros((d,), dtype=dtype, device=device),
-         "attn": attention.init_gqa(generator, d, blk.attn, dtype=dtype,
-                                    device=device),
+         "attn": attention.init_attention(generator, d, blk.attn,
+                                          dtype=dtype, device=device),
          "norm2": torch.zeros((d,), dtype=dtype, device=device)}
     if blk.ffn.kind == "moe":
         p["moe"] = moe.init_moe(generator, d, blk.ffn, dtype=dtype,
@@ -177,10 +177,12 @@ def block_mixed_paged(p, cfg: ModelConfig, blk: BlockCfg, x, pool, ctx):
     routed through ctx["block_tables"] by ctx["tok_seq"] / ctx["tok_pos"].
     Returns x (N, d)."""
     _check_paged(blk)
-    return _attn_ffn(p, cfg, blk, x, lambda xn: (attention.gqa_mixed_paged(
-        p["attn"], blk.attn, xn, pool, ctx["block_tables"], ctx["tok_seq"],
-        ctx["tok_pos"], window_override=ctx.get("window_override", "cfg")),
-        None), per_token=True)[0]
+    return _attn_ffn(p, cfg, blk, x, lambda xn: (
+        attention.attention_mixed_paged(
+            p["attn"], blk.attn, xn, pool, ctx["block_tables"],
+            ctx["tok_seq"], ctx["tok_pos"],
+            window_override=ctx.get("window_override", "cfg")), None),
+        per_token=True)[0]
 
 
 def block_decode_paged(p, cfg: ModelConfig, blk: BlockCfg, x, pool, ctx):
@@ -188,9 +190,11 @@ def block_decode_paged(p, cfg: ModelConfig, blk: BlockCfg, x, pool, ctx):
     place. x: (B, d), one row per sequence, routed through
     ctx["block_tables"] / ctx["ctx_lens"]. Returns x (B, d)."""
     _check_paged(blk)
-    return _attn_ffn(p, cfg, blk, x, lambda xn: (attention.gqa_decode_paged(
-        p["attn"], blk.attn, xn, pool, ctx["block_tables"], ctx["ctx_lens"],
-        window_override=ctx.get("window_override", "cfg")), None),
+    return _attn_ffn(p, cfg, blk, x, lambda xn: (
+        attention.attention_decode_paged(
+            p["attn"], blk.attn, xn, pool, ctx["block_tables"],
+            ctx["ctx_lens"],
+            window_override=ctx.get("window_override", "cfg")), None),
         per_token=True)[0]
 
 
@@ -199,7 +203,8 @@ def block_extend_paged(p, cfg: ModelConfig, blk: BlockCfg, x, pool, ctx):
     x: (B, T, d) at positions ctx["start"][b] + t; only the first
     ctx["n_new"][b] tokens of each row are real. Returns x (B, T, d)."""
     _check_paged(blk)
-    return _attn_ffn(p, cfg, blk, x, lambda xn: (attention.gqa_extend_paged(
-        p["attn"], blk.attn, xn, pool, ctx["block_tables"], ctx["start"],
-        ctx["n_new"], window_override=ctx.get("window_override", "cfg")),
-        None))[0]
+    return _attn_ffn(p, cfg, blk, x, lambda xn: (
+        attention.attention_extend_paged(
+            p["attn"], blk.attn, xn, pool, ctx["block_tables"],
+            ctx["start"], ctx["n_new"],
+            window_override=ctx.get("window_override", "cfg")), None))[0]

@@ -13,7 +13,8 @@ layer's pool is a contiguous slice of its group's stacked pool tensor and
 is updated in place. Decode caches (``init_cache``, ``forward``'s
 ``return_cache_len``, ``decode_step``, ``extend_step``) are stacked over
 the periods the same way: an attention block's slotted K/V (n_periods,
-B, S, Hkv, hd), an SSM block's state; ``decode_step`` and
+B, S, Hkv, hd) or MLA latent {"c","kr"} (n_periods, B, S, kv_lora /
+rope), an SSM block's state; ``decode_step`` and
 ``extend_step`` return new ones.
 """
 from __future__ import annotations
@@ -229,7 +230,8 @@ class LM:
                 if blk.kind in B.SSM_KINDS:
                     entry[key] = _stack_periods(per, key)
                     continue
-                first = per[0][key]["k"]
+                # an attention block's first leaf: "k" of GQA, MLA's "c"
+                first = next(iter(per[0][key].values()))
                 tmpl = B.init_block_cache(cfg, blk, batch, cache_len,
                                           dtype=first.dtype,
                                           device=first.device,

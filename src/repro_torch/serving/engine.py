@@ -408,6 +408,16 @@ class Engine:
         self.kv_token_bytes = -(-sum(
             t.numel() * t.element_size() for t in tree_leaves(self.pools))
             // page_slots)
+        # the same for MLA blocks alone, whose latent pools the reference
+        # gathers O(context) per row on every paged path: the counters
+        # price that gather as the reference's do (0 for other models)
+        self.kv_mla_token_bytes = sum(
+            -(-sum(t.numel() * t.element_size()
+                   for t in tree_leaves(self.pools[gi][f"b{j}"]))
+              // page_slots)
+            for gi, g in enumerate(cfg.groups)
+            for j, blk in enumerate(g.period)
+            if blk.attn is not None and blk.attn.kind == "mla")
 
     @staticmethod
     def _bucket(n: int) -> int:
@@ -1502,9 +1512,13 @@ class Engine:
         # COW tail); pages past it were freshly allocated above
         self._ensure_writable(st, start)
         logits = self._extend_call(st, start, n)
-        # the gather oracle round-trips the whole block-table view
-        self.counters["prefill_bytes"] += (n if self.paged else (
-            self.max_pages * self.page + n)) * self.kv_token_bytes
+        # the gather oracle round-trips the whole block-table view; the
+        # paged call's MLA blocks gather their latent table once
+        self.counters["prefill_bytes"] += (
+            n * self.kv_token_bytes
+            + self.max_pages * self.page * self.kv_mla_token_bytes
+            if self.paged else
+            (self.max_pages * self.page + n) * self.kv_token_bytes)
         self.counters["prefill_tokens"] += n
         self.counters["device_dispatches"] += 1
         st.computed = start + n
@@ -1528,11 +1542,16 @@ class Engine:
             self._ensure_writable(st, r.target_ctx)
         pos = [r.target_ctx for r in reqs]
         logits = self._decode_call(sts, pos)
-        # O(1) appends per generated token; the gather oracle round-trips
-        # the whole block-table view, O(context)
-        self.counters["decode_bytes"] += (len(reqs) if self.paged else (
-            self._bucket(len(reqs)) * self.max_pages * self.page
-            + len(reqs))) * self.kv_token_bytes
+        # O(1) appends per generated token, plus the O(context) latent
+        # gather of MLA blocks per padded row; the gather oracle
+        # round-trips the whole block-table view, O(context)
+        B_pad = self._bucket(len(reqs))
+        self.counters["decode_bytes"] += (
+            len(reqs) * self.kv_token_bytes
+            + B_pad * self.max_pages * self.page * self.kv_mla_token_bytes
+            if self.paged else
+            (B_pad * self.max_pages * self.page + len(reqs))
+            * self.kv_token_bytes)
         self.counters["decode_tokens"] += len(reqs)
         self.counters["device_dispatches"] += 1
         self._pending_oracle.append(("decode", list(reqs), logits, pos))
@@ -1604,10 +1623,18 @@ class Engine:
 
         n_chunk = sum(n for _, _, _, n, c in entries if c)
         n_dec = B - len(plan.chunks)
-        self.counters["prefill_bytes"] += n_chunk * self.kv_token_bytes
+        # the reference gathers MLA blocks' latent table once per flat row:
+        # chunk rows charge prefill, decode rows decode, and padding rows
+        # the decode side when the batch has decodes, else prefill (0 for
+        # models without MLA)
+        mla_gather = self.max_pages * self.page * self.kv_mla_token_bytes
+        pad_rows = N_pad - total
+        self.counters["prefill_bytes"] += n_chunk * self.kv_token_bytes \
+            + (n_chunk + (0 if n_dec else pad_rows)) * mla_gather
         self.counters["prefill_tokens"] += n_chunk
         # O(1) appends per generated token
-        self.counters["decode_bytes"] += n_dec * self.kv_token_bytes
+        self.counters["decode_bytes"] += n_dec * self.kv_token_bytes \
+            + (n_dec + (pad_rows if n_dec else 0)) * mla_gather
         self.counters["decode_tokens"] += n_dec
         self.counters["device_dispatches"] += 1
         # B_pad int32 ids, O(B) — size known without fetching

@@ -200,6 +200,62 @@ def test_kv_append_plain_invalid_rows_leave_pool_untouched():
 
 
 # ---------------------------------------------------------------------------
+# kv_append over pools of two widths (MLA's latent c and rope key kr)
+# ---------------------------------------------------------------------------
+def _latent_append_case(rng, n_pages=6, page=4, L=32, R=16, N=5):
+    """c and kr pools viewed as (n_pages, page, 1, width), their rows, and
+    N distinct slots."""
+    cp = _t(rng.normal(size=(n_pages, page, 1, L)).astype(np.float32))
+    kp = _t(rng.normal(size=(n_pages, page, 1, R)).astype(np.float32))
+    cn = _t(rng.normal(size=(N, 1, L)).astype(np.float32))
+    kn = _t(rng.normal(size=(N, 1, R)).astype(np.float32))
+    slots = rng.permutation(n_pages * page)[:N]
+    return cp, kp, cn, kn, _t((slots // page).astype(np.int32)), \
+        _t((slots % page).astype(np.int32))
+
+
+def test_kv_append_check_takes_differing_last_widths():
+    from repro_torch.kernels import kv_append as ka
+    cp, kp, cn, kn, ids, offs = _latent_append_case(np.random.default_rng(0))
+    ka._check(cp, kp, cn, kn, ids, offs, torch.ones(5, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("bad", ["page_count", "page_size", "heads",
+                                 "row_width"])
+def test_kv_append_check_refuses_mismatched_pools(bad):
+    """The pools may differ in their last width only: other page counts,
+    page sizes or head counts, and rows that do not match their pool,
+    are refused."""
+    from repro_torch.kernels import kv_append as ka
+    cp, kp, cn, kn, ids, offs = _latent_append_case(np.random.default_rng(1))
+    if bad == "page_count":
+        kp = torch.zeros((7, 4, 1, 16))
+    elif bad == "page_size":
+        kp = torch.zeros((6, 8, 1, 16))
+    elif bad == "heads":
+        kp, kn = torch.zeros((6, 4, 2, 16)), torch.zeros((5, 2, 16))
+    else:
+        kn = torch.zeros((5, 1, 32))
+    with pytest.raises(ValueError, match="not taken"):
+        ka._check(cp, kp, cn, kn, ids, offs, torch.ones(5, dtype=torch.int32))
+
+
+def test_kv_append_plain_writes_both_widths():
+    """Each valid row lands in its slot of both pools, at each pool's own
+    width; an invalid row and every other slot stay as they were."""
+    cp, kp, cn, kn, ids, offs = _latent_append_case(np.random.default_rng(2))
+    before = (cp.clone(), kp.clone())
+    valid = torch.tensor([1, 1, 0, 1, 1], dtype=torch.int32)
+    kv_append_ref(cp, kp, cn, kn, ids, offs, valid)
+    for pool, old, rows in ((cp, before[0], cn), (kp, before[1], kn)):
+        want = old.clone()
+        for i in range(5):
+            if valid[i]:
+                want[ids[i], offs[i]] = rows[i]
+        assert torch.equal(pool, want)
+
+
+# ---------------------------------------------------------------------------
 # swap pack / unpack: plain version vs the Pallas kernels, bit-exact
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("leaf", ["payload", "scales"])
@@ -357,6 +413,28 @@ def test_gpu_kv_append_matches_plain(cuda, dtype):
     valid = torch.randint(0, 2, (20,), generator=g, device=cuda).int()
     want = kv_append_ref(kp.clone(), vp.clone(), kn, kn, ids, offs, valid)
     got = ops.kv_append_op(kp, vp, kn, kn, ids, offs, valid)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("L,R", [(32, 16), (512, 64)])
+def test_gpu_kv_append_latent_widths_match_plain(cuda, dtype, L, R):
+    """MLA's append: c and kr rows of their own widths in one launch,
+    padded rows dropped; byte for byte the plain version's."""
+    td = TORCH_DTYPES[dtype]
+    g = torch.Generator(device=cuda).manual_seed(2)
+    cp = torch.randn((32, 16, 1, L), generator=g, device=cuda).to(td)
+    kp = torch.randn((32, 16, 1, R), generator=g, device=cuda).to(td)
+    cn = torch.randn((20, 1, L), generator=g, device=cuda).to(td)
+    kn = torch.randn((20, 1, R), generator=g, device=cuda).to(td)
+    slots = torch.randperm(32 * 16, generator=g, device=cuda)[:20]
+    ids, offs = (slots // 16).int(), (slots % 16).int()
+    valid = torch.randint(0, 2, (20,), generator=g, device=cuda).int()
+    want = kv_append_ref(cp.clone(), kp.clone(), cn, kn, ids, offs, valid)
+    before = kv_append.launches
+    got = ops.kv_append_op(cp, kp, cn, kn, ids, offs, valid)
+    assert kv_append.launches == before + 1
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 

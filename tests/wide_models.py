@@ -93,23 +93,27 @@ def port_run(cfg, params, policy, **kw):
     return {r.rid: eng.generated_text(r) for r in fin}, eng, fin
 
 
-def engine_matches_jax(jcfg, cfg, params, policy):
+def engine_matches_jax(jcfg, cfg, params, policy, **kw):
     """The port's engine against the JAX engine (its own seed-0 init,
-    which the port's params are bridged from) on one workload: streams,
-    counters, scheduler stats, ledger causes and the virtual clock equal;
-    returns the port's finished requests."""
-    jeng = JaxEngine(jcfg, JAX_POLICIES[policy], seed=0, **ENGINE_KW)
+    which the port's params are bridged from) on one workload, both with
+    the engine options ``kw``: streams, counters, scheduler stats, ledger
+    causes and the virtual clock equal; returns the port's finished
+    requests."""
+    jeng = JaxEngine(jcfg, JAX_POLICIES[policy], seed=0, **ENGINE_KW, **kw)
     for r in jax_workload(vocab=jcfg.vocab_size, **WORKLOAD_KW):
         jeng.add_request(r)
     jfin = jeng.run(strict=True)
-    got, eng, fin = port_run(cfg, params, policy)
+    got, eng, fin = port_run(cfg, params, policy, **kw)
     assert got == {r.rid: jeng.generated_text(r) for r in jfin}
     assert dict(eng.counters) == dict(jeng.counters)
     assert {f: getattr(eng.sched.stats, f) for f in SCHED_COUNTER_SCHEMA} \
         == {f: getattr(jeng.sched.stats, f) for f in SCHED_COUNTER_SCHEMA}
     assert eng.now == jeng.now
     assert eng.ledger.causes == jeng.ledger.causes
-    assert eng.blocks.num_free == eng.blocks.n_pages - 1
+    # every page back, but those a prefix cache still holds
+    assert eng.blocks.num_free == jeng.blocks.num_free
+    if not kw.get("prefix_cache"):
+        assert eng.blocks.num_free == eng.blocks.n_pages - 1
     return fin
 
 
