@@ -57,11 +57,14 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      moe_forward once under set_sync_debug_mode("error");
                      the MLA slice: the ragged latent-attention kernel
                      (row 10) at deepseek-v3's full (H 128, L 512, R 64)
-                     and tiny widths over bf16 and float32 pools (an
-                     N 512 call of a chunk, decodes at the table's end
-                     and on either side of a page boundary, padded rows;
-                     a decode-only call; rows alone, N 1, bit for bit as
-                     in the N 512 call), kv_append at the latent widths,
+                     widths, at H 24 and at the tiny widths over bf16
+                     and float32 pools (an N 512 call of a chunk,
+                     decodes at the table's end and on either side of a
+                     page boundary, padded rows; a decode-only call;
+                     decodes up to 8192 keys at H 128; rows alone, N 1,
+                     bit for bit as in the N 512 call; bf16 pools at the
+                     full widths on the tensor-core form, the rest on
+                     the CUDA-core form), kv_append at the latent widths,
                      the flash forward at head_dim 192 (B 2 x 128 heads x
                      T 1024 causal among others) and its backward's
                      refusal, and the tree swap over deepseek-v3's latent
@@ -112,7 +115,9 @@ Phases; any failure ends the run with a non-zero exit and no result line:
   9d. mla_parity   — decode_parity on deepseek-v3 at full width cut to
                      its dense group (3 MLA layers), with a fourth leg:
                      LM.forward per sequence (flash at head_dim 192)
-                     against the fused prefill, held as the prefill is
+                     against the fused prefill, held as the prefill is;
+                     its float32 legs launch row 10's CUDA-core form, its
+                     bf16 leg the tensor-core form
  10. serve         — full-width llama3.2-1b in bf16, random weights from a
                      seed, agent sessions through ScriptedClient under
                      InferCept
@@ -175,7 +180,8 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                    — the same on full-width deepseek-v3 cut to its dense
                      group and one MoE layer (3 + 1 layers), bf16: tok/s,
                      step ms, construction and run peaks; over the two
-                     runs rows 10, 2 and 9 launch and rows 1 and 5 never
+                     runs rows 10, 2 and 9 launch and rows 1 and 5 never,
+                     row 10 always in its tensor-core form
  19. train         — full-width llama3.2-1b training through
                      make_train_step: bf16 params, f32 AdamW, remat,
                      SyntheticLM batches of 4 x 2048, 2 warm-up and 8
@@ -212,8 +218,9 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      (after a 64 MB write) by both measures, the library
                      calls' device time and the slab's pinned host copy;
                      with --parent DIR, another checkout's attention,
-                     append, gla_scan, flash forward and tree swap
-                     wrappers in turns with these, and rows 1, 1d, 5 and
+                     append, gla_scan, flash forward, tree swap and
+                     latent-attention wrappers in turns with these (rows
+                     10 and 10d by both measures), and rows 1, 1d, 5 and
                      7's calls again at head_dim 128 in turns; rows 1w, 1wd, 1wq and 5w (the attention
                      kernels at gemma2_serve's largest and largest
                      decode-only calls, at gemma2_quant's largest and at
@@ -1899,13 +1906,23 @@ def kernel_wrappers() -> dict:
             "mla_attention": ma.ragged_latent_attention}
 
 
+def kernel_counters() -> dict:
+    """Each launch count: a wrapper and the attribute that carries it (the
+    latent-attention wrapper counts all its launches and, apart, its
+    tensor-core form's)."""
+    counters = {k: (fn, "launches") for k, fn in kernel_wrappers().items()}
+    counters["mla_attention_tc"] = (counters["mla_attention"][0],
+                                    "tc_launches")
+    return counters
+
+
 def launch_counts() -> dict:
-    return {k: fn.launches for k, fn in kernel_wrappers().items()}
+    return {k: getattr(fn, a) for k, (fn, a) in kernel_counters().items()}
 
 
 def reset_counts() -> None:
-    for fn in kernel_wrappers().values():
-        fn.launches = 0
+    for fn, a in kernel_counters().values():
+        setattr(fn, a, 0)
 
 
 def agent_engine(policy: str, *, tiny: bool, device: str,
@@ -2047,6 +2064,13 @@ def serve(policy: str, recorder: Recorder = None, *, tiny: bool = False,
             assert counts["mla_attention"] > 0 and counts[
                 "ragged_paged_attention"] == counts["paged_attention"] == 0, \
                 counts
+            # bf16 latent pools at deepseek-v3's widths: the tensor-core
+            # form alone
+            a = next(b.attn for b in cfg.blocks if b.attn is not None)
+            tc = (a.kv_lora_rank, a.qk_rope_head_dim) == (512, 64) \
+                and tree_leaves(eng.pools)[0].dtype == torch.bfloat16
+            assert counts["mla_attention_tc"] == (
+                counts["mla_attention"] if tc else 0), counts
         elif eng.fused:
             assert counts["ragged_paged_attention"] > 0
         else:
@@ -2315,7 +2339,8 @@ def parent_kernels(parent: Path):
     (the parent commit's, for timing both versions in one run): ragged and
     paged attention, kv_append, page_requant, the whole quantized append,
     gla_scan's launcher, the flash forward, the tree swap_pack /
-    swap_unpack and the SwapStager. Its ``repro_torch`` modules are imported from its own
+    swap_unpack, the SwapStager and the ragged latent attention. Its
+    ``repro_torch`` modules are imported from its own
     source tree, so its kernels build there by its own ``_build.py`` and
     are called through its own wrappers, whatever their C signatures
     (``build`` builds them). This tree's modules are put back afterwards;
@@ -2342,6 +2367,7 @@ def parent_kernels(parent: Path):
         gs = importlib.import_module("repro_torch.kernels.gla_scan")
         fa = importlib.import_module("repro_torch.kernels.flash_attention")
         sp = importlib.import_module("repro_torch.kernels.swap_pack")
+        ma = importlib.import_module("repro_torch.kernels.mla_attention")
         ops = importlib.import_module("repro_torch.kernels.ops")
     finally:
         sys.path.remove(src)
@@ -2371,6 +2397,7 @@ def parent_kernels(parent: Path):
                                  swap_pack_tree=sp.swap_pack_tree,
                                  swap_unpack_tree=sp.swap_unpack_tree,
                                  SwapStager=sp.SwapStager,
+                                 mla=ma.ragged_latent_attention,
                                  own_ops=own_ops,
                                  build=rpa._build.lib)
 
@@ -3029,8 +3056,9 @@ def profile_serve(warm_steps: int = 50, steps: int = 50,
     if moe_us:
         log(f"  the MoE kernels: {moe_us / 1e3:.2f} ms = "
             f"{moe_us / max(total, 1e-9):.3f} of device time")
+    # both forms: mla_attention_kernel<T> and mla_attention_tc_kernel
     mla_us = sum(us for k, (us, _) in dev_us.items()
-                 if "mla_attention_kernel" in k)
+                 if "mla_attention" in k)
     if mla_us:
         log(f"  the latent-attention kernel (row 10): {mla_us / 1e3:.2f} ms "
             f"= {mla_us / max(total, 1e-9):.3f} of device time")
@@ -4582,16 +4610,21 @@ MLA_REPLACES = ("none of its own: the reference's XLA gather and einsums, "
 
 
 def latent_case(gen, *, H, L, R, dtype, device, page=16, max_pages=64,
-                decode_only=False):
+                decode_only=False, long_context=False):
     """A ragged latent-attention call over random pools of ``dtype``: a
     480-token chunk at positions 300-779, decodes at 1023 (the table's
     last key), 15 (ending on a page boundary), 16 (the first key of a
     page) and 0, then padded rows to N 512; ``decode_only``: 8 decodes at
-    contexts up to the table's end, one padded. Returns the kernel's
-    arguments (q_lat, q_rope, c_pool, kr_pool, block_tables, tok_seq,
-    tok_pos, scale)."""
+    contexts up to the table's end, one padded; ``long_context``: 7
+    decodes over tables of 512 pages, up to 8192 keys, one padded.
+    Returns the kernel's arguments (q_lat, q_rope, c_pool, kr_pool,
+    block_tables, tok_seq, tok_pos, scale)."""
     import torch
-    if decode_only:
+    if long_context:
+        max_pages = 512
+        seq = list(range(7))
+        pos = [8191, 6000, 4096, 4095, 16, 0, -1]
+    elif decode_only:
         seq = list(range(8))
         pos = [1023, 700, 511, 512, 15, 16, 0, -1]
     else:
@@ -4615,13 +4648,18 @@ def latent_case(gen, *, H, L, R, dtype, device, page=16, max_pages=64,
 def check_mla_kernels(gen, worst) -> None:
     """The MLA slice's kernels against their plain versions on the card:
     the ragged latent-attention kernel (row 10) at deepseek-v3's full
-    widths (H 128, L 512, R 64) and the tiny config's (H 4, L 32, R 16),
-    over bf16 and float32 pools, on ``latent_case``'s ragged call (N 512:
-    a chunk, decodes at the table's end and on either side of a page
-    boundary, padded rows: zeros) and its decode-only call, within 1e-4
-    (the plain version reads the same latents; sums in other orders and
-    exp2 for exp); a row's bits in a call of N 1 equal to its bits in the
-    call of N 512; kv_append at the latent widths (``check_append``: c
+    widths (H 128, L 512, R 64), at H 24 (a head tile of the tensor-core
+    form padded) and at the tiny config's widths (H 4, L 32, R 16), over
+    bf16 and float32 pools, on ``latent_case``'s ragged call (N 512: a
+    chunk, decodes at the table's end and on either side of a page
+    boundary, padded rows: zeros), its decode-only call and, at H 128,
+    decodes up to 8192 keys, within 1e-4 (the plain version reads the same
+    latents; sums in other orders, exp2 for exp, and in the tensor-core
+    form the float32 queries and weights as two bf16 terms); the form
+    each call takes (bf16 pools at L 512, R 64: the tensor-core form,
+    ``tc_launches``; the rest the CUDA-core form); a row's bits in a call
+    of N 1 equal to its bits in the call of N 512 (H 128 and 24);
+    kv_append at the latent widths (``check_append``: c
     512 and kr 64 wide, and the tiny config's 32 and 16);
     the flash forward at head_dim 192 (out and lse) at B 1-2 x 128 heads x
     G 1 x T 1024 causal, T 77, Tq < Tk and G 16 (the float32 kernel's
@@ -4639,29 +4677,37 @@ def check_mla_kernels(gen, worst) -> None:
     from repro_torch.models.model import LM
     from repro_torch.utils.tree import tree_leaves
     dev = torch.device("cuda")
-    for H, L, R in ((128, 512, 64), (4, 32, 16)):
+    for H, L, R in ((128, 512, 64), (24, 512, 64), (4, 32, 16)):
         for dtype in (torch.bfloat16, torch.float32):
-            for decode_only in (False, True):
+            tc = dtype == torch.bfloat16 and (L, R) == (512, 64)
+            for call in ("N 512", "decode-only N 8", "8192 keys N 7"):
+                if call.startswith("8192") and H != 128:
+                    continue
                 args = latent_case(gen, H=H, L=L, R=R, dtype=dtype,
-                                   device=dev, decode_only=decode_only)
-                before = ragged_latent_attention.launches
+                                   device=dev,
+                                   decode_only=call.startswith("decode"),
+                                   long_context=call.startswith("8192"))
+                before = (ragged_latent_attention.launches,
+                          ragged_latent_attention.tc_launches)
                 got = ragged_latent_attention(*args)
                 want = ragged_latent_attention_ref(*args)
                 torch.cuda.synchronize()
-                assert ragged_latent_attention.launches == before + 1
+                assert (ragged_latent_attention.launches,
+                        ragged_latent_attention.tc_launches) == (
+                    before[0] + 1, before[1] + tc)
                 err = max_err(got, want)
                 pad = args[6] < 0
-                label = (f"H {H} L {L} R {R} {str(dtype)[6:]} pools, "
-                         f"{'decode-only N 8' if decode_only else 'N 512'}")
+                label = (f"H {H} L {L} R {R} {str(dtype)[6:]} pools, {call}"
+                         f" ({'tensor-core' if tc else 'CUDA-core'} form)")
                 log(f"  ragged_latent_attention {label}: max_abs_err "
                     f"{err:.3g} (tol 1e-4), padded rows zero")
                 assert err <= 1e-4, label
                 assert bool((got[pad] == 0).all()), label
-                if H == 128 and dtype == torch.bfloat16:
-                    key = "mla_attention_decode" if decode_only \
-                        else "mla_attention"
+                if H == 128 and tc:
+                    key = "mla_attention" if call == "N 512" \
+                        else "mla_attention_decode"
                     worst[key] = max(worst[key], err)
-                if not decode_only and H == 128:
+                if call == "N 512" and H in (128, 24):
                     # a row computes alone what it computes beside 511
                     for i in (0, 479, 480, 481, 482, 483, 511):
                         one = ragged_latent_attention(
@@ -4767,16 +4813,40 @@ def latent_work(args) -> tuple:
     return nbytes, int(keys.sum()) * H * 2 * (2 * L + R)
 
 
-def time_mla(recorder: MLARecorder, worst: dict, launches: dict) -> list:
-    """Rows 10, 10d and 2m: the latent-attention kernel at mla_serve's
-    largest call and its largest decode-only call, against
-    ragged_latent_attention_ref (1e-4), and kv_append at its largest
-    latent call (bit for bit); launched from the host in turns with the
-    plain version (``ms``) and as device time by CUDA graph replays
-    (``device_ms``). Bound (``latent_work``): bytes at the HBM rate against
-    operations at the bf16 tensor-core peak, with the float32 CUDA-core
-    figure beside it (``bound_f32_ms``: this kernel's own arithmetic). No
-    single PyTorch call computes either function: library_ms null."""
+def latent_f64(args):
+    """The ragged latent attention in float64, row by row over each row's
+    live keys: the yardstick for the kernel's and the plain version's
+    float32 rounding."""
+    import torch
+    q_lat, q_rope, c, kr, bt, seq, pos, scale = args
+    out = torch.zeros(q_lat.shape, dtype=torch.float64, device=q_lat.device)
+    page = c.shape[1]
+    for i, (s, p) in enumerate(zip(seq.tolist(), pos.tolist())):
+        n = min(p + 1, bt.shape[1] * page)
+        if n <= 0:
+            continue
+        keys = torch.arange(n, device=q_lat.device)
+        pid = bt[s].long()[keys // page]
+        ci = c[pid, keys % page].double()
+        sc = (q_lat[i].double() @ ci.T
+              + q_rope[i].double() @ kr[pid, keys % page].double().T) * scale
+        out[i] = torch.softmax(sc, dim=-1) @ ci
+    return out
+
+
+def time_mla(recorder: MLARecorder, worst: dict, launches: dict,
+             parent=None) -> list:
+    """Rows 10, 10d and 2m: the latent-attention kernel (its tensor-core
+    form: bf16 pools) at mla_serve's largest call and its largest
+    decode-only call, against ragged_latent_attention_ref (1e-4), and
+    kv_append at its largest latent call (bit for bit); launched from the
+    host in turns with the plain version (``ms``) and as device time by
+    CUDA graph replays (``device_ms``); with ``parent``, the parent's
+    latent kernel in turns by both measures (``device_time``). Bound
+    (``latent_work``): bytes at the HBM rate against operations at the
+    bf16 tensor-core peak, with the float32 CUDA-core figure beside it
+    (``bound_f32_ms``: the CUDA-core form's arithmetic). No single PyTorch
+    call computes either function: library_ms null."""
     import torch
     from repro_torch.kernels.kv_append import kv_append, kv_append_ref
     from repro_torch.kernels.mla_attention import (
@@ -4790,9 +4860,21 @@ def time_mla(recorder: MLARecorder, worst: dict, launches: dict) -> list:
 
         def plain_fn():
             return ragged_latent_attention_ref(*args)
+
+        def parent_fn():
+            return parent.mla(*args)
+        tc = ragged_latent_attention.tc_launches
         got = kernel_fn()
-        err = max_err(got, plain_fn())
+        assert ragged_latent_attention.tc_launches == tc + 1, name
+        want = plain_fn()
+        err = max_err(got, want)
         assert err <= 1e-4, (name, err)
+        exact = latent_f64(args)
+        log(f"  {name}: against a float64 evaluation, the kernel "
+            f"{max_err(got, exact):.3g}, the plain version "
+            f"{max_err(want, exact):.3g} (output max "
+            f"{float(exact.abs().max()):.3g})")
+        del want, exact
         err = max(worst[name], err)
         ms, plain_ms = in_turns(plain_fn, kernel_fn, 5)
         nbytes, ops = latent_work(args)
@@ -4805,8 +4887,11 @@ def time_mla(recorder: MLARecorder, worst: dict, launches: dict) -> list:
                           f"{tuple(args[2].shape)} {str(args[2].dtype)[6:]}",
                           f"{int(live.numel())} live rows, context "
                           f"{int(live.min()) + 1}-{int(live.max()) + 1}"])
-        row["device_ms"] = graph_ms(kernel_fn, 10)
-        row["host_ms"] = ms - row["device_ms"]
+        row["form"] = "tensor cores (mla_attention_tc_kernel)"
+        device_time(row, kernel_fn, parent_fn if parent else None, 10)
+        if parent:
+            ratio = row["device_ms"] / row["parent_device_ms"]
+            log(f"    device time {ratio:.3f}x the parent kernel's")
         row["bound_f32_ms"] = max(nbytes / HBM_BYTES_PER_S,
                                   ops / PEAK_OPS["float32"]) * 1e3
         log(f"    device time {row['device_ms']:.4f} ms "
@@ -4901,8 +4986,9 @@ def main() -> int:
                          "rows and ssm_serve for the gla_scan row)")
     ap.add_argument("--parent", default=None,
                     help="another checkout of the port (the parent "
-                         "commit's): its attention, append, gla_scan and "
-                         "swap wrappers and its SwapStager are imported "
+                         "commit's): its attention, append, gla_scan, "
+                         "swap and latent-attention wrappers and its "
+                         "SwapStager are imported "
                          "from there, build their kernels there and are "
                          "timed in turns with these in the swap and "
                          "timing phases")
@@ -4940,6 +5026,17 @@ def main() -> int:
                 hd, code, ctypes.byref(smem))
             log(f"  paged_tc_kernel hd {hd} {pool} pools: {smem.value} B "
                 f"of shared memory, {n} blocks of 128 threads per SM")
+    # the latent kernel's forms: (pool dtype code, L, R); the launcher
+    # picks the form from them
+    for code, L, R in ((1, 512, 64), (0, 512, 64), (1, 32, 16)):
+        smem = ctypes.c_int(0)
+        n = _build.lib().mla_attention_occupancy(code, L, R,
+                                                 ctypes.byref(smem))
+        form = code == 1 and (L, R) == (512, 64)
+        log(f"  mla_attention {'tensor-core' if form else 'CUDA-core'} "
+            f"form, {('float32', 'bf16')[code]} pools, L {L} R {R}: "
+            f"{smem.value} B of dynamic shared memory, {n} blocks of 256 "
+            "threads per SM")
 
     worst = {k: 0.0 for k in KERNELS + WIDE_KERNELS + MOE_KERNELS
              + MLA_KERNELS}
@@ -5005,8 +5102,17 @@ def main() -> int:
         log(f"[mla_parity] {MLA_MODEL} full width f32, its dense group "
             f"({MLA_PARITY_PERIODS[0]} layers): LM.forward (flash at "
             "head_dim 192) vs fused vs per-call vs gather")
+        before = launch_counts()
         check_decode_parity(model=MLA_MODEL, periods=MLA_PARITY_PERIODS,
                             forward_leg=True, recorder=mla_flash)
+        after = launch_counts()
+        # the float32 legs' latent pools take the CUDA-core form, the bf16
+        # leg's the tensor-core form
+        tc = after["mla_attention_tc"] - before["mla_attention_tc"]
+        cc = after["mla_attention"] - before["mla_attention"] - tc
+        assert tc > 0 and cc > 0, after
+        log(f"  the latent kernel launched {cc} times in its CUDA-core form "
+            f"(float32 pools), {tc} in its tensor-core form (bf16)")
     parent = None
     if args.parent:
         t0 = time.perf_counter()
@@ -5015,8 +5121,10 @@ def main() -> int:
         log(f"[parent] its kernels built from {args.parent} in "
             f"{time.perf_counter() - t0:.1f} s")
     recorder = Recorder()
+    # the kernels line's rows, and the latent kernel's tensor-core count
+    # beside them (launch_counts' keys)
     total = {k: 0 for k in KERNELS + WIDE_KERNELS + MOE_KERNELS
-             + MLA_KERNELS}
+             + MLA_KERNELS + ("mla_attention_tc",)}
     results = {}
     for phase, (policy, engine_kw) in SERVE_PHASES.items():
         if phase not in phases:
@@ -5177,13 +5285,16 @@ def main() -> int:
     if set(MLA_SERVE_PHASES) <= phases:
         # rows 10, 2 and 9 (and the swaps) launched, rows 1 and 5 never
         summed = {k: sum(r["launches"][k] for r in mla_runs.values())
-                  for k in ("mla_attention", "kv_append", "moe_experts",
+                  for k in ("mla_attention", "mla_attention_tc",
+                            "kv_append", "moe_experts",
                             "swap_pack", "swap_unpack",
                             "ragged_paged_attention", "paged_attention")}
         assert all(summed[k] > 0 for k in ("mla_attention", "kv_append",
                                            "moe_experts")), summed
         assert summed["ragged_paged_attention"] == summed[
             "paged_attention"] == 0, summed
+        # bf16 latent pools: row 10's tensor-core form, never the CUDA-core
+        assert summed["mla_attention_tc"] == summed["mla_attention"], summed
         log(f"  {MLA_MODEL} launches over the two runs: "
             f"{json.dumps(summed)}")
     flash_rec = FlashRecorder()
@@ -5265,11 +5376,11 @@ def main() -> int:
             "call and its largest decode-only call, and kv_append at the "
             "latent widths")
         total["mla_attention"] = mla_runs["mla_serve"]["launches"][
-            "mla_attention"]
+            "mla_attention_tc"]
         total["mla_attention_decode"] = mla_rec.decode_launches
         total["kv_append_latent"] = mla_runs["mla_serve"]["launches"][
             "kv_append"]
-        rows += time_mla(mla_rec, worst, total)
+        rows += time_mla(mla_rec, worst, total, parent)
     if "timing" in phases and "mla_parity" in phases:
         log("[timing] flash attention at head_dim 192 on mla_parity's "
             "largest forward call")

@@ -39,6 +39,7 @@ SIGNATURES = {
     "kv_append_launch": [_P] * 7 + [_I] * 3 + [_LL, _LL, _P],
     "kv_append_quant_launch": [_P] * 9 + [_I] * 7 + [_P],
     "mla_attention_launch": [_P] * 8 + [_I] * 7 + [_F, _I, _P],
+    "mla_attention_occupancy": [_I, _I, _I, _P],
     "moe_experts_launch": [_P] * 11 + [_I] * 7 + [_P],
     "swap_pack_launch": [_P, _I, _P, _P, _I, _P],
     "swap_unpack_launch": [_P, _I, _P, _P, _I, _P],

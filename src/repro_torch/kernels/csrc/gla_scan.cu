@@ -110,16 +110,6 @@ __device__ __forceinline__ const T* row_base(const void* base,
   return static_cast<const T*>(base) + (r / H) * s[0] + (r % H) * s[1];
 }
 
-// x as NT bf16 values (as floats) that sum to it, largest first
-template <int NT>
-__device__ __forceinline__ void split(float x, float (&t)[NT]) {
-#pragma unroll
-  for (int i = 0; i < NT; ++i) {
-    t[i] = __bfloat162float(__float2bfloat16_rn(x));
-    x -= t[i];
-  }
-}
-
 template <typename T>
 __device__ __forceinline__ T zero() { return T(0.f); }
 template <>

@@ -1,7 +1,7 @@
 // PTX wrappers for the tensor-core kernels (sm_80 and later): asynchronous
 // global -> shared copies (cp.async), fragment loads from shared memory
-// (ldmatrix) and the bf16 m16n8k16 product with float32 accumulators
-// (mma.sync).
+// (ldmatrix), the bf16 m16n8k16 product with float32 accumulators
+// (mma.sync) and the split of a float32 operand into bf16 terms.
 //
 // Fragments of m16n8k16, for lane l, g = l / 4, c = 2 (l % 4):
 //  A (16 x 16, row-major), four bf16x2 registers: (g, c..c+1),
@@ -82,6 +82,18 @@ __device__ __forceinline__ void mma16816(float (&c)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// x as NT bf16 values (as floats) that sum to it, largest first: hi =
+// bf16(x), then bf16 of what is left, so a float32 operand reaches the
+// bf16 products as NT terms (two: within 2^-16 of x; three: 2^-24)
+template <int NT>
+__device__ __forceinline__ void split(float x, float (&t)[NT]) {
+#pragma unroll
+  for (int i = 0; i < NT; ++i) {
+    t[i] = __bfloat162float(__float2bfloat16_rn(x));
+    x -= t[i];
+  }
 }
 
 // the A fragment of 16 columns held as two C tiles of one row band

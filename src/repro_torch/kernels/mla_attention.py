@@ -14,8 +14,23 @@ A row with ``tok_pos == -1`` gives zeros.
 Layout: q_lat (N, H, L) and q_rope (N, H, R) float32; pools c (n_pages,
 page, L) and kr (n_pages, page, R), float32 or bfloat16; block_tables
 (B, max_pages) int32; tok_seq, tok_pos (N,) int32; out (N, H, L)
-float32. The kernel source is ``csrc/mla_attention.cu``; it takes L a
-multiple of 16 up to 512 and R a multiple of 8 up to 64.
+float32. The kernel source is ``csrc/mla_attention.cu``, in two forms,
+which its launcher picks from the pools' dtype and the widths
+(``tensor_cores`` says which, for the counts):
+
+* the tensor-core form takes bf16 pools at L 512 and R 64 (deepseek-v3's
+  widths), any H: a block per (row, 32 heads) on ``mma.sync``, the
+  float32 queries and the softmax weights split into two bf16 terms, so
+  it computes the float32 function to ~2e-5 of the output's magnitude;
+* the CUDA-core form takes every other call the wrapper accepts: float32
+  pools, and L a multiple of 16 up to 512 with R a multiple of 8 up to
+  64 (e.g. the tiny config's 32 and 16), float32 on the CUDA cores.
+
+Neither falls back to the other, or to the plain version, on a failure.
+Both are bound by bytes at mla_serve's calls on the H100 (the float32
+queries in and output out; the latents are shared by all heads of a row).
+``ragged_latent_attention.launches`` counts both forms' launches and
+``.tc_launches`` the tensor-core form's.
 """
 from __future__ import annotations
 
@@ -26,6 +41,8 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 MAX_L, MAX_R = 512, 64
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the tensor-core form's widths
+TC_L, TC_R = 512, 64
 
 
 def latent_attend(q_lat, q_rope, c_cache, kr_cache, live, scale):
@@ -61,9 +78,16 @@ def ragged_latent_attention_ref(q_lat, q_rope, c_pool, kr_pool,
     return out.masked_fill((tok_pos < 0)[:, None, None], 0.0)
 
 
+def tensor_cores(c_pool, L: int, R: int) -> bool:
+    """Whether the launcher takes a call over ``c_pool`` at widths L, R on
+    the tensor-core form (bf16 pools at L 512, R 64); every other call the
+    wrapper accepts takes the CUDA-core form."""
+    return c_pool.dtype == torch.bfloat16 and (L, R) == (TC_L, TC_R)
+
+
 def _check(q_lat, q_rope, c_pool, kr_pool, block_tables, tok_seq, tok_pos):
     """Raise on any operand the kernel does not take (the device is checked
-    by the launcher)."""
+    by the launcher); returns whether the tensor-core form takes it."""
     N, H, L = q_lat.shape
     R = q_rope.shape[2]
     if q_lat.dtype != torch.float32 or q_rope.dtype != torch.float32:
@@ -78,8 +102,10 @@ def _check(q_lat, q_rope, c_pool, kr_pool, block_tables, tok_seq, tok_pos):
         raise ValueError(
             f"shapes q_lat {tuple(q_lat.shape)} / q_rope "
             f"{tuple(q_rope.shape)} / pools {tuple(c_pool.shape)} "
-            f"{tuple(kr_pool.shape)} not taken (L a multiple of 16 up to "
-            f"{MAX_L}, R a multiple of 8 up to {MAX_R})")
+            f"{tuple(kr_pool.shape)} not taken (the tensor-core form: bf16 "
+            f"pools at L {TC_L} and R {TC_R}, any H; the CUDA-core form: "
+            f"float32 or bf16 pools, L a multiple of 16 up to {MAX_L}, R a "
+            f"multiple of 8 up to {MAX_R})")
     if block_tables.dim() != 2 or tok_seq.shape != (N,) \
             or tok_pos.shape != (N,):
         raise ValueError("block_tables must be (B, max_pages), tok_seq and "
@@ -95,15 +121,17 @@ def _check(q_lat, q_rope, c_pool, kr_pool, block_tables, tok_seq, tok_pos):
     if any(t.data_ptr() % 16 for t in ops[:4]):
         raise ValueError("q_lat, q_rope and the pools must start on a "
                          "16-byte boundary")
+    return tensor_cores(c_pool, L, R)
 
 
 def ragged_latent_attention(q_lat, q_rope, c_pool, kr_pool, block_tables,
                             tok_seq, tok_pos, scale):
-    """Launch the CUDA kernel on the current stream; returns (N, H, L)
-    float32. Raises on any operand the kernel does not take, a CPU tensor
-    included."""
+    """Launch the CUDA kernel on the current stream, in the form its
+    launcher picks (``tensor_cores``); returns (N, H, L) float32. Raises on any
+    operand the kernel does not take, a CPU tensor included."""
     _build.require_cuda("ragged_latent_attention", q_lat)
-    _check(q_lat, q_rope, c_pool, kr_pool, block_tables, tok_seq, tok_pos)
+    tc = _check(q_lat, q_rope, c_pool, kr_pool, block_tables, tok_seq,
+                tok_pos)
     N, H, L = q_lat.shape
     n_pages, page, R = kr_pool.shape
     out = torch.empty_like(q_lat)
@@ -115,7 +143,9 @@ def ragged_latent_attention(q_lat, q_rope, c_pool, kr_pool, block_tables,
         torch.cuda.current_stream(q_lat.device).cuda_stream)
     _build.check(err, "ragged_latent_attention")
     ragged_latent_attention.launches += 1
+    ragged_latent_attention.tc_launches += tc
     return out
 
 
 ragged_latent_attention.launches = 0
+ragged_latent_attention.tc_launches = 0

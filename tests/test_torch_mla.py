@@ -23,11 +23,14 @@ reference's seed-0 ``LM.init``, float32:
 * chip_smoke.py's MLA phases rehearsed at the tiny config.
 
 On a CUDA card (``-m gpu``): the ragged latent-attention kernel against
-its plain version at the tiny and full widths over float32 and bfloat16
-pools (a ragged call of chunk, decode, padded and page-boundary rows), a
-row's bits equal in calls of N 1 and N 64, the flash forward at head_dim
-192 against its plain version, and ``mla_mixed_paged`` (kv_append at the
-latent widths, then the kernel) against the same call on the CPU. The
+its plain version at the tiny and full widths and at H 24 over float32
+and bfloat16 pools (a ragged call of chunk, decode, padded and
+page-boundary rows; bf16 pools at the full widths take the tensor-core
+form, the rest the CUDA-core form) and decodes up to 8192 keys, a row's
+bits equal in calls of N 1, N 31 and N 93 in each form, the flash
+forward at head_dim 192 against its plain version, and
+``mla_mixed_paged`` (kv_append at the latent widths, then the kernel)
+against the same call on the CPU. The
 card's machine has no JAX: the reference is imported inside the CPU tests
 only, and the card runs ``PYTHONPATH=src python -m pytest -q --noconftest
 -m gpu tests/test_torch_mla.py``.
@@ -650,28 +653,67 @@ def _latent_call(gen, *, H, L, R, dtype, device, page=16, max_pages=16):
             torch.tensor(pos, **i32), 1 / math.sqrt(192))
 
 
+WIDTHS = {"tiny": (4, 32, 16), "full": (128, 512, 64),
+          "full_h24": (24, 512, 64)}
+
+
+def _launch_forms(args):
+    """Launch the kernel once; returns (out, the form it took: True for
+    the tensor-core form), checked against the wrapper's counts."""
+    before = (ragged_latent_attention.launches,
+              ragged_latent_attention.tc_launches)
+    got = ragged_latent_attention(*args)
+    tc = ragged_latent_attention.tc_launches - before[1]
+    assert ragged_latent_attention.launches == before[0] + 1
+    assert tc in (0, 1)
+    return got, bool(tc)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("width", ["tiny", "full"])
+@pytest.mark.parametrize("width", list(WIDTHS))
 def test_gpu_latent_kernel_matches_plain(cuda, dtype, width):
-    H, L, R = (4, 32, 16) if width == "tiny" else (128, 512, 64)
+    """Each form against the plain version: bf16 pools at L 512, R 64 take
+    the tensor-core form (H 24: a head tile padded), the rest the
+    CUDA-core form."""
+    H, L, R = WIDTHS[width]
     gen = torch.Generator(device=cuda).manual_seed(0)
     args = _latent_call(gen, H=H, L=L, R=R, dtype=dtype, device=cuda)
-    before = ragged_latent_attention.launches
-    got = ragged_latent_attention(*args)
+    got, tc = _launch_forms(args)
     want = ragged_latent_attention_ref(*args)
-    assert ragged_latent_attention.launches == before + 1
+    assert tc == (dtype == torch.bfloat16 and width != "tiny")
     torch.testing.assert_close(got, want, rtol=0,
                                atol=1e-4 if dtype == torch.float32 else 2e-3)
     assert torch.all(got[-3:] == 0)
 
 
 @pytest.mark.gpu
-def test_gpu_latent_kernel_rows_do_not_depend_on_the_call(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_latent_kernel_long_context(cuda, dtype):
+    """Decodes over tables of 512 pages, up to 8192 keys, at the full
+    widths, in each form."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    args = list(_latent_call(gen, H=128, L=512, R=64, dtype=dtype,
+                             device=cuda, max_pages=512))
+    i32 = dict(device=cuda, dtype=torch.int32)
+    args[5] = torch.tensor([0, 1, 2, 3, 0], **i32)
+    args[6] = torch.tensor([8191, 5000, 4096, 31, -1], **i32)
+    args[0], args[1] = args[0][:5].contiguous(), args[1][:5].contiguous()
+    got, tc = _launch_forms(args)
+    assert tc == (dtype == torch.bfloat16)
+    torch.testing.assert_close(got, ragged_latent_attention_ref(*args),
+                               rtol=0, atol=1e-4)
+    assert torch.all(got[-1] == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H", [128, 24])
+def test_gpu_latent_kernel_rows_do_not_depend_on_the_call(cuda, dtype, H):
     """Rows alone (N 1), and all rows in a call of three copies of them:
-    the same bits as in the call of N 31."""
+    the same bits as in the call of N 31, in each form."""
     gen = torch.Generator(device=cuda).manual_seed(1)
-    args = list(_latent_call(gen, H=128, L=512, R=64, dtype=torch.bfloat16,
+    args = list(_latent_call(gen, H=H, L=512, R=64, dtype=dtype,
                              device=cuda))
     full = ragged_latent_attention(*args)
     for i in (0, 19, 25, 26):

@@ -331,6 +331,7 @@ def test_parent_kernels_import_another_tree_under_its_own_modules():
     assert all(after[k] is before[k] for k in before)
     assert ns.ragged is not rpa.ragged_paged_attention
     assert ns.ragged.__globals__["_build"] is not _build
+    assert ns.mla.__globals__["_build"] is not _build
     assert ns.build.__module__ == "repro_torch.kernels._build"
     with pytest.raises(ValueError, match="launches a CUDA kernel"):
         ns.ragged(*_inputs(0, N=2, B=1))
