@@ -100,6 +100,17 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      logits and final states with gla_scan against the
                      plain chunked_gla_ref on the card, and serve_step at
                      T against a T+1 prefill
+  9e. zamba2_parity — the same on zamba2-1.2b at full width cut to 2 x (5
+                     mamba2 + the shared block) + 1 mamba2 (two
+                     occurrences of one shared attention block): logits,
+                     SSM states and each occurrence's K/V with gla_scan
+                     and flash against the plain GLA and attention
+  9f. pixtral_parity
+                   — the same on pixtral-12b at full width cut to 4
+                     layers, after a (2, 1024, 5120) vision prefix at the
+                     embeddings' scale: 64 tokens, flash against the plain
+                     attention, serve_step at P + T against a P + T + 1
+                     prefill with the same prefix
   9b. wide_parity  — decode_parity on gemma2-9b and GPT-J-6B at full
                      width cut to 8 layers each (4 local/global pairs
                      of gemma2), contexts 37, 160, 4700 and 16 (one past
@@ -163,7 +174,8 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                    — the serve run's workload and checks on full-width
                      gemma2-9b cut to 20 of its 42 layers (fused;
                      fused=False; int8 pools) and
-                     GPT-J-6B (fused) in bf16, random weights from seed 0:
+                     GPT-J-6B cut to 7 of its 28 layers (fused) in bf16,
+                     random weights from seed 0:
                      every request finishes and every page comes back;
                      launches by kernel (logged apart), tok/s,
                      max_memory_allocated and the pools' bytes; over the
@@ -171,7 +183,8 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      head_dim 256
  18c. moe_serve, moe_unfused
                    — the serve run's workload and checks on full-width
-                     deepseek-moe-16b in bf16 (fused; fused=False):
+                     deepseek-moe-16b cut to its dense layer and 6 of
+                     its 27 MoE layers, in bf16 (fused; fused=False):
                      every request finishes and every page comes back;
                      tok/s, construction and run peaks, launches by
                      kernel (logged apart); over the two runs rows 1, 2,
@@ -189,7 +202,12 @@ Phases; any failure ends the run with a non-zero exit and no result line:
  20. ssm_serve     — full-width xlstm-350m in bf16 (seed-0 port init)
                      through prefill_step of 8 x 2000 random tokens and 64
                      greedy serve_step calls: tok/s of each, peak memory,
-                     21 gla_scan launches, finite logits
+                     21 gla_scan launches, finite logits; its profiled
+                     prefill is one of 8 x 256 (the sLSTM loop's ~50
+                     launches a step make the profiler's parse most of the
+                     phase at 8 x 2000); the seconds of construction,
+                     warm-up, prefill, steps and profiled windows are
+                     logged as stamps (every serve-step run's are)
  21. dense_serve   — full-width llama3.2-1b in bf16 (seed-0 port init)
                      through prefill_step of 8 x 1024 random tokens (the
                      flash kernel, 16 launches) and 32 greedy serve_step
@@ -199,6 +217,15 @@ Phases; any failure ends the run with a non-zero exit and no result line:
  21b. wide_dense   — the same for gemma2-9b: prefill_step of 8 x 1024
                      (flash with window 4096 and softcap 50, 42 launches),
                      32 greedy serve_step calls
+ 21c. zamba2_serve — the same for zamba2-1.2b, uncut (38 layers):
+                     prefill_step of 8 x 2000 (32 gla_scan and 6 flash
+                     launches, one per occurrence of the shared block) and
+                     64 greedy serve_step calls
+ 21d. pixtral_serve
+                   — the same for pixtral-12b, uncut (40 layers, ~24.5 GB
+                     of bf16 weights): prefill_step of an (8, 1024, 5120)
+                     vision prefix and 8 x 512 tokens (40 flash launches)
+                     and 32 greedy serve_step calls from position P + T
  22. timing        — each kernel, its plain version and the one-call PyTorch
                      yardstick, timed with CUDA events on the inputs the
                      serve, train and ssm_serve runs gave it, launched
@@ -221,7 +248,8 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      append, gla_scan, flash forward, tree swap and
                      latent-attention wrappers in turns with these (rows
                      10 and 10d by both measures), and rows 1, 1d, 5 and
-                     7's calls again at head_dim 128 in turns; rows 1w, 1wd, 1wq and 5w (the attention
+                     7's calls again at head_dim 128 in turns; rows 1w,
+                     1wd, 1wq and 5w (the attention
                      kernels at gemma2_serve's largest and largest
                      decode-only calls, at gemma2_quant's largest and at
                      gemma2_unfused's largest)
@@ -234,15 +262,22 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      mla_serve's largest and largest decode-only calls,
                      kv_append at its largest latent call) and 7m (flash
                      at head_dim 192 on mla_parity's largest bf16
-                     forward call, SDPA as the library column)
- 23. profile       — torch.profiler over a window of serve steps (bf16 and
+                     forward call, SDPA as the library column); rows 8z
+                     (gla_scan on zamba2_serve's first mamba2 call: q and
+                     k broadcast over the heads, read once; device time)
+                     and 7p (flash on pixtral_serve's first prefill call,
+                     SDPA as the library column), their launches those
+                     runs' own
+ 23. profile       — torch.profiler over 10 serve steps after 10 (bf16 and
                      int8 pools, deepseek-moe-16b's with the MoE kernels'
                      share, and deepseek-v3's with row 10's), over one
                      train step, and over one
                      prefill and one window of serve steps of each of
-                     xlstm and llama: device busy share, device time by
-                     kernel, the append's share of the serve's device
-                     time, and the serve steps' host ops
+                     xlstm (its prefill 8 x 256), llama, gemma2 and zamba2
+                     (8 steps): device busy share, device time by kernel
+                     (gla_scan's and flash's shares), the append's share
+                     of the serve's device time, and the serve steps'
+                     host ops
 
 Launch counts are read from the kernel wrappers: set to 0 just before
 each serve run, the train run and the timed xlstm and llama prefills, and
@@ -252,7 +287,8 @@ and ssm_serve, and the head_dim-256 rows' from their own runs; those
 of gather, the sanitized runs, sample, dense_serve, the other
 head_dim-256 runs, the MoE runs and the MLA runs are logged apart (rows
 9 and 9d take moe_serve's, rows 10, 10d and 2m mla_serve's, row 7m
-mla_parity's flash launches). The last three lines are the kernels
+mla_parity's flash launches, 8z zamba2_serve's gla_scan and 7p
+pixtral_serve's flash launches). The last three lines are the kernels
 JSON, the card's name and power limit, and {"ok": true, "device":
 {...}}.
 """
@@ -272,11 +308,13 @@ ROOT = Path(__file__).resolve().parent
 T_START = time.perf_counter()
 PHASES = ("kernels", "tiny", "tiny_train", "tiny_ssm", "decode_parity",
           "train_parity", "ssm_parity", "wide_parity", "moe_parity",
-          "mla_parity", "serve", "swap", "unfused", "spec", "quant",
-          "quant_unfused", "gather", "sanitize", "sanitize_quant", "sample",
-          "gemma2_serve", "gemma2_unfused", "gemma2_quant", "gptj_serve",
-          "moe_serve", "moe_unfused", "mla_serve", "mla_unfused", "train",
-          "ssm_serve", "dense_serve", "wide_dense", "timing", "profile")
+          "mla_parity", "zamba2_parity", "pixtral_parity", "serve", "swap",
+          "unfused", "spec", "quant", "quant_unfused", "gather", "sanitize",
+          "sanitize_quant", "sample", "gemma2_serve", "gemma2_unfused",
+          "gemma2_quant", "gptj_serve", "moe_serve", "moe_unfused",
+          "mla_serve", "mla_unfused", "train", "ssm_serve", "dense_serve",
+          "wide_dense", "zamba2_serve", "pixtral_serve", "timing",
+          "profile")
 SERVE_PHASES = {"serve": ("infercept", {}), "swap": ("swap", {}),
                 "unfused": ("infercept", {"fused": False}),
                 "spec": ("infercept", {"speculate": True,
@@ -302,6 +340,10 @@ WIDE_SERVE_PHASES = {
     "gemma2_unfused": ("gemma2-9b", "infercept", {"fused": False}),
     "gemma2_quant": ("gemma2-9b", "infercept", {"kv_dtype": "int8"}),
     "gptj_serve": ("gpt-j-6b", "infercept", {})}
+# their depth, cut for the 1200 s limit: gemma2 to 10 of its 21
+# local/global pairs (20 of 42 layers), GPT-J to 7 of its 28 layers;
+# rows 1w, 1wd, 1wq and 5w are per-layer calls, whose shapes the cuts keep
+WIDE_SERVE_PERIODS = {"gemma2-9b": (10,), "gpt-j-6b": (7,)}
 # wide_parity's models and sequence lengths: one past gemma2's 4096-token
 # local window, so the window bites on the fused, per-call and gather legs
 WIDE_PARITY_MODELS = ("gemma2-9b", "gpt-j-6b")
@@ -315,6 +357,10 @@ WIDE_PARITY_PERIODS = {"gemma2-9b": (4,), "gpt-j-6b": (8,)}
 MOE_MODEL = "deepseek-moe-16b"
 MOE_SERVE_PHASES = {"moe_serve": ("infercept", {}),
                     "moe_unfused": ("infercept", {"fused": False})}
+# their depth (and the MoE profile's), cut for the 1200 s limit: the
+# dense layer and 6 of the 27 MoE layers; rows 9 and 9d are per-layer
+# calls, whose shapes the cut keeps
+MOE_SERVE_PERIODS = (1, 6)
 # moe_parity's depth: the dense layer and 3 MoE layers
 MOE_PARITY_PERIODS = (1, 3)
 # deepseek-v3 (MLA attention, 256 routed experts top-8): its serve phases
@@ -362,6 +408,10 @@ MOE_KERNELS = ("moe_experts", "moe_experts_decode")
 # widths, mla_serve's largest call (2m)
 MLA_KERNELS = ("mla_attention", "mla_attention_decode",
                "flash_attention_hd192", "kv_append_latent")
+# the prefix and shared-block rows: gla_scan on zamba2_serve's first
+# mamba2 call (8z) and the flash forward on pixtral_serve's first prefill
+# call (7p); their launches are those phases' own
+PREFIX_SHARED_KERNELS = ("gla_scan_zamba2", "flash_attention_pixtral")
 # the TPU kernel of each flash row; the backward has none: the reference
 # differentiates its XLA blocked_attention
 FLASH_REPLACES = {
@@ -575,7 +625,7 @@ def check_kernels() -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     worst = {k: 0.0 for k in KERNELS + WIDE_KERNELS + MOE_KERNELS
-             + MLA_KERNELS}
+             + MLA_KERNELS + PREFIX_SHARED_KERNELS}
     ragged_case, paged_case = attention_cases(gen, worst)
 
     full = dict(Hkv=8, G=4, hd=64, page=16, max_pages=64, n_pages=2048)
@@ -1408,22 +1458,27 @@ def condition_attention(params) -> None:
     width gives attention logits of standard deviation ~128 and a softmax
     that is a hard max). MLA's up-projections take it over their rank
     (``w_uq`` over q_lora, ``w_uk`` and ``w_uv`` over kv_lora), ``wo``
-    over the heads' values."""
-    for group in params["groups"]:
-        for blk in group["scan"].values():       # leaves stacked by layer
-            attn = blk["attn"]
-            if "w_uq" in attn:
-                q_lora, H = attn["w_uq"].shape[1:3]
-                L = attn["w_uk"].shape[1]
-                attn["w_uq"] *= math.sqrt(H / q_lora)
-                attn["w_uk"] *= math.sqrt(H / L)
-                attn["w_uv"] *= math.sqrt(H / L)
-                attn["wo"] *= 1.0 / math.sqrt(attn["wo"].shape[2])
-                continue
-            d, H, hd = attn["wq"].shape[1:]
-            for name in ("wq", "wk", "wv"):
-                attn[name] *= math.sqrt(attn[name].shape[2] / d)
-            attn["wo"] *= 1.0 / math.sqrt(hd)
+    over the heads' values. Blocks without attention are left as they
+    are; zamba2's shared block (``params["shared"]``, not stacked) is
+    conditioned once."""
+    blocks = [blk for group in params["groups"]
+              for blk in group["scan"].values()]   # leaves stacked by layer
+    for blk in blocks + ([params["shared"]] if "shared" in params else []):
+        attn = blk.get("attn")
+        if attn is None:
+            continue
+        if "w_uq" in attn:
+            q_lora, H = attn["w_uq"].shape[-3:-1]
+            L = attn["w_uk"].shape[-3]
+            attn["w_uq"] *= math.sqrt(H / q_lora)
+            attn["w_uk"] *= math.sqrt(H / L)
+            attn["w_uv"] *= math.sqrt(H / L)
+            attn["wo"] *= 1.0 / math.sqrt(attn["wo"].shape[-2])
+            continue
+        d, H, hd = attn["wq"].shape[-3:]
+        for name in ("wq", "wk", "wv"):
+            attn[name] *= math.sqrt(attn[name].shape[-2] / d)
+        attn["wo"] *= 1.0 / math.sqrt(hd)
 
 
 def layer0_exact(lm, params, tokens, positions):
@@ -3031,7 +3086,7 @@ class AppendRange:
             setattr(attention, name, orig)
 
 
-def profile_serve(warm_steps: int = 50, steps: int = 50,
+def profile_serve(warm_steps: int = 10, steps: int = 10,
                   **engine_kw) -> None:
     """torch.profiler over ``steps`` engine steps of the InferCept serve
     run (``engine_kw``: e.g. ``kv_dtype="int8"``), after ``warm_steps``:
@@ -3657,15 +3712,20 @@ def time_wide(recorder: Recorder, worst: dict, launches: dict) -> list:
     return rows
 
 
-def time_wide_flash(recorder: FlashRecorder, worst: dict,
-                    launches: dict) -> list:
-    """Row 7w: the flash forward on the first attention call of
-    wide_dense's gemma2 prefill (8 x 1024, 8 kv heads x G 2 x 256, window
-    4096, softcap 50), against its plain version (one unit in the last
-    place), and the library yardstick, scaled_dot_product_attention at
-    head_dim 256 with is_causal and enable_gqa: it has no softcap, so it
-    computes the uncapped function on the same inputs (timed here, never
-    on the path). Bound: 4 hd operations per visible pair at the bf16
+def time_prefill_flash(recorder: FlashRecorder, worst: dict,
+                       launches: dict, name: str, iters: int = 3) -> list:
+    """A flash forward row, ``name``, on the call the recorder kept: 7w
+    wide_dense's first gemma2 prefill call (8 x 1024, 8 kv heads x G 2 x
+    256, window 4096, softcap 50), 7m the largest call of mla_parity's
+    bf16 forward leg (128 heads, G 1, x 192, scale 1 / sqrt(192)), 7p
+    pixtral_serve's first prefill call (8 x 1536 rows after the vision
+    prefix, 8 kv heads x G 4 x 128). Against its plain version (one unit
+    in the last place), and the library yardstick,
+    scaled_dot_product_attention with is_causal (and enable_gqa where G >
+    1, the call's scale), timed here and never on the path; it has no
+    softcap, so on a softcapped call it computes the uncapped function on
+    the same inputs. ``ms`` launched from the host, ``device_ms`` by CUDA
+    graph replays. Bound: 4 hd operations per visible pair at the bf16
     peak, against each operand read and the output and lse written
     once."""
     import torch
@@ -3688,22 +3748,23 @@ def time_wide_flash(recorder: FlashRecorder, worst: dict,
     def fwd_plain():
         return flash_attention_fwd_ref(q, k, v, **kw)
     out, lse = fwd()
-    err = max(worst["flash_attention_hd256"],
-              ulp_err("flash_attention_hd256", out, fwd_plain()[0]))
-    ms, plain_ms = in_turns(fwd_plain, fwd, 3)
+    err = max(worst[name], ulp_err(name, out, fwd_plain()[0]))
+    ms, plain_ms = in_turns(fwd_plain, fwd, iters)
     q4 = q.reshape(B, Hkv * G, T, hd)
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q4, k, v, is_causal=True, enable_gqa=True), 3)
-    row = kernel_row("flash_attention_hd256",
-                   "src/repro_torch/kernels/csrc/flash_attention.cu",
-                   FLASH_REPLACES["flash_attention"],
-                   launches["flash_attention_hd256"], err, ms, plain_ms,
-                   lib_ms, (2 * q.numel() + 2 * k.numel()) *
-                   q.element_size() + lse.numel() * 4, 4 * hd * pairs,
-                   str(q.dtype)[6:],
-                   [B, Hkv, G, T, hd, f"window {kw.get('window')}",
-                    f"softcap {kw.get('softcap')}"])
-    log(f"    kernel / library (no softcap) {ms / lib_ms:.2f}x")
+        q4, k, v, is_causal=True, enable_gqa=G > 1, scale=kw.get("scale")),
+        iters)
+    extra = [f"window {kw['window']}"] if kw.get("window") else []
+    extra += [f"softcap {kw['softcap']}"] if kw.get("softcap") else []
+    row = kernel_row(name, "src/repro_torch/kernels/csrc/flash_attention.cu",
+                     FLASH_REPLACES["flash_attention"], launches[name], err,
+                     ms, plain_ms, lib_ms, (2 * q.numel() + 2 * k.numel())
+                     * q.element_size() + lse.numel() * 4, 4 * hd * pairs,
+                     str(q.dtype)[6:], [B, Hkv, G, T, hd, "causal", *extra])
+    row["device_ms"] = graph_ms(fwd, iters)
+    log(f"    device time {row['device_ms']:.4f} ms; kernel / library"
+        f"{' (no softcap)' if kw.get('softcap') else ''} "
+        f"{ms / lib_ms:.2f}x")
     del q4, out, lse
     torch.cuda.empty_cache()
     return [row]
@@ -3898,67 +3959,161 @@ def check_tiny_ssm(device: str = "cuda") -> None:
         assert launches == 1, launches
 
 
-def ssm_prefill(cfg, params, tokens, *, plain: bool):
-    """prefill_step with the kernel, or with the plain GLA (the oracle of
-    the SSM prefill, on any device) in its place for the call."""
+def plain_prefill(cfg, params, tokens, prefix=None, *, plain,
+                  cache_len: int = None):
+    """prefill_step (``cache_len`` slots, by default the sequence's
+    length) with the kernels, or with the plain GLA and the plain attention
+    (the oracles of the prefill, on any device) in their places for the
+    call (on float64 params the plain GLA works in float64)."""
+    import repro_torch.models.attention as attention
     import repro_torch.models.ssm as ssm
     from repro_torch.kernels.gla_scan import chunked_gla_ref
     from repro_torch.launch.steps import build_prefill_step
-    _, prefill = build_prefill_step(cfg, tokens.shape[1])
-    orig = ssm.chunked_gla
+    P = 0 if prefix is None else prefix.shape[1]
+    _, prefill = build_prefill_step(cfg, cache_len or P + tokens.shape[1])
+    orig = ssm.chunked_gla, attention.flash_attention_op
     if plain:
         ssm.chunked_gla = chunked_gla_ref
+        attention.flash_attention_op = plain_attention()
     try:
-        return prefill(params, tokens)
+        return prefill(params, tokens, prefix)
     finally:
-        ssm.chunked_gla = orig
+        ssm.chunked_gla, attention.flash_attention_op = orig
 
 
-def check_ssm_parity(*, tiny: bool = False, device: str = "cuda",
-                     batch: int = 2, seq: int = 520) -> None:
-    """Full-width xlstm-350m in float32 (seed-0 port init), B 2 x T 520,
-    on the card: the prefill's logits and every final state with the
-    gla_scan kernel against the same with the plain chunked_gla_ref in its
-    place, held within 1e-3 of the largest |logit| and of each leaf's
-    largest magnitude (21 mLSTM and 3 sLSTM layers of float32 sums in
-    other orders); then decode continuation: serve_step at position T
-    after the T-prefill against the last logits of a T+1 prefill, held
-    within 1e-3 of the largest |logit| (a step recurrence against the
-    chunked form). ``tiny`` and ``device="cpu"`` rehearse it."""
+# the models of the prefill parity phases: (model, depth per group, None
+# uncut; whether the attention weights are conditioned for soft attention,
+# condition_attention; whether a float64 witness may decide a leaf that
+# misses 1e-3) at full width in float32
+PREFILL_PARITY = {"ssm_parity": ("xlstm-350m", None, False, False),
+                  # 2 x (5 mamba2 + the shared block) + 1 mamba2: two
+                  # occurrences of one shared attention block; mamba2's
+                  # chunk decays reach ~-1e4, where a float32 ulp is ~1e-3
+                  "zamba2_parity": ("zamba2-1.2b", (2, 1), False, True),
+                  # pixtral's 32 heads over 1088 positions: on the init's
+                  # hard-max attention float32 rounding flips near-ties (on
+                  # an H100 the raw init's kernel and plain logits part by
+                  # 9.5e-3, the decode continuation by 4.7e-2), as on
+                  # decode_parity's legs
+                  "pixtral_parity": ("pixtral-12b", (4,), True, False)}
+
+
+def parity_errors(got, want, witness=None) -> list:
+    """(name, error) of a prefill's logits and of every cache leaf, each
+    over the leaf's largest magnitude in ``want``: ``got``'s distance from
+    ``want``; with ``witness``, ``got``'s distance from the witness over
+    its allowance, max(1e-3, twice ``want``'s own distance from it)."""
+    from repro_torch.utils.tree import tree_leaves
+
+    def leaves(out):
+        return [out[0]] + tree_leaves(out[1])
+    ws = leaves(witness) if witness is not None else [None] * len(
+        leaves(got))
+    out = []
+    for i, (a, b, w) in enumerate(zip(leaves(got), leaves(want), ws)):
+        name = "logits" if i == 0 else f"cache leaf {i - 1}"
+        a, b = a.cpu(), b.cpu()
+        scale = max(float(b.float().abs().max()), 1e-30)
+        if w is None:
+            out.append((name, max_err(a, b) / scale))
+        else:
+            w = w.cpu()
+            allowance = max(1e-3, 2 * max_err(b, w) / scale)
+            out.append((name, max_err(a, w) / scale / allowance))
+    return out
+
+
+def check_prefill_parity(phase: str = "ssm_parity", *, tiny: bool = False,
+                         device: str = "cuda", batch: int = 2,
+                         seq: int = None) -> None:
+    """A PREFILL_PARITY model in float32 (seed-0 port init; pixtral after
+    its vision prefix, ``model_prefix``), B 2 x T (520 tokens; pixtral 64
+    after 1024 prefix rows), on the card: the prefill's logits and every
+    cache leaf (SSM final states, attention K/V) with the kernels
+    (gla_scan, flash) against the same with the plain chunked_gla_ref and
+    the plain attention in their places, held within 1e-3 of the largest
+    |logit| and of each leaf's largest magnitude (float32 sums in other
+    orders through every layer; pixtral on weights conditioned for soft
+    attention, as decode_parity). For zamba2 alone, where a leaf misses
+    that, the plain path on float64 params (its GLA and attention in
+    float64) decides: the kernels' value must lie within 1e-3 of it, or no
+    farther from it than twice the plain float32 path's (the float32
+    chunked form's own rounding: mamba2's decays take the cumulative log
+    decay of a 256-step chunk to ~-1e4, where a unit in the last place is
+    ~1e-3, so the two float32 paths' differently ordered sums part by that
+    much). Then decode continuation:
+    serve_step at position P + T after that prefill against the last
+    logits of a P + T + 1 prefill, held within 1e-3 of the largest |logit|
+    (a step recurrence and the gather attention against the chunked form
+    and flash). On the card the kernel prefill launches
+    ``prefill_launches`` of the model and nothing else. ``tiny`` and
+    ``device="cpu"`` rehearse it."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import build_serve_step
     from repro_torch.models.model import LM
+    from repro_torch.utils.tree import tree_map
+    model, periods, conditioned, witness = PREFILL_PARITY[phase]
     dev = torch.device(device)
-    cfg = get_config("xlstm-350m", tiny=tiny)
+    cfg = cut_config(get_config(model, tiny=tiny), periods=periods)
+    if seq is None:
+        seq = 64 if cfg.vision_prefix_len else 520
     gen = torch.Generator(device=dev).manual_seed(0)
     params = LM(cfg).init(gen, dtype=torch.float32, device=dev)
+    if conditioned:
+        condition_attention(params)
     tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1),
                            generator=gen, device=dev, dtype=torch.int32)
-    n_mlstm = sum(g.n_periods * sum(b.kind == "mlstm" for b in g.period)
-                  for g in cfg.groups)
+    prefix = model_prefix(cfg, params, batch, gen)
+    P = 0 if prefix is None else prefix.shape[1]
+    n = P + seq + 1
     reset_counts()
-    lk, ck = ssm_prefill(cfg, params, tokens[:, :seq], plain=False)
-    launches = launch_counts()["gla_scan"]
-    lp, cp = ssm_prefill(cfg, params, tokens[:, :seq], plain=True)
-    scale = float(lp.abs().max())
-    err, c_err = max_err(lk, lp) / scale, cache_rel_err(ck, cp)
+    kern = plain_prefill(cfg, params, tokens[:, :seq], prefix, plain=False,
+                         cache_len=n)
+    launches = {k: v for k, v in launch_counts().items() if v}
+    plain = plain_prefill(cfg, params, tokens[:, :seq], prefix, plain=True,
+                          cache_len=n)
+    errs = parity_errors(kern, plain)
+    worst = max(errs, key=lambda e: e[1])
+    held, limit = "kernels vs plain", 1e-3
+    if witness and worst[1] > limit:
+        # the float64 witness of the plain path
+        p64 = tree_map(lambda t: t.double(), params)
+        w64 = plain_prefill(cfg, p64, tokens[:, :seq],
+                            None if prefix is None else prefix.double(),
+                            plain=True, cache_len=n)
+        del p64
+        w_errs = parity_errors(kern, plain, w64)
+        log(f"  kernels vs plain misses 1e-3 at {worst[0]} ({worst[1]:.3g}): "
+            "against the float64 plain path, the kernels' distance over "
+            "max(1e-3, twice the float32 plain path's): " + ", ".join(
+                f"{name} {e:.3g}" for name, e in w_errs if e > 0.1))
+        worst = max(w_errs, key=lambda e: e[1])
+        held, limit = "kernels vs the float64 witness, over its allowance", 1
+        del w64
+    lk, ck = kern
+    scale = float(plain[0].abs().max())
     _, serve_step = build_serve_step(cfg)
     step_logits, _, _ = serve_step(params, ck, tokens[:, seq],
-                                   torch.full((batch,), seq, device=dev,
+                                   torch.full((batch,), P + seq, device=dev,
                                               dtype=torch.int32))
-    l_next, _ = ssm_prefill(cfg, params, tokens, plain=False)
+    l_next, _ = plain_prefill(cfg, params, tokens, prefix, plain=False,
+                              cache_len=n)
     c_gap = max_err(step_logits, l_next) / float(l_next.abs().max())
-    finite = bool(torch.isfinite(lk).all() and torch.isfinite(lp).all())
-    log(f"  prefill B {batch} x T {seq}: logits kernel vs plain "
-        f"{err:.3g} of their max {scale:.4g} (tol 1e-3), states "
-        f"{c_err:.3g} of each leaf's max (tol 1e-3); decode at T vs a "
-        f"T+1 prefill {c_gap:.3g} of the max logit (tol 1e-3); gla_scan "
-        f"launches {launches} ({n_mlstm} mLSTM layers)")
-    assert finite and err <= 1e-3 and c_err <= 1e-3 and c_gap <= 1e-3
+    finite = bool(torch.isfinite(lk).all() and torch.isfinite(plain[0]).all())
+    log(f"  {cfg.name}{' (conditioned)' if conditioned else ''}: prefill "
+        f"B {batch} x "
+        f"{f'(prefix {P} + ' if P else '('}{seq} tokens): kernels vs plain, "
+        f"over each one's max: logits {errs[0][1]:.3g} (max {scale:.4g}), "
+        f"cache leaves {max(e for _, e in errs[1:]):.3g}; held "
+        f"({held}, tol {limit:g}): worst {worst[0]} {worst[1]:.3g}; decode "
+        f"at {P + seq} vs a {P + seq + 1}-row prefill {c_gap:.3g} of the "
+        f"max logit (tol 1e-3); launches {launches} (expected "
+        f"{prefill_launches(cfg)})")
+    assert finite and c_gap <= 1e-3 and worst[1] <= limit, worst
     if dev.type == "cuda":
-        assert launches == n_mlstm, launches
-    del params, ck, cp
+        assert launches == prefill_launches(cfg), launches
+    del params, kern, plain, ck, prefix
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -3966,10 +4121,13 @@ def check_ssm_parity(*, tiny: bool = False, device: str = "cuda",
 
 class GLARecorder:
     """Keeps, for the timing phase, the inputs of the first gla_scan call
-    of a prefill (the first mLSTM layer's): wraps the op the model calls
-    and adds nothing to the launch counts. The inputs are kept by
-    reference (nothing writes them after the call) and move to host
-    memory on leaving."""
+    of a prefill (the first mLSTM or mamba2 layer's): wraps the op the
+    model calls and adds nothing to the launch counts. The inputs are kept
+    by reference during the run (nothing writes them after the call) and
+    move to host memory on leaving, so later phases' peaks do not carry
+    them; a dimension of stride 0 (mamba2's q and k, views over the heads)
+    moves as one slice. ``operands()`` brings them back to their device
+    with those dimensions broadcast again."""
 
     def __enter__(self):
         import repro_torch.kernels.ops as ops
@@ -3987,27 +4145,87 @@ class GLARecorder:
         import repro_torch.kernels.ops as ops
         from repro_torch.utils.tree import tree_map
         ops.gla_scan_op = self._orig
-        self.args = tree_map(lambda t: t.cpu() if hasattr(t, "cpu") else t,
-                             self.args)
+
+        def to_host(t):
+            if not hasattr(t, "stride"):
+                return t
+            slice_ = t
+            for dim, st in enumerate(t.stride()):
+                if st == 0:
+                    slice_ = slice_.narrow(dim, 0, 1)
+            return slice_.cpu(), tuple(t.shape), t.device
+        self.args = tree_map(to_host, self.args)
+
+    def operands(self):
+        """(q, k, v, log_a, kw) as recorded, on their device."""
+        def back(t):
+            if isinstance(t, tuple):
+                slice_, shape, device = t
+                return slice_.to(device).expand(shape)
+            return t
+        *ts, kw = self.args
+        return (*map(back, ts), {k: back(v) for k, v in kw.items()})
 
 
-# the serve-step phases: the model served at full width, the block kind
-# whose every layer launches the phase's kernel once per prefill (decode
-# launches no kernel), the prompt length, the greedy steps, whether the
-# slotted caches hold the decoded tokens too (SSM state has no slots),
-# and the serve steps profiled after the prefill in the profile phase
-# (the profiler's own parse takes ~1 s for each llama step)
+# the kernel that each block kind launches once a prefill (sLSTM's loop
+# and every decode step launch none)
+PREFILL_KERNEL = {"mlstm": "gla_scan", "mamba2": "gla_scan",
+                  "attn": "flash_attention", "shared_attn": "flash_attention"}
+
+
+def prefill_launches(cfg) -> dict:
+    """{kernel: launches} of one prefill of ``cfg``: a launch for every
+    layer of a block kind in PREFILL_KERNEL, and no other launch."""
+    out = {}
+    for g in cfg.groups:
+        for blk in g.period:
+            kernel = PREFILL_KERNEL.get(blk.kind)
+            if kernel is not None:
+                out[kernel] = out.get(kernel, 0) + g.n_periods
+    return out
+
+
+def model_prefix(cfg, params, batch: int, gen):
+    """pixtral's stand-in for its vision encoder: (batch,
+    cfg.vision_prefix_len, d) patch embeddings from ``gen``, normal at the
+    token embeddings' standard deviation, in their dtype; None for a
+    model without a prefix."""
+    import torch
+    if not cfg.vision_prefix_len:
+        return None
+    emb = params["embed"]
+    scale = float(emb[:4096].float().std())
+    return (torch.randn((batch, cfg.vision_prefix_len, cfg.d_model),
+                        generator=gen, device=emb.device) * scale).to(
+        emb.dtype)
+
+
+# the serve-step phases: the model served at full width, the prompt
+# length, the greedy steps, whether the decode cache has slots (attention
+# blocks; an SSM state has none), the serve steps profiled after the
+# prefill in the profile phase (the profiler's own parse takes ~1 s for
+# each llama step), and the profiled prefill's length where it is cut
+# (the xlstm prefill's sLSTM loop launches ~50 kernels a step, which the
+# profiler's parse pays for). Every layer of PREFILL_KERNEL's block kinds
+# launches its kernel once a prefill (``prefill_launches``); pixtral's
+# prompts follow its vision prefix (``model_prefix``)
 MODEL_SERVES = {
-    "ssm_serve": dict(model="xlstm-350m", kernel="gla_scan", kind="mlstm",
-                      seq=2000, steps=64, slots=False, profile_steps=0),
-    "dense_serve": dict(model="llama3.2-1b", kernel="flash_attention",
-                        kind="attn", seq=1024, steps=32, slots=True,
-                        profile_steps=16),
+    "ssm_serve": dict(model="xlstm-350m", seq=2000, steps=64, slots=False,
+                      profile_steps=0, profile_seq=256),
+    "dense_serve": dict(model="llama3.2-1b", seq=1024, steps=32, slots=True,
+                        profile_steps=8),
     # gemma2's 42 layers alternate a local (window 4096) and a global
     # layer, both with softcap 50: one flash launch a layer a prefill
-    "wide_dense": dict(model="gemma2-9b", kernel="flash_attention",
-                       kind="attn", seq=1024, steps=32, slots=True,
-                       profile_steps=8)}
+    "wide_dense": dict(model="gemma2-9b", seq=1024, steps=32, slots=True,
+                       profile_steps=8),
+    # zamba2: 32 mamba2 layers (gla_scan) and 6 occurrences of its one
+    # shared attention block (flash), each with its own slotted cache
+    "zamba2_serve": dict(model="zamba2-1.2b", seq=2000, steps=64,
+                         slots=True, profile_steps=8),
+    # pixtral: a (8, 1024, 5120) vision prefix, then the prompt's tokens;
+    # not profiled
+    "pixtral_serve": dict(model="pixtral-12b", seq=512, steps=32,
+                          slots=True, profile_steps=0, profile_seq=0)}
 
 
 def model_serve(phase: str, recorder=None, *, tiny: bool = False,
@@ -4015,15 +4233,17 @@ def model_serve(phase: str, recorder=None, *, tiny: bool = False,
                 steps: int = None, profile: bool = False) -> dict:
     """A model of MODEL_SERVES served through prefill_step and greedy
     serve_step: bf16 weights from the port's seed-0 init, ``batch``
-    prompts of ``seq`` random tokens (seed 0). A warm-up prefill (which
-    ``recorder``, if any, watches) and serve step, then the timed prefill
-    and ``steps`` serve steps, each timed to a synchronize. Launch counts
-    are set to 0 before the timed prefill and read after the last step:
-    every layer of the phase's block kind launches its kernel once per
-    prefill, and nothing else launches one. Fails unless every logit is
-    finite. ``profile`` adds one more prefill, and the phase's
-    ``profile_steps`` more serve steps, under torch.profiler. ``tiny`` and
-    ``device="cpu"`` rehearse it in float32."""
+    prompts of ``seq`` random tokens (seed 0), after the model's vision
+    prefix where it has one. A warm-up prefill (which ``recorder``, if
+    any, watches) and serve step, then the timed prefill and ``steps``
+    serve steps, each timed to a synchronize. Launch counts are set to 0
+    before the timed prefill and read after the last step: they must be
+    ``prefill_launches`` of the model, and nothing else. Fails unless
+    every logit is finite. ``profile`` adds one more prefill (of the
+    phase's ``profile_seq`` tokens where given; 0: none), and the phase's
+    ``profile_steps`` more serve steps, under torch.profiler. The seconds
+    of each part are logged as ``stamps``. ``tiny`` and ``device="cpu"``
+    rehearse it in float32."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import build_prefill_step, build_serve_step
@@ -4038,29 +4258,38 @@ def model_serve(phase: str, recorder=None, *, tiny: bool = False,
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
+    stamps, t_last = {}, [time.perf_counter()]
+
+    def stamp(name):
+        sync()
+        now = time.perf_counter()
+        stamps[name] = now - t_last[0]
+        t_last[0] = now
     gen = torch.Generator(device=dev).manual_seed(0)
     params = LM(cfg).init(gen, dtype=torch.bfloat16 if on_card
                           else torch.float32, device=dev)
     tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
                            device=dev, dtype=torch.int32)
-    n_layers = sum(g.n_periods * sum(b.kind == spec["kind"]
-                                     for b in g.period) for g in cfg.groups)
+    prefix = model_prefix(cfg, params, batch, gen)
+    P = 0 if prefix is None else prefix.shape[1]
+    expected = prefill_launches(cfg)
     n_prof = spec["profile_steps"] if profile else 0
-    n_slots = seq + steps + n_prof if spec["slots"] else seq
+    n_slots = P + seq + steps + n_prof if spec["slots"] else seq
     _, prefill = build_prefill_step(cfg, n_slots)
     _, serve_step = build_serve_step(cfg)
-    pos = torch.full((batch,), seq, device=dev, dtype=torch.int32)
+    pos = torch.full((batch,), P + seq, device=dev, dtype=torch.int32)
+    stamp("construction")
     with recorder if recorder is not None else contextlib.nullcontext():
-        logits, cache = prefill(params, tokens)
+        logits, cache = prefill(params, tokens, prefix)
     serve_step(params, cache, torch.argmax(logits, dim=-1).to(torch.int32),
                pos)
     del logits, cache
-    sync()
+    stamp("warm_up")
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    logits, cache = prefill(params, tokens)
+    logits, cache = prefill(params, tokens, prefix)
     sync()
     t1 = time.perf_counter()
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -4072,46 +4301,53 @@ def model_serve(phase: str, recorder=None, *, tiny: bool = False,
     sync()
     t2 = time.perf_counter()
     counts = launch_counts()
+    stamps["prefill"], stamps["steps"] = t1 - t0, t2 - t1
+    t_last[0] = t2
     fed = torch.stack(fed, dim=1)
     finite = bool(torch.isfinite(logits).all()) and all(
         bool(torch.isfinite(lg).all()) for lg in step_logits)
     prefill_s, decode_s = t1 - t0, t2 - t1
-    res = {"model": cfg.name, "batch": batch, "seq": seq, "steps": steps,
-           "prefill_s": prefill_s,
-           "prefill_tokens_per_s": batch * seq / prefill_s,
+    res = {"model": cfg.name, "batch": batch, "prefix": P, "seq": seq,
+           "steps": steps, "prefill_s": prefill_s,
+           "prefill_tokens_per_s": batch * (P + seq) / prefill_s,
            "decode_s": decode_s,
            "decode_ms_per_step": decode_s / max(steps, 1) * 1e3,
            "decode_tokens_per_s": batch * steps / max(decode_s, 1e-9),
            "max_memory_allocated":
                torch.cuda.max_memory_allocated() if on_card else None,
            "finite": finite, "first_tokens": fed[0, :8].tolist(),
-           "launches": counts}
+           "launches": counts, "expected_launches": expected}
     log(f"  {json.dumps(res)}")
     assert finite, "non-finite logits"
     assert fed.shape == (batch, steps + 1)
     assert 0 <= int(fed.min()) and int(fed.max()) < cfg.vocab_size
     assert recorder is None or recorder.args is not None
     if on_card:
-        assert counts[spec["kernel"]] == n_layers and sum(
-            counts.values()) == n_layers, counts
-    if profile:
+        assert {k: v for k, v in counts.items() if v} == expected, counts
+    n_prof_seq = min(spec.get("profile_seq", seq), seq) if profile else 0
+    if n_prof_seq:
         from torch.profiler import ProfilerActivity, profile as prof_ctx
         acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
         with prof_ctx(activities=acts) as prof:
             t0 = time.perf_counter()
-            prefill(params, tokens)
+            prefill(params, tokens[:, :n_prof_seq], prefix)
             sync()
             wall = time.perf_counter() - t0
-        dev_us, total = log_device_time(prof, wall,
-                                        f"1 prefill of {batch} x {seq}")
-        mine = [v for k, v in dev_us.items()
-                if spec["kernel"].split("_")[0] + "_" in k]
-        log(f"  {spec['kernel']}'s kernels: "
-            f"{sum(us for us, _ in mine) / 1e3:.2f} ms over "
-            f"{sum(n for _, n in mine)} launches = "
-            f"{sum(us for us, _ in mine) / max(total, 1e-9):.3f} of device "
-            f"time")
+        dev_us, total = log_device_time(
+            prof, wall, f"1 prefill of {batch} x {n_prof_seq}"
+            + (f" after a prefix of {P}" if P else ""))
+        for kernel in expected:
+            mine = [v for k, v in dev_us.items()
+                    if kernel.split("_")[0] + "_" in k]
+            log(f"  {kernel}'s kernels: "
+                f"{sum(us for us, _ in mine) / 1e3:.2f} ms over "
+                f"{sum(n for _, n in mine)} launches = "
+                f"{sum(us for us, _ in mine) / max(total, 1e-9):.3f} of "
+                f"device time")
+        stamp("profiled_prefill")
     if n_prof:
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
         with prof_ctx(activities=acts) as prof:
             t0 = time.perf_counter()
             for i in range(n_prof):
@@ -4126,10 +4362,15 @@ def model_serve(phase: str, recorder=None, *, tiny: bool = False,
         for e in ops[:8]:
             log(f"  host {e.self_cpu_time_total / 1e3:9.2f} ms {e.count:7d}x"
                 f"  {e.key[:80]}")
-    del params, cache, logits, step_logits
+        stamp("profiled_steps")
+    del params, cache, logits, step_logits, prefix
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
+    stamp("teardown")
+    res["stamps"] = stamps
+    log(f"  stamps (s): " + ", ".join(f"{k} {v:.2f}"
+                                      for k, v in stamps.items()))
     return res
 
 
@@ -4183,23 +4424,30 @@ def gla_tc_ops(shape, dv: int, chunk: int, with_state: bool,
     return ops
 
 
+def stored_bytes(t) -> int:
+    """The bytes a kernel must read of ``t``: a dimension of stride 0 (a
+    broadcast view) adds none."""
+    return t.element_size() * math.prod(
+        n for n, st in zip(t.shape, t.stride()) if st != 0)
+
+
 def time_gla(recorder: GLARecorder, worst: dict, launches: dict,
-             parent=None) -> list:
-    """The gla_scan row: the kernel's launcher and the plain version, timed
-    on the inputs of the first mLSTM call of ssm_serve's prefill, in
-    turns (plain, kernel, kernel, plain; with ``parent``, the parent's
-    launcher between them); ``ms`` launched from the host, ``device_ms``
-    by CUDA graph replays (both for the parent's too). The bound: the
-    split's bf16 tensor-core operations at the bf16 peak or each operand
-    read and each result written once, whichever is longer; the float32
-    figure (the same work on the float32 CUDA cores, the bound of the
-    kernel this one replaced) is logged beside it. No single PyTorch call computes chunked gated linear
-    attention, so there is no library yardstick."""
+             parent=None, name: str = "gla_scan") -> list:
+    """A gla_scan row, ``name``: the kernel's launcher and the plain
+    version, timed on the inputs the recorder kept (row 8: the first
+    mLSTM call of ssm_serve's prefill; 8z: the first mamba2 call of
+    zamba2_serve's), in turns (plain, kernel, kernel, plain; with
+    ``parent``, the parent's launcher between them); ``ms`` launched from
+    the host, ``device_ms`` by CUDA graph replays (both for the parent's
+    too). The bound: the split's bf16 tensor-core operations at the bf16
+    peak or each operand read and each result written once, whichever is
+    longer; the float32 figure (the same work on the float32 CUDA cores,
+    the bound of the kernel this one replaced) is logged beside it. No
+    single PyTorch call computes chunked gated linear attention, so there
+    is no library yardstick."""
     import torch
     from repro_torch.kernels.gla_scan import chunked_gla_ref, gla_scan_fwd
-    from repro_torch.utils.tree import tree_map
-    q, k, v, la, kw = tree_map(
-        lambda t: t.cuda() if hasattr(t, "cuda") else t, recorder.args)
+    q, k, v, la, kw = recorder.operands()
     chunk, s0 = kw["chunk"], kw.get("initial_state")
 
     def kernel():
@@ -4211,10 +4459,10 @@ def time_gla(recorder: GLARecorder, worst: dict, launches: dict,
     want_y, want_s = plain()
     ey, es = gla_rel_err(y, s, want_y, want_s)
     tol_y = 2.0 ** -7 if y.dtype == torch.bfloat16 else 1e-4
-    log(f"  gla_scan main-path call: y max_abs_err {ey:.3g} of its max "
+    log(f"  {name} main-path call: y max_abs_err {ey:.3g} of its max "
         f"(tol {tol_y:.3g}), state {es:.3g} (tol 1e-4)")
     assert ey <= tol_y and es <= 1e-4
-    err = max(worst["gla_scan"], max_err(y, want_y), max_err(s, want_s))
+    err = max(worst[name], max_err(y, want_y), max_err(s, want_s))
     del y, s, want_y, want_s
     fns = {"plain": plain, "ms": kernel}
     if parent is not None:
@@ -4235,9 +4483,9 @@ def time_gla(recorder: GLARecorder, worst: dict, launches: dict,
     ms, plain_ms = row_.pop("ms"), row_.pop("plain")
     dv = v.shape[-1]
     c = min(chunk, q.shape[2])
-    # each input read once in its dtype, y written in v's, the state in
-    # float32
-    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, la)) \
+    # each input read once in its dtype (a broadcast view's storage once),
+    # y written in v's, the state in float32
+    nbytes = sum(stored_bytes(t) for t in (q, k, v, la)) \
         + q.shape[0] * q.shape[1] * q.shape[2] * dv * v.element_size() \
         + q.shape[0] * q.shape[1] * q.shape[-1] * dv * 4 \
         + (0 if s0 is None else s0.numel() * 4)
@@ -4249,7 +4497,7 @@ def time_gla(recorder: GLARecorder, worst: dict, launches: dict,
     f32_bound = max(by_bytes, f32_ops / PEAK_OPS["float32"] * 1e3)
     shape = list(q.shape) + [dv, f"chunk {chunk}",
                              " ".join(str(t.dtype)[6:] for t in (q, k, v))]
-    log(f"  gla_scan {shape}: kernel {ms:.4f} ms (device "
+    log(f"  {name} {shape}: kernel {ms:.4f} ms (device "
         f"{row_['device_ms']:.4f}), plain {plain_ms:.4f} ms, library none, "
         f"bound {max(by_bytes, by_ops):.4f} ms ({nbytes} B, {ops} bf16 "
         f"tensor-core operations; float32 figure {f32_bound:.4f} ms, "
@@ -4259,9 +4507,9 @@ def time_gla(recorder: GLARecorder, worst: dict, launches: dict,
             f"{row_['parent_ms']:.4f} -> {ms:.4f} ms, device time "
             f"{row_['parent_device_ms']:.4f} -> {row_['device_ms']:.4f} ms")
     torch.cuda.empty_cache()
-    return [{"name": "gla_scan", "route": "cuda",
+    return [{"name": name, "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/gla_scan.cu",
-             "replaces": GLA_REPLACES, "launches": launches["gla_scan"],
+             "replaces": GLA_REPLACES, "launches": launches[name],
              "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
              "bound_ms": max(by_bytes, by_ops),
              "bound_by": "bytes" if by_bytes >= by_ops else "operations",
@@ -4276,6 +4524,13 @@ def time_gla(recorder: GLARecorder, worst: dict, launches: dict,
 MOE_SRC = "src/repro_torch/kernels/csrc/moe_experts.cu"
 MOE_REPLACES = ("none of its own: the reference's dense einsum dispatch, "
                 "src/repro/models/moe.py:85-94")
+
+
+def layers(model: str, periods=None) -> int:
+    """The layers of ``model`` at full width, each group cut to
+    ``periods``."""
+    from repro_torch.configs import get_config
+    return cut_config(get_config(model), periods=periods).n_layers
 
 
 def cut_config(cfg, periods=None, capacity_factor=None):
@@ -4932,51 +5187,6 @@ def time_mla(recorder: MLARecorder, worst: dict, launches: dict,
     return rows
 
 
-def time_mla_flash(recorder: FlashRecorder, worst: dict,
-                   launches: dict) -> list:
-    """Row 7m: the flash forward at head_dim 192 on the largest call of
-    mla_parity's bf16 forward leg (deepseek-v3's 128 heads, G 1, causal,
-    scale 1 / sqrt(192)), against its plain version (one unit in the last
-    place), and the library yardstick, scaled_dot_product_attention at
-    head_dim 192 (timed here, never on the path). Bound: 4 hd operations
-    per visible pair at the bf16 peak, against each operand read and the
-    output and lse written once."""
-    import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
-                                                     flash_attention_fwd_ref)
-    q, k, v, kw = recorder.args
-    q, k, v = (t.cuda() for t in (q, k, v))
-    B, Hkv, G, T, hd = q.shape
-    pairs = T * (T + 1) // 2 * B * Hkv * G
-
-    def fwd():
-        return flash_attention_fwd(q, k, v, **kw)
-
-    def fwd_plain():
-        return flash_attention_fwd_ref(q, k, v, **kw)
-    out, lse = fwd()
-    err = max(worst["flash_attention_hd192"],
-              ulp_err("flash_attention_hd192", out, fwd_plain()[0]))
-    ms, plain_ms = in_turns(fwd_plain, fwd, 5)
-    q4 = q.reshape(B, Hkv * G, T, hd)
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q4, k, v, is_causal=True, scale=kw.get("scale")), 5)
-    row = kernel_row("flash_attention_hd192",
-                     "src/repro_torch/kernels/csrc/flash_attention.cu",
-                     FLASH_REPLACES["flash_attention"],
-                     launches["flash_attention_hd192"], err, ms, plain_ms,
-                     lib_ms, (2 * q.numel() + 2 * k.numel())
-                     * q.element_size() + lse.numel() * 4, 4 * hd * pairs,
-                     str(q.dtype)[6:], [B, Hkv, G, T, hd, "causal"])
-    row["device_ms"] = graph_ms(fwd, 5)
-    log(f"    device time {row['device_ms']:.4f} ms; kernel / library "
-        f"{ms / lib_ms:.2f}x")
-    del q4, out, lse
-    torch.cuda.empty_cache()
-    return [row]
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -5039,7 +5249,7 @@ def main() -> int:
             "threads per SM")
 
     worst = {k: 0.0 for k in KERNELS + WIDE_KERNELS + MOE_KERNELS
-             + MLA_KERNELS}
+             + MLA_KERNELS + PREFIX_SHARED_KERNELS}
     if "kernels" in phases:
         log("[kernels] each kernel against its plain version on the card")
         worst = check_kernels()
@@ -5077,7 +5287,7 @@ def main() -> int:
         log("[ssm_parity] xlstm-350m full width f32, B 2 x T 520: prefill "
             "with gla_scan vs the plain chunked_gla_ref on the card, and "
             "decode continuation")
-        check_ssm_parity()
+        check_prefill_parity("ssm_parity")
     if "wide_parity" in phases:
         log(f"[wide_parity] {' and '.join(WIDE_PARITY_MODELS)} full width, "
             f"8 layers each: fused vs per-call vs gather, contexts "
@@ -5113,6 +5323,17 @@ def main() -> int:
         assert tc > 0 and cc > 0, after
         log(f"  the latent kernel launched {cc} times in its CUDA-core form "
             f"(float32 pools), {tc} in its tensor-core form (bf16)")
+    if "zamba2_parity" in phases:
+        log("[zamba2_parity] zamba2-1.2b full width f32, 2 x (5 mamba2 + "
+            "the shared block) + 1 mamba2, B 2 x T 520: prefill with "
+            "gla_scan and flash vs the plain GLA and attention on the card, "
+            "and decode continuation")
+        check_prefill_parity("zamba2_parity")
+    if "pixtral_parity" in phases:
+        log("[pixtral_parity] pixtral-12b full width f32, 4 layers, B 2 x "
+            "(a 1024-row vision prefix + 64 tokens): prefill with flash vs "
+            "the plain attention on the card, and decode continuation")
+        check_prefill_parity("pixtral_parity")
     parent = None
     if args.parent:
         t0 = time.perf_counter()
@@ -5124,7 +5345,7 @@ def main() -> int:
     # the kernels line's rows, and the latent kernel's tensor-core count
     # beside them (launch_counts' keys)
     total = {k: 0 for k in KERNELS + WIDE_KERNELS + MOE_KERNELS
-             + MLA_KERNELS + ("mla_attention_tc",)}
+             + MLA_KERNELS + PREFIX_SHARED_KERNELS + ("mla_attention_tc",)}
     results = {}
     for phase, (policy, engine_kw) in SERVE_PHASES.items():
         if phase not in phases:
@@ -5197,11 +5418,13 @@ def main() -> int:
     for phase, (model, policy, engine_kw) in WIDE_SERVE_PHASES.items():
         if phase not in phases:
             continue
-        log(f"[{phase}] {model} full width, bf16, policy {policy}"
+        periods = WIDE_SERVE_PERIODS.get(model)
+        log(f"[{phase}] {model} full width, "
+            f"{layers(model, periods)} layers, bf16, policy {policy}"
             f"{''.join(f', {k}={v}' for k, v in engine_kw.items())}")
         res = wide[phase] = serve(
             policy, wide_rec if model == "gemma2-9b" else None, model=model,
-            **engine_kw)
+            periods=periods, **engine_kw)
         log(f"  launches (not in the kernels line): "
             f"{json.dumps(res['launches'])}")
         log(f"  {smi}: {res['tokens_per_s']:.2f} tok/s over "
@@ -5233,10 +5456,14 @@ def main() -> int:
     for phase, (policy, engine_kw) in MOE_SERVE_PHASES.items():
         if phase not in phases:
             continue
-        log(f"[{phase}] {MOE_MODEL} full width, bf16, policy {policy}"
+        log(f"[{phase}] {MOE_MODEL} full width, "
+            f"{layers(MOE_MODEL, MOE_SERVE_PERIODS)} layers, bf16, policy "
+            f"{policy}"
             f"{''.join(f', {k}={v}' for k, v in engine_kw.items())}")
         with moe_rec if phase == "moe_serve" else contextlib.nullcontext():
-            res = moe_runs[phase] = serve(policy, model=MOE_MODEL, **engine_kw)
+            res = moe_runs[phase] = serve(policy, model=MOE_MODEL,
+                                          periods=MOE_SERVE_PERIODS,
+                                          **engine_kw)
         log(f"  launches (not in the kernels line): "
             f"{json.dumps(res['launches'])}")
         log(f"  {smi}: {res['tokens_per_s']:.2f} tok/s over "
@@ -5304,23 +5531,30 @@ def main() -> int:
         res = train(flash_rec, profile="profile" in phases)
         for k in ("flash_attention", "flash_attention_bwd"):
             total[k] += res["launches"][k]
-    gla_rec = GLARecorder()
-    wide_flash = FlashRecorder()
+    # the first call of each serve-step run that a timing row takes
+    serve_recs = {"ssm_serve": GLARecorder(), "wide_dense": FlashRecorder(),
+                  "zamba2_serve": GLARecorder(),
+                  "pixtral_serve": FlashRecorder()}
+    # the timing rows whose launches a serve-step run's are: (row, kernel)
+    serve_rows = {"ssm_serve": ("gla_scan", "gla_scan"),
+                  "wide_dense": ("flash_attention_hd256", "flash_attention"),
+                  "zamba2_serve": ("gla_scan_zamba2", "gla_scan"),
+                  "pixtral_serve": ("flash_attention_pixtral",
+                                    "flash_attention")}
     for phase, spec in MODEL_SERVES.items():
         if phase not in phases:
             continue
         log(f"[{phase}] {spec['model']} full width, bf16, seed-0 port init: "
-            f"prefill_step of 8 x {spec['seq']}, then {spec['steps']} "
-            f"greedy serve_step calls")
-        res = model_serve(phase, {"ssm_serve": gla_rec,
-                                  "wide_dense": wide_flash}.get(phase),
+            f"prefill_step of 8 x {spec['seq']}"
+            f"{' after its vision prefix' if phase == 'pixtral_serve' else ''}"
+            f", then {spec['steps']} greedy serve_step calls")
+        res = model_serve(phase, serve_recs.get(phase),
                           profile="profile" in phases)
-        if phase == "ssm_serve":
-            total["gla_scan"] = res["launches"]["gla_scan"]
-        elif phase == "wide_dense":
-            total["flash_attention_hd256"] = res["launches"][
-                "flash_attention"]
-            log("  (its launches are row 7w's in the kernels line)")
+        if phase in serve_rows:
+            row_name, kernel = serve_rows[phase]
+            total[row_name] = res["launches"][kernel]
+            log(f"  (its {kernel} launches are row {row_name}'s in the "
+                "kernels line)")
         else:
             log("  (its launches are not in the kernels line, whose flash "
                 "row is the train step's)")
@@ -5345,7 +5579,7 @@ def main() -> int:
     if "timing" in phases and "ssm_serve" in phases:
         log("[timing] gla_scan on the first mLSTM call of the xlstm "
             "prefill")
-        rows += time_gla(gla_rec, worst, total, parent)
+        rows += time_gla(serve_recs["ssm_serve"], worst, total, parent)
     if "timing" in phases and {"gemma2_serve", "gemma2_unfused",
                                "gemma2_quant"} <= phases:
         log("[timing] head_dim 256: the attention kernels on gemma2's "
@@ -5363,7 +5597,8 @@ def main() -> int:
     if "timing" in phases and "wide_dense" in phases:
         log("[timing] head_dim 256: flash attention on the first attention "
             "call of the gemma2 prefill")
-        rows += time_wide_flash(wide_flash, worst, total)
+        rows += time_prefill_flash(serve_recs["wide_dense"], worst, total,
+                                   "flash_attention_hd256")
     if "timing" in phases and "moe_serve" in phases:
         log("[timing] the MoE kernels on moe_serve's largest call and its "
             "largest decode-only call")
@@ -5385,31 +5620,44 @@ def main() -> int:
         log("[timing] flash attention at head_dim 192 on mla_parity's "
             "largest forward call")
         total["flash_attention_hd192"] = mla_flash.launches
-        rows += time_mla_flash(mla_flash, worst, total)
+        rows += time_prefill_flash(mla_flash, worst, total,
+                                   "flash_attention_hd192", iters=5)
+    if "timing" in phases and "zamba2_serve" in phases:
+        log("[timing] gla_scan on the first mamba2 call of the zamba2 "
+            "prefill (row 8z)")
+        rows += time_gla(serve_recs["zamba2_serve"], worst, total,
+                         name="gla_scan_zamba2")
+    if "timing" in phases and "pixtral_serve" in phases:
+        log("[timing] flash attention on the first attention call of the "
+            "pixtral prefill (row 7p)")
+        rows += time_prefill_flash(serve_recs["pixtral_serve"], worst,
+                                   total, "flash_attention_pixtral")
     if "timing" in phases and set(TIMED_SERVE_PHASES) | {
             "train", "ssm_serve", "gemma2_serve", "gemma2_unfused",
             "gemma2_quant", "wide_dense", "moe_serve", "mla_serve",
-            "mla_parity"} <= phases:
+            "mla_parity", "zamba2_serve", "pixtral_serve"} <= phases:
         assert sorted(r["name"] for r in rows) == sorted(
-            KERNELS + WIDE_KERNELS + MOE_KERNELS + MLA_KERNELS), rows
+            KERNELS + WIDE_KERNELS + MOE_KERNELS + MLA_KERNELS
+            + PREFIX_SHARED_KERNELS), rows
         # every kernel of the main path launched; page_requant is the
         # reference's standalone op, which the fused append replaced there
         assert all(r["launches"] > 0 for r in rows
                    if r["name"] != "page_requant"), rows
     if "profile" in phases:
-        log("[profile] torch.profiler over serve steps, InferCept policy")
+        # 10 serve steps after 10 each: the profiler's own processing of
+        # longer windows was most of the phase's time
+        log("[profile] torch.profiler over 10 serve steps after 10, "
+            "InferCept policy")
         profile_serve()
         log("[profile] the same over int8 pools")
         profile_serve(kv_dtype="int8")
-        # a shorter window: 28 layers of the MoE model's ops make the
-        # profiler's own processing most of the phase's time
-        log(f"[profile] 20 serve steps after 20 on {MOE_MODEL}")
-        profile_serve(warm_steps=20, steps=20, model=MOE_MODEL)
-        log(f"[profile] 20 serve steps after 20 on {MLA_MODEL} "
+        log(f"[profile] the same on {MOE_MODEL} "
+            f"({layers(MOE_MODEL, MOE_SERVE_PERIODS)} layers)")
+        profile_serve(model=MOE_MODEL, periods=MOE_SERVE_PERIODS)
+        log(f"[profile] the same on {MLA_MODEL} "
             f"({MLA_SERVE_PERIODS[0]} dense + {MLA_SERVE_PERIODS[1]} MoE "
             "layers)")
-        profile_serve(warm_steps=20, steps=20, model=MLA_MODEL,
-                      periods=MLA_SERVE_PERIODS)
+        profile_serve(model=MLA_MODEL, periods=MLA_SERVE_PERIODS)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

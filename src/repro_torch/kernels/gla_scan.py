@@ -86,7 +86,10 @@ def chunked_gla_ref(q, k, v, log_a, chunk: int, initial_state=None):
     ``exp(lb_i - lb_j)`` is formed under the causal mask (``-inf`` above
     the diagonal), so it never overflows there and stays differentiable;
     the reference forms it everywhere and masks after the ``exp``, which
-    gives the same values. Returns (y in v's dtype, state float32)."""
+    gives the same values. It works in float32, as the reference does, or
+    in float64 where ``log_a`` is float64 (a model on float64 params: a
+    witness for the float32 chunked form's own rounding). Returns (y in
+    v's dtype, state in the working type)."""
     B, H, T, dk = q.shape
     dv = v.shape[-1]
     c = min(chunk, T)
@@ -95,17 +98,17 @@ def chunked_gla_ref(q, k, v, log_a, chunk: int, initial_state=None):
     if pad:
         q, k, v = (F.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
         log_a = F.pad(log_a, (0, pad))        # a = 1, kv = 0: a no-op
-    f32 = torch.float32
-    qc = q.reshape(B, H, n, c, dk).to(f32)
-    kc = k.reshape(B, H, n, c, dk).to(f32)
-    vc = v.reshape(B, H, n, c, dv).to(f32)
-    lac = log_a.reshape(B, H, n, c).to(f32)
+    ct = torch.float64 if log_a.dtype == torch.float64 else torch.float32
+    qc = q.reshape(B, H, n, c, dk).to(ct)
+    kc = k.reshape(B, H, n, c, dk).to(ct)
+    vc = v.reshape(B, H, n, c, dv).to(ct)
+    lac = log_a.reshape(B, H, n, c).to(ct)
     causal = torch.tril(torch.ones((c, c), dtype=torch.bool,
                                    device=q.device))
     if initial_state is None:
-        S = torch.zeros((B, H, dk, dv), dtype=f32, device=q.device)
+        S = torch.zeros((B, H, dk, dv), dtype=ct, device=q.device)
     else:
-        S = initial_state.to(f32)
+        S = initial_state.to(ct)
     ys = []
     for i in range(n):
         qb, kb, vb = qc[:, :, i], kc[:, :, i], vc[:, :, i]

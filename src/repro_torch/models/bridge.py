@@ -2,8 +2,8 @@
 
 ``from_jax_params`` takes the ``repro`` ``LM.init`` pytree with numpy
 leaves (``jax.tree.map(np.asarray, params)``: groups stacked over
-``n_periods``) and returns the port's parameter tree with the same
-layout, as torch tensors.
+``n_periods``, zamba2's shared block once under "shared") and returns the
+port's parameter tree with the same layout, as torch tensors.
 """
 from __future__ import annotations
 
@@ -29,10 +29,13 @@ def cast_params(params: dict, cfg: ModelConfig, dtype, device=None) -> dict:
     model dtype — the SSM cells' gate and decay parameters
     (``models.ssm.FLOAT32_PARAMS``) and the MoE router — which come out
     float32. A leaf already in its dtype and on its device is not
-    copied."""
+    copied. A ``shared_attn`` block has no entry in its period: its tree,
+    ``params["shared"]`` (attention and a dense FFN), is cast whole."""
     out = tree_map(lambda t: t.to(device=device, dtype=dtype), params)
     for gi, g in enumerate(cfg.groups):
         for j, blk in enumerate(g.period):
+            if blk.kind == "shared_attn":
+                continue
             src = params["groups"][gi]["scan"][f"b{j}"]
             dst = out["groups"][gi]["scan"][f"b{j}"]
             kept = [(dst["cell"], src["cell"], name)

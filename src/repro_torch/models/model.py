@@ -6,8 +6,13 @@ counterpart of ``repro.models.model.LM``.
 
 Parameter tree, the JAX layout:
   {"embed": (V, d), "final_norm": (d,), "groups": (g0, g1, ...),
+   ["shared": one block's params (zamba2)],
    ["lm_head": (d, V) when embeddings are not tied]}
 Each group gi = {"scan": {"b<j>": params stacked over n_periods}}. A
+``shared_attn`` block has no entry in its period: its params live once
+under "shared" and every occurrence reads them (``_period_params``), so
+its gradient is the sum over the occurrences; its caches are still one
+per occurrence, stacked like the others. A
 Python loop over the periods takes the place of ``lax.scan``; each
 layer's pool is a contiguous slice of its group's stacked pool tensor and
 is updated in place. Decode caches (``init_cache``, ``forward``'s
@@ -94,11 +99,12 @@ def perturbed_scores(flat_logits, temps, top_ks, top_ps, seeds, positions):
 
 class LM:
     def __init__(self, cfg: ModelConfig):
-        if cfg.n_codebooks or any(b.kind == "shared_attn"
-                                  for b in cfg.blocks):
-            raise NotImplementedError("multi-codebook heads and shared "
-                                      "blocks are not ported yet")
+        if cfg.n_codebooks:
+            raise NotImplementedError("multi-codebook heads are not "
+                                      "ported yet")
         self.cfg = cfg
+        self.shared_block = next((b for b in cfg.blocks
+                                  if b.kind == "shared_attn"), None)
 
     # ------------------------------------------------------------------
     # Init
@@ -113,6 +119,9 @@ class LM:
         params = {"embed": embed_init(generator,
                                       (cfg.vocab_size, cfg.d_model), **kw),
                   "final_norm": torch.zeros((cfg.d_model,), **kw)}
+        if self.shared_block is not None:
+            params["shared"] = B.init_block(generator, cfg,
+                                            self.shared_block, **kw)
         groups = []
         for g in cfg.groups:
             # each group's stacked leaves are allocated once and each
@@ -121,7 +130,8 @@ class LM:
             stacked = None
             for layer in range(g.n_periods):
                 period = {f"b{j}": B.init_block(generator, cfg, blk, **kw)
-                          for j, blk in enumerate(g.period)}
+                          for j, blk in enumerate(g.period)
+                          if blk.kind != "shared_attn"}
                 if stacked is None:
                     stacked = tree_map(
                         lambda t: t.new_empty((g.n_periods, *t.shape)),
@@ -138,9 +148,31 @@ class LM:
     # ------------------------------------------------------------------
     # Embedding / head
     # ------------------------------------------------------------------
-    def embed(self, params, tokens):
-        """tokens: (...) int -> (..., d)."""
-        return params["embed"][tokens.long()]
+    def embed(self, params, tokens, embeds=None):
+        """tokens: (...) int -> (..., d); ``embeds`` (B, P, d), a modality
+        prefix (pixtral's patch embeddings), is prepended to tokens (B, T)
+        in the embeddings' dtype."""
+        x = params["embed"][tokens.long()]
+        if embeds is not None:
+            x = torch.cat([embeds.to(x.dtype), x], dim=1)
+        return x
+
+    def _inputs(self, params, tokens, embeds):
+        """An entry point's input rows: the token embeddings, or where
+        ``tokens`` is None the caller's ``embeds`` in their place, in the
+        embeddings' dtype."""
+        if tokens is not None:
+            return self.embed(params, tokens)
+        return embeds.to(params["embed"].dtype)
+
+    def _period_params(self, params, gi, layer):
+        """{"b<j>": params} of period ``layer`` of group ``gi``: each
+        block's slice of the stacked tree, and for a ``shared_attn`` block
+        the one shared tree that every occurrence reads."""
+        scan = params["groups"][gi]["scan"]
+        return {f"b{j}": params["shared"] if blk.kind == "shared_attn"
+                else tree_map(lambda t: t[layer], scan[f"b{j}"])
+                for j, blk in enumerate(self.cfg.groups[gi].period)}
 
     def head_matrix(self, params):
         """(d, V): the tied embedding's transpose, or the lm_head."""
@@ -157,34 +189,35 @@ class LM:
     def forward(self, params, tokens=None, embeds=None, *, x=None,
                 positions=None, remat=False, window_override="cfg",
                 return_cache_len: Optional[int] = None) -> ForwardOut:
-        """Every layer over the whole sequence, tokens (B, T) (or hidden
-        x (B, T, d)) at positions 0..T-1; a Python loop over each group's
-        periods takes the place of ``lax.scan``. ``remat`` recomputes
+        """Every layer over the whole sequence, tokens (B, T) after the
+        prefix ``embeds`` (B, P, d) where given (or hidden x (B, T, d)),
+        at ``positions`` (T,), by default 0..T-1; a Python loop over each
+        group's periods takes the place of ``lax.scan``. The flash kernel
+        masks by index, which is the reference's mask by position only for
+        positions that rise by one (an offset range): other positions raise
+        NotImplementedError. ``remat`` recomputes
         each period in the backward (``torch.utils.checkpoint``,
         non-reentrant), as ``jax.checkpoint`` on the scan body does, so
-        only the periods' inputs are kept. ``return_cache_len`` returns
-        the decode cache in ``out.cache``: each attention block's K/V in
-        slotted caches of that length, each SSM block's final state,
-        stacked over the periods. Embedding prefixes and other positions
-        are not ported yet."""
-        if embeds is not None:
-            raise NotImplementedError(
-                "embeds: embedding prefixes come with the other "
-                "architectures (ROADMAP)")
-        if positions is not None:
-            raise NotImplementedError(
-                "positions: the forward runs at positions 0..T-1")
+        only the periods' inputs (the shared block's params among them)
+        are kept. ``return_cache_len`` returns the decode cache in
+        ``out.cache``: each attention block's K/V in slotted caches of
+        that length, each SSM block's final state, stacked over the
+        periods."""
         cfg = self.cfg
         if x is None:
-            x = self.embed(params, tokens)
-        ctx = {"positions": torch.arange(x.shape[1], dtype=torch.int32,
-                                         device=x.device),
-               "window_override": window_override}
+            x = self.embed(params, tokens, embeds)
+        steps = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+        if positions is None:
+            positions = steps
+        elif tuple(positions.shape) != (x.shape[1],) or not torch.equal(
+                (positions - positions[0]).to(steps), steps):
+            raise NotImplementedError(
+                "positions: the attention masks by index, so only an offset "
+                "range start..start+T-1 of shape (T,) is ported")
+        ctx = {"positions": positions, "window_override": window_override}
         caches = []
         aux = torch.zeros((), device=x.device)
         for gi, g in enumerate(cfg.groups):
-            scan = params["groups"][gi]["scan"]
-
             def period(xx, pp, g=g):
                 entries, aa = {}, torch.zeros((), device=xx.device)
                 for j, blk in enumerate(g.period):
@@ -195,7 +228,7 @@ class LM:
 
             per = []
             for layer in range(g.n_periods):
-                pp = tree_map(lambda t: t[layer], scan)
+                pp = self._period_params(params, gi, layer)
                 if remat:
                     x, entries, a = torch.utils.checkpoint.checkpoint(
                         period, x, pp, use_reentrant=False)
@@ -251,14 +284,17 @@ class LM:
 
     def loss(self, params, tokens=None, labels=None, embeds=None,
              label_mask=None, *, remat=True, window_override="cfg"):
-        """Next-token CE (labels already shifted by the data pipeline):
-        the streaming vocab-chunked CE for large vocabularies, so the
-        (B, T, V) logits are never materialized. Returns (loss,
-        {"ce", "aux"})."""
+        """Next-token CE (labels already shifted by the data pipeline) over
+        the token positions, after the prefix ``embeds`` where given: the
+        streaming vocab-chunked CE for large vocabularies, so the (B, T,
+        V) logits are never materialized. Returns (loss, {"ce",
+        "aux"})."""
         cfg = self.cfg
         out = self.forward(params, tokens, embeds, remat=remat,
                            window_override=window_override)
         h = out.hidden
+        if embeds is not None:
+            h = h[:, embeds.shape[1]:]            # no labels on the prefix
         w = self.head_matrix(params)
         if cfg.vocab_size >= 65536 and cfg.final_logit_softcap is None:
             ce = chunked_cross_entropy(h, w, labels, label_mask=label_mask)
@@ -299,56 +335,57 @@ class LM:
         cfg = self.cfg
         new_caches = []
         for gi, g in enumerate(cfg.groups):
-            scan = params["groups"][gi]["scan"]
             per = []
             for layer in range(g.n_periods):
-                entries = {}
+                pp, entries = self._period_params(params, gi, layer), {}
                 for j, blk in enumerate(g.period):
-                    pj = tree_map(lambda t: t[layer], scan[f"b{j}"])
                     cj = tree_map(lambda t: t[layer], cache[gi][f"b{j}"])
-                    x, entries[f"b{j}"] = block_fn(pj, cfg, blk, x, cj,
-                                                   ctx)[:2]
+                    x, entries[f"b{j}"] = block_fn(pp[f"b{j}"], cfg, blk, x,
+                                                   cj, ctx)[:2]
                 per.append(entries)
             new_caches.append({k: _stack_periods(per, k) for k in per[0]})
         return rms_norm(x, params["final_norm"], cfg.norm_eps), \
             tuple(new_caches)
 
-    def decode_step(self, params, tokens, pos, cache, *,
+    def decode_step(self, params, tokens, pos, cache, *, embeds=None,
                     window_override="cfg"):
-        """One token per sequence through every layer. tokens (B,) int32;
-        pos (B,) absolute position of the new token (SSM blocks do not
-        read it); cache as from init_cache or a prefill's ``out.cache``.
+        """One token per sequence through every layer. tokens (B,) int32
+        (or None, with ``embeds`` (B, d) in their place); pos (B,)
+        absolute position of the new token (SSM blocks do not read it);
+        cache as from init_cache or a prefill's ``out.cache``.
         Returns (logits (B, V), the new cache; the input is left as it
         was)."""
         x, new = self._steps(params, cache, B.block_decode,
-                             self.embed(params, tokens),
+                             self._inputs(params, tokens, embeds),
                              {"pos": pos, "window_override": window_override})
         return self.logits(params, x), new
 
-    def extend_step(self, params, tokens, start, cache, *,
+    def extend_step(self, params, tokens, start, cache, *, embeds=None,
                     window_override="cfg", logits_index=None):
-        """Chunked prefill or recompute: tokens (B, T) int32 appended at
+        """Chunked prefill or recompute: tokens (B, T) int32 (or None,
+        with ``embeds`` (B, T, d) in their place) appended at
         absolute positions start[b] + t, attending to the cached prefix
         (an SSM block continues from its state). Attention caches need
         S >= start + T (no ring wrap). Returns (logits (B, V) at
         logits_index (B,) — default the last position — and the new
         cache; the input is left as it was)."""
         x, new = self._steps(params, cache, B.block_extend,
-                             self.embed(params, tokens),
+                             self._inputs(params, tokens, embeds),
                              {"start": start,
                               "window_override": window_override})
         return self.logits(params, _last(x, logits_index)), new
 
     def forward_mixed_paged(self, params, tokens, tok_seq, tok_pos, q_last,
                             pools, block_tables, sampling=None, *,
-                            window_override="cfg"):
+                            embeds=None, window_override="cfg"):
         """One scheduler iteration's every prefill-chunk token and decode
         token as one ragged batch (DESIGN.md §10): per layer one
         kv_append into the pools and one ragged paged-attention pass,
         then sampling on the device, so only int32 ids need to cross to
         the host.
 
-        tokens (N,) int32 flat token ids; tok_seq (N,) int32 block-table
+        tokens (N,) int32 flat token ids (or None, with ``embeds`` (N, d)
+        in their place); tok_seq (N,) int32 block-table
         row of each token; tok_pos (N,) int32 absolute position (-1 marks
         a padded row); q_last (B,) int32 flat index of each sequence's
         last real token; pools as from init_cache, written in place;
@@ -359,7 +396,7 @@ class LM:
 
         Returns (sampled (B,) int32, logits (B, V), pools).
         """
-        x = self.embed(params, tokens)
+        x = self._inputs(params, tokens, embeds)
         ctx = {"block_tables": block_tables, "tok_seq": tok_seq,
                "tok_pos": tok_pos, "window_override": window_override}
         x = self._layers(params, pools, B.block_mixed_paged, x, ctx)
@@ -373,17 +410,19 @@ class LM:
         return sampled, logits, pools
 
     def decode_step_paged(self, params, tokens, ctx_lens, pools,
-                          block_tables, *, window_override="cfg"):
+                          block_tables, *, embeds=None,
+                          window_override="cfg"):
         """In-place paged decode (DESIGN.md §9): one new token per
         sequence, written into the pools and attended through the block
         tables with the ``paged_attention`` kernel.
 
-        tokens (B,) int32; ctx_lens (B,) int32 context length including
+        tokens (B,) int32 (or None, with ``embeds`` (B, d) in their
+        place); ctx_lens (B,) int32 context length including
         the new token (0 marks a padded row: nothing is written, its
         logits are garbage); pools as from init_cache, written in place;
         block_tables (B, max_pages) int32. Returns (logits (B, V),
         pools)."""
-        x = self.embed(params, tokens)
+        x = self._inputs(params, tokens, embeds)
         ctx = {"block_tables": block_tables, "ctx_lens": ctx_lens,
                "window_override": window_override}
         x = self._layers(params, pools, B.block_decode_paged, x, ctx)
@@ -391,16 +430,17 @@ class LM:
         return self.logits(params, x), pools
 
     def extend_step_paged(self, params, tokens, start, n_new, pools,
-                          block_tables, *, window_override="cfg",
-                          logits_index=None):
+                          block_tables, *, embeds=None,
+                          window_override="cfg", logits_index=None):
         """In-place paged chunked prefill: the chunk's K/V pages are
         written as they are computed; tokens past n_new[b] are bucket
-        padding whose writes are dropped. tokens (B, T) int32 at
-        positions start[b] + t; all written positions must fit the block
+        padding whose writes are dropped. tokens (B, T) int32 (or None,
+        with ``embeds`` (B, T, d) in their place) at positions
+        start[b] + t; all written positions must fit the block
         table (start + T <= max_pages * page). Returns (logits (B, V) at
         logits_index (B,) — default the last position — and the
         pools)."""
-        x = self.embed(params, tokens)
+        x = self._inputs(params, tokens, embeds)
         ctx = {"block_tables": block_tables, "start": start, "n_new": n_new,
                "window_override": window_override}
         x = self._layers(params, pools, B.block_extend_paged, x, ctx)
@@ -413,13 +453,12 @@ class LM:
         layer's pool is a view of its group's stacked pool tensor."""
         cfg = self.cfg
         for gi, g in enumerate(cfg.groups):
-            scan = params["groups"][gi]["scan"]
             for layer in range(g.n_periods):
+                pp = self._period_params(params, gi, layer)
                 for j, blk in enumerate(g.period):
-                    pj = tree_map(lambda t: t[layer], scan[f"b{j}"])
                     pool = {k: v[layer]
                             for k, v in pools[gi][f"b{j}"].items()}
-                    x = block_fn(pj, cfg, blk, x, pool, ctx)
+                    x = block_fn(pp[f"b{j}"], cfg, blk, x, pool, ctx)
         return x
 
 

@@ -157,10 +157,10 @@ def test_forward_mixed_paged_samples_as_jax(tiny, seed):
 
 
 def test_forward_mixed_paged_refuses_unported(tiny):
-    # zamba2's shared attention blocks are not ported yet (MLA is, since
-    # deepseek-v3's slice: tests/test_torch_mla.py)
-    with pytest.raises(NotImplementedError):
-        LM(get_config("zamba2-1.2b", tiny=True)).init(
+    # musicgen's codebook heads are not ported yet (zamba2's shared block
+    # is: tests/test_torch_zamba2.py; MLA too: tests/test_torch_mla.py)
+    with pytest.raises(NotImplementedError, match="multi-codebook"):
+        LM(get_config("musicgen-large", tiny=True)).init(
             torch.Generator(), dtype=torch.float32, device="cpu")
 
 

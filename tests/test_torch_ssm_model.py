@@ -311,13 +311,13 @@ def test_chip_smoke_ssm_rehearsals():
     # kernel's decode-only call and the fused quantized append
     assert "gla_scan" in cs.KERNELS and len(cs.KERNELS) == 15
     cs.check_tiny_ssm(device="cpu")
-    cs.check_ssm_parity(tiny=True, device="cpu", seq=70)
+    cs.check_prefill_parity("ssm_parity", tiny=True, device="cpu", seq=70)
     rec = cs.GLARecorder()
     res = cs.model_serve("ssm_serve", rec, tiny=True, device="cpu",
                          batch=2, seq=90, steps=4, profile=True)
     assert res["finite"] and res["max_memory_allocated"] is None
     assert all(v == 0 for v in res["launches"].values())
-    q, k, v, la, kw = rec.args
+    q, k, v, la, kw = rec.operands()
     assert q.shape == (2, 2, 90, 256) and v.shape == (2, 2, 90, 257)
     assert k.dtype == torch.float32 and kw["chunk"] == 64
     # the bound's operation count: one chunk of 64 and one of 26, with no

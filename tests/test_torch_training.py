@@ -224,15 +224,33 @@ def test_chunked_loss_path_matches_jax():
 
 
 def test_forward_refuses_unported(tiny):
-    _, cfg, _, _, params = tiny
+    """The forward's ``embeds`` prefix and ``positions``, which the port
+    refused before pixtral's slice, against the reference on tiny llama:
+    hidden states within 1e-4 of their largest magnitude, as
+    tests/test_torch_embeds.py holds the rest of the prefix path on tiny
+    pixtral; positions that are not an offset range are still refused."""
+    _, cfg, jm, jparams, params = tiny
     lm = LM(cfg)
-    tokens = torch.zeros((1, 4), dtype=torch.int32)
-    # return_cache_len runs for attention blocks since the gather path
-    # (tests/test_torch_gather.py holds it against the reference)
-    for kw in ({"embeds": torch.zeros((1, 2, 256))},
-               {"positions": torch.arange(4)}):
-        with pytest.raises(NotImplementedError):
-            lm.forward(params, tokens, **kw)
+    rng = np.random.default_rng(9)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 6)).astype(np.int32)
+    embeds = (0.05 * rng.normal(size=(2, 3, cfg.d_model))).astype(np.float32)
+    positions = np.arange(4, 13, dtype=np.int32)
+    for kw in ({"embeds": embeds}, {"positions": positions[3:]},
+               {"embeds": embeds, "positions": positions}):
+        want = jm.forward(jparams, jnp.asarray(tokens),
+                          **{k: jnp.asarray(v) for k, v in kw.items()})
+        got = lm.forward(params, torch.from_numpy(tokens),
+                         **{k: torch.from_numpy(v) for k, v in kw.items()})
+        want = np.asarray(want.hidden)
+        np.testing.assert_allclose(got.hidden.numpy(), want, rtol=0,
+                                   atol=1e-4 * np.abs(want).max())
+    # the flash kernel masks by index: positions other than an offset
+    # range (a gap, a reset, per-row positions) are refused
+    for pos in (np.array([0, 1, 2, 4, 5, 6]), np.array([3, 4, 5, 0, 1, 2]),
+                np.tile(np.arange(6), (2, 1))):
+        with pytest.raises(NotImplementedError, match="offset range"):
+            lm.forward(params, torch.from_numpy(tokens),
+                       positions=torch.from_numpy(pos.astype(np.int32)))
 
 
 # ---------------------------------------------------------------------------
