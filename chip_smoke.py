@@ -111,6 +111,16 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      embeddings' scale: 64 tokens, flash against the plain
                      attention, serve_step at P + T against a P + T + 1
                      prefill with the same prefix
+  9g. musicgen_parity
+                   — decode_parity's legs on musicgen-large at full
+                     width cut to 4 layers, in f32 on conditioned
+                     weights, each id broadcast over the 4 codebooks as
+                     the engine feeds them ((K, V) logits, sampled from
+                     the last codebook's row), held at decode_parity's
+                     conditioned tolerances; then the same legs with the
+                     plain versions in the kernels' places on the card
+                     (plain_paged): the prefills' and decodes' logits
+                     within 1e-3 of the kernels', ids equal
   9b. wide_parity  — decode_parity on gemma2-9b and GPT-J-6B at full
                      width cut to 8 layers each (4 local/global pairs
                      of gemma2), contexts 37, 160, 4700 and 16 (one past
@@ -172,7 +182,7 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      card calls equal) and a chi-square of 65536 draws
  18b. gemma2_serve, gemma2_unfused, gemma2_quant, gptj_serve
                    — the serve run's workload and checks on full-width
-                     gemma2-9b cut to 20 of its 42 layers (fused;
+                     gemma2-9b cut to 12 of its 42 layers (fused;
                      fused=False; int8 pools) and
                      GPT-J-6B cut to 7 of its 28 layers (fused) in bf16,
                      random weights from seed 0:
@@ -195,6 +205,17 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      step ms, construction and run peaks; over the two
                      runs rows 10, 2 and 9 launch and rows 1 and 5 never,
                      row 10 always in its tensor-core form
+ 18e. musicgen_serve, musicgen_unfused
+                   — the serve run's workload and checks on full-width
+                     musicgen-large (K 4 codebooks; MHA, 32 kv heads x
+                     64: 393,216 KV bytes a token), bf16, uncut (48
+                     layers; fused) and cut to 8 layers (fused=False):
+                     tok/s, step ms, construction and run peaks, the
+                     pools' bytes, swapped tokens, InferCept's choices
+                     and the waste ledger's causes beside llama's serve
+                     run, and the SwapStager's host ms per pack + collect
+                     and per unpack at its largest swap; over the two
+                     runs rows 1, 2, 3-4 and 5 launch at Hkv 32, G 1
  19. train         — full-width llama3.2-1b training through
                      make_train_step: bf16 params, f32 AdamW, remat,
                      SyntheticLM batches of 4 x 2048, 2 warm-up and 8
@@ -267,7 +288,9 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      k broadcast over the heads, read once; device time)
                      and 7p (flash on pixtral_serve's first prefill call,
                      SDPA as the library column), their launches those
-                     runs' own
+                     runs' own; row 1g (the ragged kernel at
+                     musicgen_serve's largest call: 32 kv heads x G 1 x
+                     64, device time, bound, its launches that run's)
  23. profile       — torch.profiler over 10 serve steps after 10 (bf16 and
                      int8 pools, deepseek-moe-16b's with the MoE kernels'
                      share, and deepseek-v3's with row 10's), over one
@@ -285,12 +308,12 @@ read just after each. The kernels line's launches are those of the timed
 serve phases (serve, swap, unfused, spec, quant, quant_unfused), train
 and ssm_serve, and the head_dim-256 rows' from their own runs; those
 of gather, the sanitized runs, sample, dense_serve, the other
-head_dim-256 runs, the MoE runs and the MLA runs are logged apart (rows
+head_dim-256 runs, the MoE, MLA and musicgen runs are logged apart (rows
 9 and 9d take moe_serve's, rows 10, 10d and 2m mla_serve's, row 7m
 mla_parity's flash launches, 8z zamba2_serve's gla_scan and 7p
-pixtral_serve's flash launches). The last three lines are the kernels
-JSON, the card's name and power limit, and {"ok": true, "device":
-{...}}.
+pixtral_serve's flash launches, 1g musicgen_serve's ragged launches).
+The last three lines are the kernels JSON, the card's name and power
+limit, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -308,11 +331,12 @@ ROOT = Path(__file__).resolve().parent
 T_START = time.perf_counter()
 PHASES = ("kernels", "tiny", "tiny_train", "tiny_ssm", "decode_parity",
           "train_parity", "ssm_parity", "wide_parity", "moe_parity",
-          "mla_parity", "zamba2_parity", "pixtral_parity", "serve", "swap",
-          "unfused", "spec", "quant", "quant_unfused", "gather", "sanitize",
-          "sanitize_quant", "sample", "gemma2_serve", "gemma2_unfused",
-          "gemma2_quant", "gptj_serve", "moe_serve", "moe_unfused",
-          "mla_serve", "mla_unfused", "train", "ssm_serve", "dense_serve",
+          "mla_parity", "zamba2_parity", "pixtral_parity", "musicgen_parity",
+          "serve", "swap", "unfused", "spec", "quant", "quant_unfused",
+          "gather", "sanitize", "sanitize_quant", "sample", "gemma2_serve",
+          "gemma2_unfused", "gemma2_quant", "gptj_serve", "moe_serve",
+          "moe_unfused", "mla_serve", "mla_unfused", "musicgen_serve",
+          "musicgen_unfused", "train", "ssm_serve", "dense_serve",
           "wide_dense", "zamba2_serve", "pixtral_serve", "timing",
           "profile")
 SERVE_PHASES = {"serve": ("infercept", {}), "swap": ("swap", {}),
@@ -340,10 +364,10 @@ WIDE_SERVE_PHASES = {
     "gemma2_unfused": ("gemma2-9b", "infercept", {"fused": False}),
     "gemma2_quant": ("gemma2-9b", "infercept", {"kv_dtype": "int8"}),
     "gptj_serve": ("gpt-j-6b", "infercept", {})}
-# their depth, cut for the 1200 s limit: gemma2 to 10 of its 21
-# local/global pairs (20 of 42 layers), GPT-J to 7 of its 28 layers;
+# their depth, cut for the 1200 s limit: gemma2 to 6 of its 21
+# local/global pairs (12 of 42 layers), GPT-J to 7 of its 28 layers;
 # rows 1w, 1wd, 1wq and 5w are per-layer calls, whose shapes the cuts keep
-WIDE_SERVE_PERIODS = {"gemma2-9b": (10,), "gpt-j-6b": (7,)}
+WIDE_SERVE_PERIODS = {"gemma2-9b": (6,), "gpt-j-6b": (7,)}
 # wide_parity's models and sequence lengths: one past gemma2's 4096-token
 # local window, so the window bites on the fused, per-call and gather legs
 WIDE_PARITY_MODELS = ("gemma2-9b", "gpt-j-6b")
@@ -374,6 +398,18 @@ MLA_SERVE_PERIODS = (3, 1)
 # mla_parity's depth: the dense group alone (the MoE layer at full width
 # is moe_parity's)
 MLA_PARITY_PERIODS = (3, 0)
+# musicgen-large (K 4 codebooks, 48 layers of MHA 32 x 64, GELU FFN): its
+# serve phases (policy, engine options) and depths, musicgen_serve uncut,
+# musicgen_unfused cut to 8 layers for the 1200 s limit (row 5 at Hkv 32
+# without a second 48-layer run); musicgen_serve's ragged calls give the
+# timing phase's row 1g and its largest swap the stager's host times at
+# these widths
+MUSICGEN_MODEL = "musicgen-large"
+MUSICGEN_SERVE_PHASES = {"musicgen_serve": ("infercept", {}),
+                         "musicgen_unfused": ("infercept", {"fused": False})}
+MUSICGEN_SERVE_PERIODS = {"musicgen_serve": None, "musicgen_unfused": (8,)}
+# musicgen_parity's depth
+MUSICGEN_PARITY_PERIODS = (4,)
 # a sanitized phase and the phase whose streams and counters it repeats
 SANITIZED_OF = {"sanitize": "serve", "sanitize_quant": "quant"}
 # the rows of the kernels line: an attention kernel over int8 pools is a
@@ -412,6 +448,12 @@ MLA_KERNELS = ("mla_attention", "mla_attention_decode",
 # mamba2 call (8z) and the flash forward on pixtral_serve's first prefill
 # call (7p); their launches are those phases' own
 PREFIX_SHARED_KERNELS = ("gla_scan_zamba2", "flash_attention_pixtral")
+# the codebook model's row: the ragged kernel at musicgen_serve's largest
+# call (1g: MHA, 32 kv heads x G 1 x 64); its launches are that run's
+MUSICGEN_KERNELS = ("ragged_paged_attention_musicgen",)
+# every row of the kernels line
+ROWS = (KERNELS + WIDE_KERNELS + MOE_KERNELS + MLA_KERNELS
+        + PREFIX_SHARED_KERNELS + MUSICGEN_KERNELS)
 # the TPU kernel of each flash row; the backward has none: the reference
 # differentiates its XLA blocked_attention
 FLASH_REPLACES = {
@@ -624,8 +666,7 @@ def check_kernels() -> dict:
                                                swap_unpack, swap_unpack_ref)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    worst = {k: 0.0 for k in KERNELS + WIDE_KERNELS + MOE_KERNELS
-             + MLA_KERNELS + PREFIX_SHARED_KERNELS}
+    worst = {k: 0.0 for k in ROWS}
     ragged_case, paged_case = attention_cases(gen, worst)
 
     full = dict(Hkv=8, G=4, hd=64, page=16, max_pages=64, n_pages=2048)
@@ -1560,7 +1601,12 @@ def paths_parity(dtype, *, conditioned: bool, tiny: bool = False,
     ``forward_leg`` adds a fourth comparison, forward: per sequence,
     ``LM.forward`` over its prompt (the flash kernels), its last
     position's logits against the fused prefill's; ``recorder`` (a
-    FlashRecorder) is entered around that leg."""
+    FlashRecorder) is entered around that leg. A model with codebooks
+    (musicgen) takes each id broadcast over its K codebooks, as the
+    engine feeds it, and its logits are (.., K, V). The result also
+    holds the fused and per-call prefills' and both decodes' logits on
+    the host (``outputs``), for holding the kernels against their plain
+    versions (``plain_paged``)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.model import LM
@@ -1570,6 +1616,12 @@ def paths_parity(dtype, *, conditioned: bool, tiny: bool = False,
     lm = LM(cfg)
     lm_p = lm if prefill_cf is None else LM(
         cut_config(cfg, capacity_factor=prefill_cf))
+
+    def ids(t):
+        """Token ids as the model takes them: broadcast over the
+        codebooks where it has them."""
+        K = cfg.n_codebooks
+        return t[..., None].expand(*t.shape, K) if K else t
     gen = torch.Generator(device=dev).manual_seed(0)
     params = lm.init(gen, dtype=dtype, device=dev)
     if conditioned:
@@ -1606,13 +1658,13 @@ def paths_parity(dtype, *, conditioned: bool, tiny: bool = False,
         q_last.append(off - 1)
     tokens = torch.randint(0, cfg.vocab_size, (N,), generator=gen, **i32)
     first, logits_f, _ = lm_p.forward_mixed_paged(
-        params, tokens, tok_seq, tok_pos, torch.tensor(q_last + [0], **i32),
-        pools, bt)
+        params, ids(tokens), tok_seq, tok_pos,
+        torch.tensor(q_last + [0], **i32), pools, bt)
     # control: the fused prefill again, padded to twice the rows — the
     # same path with products of another shape
     pad = dict(dtype=torch.int32, device=dev)
     _, logits_c, _ = lm_p.forward_mixed_paged(
-        params, torch.cat([tokens, torch.zeros(N, **pad)]),
+        params, ids(torch.cat([tokens, torch.zeros(N, **pad)])),
         torch.cat([tok_seq, torch.zeros(N, **pad)]),
         torch.cat([tok_pos, torch.full((N,), -1, **pad)]),
         torch.tensor(q_last + [0], **i32),
@@ -1623,7 +1675,8 @@ def paths_parity(dtype, *, conditioned: bool, tiny: bool = False,
         chunk = torch.zeros((1, 1 << (n - 1).bit_length()), **i32)
         chunk[0, :n] = tokens[q_last[b] + 1 - n:q_last[b] + 1]
         lu, _ = lm_p.extend_step_paged(
-            params, chunk, torch.zeros(1, **i32), torch.tensor([n], **i32),
+            params, ids(chunk), torch.zeros(1, **i32),
+            torch.tensor([n], **i32),
             pools_u, bt[b:b + 1], logits_index=torch.tensor([n - 1], **i32))
         logits_u.append(lu[0])
     logits_u = torch.stack(logits_u)
@@ -1642,7 +1695,7 @@ def paths_parity(dtype, *, conditioned: bool, tiny: bool = False,
     pos = tok_pos[real]
     slots = (bt[tok_seq[real].long(), (pos // page).long()].long(),
              (pos % page).long())
-    exact = layer0_exact(lm, params, tokens[real], pos)
+    exact = layer0_exact(lm, params, ids(tokens[real]), pos)
 
     def witness_err(tree):
         return max(float((leaf[slots].double() - want).abs().max())
@@ -1657,11 +1710,11 @@ def paths_parity(dtype, *, conditioned: bool, tiny: bool = False,
     feed = torch.cat([first[:B], torch.zeros(1, **i32)])
     pools_r = tree_map(torch.clone, pools)
     _, logits_r, _ = lm.forward_mixed_paged(
-        params, feed, torch.arange(B + 1, **i32),
+        params, ids(feed), torch.arange(B + 1, **i32),
         torch.cat([ctx[:B], torch.full((1,), -1, **i32)]),
         torch.arange(B + 1, **i32), pools_r, bt)
-    logits_p, pools_p = lm.decode_step_paged(params, feed, ctx + (ctx > 0),
-                                             pools, bt)
+    logits_p, pools_p = lm.decode_step_paged(params, ids(feed),
+                                             ctx + (ctx > 0), pools, bt)
     # the gather leg: per sequence, extend_step then one decode_step on a
     # slotted cache of the block table's width
     S = max_pages * page
@@ -1670,10 +1723,10 @@ def paths_parity(dtype, *, conditioned: bool, tiny: bool = False,
         cache = lm.init_cache(1, S, dtype=dtype, device=dev,
                               window_override=None)
         lg, cache = lm_p.extend_step(
-            params, tokens[None, q_last[b] + 1 - n:q_last[b] + 1],
+            params, ids(tokens[None, q_last[b] + 1 - n:q_last[b] + 1]),
             torch.zeros(1, **i32), cache)
         gather_logits.append(lg[0])
-        lg, cache = lm.decode_step(params, feed[b:b + 1],
+        lg, cache = lm.decode_step(params, ids(feed[b:b + 1]),
                                    torch.tensor([n], **i32), cache)
         gather_logits.append(lg[0])
         for got, pool in zip(tree_leaves(cache), tree_leaves(pools_r)):
@@ -1686,7 +1739,7 @@ def paths_parity(dtype, *, conditioned: bool, tiny: bool = False,
     if forward_leg:
         with recorder or contextlib.nullcontext():
             forward_logits = torch.stack([lm.logits(params, lm_p.forward(
-                params, tokens[None, q_last[b] + 1 - n:q_last[b] + 1]
+                params, ids(tokens[None, q_last[b] + 1 - n:q_last[b] + 1])
             ).hidden[0, -1]) for b, n in enumerate(lens)])
     paired = torch.stack([x for b in range(B)
                           for x in (logits_f[b], logits_r[b])])
@@ -1698,7 +1751,7 @@ def paths_parity(dtype, *, conditioned: bool, tiny: bool = False,
                            logits_f[:B].argmax(-1).tolist()),
            "prefill_pools": prefill_pools, "layer0_pools": layer0_pools,
            "layer0_witness": layer0_witness,
-           "top2_gap": (top2[:, 0] - top2[:, 1]).tolist(),
+           "top2_gap": (top2[..., 0] - top2[..., 1]).reshape(-1).tolist(),
            "decode_err": max_err(logits_p[:B], logits_r[:B]),
            "decode_ids": (logits_p[:B].argmax(-1).tolist(),
                           logits_r[:B].argmax(-1).tolist()),
@@ -1709,7 +1762,10 @@ def paths_parity(dtype, *, conditioned: bool, tiny: bool = False,
            "gather_cache": gather_cache,
            "finite": bool(torch.isfinite(logits_p[:B]).all()
                           and torch.isfinite(logits_u).all()
-                          and torch.isfinite(gather_logits).all())}
+                          and torch.isfinite(gather_logits).all()),
+           "outputs": {"fused": logits_f[:B].cpu(), "per_call":
+                       logits_u.cpu(), "ragged_decode": logits_r[:B].cpu(),
+                       "paged_decode": logits_p[:B].cpu()}}
     if forward_logits is not None:
         res["forward_err"] = max_err(forward_logits, logits_f[:B])
         res["forward_ids"] = (forward_logits.argmax(-1).tolist(),
@@ -2082,6 +2138,9 @@ def serve(policy: str, recorder: Recorder = None, *, tiny: bool = False,
            "init_peak_bytes": init_peak if on_card else None,
            "swapped_out_tokens": st.swapped_out_tokens,
            "swapped_in_tokens": st.swapped_in_tokens,
+           "decisions": {k: getattr(st, k) for k in (
+               "preserves", "discards", "swaps", "recompute_tokens")},
+           "ledger_causes": dict(eng.ledger.causes),
            "free_pages": eng.blocks.num_free, "n_pages": eng.blocks.n_pages,
            "fused": eng.fused, "paged": eng.paged,
            "speculate": eng.speculate, "sanitize": eng.sanitize,
@@ -3637,78 +3696,95 @@ def time_hd128_twins(recorder: Recorder, flash_rec: FlashRecorder,
     torch.cuda.empty_cache()
 
 
-def time_wide(recorder: Recorder, worst: dict, launches: dict) -> list:
-    """Rows 1w, 1wd, 1wq and 5w: the ragged kernel at gemma2_serve's
-    largest call, at its largest decode-only call and at gemma2_quant's
-    largest call (int8 pools), the paged kernel at gemma2_unfused's
-    largest call (head_dim 256, gemma2's window 4096 or none, softcap
-    50). Each against its plain version (one unit in the
-    last place), launched from the host in turns with the plain version
-    (``ms``), and as device time by CUDA graph replays (``device_ms``);
-    the bound from the call's data (the pages its rows see, 4 hd
-    operations per visible pair)."""
+RAGGED_ROW = ("src/repro_torch/kernels/csrc/ragged_paged_attention.cu",
+              "src/repro/kernels/ragged_paged_attention.py:105")
+PAGED_ROW = ("src/repro_torch/kernels/csrc/paged_attention.cu",
+             "src/repro/kernels/paged_attention.py:93")
+
+
+def time_attention_row(recorder: Recorder, worst: dict, launches: dict,
+                       name: str, key: str, paged: bool = False,
+                       head_dim: int = None) -> dict:
+    """Row ``name``: the ragged kernel (the paged kernel with ``paged``)
+    on the call that ``recorder`` kept under ``key``, against its plain
+    version (one unit in the last place), launched from the host in turns
+    with the plain version (``ms``) and as device time by CUDA graph
+    replays (``device_ms``); the bound from the call's data (the pages
+    its rows see, 4 hd operations per visible pair); no library call
+    computes it. ``head_dim``, where given, is the call's, asserted."""
     import torch
     from repro_torch.kernels.paged_attention import (paged_attention,
                                                      paged_attention_ref)
     from repro_torch.kernels.ragged_paged_attention import (
         ragged_paged_attention, ragged_paged_attention_quant_ref,
         ragged_paged_attention_ref, sm_count, split_count, tile_grid)
-    ragged = ("src/repro_torch/kernels/csrc/ragged_paged_attention.cu",
-              "src/repro/kernels/ragged_paged_attention.py:105")
-    paged = ("src/repro_torch/kernels/csrc/paged_attention.cu",
-             "src/repro/kernels/paged_attention.py:93")
-    rows = []
-    for name, key, kernel, plain, (src, rep) in (
-            ("ragged_paged_attention_hd256", "ragged_paged_attention",
-             ragged_paged_attention, ragged_paged_attention_ref, ragged),
-            ("ragged_paged_attention_hd256_decode",
-             "ragged_paged_attention_decode", ragged_paged_attention,
-             ragged_paged_attention_ref, ragged),
-            ("ragged_paged_attention_hd256_int8",
-             "ragged_paged_attention_int8", ragged_paged_attention,
-             ragged_paged_attention_quant_ref, ragged),
-            ("paged_attention_hd256", "paged_attention", paged_attention,
-             paged_attention_ref, paged)):
-        args, kw = recorder.call(key)
-        q, kp, bt = args[0], args[1], args[3]
-        assert q.shape[-1] == 256, q.shape
-        scales = {k: kw.pop(k) for k in ("k_scale", "v_scale") if k in kw}
-        plain_args = (*args[:3], *scales.values(), *args[3:])
+    args, kw = recorder.call(key)
+    q, kp, bt = args[0], args[1], args[3]
+    assert head_dim in (None, q.shape[-1]), (name, q.shape)
+    scales = {k: kw.pop(k) for k in ("k_scale", "v_scale") if k in kw}
+    if paged:
+        kernel, plain, (src, rep) = paged_attention, paged_attention_ref, \
+            PAGED_ROW
+    else:
+        kernel, (src, rep) = ragged_paged_attention, RAGGED_ROW
+        plain = ragged_paged_attention_quant_ref if scales \
+            else ragged_paged_attention_ref
+    plain_args = (*args[:3], *scales.values(), *args[3:])
 
-        def kernel_fn():
-            return kernel(*args, **scales, **kw)
+    def kernel_fn():
+        return kernel(*args, **scales, **kw)
 
-        def plain_fn():
-            return plain(*plain_args, **kw)
-        err = max(worst[name], ulp_err(name, kernel_fn(), plain_fn()))
-        ms, plain_ms = in_turns(plain_fn, kernel_fn, 10)
-        N, Hkv, G, hd = q.shape
-        if kernel is paged_attention:
-            ctx_lens = args[4]
-            tok_seq, tok_pos = torch.arange(N), ctx_lens - 1
-            tiles = N
-            where = f"ctx {ctx_lens.tolist()}"
-        else:
-            tok_seq, tok_pos = args[4], args[5]
-            tiles = tile_grid(N, G, bt.shape[0])
-            where = f"ctx up to {int(tok_pos.max()) + 1}"
-        splits = split_count(tiles * Hkv, bt.shape[1] * kp.shape[1],
-                             sm_count(0))
-        nbytes, ops = ragged_work(q, kp, bt, tok_seq, tok_pos,
-                                  kw.get("window"))
-        row = kernel_row(name, src, rep, launches[name], err, ms, plain_ms,
-                       None, nbytes, ops, str(q.dtype)[6:],
-                       list(q.shape) + [where, f"window {kw.get('window')}",
-                                        f"softcap {kw.get('softcap')}",
-                                        f"{tiles} tiles x {Hkv} heads x "
-                                        f"{splits} splits"])
-        row["device_ms"] = graph_ms(kernel_fn, 20)
-        row["host_ms"] = ms - row["device_ms"]
-        log(f"    device time {row['device_ms']:.4f} ms "
-            f"({row['device_ms'] / row['bound_ms']:.1f}x bound), host time "
-            f"{row['host_ms']:.4f} ms")
-        rows.append(row)
+    def plain_fn():
+        return plain(*plain_args, **kw)
+    err = max(worst[name], ulp_err(name, kernel_fn(), plain_fn()))
+    ms, plain_ms = in_turns(plain_fn, kernel_fn, 10)
+    N, Hkv, G, hd = q.shape
+    if paged:
+        ctx_lens = args[4]
+        tok_seq, tok_pos = torch.arange(N), ctx_lens - 1
+        tiles = N
+        where = f"ctx {ctx_lens.tolist()}"
+    else:
+        tok_seq, tok_pos = args[4], args[5]
+        tiles = tile_grid(N, G, bt.shape[0])
+        where = f"ctx up to {int(tok_pos.max()) + 1}"
+    splits = split_count(tiles * Hkv, bt.shape[1] * kp.shape[1],
+                         sm_count(0))
+    nbytes, ops = ragged_work(q, kp, bt, tok_seq, tok_pos, kw.get("window"))
+    row = kernel_row(name, src, rep, launches[name], err, ms, plain_ms,
+                     None, nbytes, ops, str(q.dtype)[6:],
+                     list(q.shape) + [f"pools {list(kp.shape)} "
+                                      f"{str(kp.dtype)[6:]}", where,
+                                      f"window {kw.get('window')}",
+                                      f"softcap {kw.get('softcap')}",
+                                      f"{tiles} tiles x {Hkv} heads x "
+                                      f"{splits} splits"])
+    row["device_ms"] = graph_ms(kernel_fn, 20)
+    row["host_ms"] = ms - row["device_ms"]
+    log(f"    device time {row['device_ms']:.4f} ms "
+        f"({row['device_ms'] / row['bound_ms']:.1f}x bound), host time "
+        f"{row['host_ms']:.4f} ms")
     torch.cuda.synchronize()
+    return row
+
+
+def time_wide(recorder: Recorder, worst: dict, launches: dict) -> list:
+    """Rows 1w, 1wd, 1wq and 5w (``time_attention_row``): the ragged
+    kernel at gemma2_serve's largest call, at its largest decode-only call
+    and at gemma2_quant's largest call (int8 pools), the paged kernel at
+    gemma2_unfused's largest call (head_dim 256, gemma2's window 4096 or
+    none, softcap 50)."""
+    rows = []
+    for name, key in (
+            ("ragged_paged_attention_hd256", "ragged_paged_attention"),
+            ("ragged_paged_attention_hd256_decode",
+             "ragged_paged_attention_decode"),
+            ("ragged_paged_attention_hd256_int8",
+             "ragged_paged_attention_int8"),
+            ("paged_attention_hd256", "paged_attention")):
+        rows.append(time_attention_row(recorder, worst, launches, name, key,
+                                       paged=key == "paged_attention",
+                                       head_dim=256))
     return rows
 
 
@@ -5187,6 +5263,143 @@ def time_mla(recorder: MLARecorder, worst: dict, launches: dict,
     return rows
 
 
+# ---------------------------------------------------------------------------
+# musicgen-large: K summed codebook embeddings and K logit heads
+# ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def plain_paged():
+    """The plain versions of the paged attention kernels and of the append
+    in the wrappers' places for the block, on any device (float pools):
+    the oracles of the paged paths on the card."""
+    import repro_torch.models.attention as attention
+    from repro_torch.kernels.kv_append import kv_append_ref
+    from repro_torch.kernels.paged_attention import paged_attention_ref
+    from repro_torch.kernels.ragged_paged_attention import (
+        ragged_paged_attention_ref)
+    plain = {"ragged_paged_attention_op": ragged_paged_attention_ref,
+             "paged_attention_op": paged_attention_ref,
+             "kv_append_op": kv_append_ref}
+    orig = {name: getattr(attention, name) for name in plain}
+    for name, fn in plain.items():
+        setattr(attention, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in orig.items():
+            setattr(attention, name, fn)
+
+
+def check_musicgen_parity(*, tiny: bool = False, device: str = "cuda",
+                          lens=None) -> dict:
+    """musicgen-large at full width in float32 cut to
+    MUSICGEN_PARITY_PERIODS, on weights conditioned for soft attention,
+    each id broadcast over the codebooks: paths_parity with the kernels,
+    held as decode_parity holds its conditioned float32 run (logits 1e-3
+    and equal ids on the prefill, decode and gather legs; prefill pools
+    and the gather cache 1e-4, decode pools and layer 0's K/V against
+    each other and the float64 witness 1e-5 of their largest magnitude);
+    then paths_parity again with the plain versions in the kernels'
+    places (``plain_paged``) on the same device and weights: the fused
+    and per-call prefills' and both decodes' (K, V) logits within 1e-3
+    of the kernels', ids equal. ``tiny`` and ``device="cpu"`` rehearse it
+    (the plain versions on both runs). Returns the kernels' run."""
+    import torch
+    kw = dict(conditioned=True, tiny=tiny, device=device,
+              model=MUSICGEN_MODEL, lens=lens,
+              periods=None if tiny else MUSICGEN_PARITY_PERIODS)
+    before = launch_counts()
+    r = paths_parity(torch.float32, **kw)
+    launched = {k: v - before[k] for k, v in launch_counts().items()
+                if v != before[k]}
+    with plain_paged():
+        p = paths_parity(torch.float32, **kw)
+    name = f"{r['model']} float32, conditioned init"
+    (pe, pt), (le, lt), (de, dt) = (r["prefill_pools"], r["layer0_pools"],
+                                    r["decode_pools"])
+    ge, gt = r["gather_cache"]
+    wf, wu, wt = r["layer0_witness"]
+    log(f"  {name}, contexts {r['lens']}: prefill extend vs mixed logits "
+        f"max_abs_err {r['prefill_err']:.3g}, pools {pe:.3g} of max "
+        f"{pt:.3g}; decode paged vs ragged {r['decode_err']:.3g}, pools "
+        f"{de:.3g} of max {dt:.3g}; gather vs fused {r['gather_err']:.3g}, "
+        f"cache {ge:.3g} of max {gt:.3g}; layer 0's K/V {le:.3g} of "
+        f"{lt:.3g}, from the float64 witness fused {wf:.3g}, per-call "
+        f"{wu:.3g} of max {wt:.3g}")
+    kernel_err = {leg: max_err(r["outputs"][leg], p["outputs"][leg])
+                  for leg in r["outputs"]}
+    log(f"  {name}: kernels vs plain versions on the {device}, (K, V) "
+        f"logits max_abs_err {json.dumps(kernel_err)}; kernel launches "
+        f"{json.dumps(launched)}")
+    assert r["finite"] and p["finite"], name
+    assert r["prefill_err"] <= 1e-3 and pe <= 1e-4 * pt, name
+    assert r["decode_err"] <= 1e-3 and de <= 1e-5 * dt, name
+    assert r["gather_err"] <= 1e-3 and ge <= 1e-4 * gt, name
+    for leg in ("prefill", "decode", "gather"):
+        assert r[f"{leg}_ids"][0] == r[f"{leg}_ids"][1], (name, leg)
+    assert le <= 1e-5 * lt and max(wf, wu) <= 1e-5 * wt, name
+    assert all(e <= 1e-3 for e in kernel_err.values()), kernel_err
+    for leg in ("prefill_ids", "decode_ids"):
+        assert r[leg] == p[leg], (name, leg)
+    if device == "cuda":
+        assert all(launched.get(k, 0) > 0 for k in (
+            "ragged_paged_attention", "paged_attention", "kv_append")), \
+            launched
+    log(f"  {name}: held (legs: logits 1e-3 and equal ids, prefill pools "
+        "and gather cache 1e-4, decode pools and layer 0's K/V 1e-5 of "
+        "max; kernels vs plain versions: logits 1e-3, equal ids)")
+    return r
+
+
+class MusicgenRecorder(Recorder):
+    """musicgen_serve's Recorder: the ragged kernel's calls (row 1g) and
+    the stager's largest pack, whose two pool leaves (48 layers, 6.4 GB
+    each in bf16) it keeps as shapes on the meta device, which is all
+    ``time_stager`` reads of them beside the page ids."""
+
+    KEEP = ("ragged_paged_attention", "swap_pack")
+
+    def __init__(self):
+        super().__init__()
+        self._ops = [op for op in self._ops if op[2] in self.KEEP]
+
+    def __exit__(self, *exc):
+        import torch
+        if "swap_pack" in self.calls:
+            size, args, kw = self.calls["swap_pack"]
+            leaves = [torch.empty(leaf.shape, dtype=leaf.dtype,
+                                  device="meta") for leaf in args[0]]
+            self.calls["swap_pack"] = (size, (leaves, *args[1:]), kw)
+        super().__exit__(*exc)
+
+
+def musicgen_serve(phase: str, recorder=None, *, tiny: bool = False,
+                   device: str = "cuda") -> dict:
+    """A MUSICGEN_SERVE_PHASES run: the serve run's workload and checks on
+    musicgen-large at its phase's depth (tiny: the tiny config, uncut),
+    bf16 on the card."""
+    policy, engine_kw = MUSICGEN_SERVE_PHASES[phase]
+    return serve(policy, recorder, tiny=tiny, device=device,
+                 model=MUSICGEN_MODEL,
+                 periods=None if tiny else MUSICGEN_SERVE_PERIODS[phase],
+                 **engine_kw)
+
+
+def log_scheduler(res: dict, beside: dict = None) -> None:
+    """A serve run's swapped tokens, InferCept's choices (Eq. 5: preserve,
+    discard, swap) and the waste ledger's causes, beside another run's
+    (llama's serve) where given."""
+    def line(r):
+        causes = {k: round(v, 6) for k, v in r["ledger_causes"].items() if v}
+        return (f"swapped {r['swapped_out_tokens']} tokens out and "
+                f"{r['swapped_in_tokens']} in; decisions "
+                f"{json.dumps(r['decisions'])}; ledger causes (byte-s) "
+                f"{json.dumps(causes)}; {r['kv_token_bytes']} KV bytes a "
+                "token")
+    log(f"  {res['model']}: {line(res)}")
+    if beside is not None:
+        log(f"  beside {beside['model']}'s serve run: {line(beside)}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -5248,8 +5461,7 @@ def main() -> int:
             f"{smem.value} B of dynamic shared memory, {n} blocks of 256 "
             "threads per SM")
 
-    worst = {k: 0.0 for k in KERNELS + WIDE_KERNELS + MOE_KERNELS
-             + MLA_KERNELS + PREFIX_SHARED_KERNELS}
+    worst = {k: 0.0 for k in ROWS}
     if "kernels" in phases:
         log("[kernels] each kernel against its plain version on the card")
         worst = check_kernels()
@@ -5334,6 +5546,12 @@ def main() -> int:
             "(a 1024-row vision prefix + 64 tokens): prefill with flash vs "
             "the plain attention on the card, and decode continuation")
         check_prefill_parity("pixtral_parity")
+    if "musicgen_parity" in phases:
+        log(f"[musicgen_parity] {MUSICGEN_MODEL} full width f32, "
+            f"{MUSICGEN_PARITY_PERIODS[0]} layers, each id broadcast over "
+            "the codebooks: fused vs per-call vs gather, and the kernels vs "
+            "their plain versions on the card")
+        check_musicgen_parity()
     parent = None
     if args.parent:
         t0 = time.perf_counter()
@@ -5344,8 +5562,7 @@ def main() -> int:
     recorder = Recorder()
     # the kernels line's rows, and the latent kernel's tensor-core count
     # beside them (launch_counts' keys)
-    total = {k: 0 for k in KERNELS + WIDE_KERNELS + MOE_KERNELS
-             + MLA_KERNELS + PREFIX_SHARED_KERNELS + ("mla_attention_tc",)}
+    total = {k: 0 for k in ROWS + ("mla_attention_tc",)}
     results = {}
     for phase, (policy, engine_kw) in SERVE_PHASES.items():
         if phase not in phases:
@@ -5524,6 +5741,41 @@ def main() -> int:
         assert summed["mla_attention_tc"] == summed["mla_attention"], summed
         log(f"  {MLA_MODEL} launches over the two runs: "
             f"{json.dumps(summed)}")
+    # musicgen-large: musicgen_serve's ragged calls give the timing phase's
+    # row 1g, its largest swap the stager's host times at its widths
+    musicgen_rec = MusicgenRecorder()
+    musicgen = {}
+    for phase, (policy, engine_kw) in MUSICGEN_SERVE_PHASES.items():
+        if phase not in phases:
+            continue
+        periods = MUSICGEN_SERVE_PERIODS[phase]
+        log(f"[{phase}] {MUSICGEN_MODEL} full width, "
+            f"{layers(MUSICGEN_MODEL, periods)} layers, bf16, policy "
+            f"{policy}"
+            f"{''.join(f', {k}={v}' for k, v in engine_kw.items())}")
+        res = musicgen[phase] = musicgen_serve(
+            phase, musicgen_rec if phase == "musicgen_serve" else None)
+        log(f"  launches (not in the kernels line): "
+            f"{json.dumps(res['launches'])}")
+        log(f"  {smi}: {res['tokens_per_s']:.2f} tok/s over "
+            f"{res['steps']} steps ({res['step_ms']:.1f} ms a step), "
+            f"construction peak {res['init_peak_bytes']} B, run peak "
+            f"{res['run_peak_bytes']} B, KV pools {res['kv_pool_bytes']} B "
+            f"({res['kv_token_bytes']} B a token)")
+        log_scheduler(res, results.get("serve"))
+        assert res["swapped_in_tokens"] == res["swapped_out_tokens"]
+        assert res["stager"]["unpacked_pages"] == \
+            res["stager"]["packed_pages"], res["stager"]
+        if phase == "musicgen_serve" and res["stager"]["packs"]:
+            res["stager_ms"] = time_stager(musicgen_rec, None)
+    if set(MUSICGEN_SERVE_PHASES) <= phases:
+        # rows 1, 2, 3-4 and 5 all launched at 32 kv heads x G 1
+        summed = {k: sum(r["launches"][k] for r in musicgen.values())
+                  for k in ("ragged_paged_attention", "kv_append",
+                            "swap_pack", "swap_unpack", "paged_attention")}
+        assert all(v > 0 for v in summed.values()), summed
+        log(f"  {MUSICGEN_MODEL} launches over the two runs: "
+            f"{json.dumps(summed)}")
     flash_rec = FlashRecorder()
     if "train" in phases:
         log("[train] llama3.2-1b full width, bf16 params, f32 AdamW, remat, "
@@ -5632,13 +5884,20 @@ def main() -> int:
             "pixtral prefill (row 7p)")
         rows += time_prefill_flash(serve_recs["pixtral_serve"], worst,
                                    total, "flash_attention_pixtral")
+    if "timing" in phases and "musicgen_serve" in phases:
+        log("[timing] the ragged kernel on musicgen_serve's largest call "
+            "(row 1g)")
+        total["ragged_paged_attention_musicgen"] = musicgen[
+            "musicgen_serve"]["launches"]["ragged_paged_attention"]
+        rows.append(time_attention_row(
+            musicgen_rec, worst, total, "ragged_paged_attention_musicgen",
+            "ragged_paged_attention", head_dim=64))
     if "timing" in phases and set(TIMED_SERVE_PHASES) | {
             "train", "ssm_serve", "gemma2_serve", "gemma2_unfused",
             "gemma2_quant", "wide_dense", "moe_serve", "mla_serve",
-            "mla_parity", "zamba2_serve", "pixtral_serve"} <= phases:
-        assert sorted(r["name"] for r in rows) == sorted(
-            KERNELS + WIDE_KERNELS + MOE_KERNELS + MLA_KERNELS
-            + PREFIX_SHARED_KERNELS), rows
+            "mla_parity", "zamba2_serve", "pixtral_serve",
+            "musicgen_serve"} <= phases:
+        assert sorted(r["name"] for r in rows) == sorted(ROWS), rows
         # every kernel of the main path launched; page_requant is the
         # reference's standalone op, which the fused append replaced there
         assert all(r["launches"] > 0 for r in rows

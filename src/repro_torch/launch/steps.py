@@ -31,8 +31,9 @@ def build_prefill_step(cfg: ModelConfig, seq_len: int, window_override="cfg"):
 
     @torch.no_grad()
     def prefill_step(params, tokens, embeds=None):
-        """tokens (B, T) -> (logits (B, V) at the last position, the
-        decode cache)."""
+        """tokens (B, T), or (B, T, K) with codebooks, after the prefix
+        ``embeds`` (B, P, d) where given -> (logits (B, V) or (B, K, V)
+        at the last position, the decode cache)."""
         out = model.forward(params, tokens, embeds, remat=False,
                             window_override=window_override,
                             return_cache_len=seq_len)
@@ -47,8 +48,9 @@ def build_serve_step(cfg: ModelConfig, window_override="cfg"):
 
     @torch.no_grad()
     def serve_step(params, cache, tokens, pos):
-        """tokens (B,) at positions pos (B,) -> (logits (B, V), the greedy
-        next tokens (B,) int32, the new cache)."""
+        """tokens (B,), or (B, K) with codebooks, at positions pos (B,)
+        -> (logits (B, V) or (B, K, V), the greedy next tokens (B,) or
+        (B, K) int32, the new cache)."""
         logits, new_cache = model.decode_step(
             params, tokens, pos, cache, window_override=window_override)
         # greedy next token on-device (production decode loop shape)

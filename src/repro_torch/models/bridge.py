@@ -30,7 +30,9 @@ def cast_params(params: dict, cfg: ModelConfig, dtype, device=None) -> dict:
     (``models.ssm.FLOAT32_PARAMS``) and the MoE router — which come out
     float32. A leaf already in its dtype and on its device is not
     copied. A ``shared_attn`` block has no entry in its period: its tree,
-    ``params["shared"]`` (attention and a dense FFN), is cast whole."""
+    ``params["shared"]`` (attention and a dense FFN), is cast whole.
+    Codebook tables and heads are leaves like any other and cast with
+    the model's dtype."""
     out = tree_map(lambda t: t.to(device=device, dtype=dtype), params)
     for gi, g in enumerate(cfg.groups):
         for j, blk in enumerate(g.period):
@@ -50,12 +52,19 @@ def cast_params(params: dict, cfg: ModelConfig, dtype, device=None) -> dict:
 def from_jax_params(np_tree, cfg: ModelConfig, *, dtype=None,
                     device="cpu") -> dict:
     """Numpy-leaved JAX params -> port params (same nesting: dicts, and
-    the ``groups`` tuple). ``dtype`` casts the leaves as ``cast_params``
+    the ``groups`` tuple). "embed" must be (V, d), or (K, V, d) for a
+    config with ``n_codebooks`` K, and an untied "lm_head" (d, V) or (K,
+    d, V). ``dtype`` casts the leaves as ``cast_params``
     does, keeping the reference's float32 leaves float32; None keeps each
     leaf's own."""
-    if tuple(np.shape(np_tree["embed"])) != (cfg.vocab_size, cfg.d_model):
-        raise ValueError(f"embed {np.shape(np_tree['embed'])} does not fit "
-                         f"{cfg.name}")
+    books = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+    shapes = {"embed": (*books, cfg.vocab_size, cfg.d_model)}
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = (*books, cfg.d_model, cfg.vocab_size)
+    for name, want in shapes.items():
+        if tuple(np.shape(np_tree[name])) != want:
+            raise ValueError(f"{name} {np.shape(np_tree[name])} does not "
+                             f"fit {cfg.name}")
     if len(np_tree["groups"]) != len(cfg.groups):
         raise ValueError("param groups do not match the config's groups")
     out = tree_map(lambda a: _to_tensor(a).to(device=device), dict(np_tree))

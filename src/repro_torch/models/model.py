@@ -8,6 +8,9 @@ Parameter tree, the JAX layout:
   {"embed": (V, d), "final_norm": (d,), "groups": (g0, g1, ...),
    ["shared": one block's params (zamba2)],
    ["lm_head": (d, V) when embeddings are not tied]}
+With ``n_codebooks`` K (musicgen) "embed" is (K, V, d) and "lm_head" (K,
+d, V): a token is K ids (..., K), its embedding the sum of table k at id
+k, and every head emits (..., K, V) logits.
 Each group gi = {"scan": {"b<j>": params stacked over n_periods}}. A
 ``shared_attn`` block has no entry in its period: its params live once
 under "shared" and every occurrence reads them (``_period_params``), so
@@ -99,9 +102,6 @@ def perturbed_scores(flat_logits, temps, top_ks, top_ps, seeds, positions):
 
 class LM:
     def __init__(self, cfg: ModelConfig):
-        if cfg.n_codebooks:
-            raise NotImplementedError("multi-codebook heads are not "
-                                      "ported yet")
         self.cfg = cfg
         self.shared_block = next((b for b in cfg.blocks
                                   if b.kind == "shared_attn"), None)
@@ -116,8 +116,9 @@ class LM:
         through ``models.bridge.from_jax_params``)."""
         cfg = self.cfg
         kw = dict(dtype=dtype, device=device)
-        params = {"embed": embed_init(generator,
-                                      (cfg.vocab_size, cfg.d_model), **kw),
+        books = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+        params = {"embed": embed_init(
+                      generator, (*books, cfg.vocab_size, cfg.d_model), **kw),
                   "final_norm": torch.zeros((cfg.d_model,), **kw)}
         if self.shared_block is not None:
             params["shared"] = B.init_block(generator, cfg,
@@ -142,17 +143,25 @@ class LM:
         params["groups"] = tuple(groups)
         if not cfg.tie_embeddings:
             params["lm_head"] = embed_init(
-                generator, (cfg.d_model, cfg.vocab_size), **kw)
+                generator, (*books, cfg.d_model, cfg.vocab_size), **kw)
         return params
 
     # ------------------------------------------------------------------
     # Embedding / head
     # ------------------------------------------------------------------
     def embed(self, params, tokens, embeds=None):
-        """tokens: (...) int -> (..., d); ``embeds`` (B, P, d), a modality
-        prefix (pixtral's patch embeddings), is prepended to tokens (B, T)
-        in the embeddings' dtype."""
-        x = params["embed"][tokens.long()]
+        """tokens: (...) int -> (..., d), or with codebooks (..., K) ->
+        (..., d), the sum over k of table k at ``tokens[..., k]`` (every
+        path embeds through here, so their streams stay equal in bf16);
+        ``embeds`` (B, P, d), a modality prefix (pixtral's patch
+        embeddings), is prepended to tokens (B, T) in the embeddings'
+        dtype."""
+        table = params["embed"]
+        if self.cfg.n_codebooks:
+            books = torch.arange(table.shape[0], device=tokens.device)
+            x = table[books, tokens.long()].sum(dim=-2)
+        else:
+            x = table[tokens.long()]
         if embeds is not None:
             x = torch.cat([embeds.to(x.dtype), x], dim=1)
         return x
@@ -175,13 +184,21 @@ class LM:
                 for j, blk in enumerate(self.cfg.groups[gi].period)}
 
     def head_matrix(self, params):
-        """(d, V): the tied embedding's transpose, or the lm_head."""
+        """(d, V): the tied embedding's transpose, or the lm_head ((K, d,
+        V) with codebooks)."""
         return params["embed"].T if self.cfg.tie_embeddings \
             else params["lm_head"]
 
     def logits(self, params, hidden):
-        return softcap(hidden @ self.head_matrix(params),
-                       self.cfg.final_logit_softcap)
+        """hidden (..., d) -> (..., V) logits, or (..., K, V) with
+        codebooks (one product per head, the heads' weights read in
+        place), through the softcap."""
+        w = self.head_matrix(params)
+        if self.cfg.n_codebooks:
+            out = (hidden.unsqueeze(-3) @ w).movedim(-3, -2)
+        else:
+            out = hidden @ w
+        return softcap(out, self.cfg.final_logit_softcap)
 
     # ------------------------------------------------------------------
     # Full-sequence forward and loss (training)
@@ -287,8 +304,10 @@ class LM:
         """Next-token CE (labels already shifted by the data pipeline) over
         the token positions, after the prefix ``embeds`` where given: the
         streaming vocab-chunked CE for large vocabularies, so the (B, T,
-        V) logits are never materialized. Returns (loss, {"ce",
-        "aux"})."""
+        V) logits are never materialized. With codebooks, tokens and
+        labels are (B, T, K): the CE averages over the T x K (position,
+        codebook) pairs, each position's mask entry standing for its K.
+        Returns (loss, {"ce", "aux"})."""
         cfg = self.cfg
         out = self.forward(params, tokens, embeds, remat=remat,
                            window_override=window_override)
@@ -296,7 +315,14 @@ class LM:
         if embeds is not None:
             h = h[:, embeds.shape[1]:]            # no labels on the prefix
         w = self.head_matrix(params)
-        if cfg.vocab_size >= 65536 and cfg.final_logit_softcap is None:
+        if cfg.n_codebooks:
+            lg = self.logits(params, h)                    # (B, T, K, V)
+            ce = cross_entropy_logits(
+                lg.reshape(lg.shape[0], -1, cfg.vocab_size),
+                labels.reshape(labels.shape[0], -1),
+                None if label_mask is None else
+                label_mask.repeat_interleave(cfg.n_codebooks, dim=-1))
+        elif cfg.vocab_size >= 65536 and cfg.final_logit_softcap is None:
             ce = chunked_cross_entropy(h, w, labels, label_mask=label_mask)
         else:
             ce = cross_entropy_logits(softcap(h @ w, cfg.final_logit_softcap),
@@ -349,12 +375,12 @@ class LM:
 
     def decode_step(self, params, tokens, pos, cache, *, embeds=None,
                     window_override="cfg"):
-        """One token per sequence through every layer. tokens (B,) int32
-        (or None, with ``embeds`` (B, d) in their place); pos (B,)
-        absolute position of the new token (SSM blocks do not read it);
-        cache as from init_cache or a prefill's ``out.cache``.
-        Returns (logits (B, V), the new cache; the input is left as it
-        was)."""
+        """One token per sequence through every layer. tokens (B,) int32,
+        (B, K) with codebooks (or None, with ``embeds`` (B, d) in their
+        place); pos (B,) absolute position of the new token (SSM blocks
+        do not read it); cache as from init_cache or a prefill's
+        ``out.cache``. Returns (logits (B, V) or (B, K, V), the new cache;
+        the input is left as it was)."""
         x, new = self._steps(params, cache, B.block_decode,
                              self._inputs(params, tokens, embeds),
                              {"pos": pos, "window_override": window_override})
@@ -362,13 +388,14 @@ class LM:
 
     def extend_step(self, params, tokens, start, cache, *, embeds=None,
                     window_override="cfg", logits_index=None):
-        """Chunked prefill or recompute: tokens (B, T) int32 (or None,
-        with ``embeds`` (B, T, d) in their place) appended at
-        absolute positions start[b] + t, attending to the cached prefix
-        (an SSM block continues from its state). Attention caches need
-        S >= start + T (no ring wrap). Returns (logits (B, V) at
-        logits_index (B,) — default the last position — and the new
-        cache; the input is left as it was)."""
+        """Chunked prefill or recompute: tokens (B, T) int32, (B, T, K)
+        with codebooks (or None, with ``embeds`` (B, T, d) in their
+        place) appended at absolute positions start[b] + t, attending to
+        the cached prefix (an SSM block continues from its state).
+        Attention caches need S >= start + T (no ring wrap). Returns
+        (logits (B, V) or (B, K, V) at logits_index (B,) — default the
+        last position — and the new cache; the input is left as it
+        was)."""
         x, new = self._steps(params, cache, B.block_extend,
                              self._inputs(params, tokens, embeds),
                              {"start": start,
@@ -384,17 +411,18 @@ class LM:
         then sampling on the device, so only int32 ids need to cross to
         the host.
 
-        tokens (N,) int32 flat token ids (or None, with ``embeds`` (N, d)
-        in their place); tok_seq (N,) int32 block-table
+        tokens (N,) int32 flat token ids, (N, K) with codebooks (or None,
+        with ``embeds`` (N, d) in their place); tok_seq (N,) int32 block-table
         row of each token; tok_pos (N,) int32 absolute position (-1 marks
         a padded row); q_last (B,) int32 flat index of each sequence's
         last real token; pools as from init_cache, written in place;
         block_tables (B, max_pages) int32. ``sampling`` is None for
         all-greedy batches (argmax alone), or a (temps, top_ks, top_ps,
         seeds) tuple of (B,) tensors for ``sample_tokens``, each row's
-        token sampled at position tok_pos[q_last] + 1.
+        token sampled at position tok_pos[q_last] + 1 from the last
+        codebook's logits.
 
-        Returns (sampled (B,) int32, logits (B, V), pools).
+        Returns (sampled (B,) int32, logits (B, V) or (B, K, V), pools).
         """
         x = self._inputs(params, tokens, embeds)
         ctx = {"block_tables": block_tables, "tok_seq": tok_seq,
@@ -402,10 +430,13 @@ class LM:
         x = self._layers(params, pools, B.block_mixed_paged, x, ctx)
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         logits = self.logits(params, x[q_last.long()])
+        # sampled from the last codebook's row (the only row without
+        # codebooks), as the engine's per-call paths sample on the host
+        flat = logits.reshape(logits.shape[0], -1, self.cfg.vocab_size)[:, -1]
         if sampling is None:
-            sampled = torch.argmax(logits, dim=-1).to(torch.int32)
+            sampled = torch.argmax(flat, dim=-1).to(torch.int32)
         else:
-            sampled = sample_tokens(logits, *sampling,
+            sampled = sample_tokens(flat, *sampling,
                                     tok_pos[q_last.long()] + 1)
         return sampled, logits, pools
 
@@ -416,12 +447,12 @@ class LM:
         sequence, written into the pools and attended through the block
         tables with the ``paged_attention`` kernel.
 
-        tokens (B,) int32 (or None, with ``embeds`` (B, d) in their
-        place); ctx_lens (B,) int32 context length including
-        the new token (0 marks a padded row: nothing is written, its
-        logits are garbage); pools as from init_cache, written in place;
-        block_tables (B, max_pages) int32. Returns (logits (B, V),
-        pools)."""
+        tokens (B,) int32, (B, K) with codebooks (or None, with
+        ``embeds`` (B, d) in their place); ctx_lens (B,) int32 context
+        length including the new token (0 marks a padded row: nothing is
+        written, its logits are garbage); pools as from init_cache,
+        written in place; block_tables (B, max_pages) int32. Returns
+        (logits (B, V) or (B, K, V), pools)."""
         x = self._inputs(params, tokens, embeds)
         ctx = {"block_tables": block_tables, "ctx_lens": ctx_lens,
                "window_override": window_override}
@@ -434,12 +465,12 @@ class LM:
                           window_override="cfg", logits_index=None):
         """In-place paged chunked prefill: the chunk's K/V pages are
         written as they are computed; tokens past n_new[b] are bucket
-        padding whose writes are dropped. tokens (B, T) int32 (or None,
-        with ``embeds`` (B, T, d) in their place) at positions
-        start[b] + t; all written positions must fit the block
-        table (start + T <= max_pages * page). Returns (logits (B, V) at
-        logits_index (B,) — default the last position — and the
-        pools)."""
+        padding whose writes are dropped. tokens (B, T) int32, (B, T, K)
+        with codebooks (or None, with ``embeds`` (B, T, d) in their
+        place) at positions start[b] + t; all written positions must fit
+        the block table (start + T <= max_pages * page). Returns (logits
+        (B, V) or (B, K, V) at logits_index (B,) — default the last
+        position — and the pools)."""
         x = self._inputs(params, tokens, embeds)
         ctx = {"block_tables": block_tables, "start": start, "n_new": n_new,
                "window_override": window_override}

@@ -1450,7 +1450,7 @@ class Engine:
         bucketed length as in the reference; padding tokens sit past the
         real range, causally invisible, and their writes are dropped (or
         land only in the throwaway view). Returns the last real token's
-        logits (1, V), still on the device."""
+        logits (1, V) ((1, K, V) with codebooks), still on the device."""
         n_pad = max(n, min(self._bucket(n),
                            self.max_pages * self.page - start))
         toks = np.zeros((1, n_pad), np.int32)
@@ -1458,6 +1458,7 @@ class Engine:
         bt = self._block_table([st], 1)
         toks_d, meta_d, bt_d = self._to_device(
             toks, np.array([start, n, n - 1], np.int32), bt)
+        toks_d = self._feed(toks_d)
         if self.paged:
             logits, _ = self.model.extend_step_paged(
                 self.params, toks_d, meta_d[0:1], meta_d[1:2], self.pools,
@@ -1478,7 +1479,8 @@ class Engine:
         nothing; or, on the gather oracle, LM.decode_step over the
         gathered block tables (padded rows: the scratch page's view at
         position 0) and the real rows' new K/V scattered back. Returns
-        logits (B_pad, V), still on the device."""
+        logits (B_pad, V) ((B_pad, K, V) with codebooks), still on the
+        device."""
         B_pad = self._bucket(len(sts))
         feed = np.zeros(B_pad, np.int32)
         ctx_lens = np.zeros(B_pad, np.int32)   # counts the new token
@@ -1487,6 +1489,7 @@ class Engine:
             ctx_lens[b] = p + 1
         bt = self._block_table(sts, B_pad)
         feed_d, cl_d, bt_d = self._to_device(feed, ctx_lens, bt)
+        feed_d = self._feed(feed_d)
         if self.paged:
             logits, _ = self.model.decode_step_paged(self.params, feed_d,
                                                      cl_d, self.pools, bt_d)
@@ -1618,8 +1621,8 @@ class Engine:
             samp = (temps_d.view(torch.float32), ks_d,
                     ps_d.view(torch.float32), seeds_d)
         sampled, _logits, _ = self.model.forward_mixed_paged(
-            self.params, toks_d, tseq_d, tpos_d, qlast_d, self.pools, bt_d,
-            samp)
+            self.params, self._feed(toks_d), tseq_d, tpos_d, qlast_d,
+            self.pools, bt_d, samp)
 
         n_chunk = sum(n for _, _, _, n, c in entries if c)
         n_dec = B - len(plan.chunks)
@@ -1665,9 +1668,23 @@ class Engine:
                 st.computed = start + 1
                 self._decode_ids.append(ids[b])
 
+    def _feed(self, toks: torch.Tensor) -> torch.Tensor:
+        """Token ids on the device as the model takes them: with codebooks
+        each id broadcast over the K codebooks as a view made on the
+        device (no K copies cross from the host), as the reference engine
+        feeds musicgen."""
+        K = self.cfg.n_codebooks
+        return toks[..., None].expand(*toks.shape, K) if K else toks
+
+    def _last_book(self, row: np.ndarray) -> np.ndarray:
+        """A fetched logits row (V,) or (K, V) -> the last codebook's (V,),
+        the row every path samples from."""
+        return row.reshape(-1, self.cfg.vocab_size)[-1]
+
     def _fetch_logits(self, logits: torch.Tensor) -> np.ndarray:
         """Fetch an unfused call's logits to the host (a sync), counted in
-        ``logit_bytes`` at the fetched array's size; float32 numpy for
+        ``logit_bytes`` at the fetched array's size (every codebook's row
+        with codebooks, as the reference counts them); float32 numpy for
         host-side sampling."""
         host = logits.cpu()
         self.counters["logit_bytes"] += host.numel() * host.element_size()
@@ -1676,22 +1693,24 @@ class Engine:
     def _commit_oracle(self):
         """Resolve the unfused paths' deferred logits fetches at the
         commit sync point, in dispatch order (chunks before decode — a
-        request never has both in one plan), each token sampled at the
-        position it will take: a chunk's st.computed, a decode's
-        pos + 1."""
+        request never has both in one plan), each token sampled from the
+        last codebook's row at the position it will take: a chunk's
+        st.computed, a decode's pos + 1."""
         pending, self._pending_oracle = self._pending_oracle, []
         for entry in pending:
             if entry[0] == "chunk":
                 _, req, st, logits = entry
-                tid = self._sample_row(req, self._fetch_logits(logits[0]),
-                                       st.computed)
+                tid = self._sample_row(
+                    req, self._last_book(self._fetch_logits(logits[0])),
+                    st.computed)
                 st.tokens.append(tid)
                 self._prefill_emits.append((req, tid))
             else:
                 _, reqs, logits, pos = entry
                 rows = self._fetch_logits(logits)
-                self._decode_ids = [self._sample_row(r, rows[b], pos[b] + 1)
-                                    for b, r in enumerate(reqs)]
+                self._decode_ids = [
+                    self._sample_row(r, self._last_book(rows[b]), pos[b] + 1)
+                    for b, r in enumerate(reqs)]
 
     # ------------------------------------------------------------------
     # speculative resume (DESIGN.md §14)
@@ -1839,7 +1858,8 @@ class Engine:
             logits = self._extend_call(st, start, n)
             st.computed = start + n
             st.tokens.append(self._sample_row(
-                req, logits[0].cpu().float().numpy(), st.computed))
+                req, self._last_book(logits[0].cpu().float().numpy()),
+                st.computed))
             fork.emitted = 1
             self.counters["spec_prefill_tokens"] += n
             return True
@@ -1851,7 +1871,7 @@ class Engine:
         logits = self._decode_call([st], [pos])
         st.computed = pos + 1
         st.tokens.append(self._sample_row(
-            req, logits[0].cpu().float().numpy(), pos + 1))
+            req, self._last_book(logits[0].cpu().float().numpy()), pos + 1))
         fork.emitted += 1
         self.counters["spec_decode_tokens"] += 1
         return True

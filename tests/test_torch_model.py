@@ -157,11 +157,16 @@ def test_forward_mixed_paged_samples_as_jax(tiny, seed):
 
 
 def test_forward_mixed_paged_refuses_unported(tiny):
-    # musicgen's codebook heads are not ported yet (zamba2's shared block
-    # is: tests/test_torch_zamba2.py; MLA too: tests/test_torch_mla.py)
-    with pytest.raises(NotImplementedError, match="multi-codebook"):
-        LM(get_config("musicgen-large", tiny=True)).init(
-            torch.Generator(), dtype=torch.float32, device="cpu")
+    # every config builds now: musicgen's codebooks make (K, V, d)
+    # embedding tables and (K, d, V) heads (its parity with the reference
+    # is tests/test_torch_musicgen.py; zamba2's shared block
+    # tests/test_torch_zamba2.py, MLA tests/test_torch_mla.py)
+    cfg = get_config("musicgen-large", tiny=True)
+    params = LM(cfg).init(torch.Generator(), dtype=torch.float32,
+                          device="cpu")
+    K, V, d = cfg.n_codebooks, cfg.vocab_size, cfg.d_model
+    assert tuple(params["embed"].shape) == (K, V, d)
+    assert tuple(params["lm_head"].shape) == (K, d, V)
 
 
 def test_init_cache_layout(tiny):
