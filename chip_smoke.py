@@ -38,7 +38,12 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      them out, read in place, with log_a at the clamp
                      over whole chunks, and with an initial state), a
                      Mamba2 call (stride-0 q and k), a carried initial
-                     state and dk 8 with chunks of 5; and head_dim 256
+                     state and dk 8 with chunks of 5, and on every one of
+                     those calls the backward (gla_scan_bwd) against the
+                     plain backward (chunked_gla_bwd_ref), with a
+                     final-state gradient beside an initial state, and
+                     at the train phases' mLSTM and Mamba2 widths with
+                     one alone; and head_dim 256
                      (GPT-J's 16 kv heads x G 1, gemma2's 8 x G 2),
                      through the same case functions: the ragged and
                      paged kernels in bf16 and float32 over float, int8,
@@ -75,9 +80,10 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      over float pools and over int8 pools; two sampled
                      sessions (top-k, top-p) through the engine, fused
                      and unfused: the card's streams equal the CPU's
-  5. tiny_train    — one tiny-config f32 make_train_step, kernels on the
-                     card against plain versions on the CPU: loss,
-                     gradients, grad_norm
+  5. tiny_train    — one f32 make_train_step of tiny llama3.2-1b,
+                     xlstm-350m and zamba2-1.2b, kernels on the card
+                     (flash, gla_scan and their backwards) against plain
+                     versions on the CPU: loss, gradients, grad_norm
   6. tiny_ssm      — tiny xlstm-350m in f32: prefill_step and 8 greedy
                      serve_step calls, the kernel on the card against the
                      plain version on the CPU: logits, cache, tokens
@@ -96,6 +102,15 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      with the flash kernels against the plain attention on
                      the card; held on conditioned weights, reported with
                      the reference's init
+  8b. ssm_train_parity
+                   — full width in f32, B 1 x T 512, remat: xlstm-350m
+                     cut to one period (7 mLSTM + 1 sLSTM) and
+                     zamba2-1.2b cut to one period (5 mamba2 + the shared
+                     block) and its 2-layer tail: loss and gradients with
+                     gla_scan, gla_scan_bwd (and flash) against the plain
+                     GLA and attention under autograd on the card, held
+                     as train_parity (zamba2 by a float64 witness where
+                     a leaf misses 1e-3)
   9. ssm_parity    — full-width xlstm-350m in f32, B 2 x T 520: prefill
                      logits and final states with gla_scan against the
                      plain chunked_gla_ref on the card, and serve_step at
@@ -122,7 +137,7 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      (plain_paged): the prefills' and decodes' logits
                      within 1e-3 of the kernels', ids equal
   9b. wide_parity  — decode_parity on gemma2-9b and GPT-J-6B at full
-                     width cut to 8 layers each (4 local/global pairs
+                     width cut to 4 layers each (2 local/global pairs
                      of gemma2), contexts 37, 160, 4700 and 16 (one past
                      gemma2's 4096-token window: the local layers' window
                      bites on every leg; the tables that long hold only
@@ -151,24 +166,28 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      serve, swap, quant, gather, sanitize and
                      sanitize_quant every swapped page comes back
  12. unfused       — the same under InferCept with Engine(fused=False): the
-                     per-call extend and paged decode paths
+                     per-call extend and paged decode paths; cut to 4
+                     layers
  13. spec          — the same under InferCept with speculative resume and
                      the oracle tool-result predictor, driven by Engine.run:
                      a session's segments are open and a fork past an open
                      segment emits only its seed token, so only the closed
-                     loop's scripted segments give forks decode steps
+                     loop's scripted segments give forks decode steps;
+                     cut to 4 layers
  14. quant         — the serve run with int8 KV pools
                      (Engine(kv_dtype="int8")): the fused kv_append_quant
                      kernel (and neither kv_append nor page_requant) and
                      the scaled ragged kernel
  15. quant_unfused — the same with fused=False: the scaled paged decode
-                     kernel
- 16. gather        — the serve run with Engine(paged=False), the gather
+                     kernel; cut to 4 layers
+ 16. gather        — the serve run (cut to 4 layers, as spec and the
+                     sanitized runs are) with Engine(paged=False), the gather
                      oracle: no paged attention or append launch, swaps
                      through the stager, every page back
- 17. sanitize      — the serve run with Engine(sanitize=True): no
-     sanitize_quant  findings, and the streams and counters of the serve
-                     (quant) run of this process
+ 17. sanitize      — the serve run with Engine(sanitize=True), cut to 4
+     sanitize_quant  layers: no findings, and the streams and counters of
+                     an unsanitized serve (quant) run of that depth in
+                     the same phase
  18. sample        — the serve run with every request sampled
                      (temperature 0.7, top-k 50, top-p 0.9, seed 1000 + i)
                      on the card by models.model.sample_tokens: every
@@ -182,8 +201,8 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      card calls equal) and a chi-square of 65536 draws
  18b. gemma2_serve, gemma2_unfused, gemma2_quant, gptj_serve
                    — the serve run's workload and checks on full-width
-                     gemma2-9b cut to 12 of its 42 layers (fused;
-                     fused=False; int8 pools) and
+                     gemma2-9b cut to 12 of its 42 layers (fused) and
+                     to 6 (fused=False; int8 pools) and
                      GPT-J-6B cut to 7 of its 28 layers (fused) in bf16,
                      random weights from seed 0:
                      every request finishes and every page comes back;
@@ -194,14 +213,16 @@ Phases; any failure ends the run with a non-zero exit and no result line:
  18c. moe_serve, moe_unfused
                    — the serve run's workload and checks on full-width
                      deepseek-moe-16b cut to its dense layer and 6 of
-                     its 27 MoE layers, in bf16 (fused; fused=False):
+                     its 27 MoE layers, in bf16 (fused), and to the
+                     dense layer and 2 MoE layers (fused=False):
                      every request finishes and every page comes back;
                      tok/s, construction and run peaks, launches by
                      kernel (logged apart); over the two runs rows 1, 2,
                      3-4, 5 and the MoE kernels launch
  18d. mla_serve, mla_unfused
                    — the same on full-width deepseek-v3 cut to its dense
-                     group and one MoE layer (3 + 1 layers), bf16: tok/s,
+                     group and one MoE layer (3 + 1 layers; mla_unfused
+                     1 + 1), bf16: tok/s,
                      step ms, construction and run peaks; over the two
                      runs rows 10, 2 and 9 launch and rows 1 and 5 never,
                      row 10 always in its tensor-core form
@@ -209,7 +230,7 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                    — the serve run's workload and checks on full-width
                      musicgen-large (K 4 codebooks; MHA, 32 kv heads x
                      64: 393,216 KV bytes a token), bf16, uncut (48
-                     layers; fused) and cut to 8 layers (fused=False):
+                     layers; fused) and cut to 4 layers (fused=False):
                      tok/s, step ms, construction and run peaks, the
                      pools' bytes, swapped tokens, InferCept's choices
                      and the waste ledger's causes beside llama's serve
@@ -220,9 +241,20 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      make_train_step: bf16 params, f32 AdamW, remat,
                      SyntheticLM batches of 4 x 2048, 2 warm-up and 8
                      timed steps; finite, falling loss
+ 19b. xlstm_train, zamba2_train
+                   — the train run on full-width, full-depth xlstm-350m
+                     (24 layers; B 8 x T 512, 2 warm-up and 6 timed
+                     steps: its sLSTM loop runs a step at a time under
+                     autograd; its profiled step 8 x 64) and zamba2-1.2b
+                     (38 layers; B 4 x T 2048, 2 + 6 steps): finite,
+                     falling loss; gla_scan twice
+                     and gla_scan_bwd once a GLA layer a step (zamba2:
+                     flash and its backward likewise a shared-block
+                     occurrence); step ms, tokens/s, peak memory
  20. ssm_serve     — full-width xlstm-350m in bf16 (seed-0 port init)
-                     through prefill_step of 8 x 2000 random tokens and 64
-                     greedy serve_step calls: tok/s of each, peak memory,
+                     through prefill_step of 8 x 2000 random tokens and 16
+                     greedy serve_step calls (64 before the cuts of
+                     PR 29): tok/s of each, peak memory,
                      21 gla_scan launches, finite logits; its profiled
                      prefill is one of 8 x 256 (the sLSTM loop's ~50
                      launches a step make the profiler's parse most of the
@@ -237,7 +269,7 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      models, MODEL_SERVES)
  21b. wide_dense   — the same for gemma2-9b: prefill_step of 8 x 1024
                      (flash with window 4096 and softcap 50, 42 launches),
-                     32 greedy serve_step calls
+                     8 greedy serve_step calls
  21c. zamba2_serve — the same for zamba2-1.2b, uncut (38 layers):
                      prefill_step of 8 x 2000 (32 gla_scan and 6 flash
                      launches, one per occurrence of the shared block) and
@@ -290,11 +322,18 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      SDPA as the library column), their launches those
                      runs' own; row 1g (the ragged kernel at
                      musicgen_serve's largest call: 32 kv heads x G 1 x
-                     64, device time, bound, its launches that run's)
+                     64, device time, bound, its launches that run's);
+                     rows 8b and 8zb (the gla backward on the first GLA
+                     call of xlstm_train and of zamba2_train, with the
+                     gradient that reached it: against the plain
+                     backward, device time, the split's bf16 products as
+                     the bound, no library call; their launches those
+                     runs')
  23. profile       — torch.profiler over 10 serve steps after 10 (bf16 and
                      int8 pools, deepseek-moe-16b's with the MoE kernels'
                      share, and deepseek-v3's with row 10's), over one
-                     train step, and over one
+                     train step of each train run (the flash and gla
+                     kernels' shares), and over one
                      prefill and one window of serve steps of each of
                      xlstm (its prefill 8 x 256), llama, gemma2 and zamba2
                      (8 steps): device busy share, device time by kernel
@@ -311,7 +350,8 @@ of gather, the sanitized runs, sample, dense_serve, the other
 head_dim-256 runs, the MoE, MLA and musicgen runs are logged apart (rows
 9 and 9d take moe_serve's, rows 10, 10d and 2m mla_serve's, row 7m
 mla_parity's flash launches, 8z zamba2_serve's gla_scan and 7p
-pixtral_serve's flash launches, 1g musicgen_serve's ragged launches).
+pixtral_serve's flash launches, 1g musicgen_serve's ragged launches, 8b
+and 8zb xlstm_train's and zamba2_train's gla_scan_bwd launches).
 The last three lines are the kernels JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}.
 """
@@ -330,13 +370,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 T_START = time.perf_counter()
 PHASES = ("kernels", "tiny", "tiny_train", "tiny_ssm", "decode_parity",
-          "train_parity", "ssm_parity", "wide_parity", "moe_parity",
+          "train_parity", "ssm_train_parity", "ssm_parity", "wide_parity",
+          "moe_parity",
           "mla_parity", "zamba2_parity", "pixtral_parity", "musicgen_parity",
           "serve", "swap", "unfused", "spec", "quant", "quant_unfused",
           "gather", "sanitize", "sanitize_quant", "sample", "gemma2_serve",
           "gemma2_unfused", "gemma2_quant", "gptj_serve", "moe_serve",
           "moe_unfused", "mla_serve", "mla_unfused", "musicgen_serve",
-          "musicgen_unfused", "train", "ssm_serve", "dense_serve",
+          "musicgen_unfused", "train", "xlstm_train", "zamba2_train",
+          "ssm_serve", "dense_serve",
           "wide_dense", "zamba2_serve", "pixtral_serve", "timing",
           "profile")
 SERVE_PHASES = {"serve": ("infercept", {}), "swap": ("swap", {}),
@@ -368,13 +410,16 @@ WIDE_SERVE_PHASES = {
 # local/global pairs (12 of 42 layers), GPT-J to 7 of its 28 layers;
 # rows 1w, 1wd, 1wq and 5w are per-layer calls, whose shapes the cuts keep
 WIDE_SERVE_PERIODS = {"gemma2-9b": (6,), "gpt-j-6b": (7,)}
+# gemma2's per-call and int8 runs cut further for the 1200 s limit (PR
+# 29): 3 pairs, 6 layers (rows 5w and 1wq are per-layer calls)
+WIDE_CUT_PERIODS = {"gemma2_unfused": (3,), "gemma2_quant": (3,)}
 # wide_parity's models and sequence lengths: one past gemma2's 4096-token
 # local window, so the window bites on the fused, per-call and gather legs
 WIDE_PARITY_MODELS = ("gemma2-9b", "gpt-j-6b")
 WIDE_PARITY_LENS = [37, 160, 4700, 16]
-# their depth, cut to 8 layers each (gemma2: 4 local/global pairs) so
-# that the run with the MoE phases stays inside its time limit
-WIDE_PARITY_PERIODS = {"gemma2-9b": (4,), "gpt-j-6b": (8,)}
+# their depth, cut to 4 layers each (gemma2: 2 local/global pairs; 8
+# before PR 29) so that the run stays inside its time limit
+WIDE_PARITY_PERIODS = {"gemma2-9b": (2,), "gpt-j-6b": (4,)}
 # the MoE model's serve phases (policy, engine options): the serve run's
 # workload and checks; launches logged apart, and moe_serve's MoE calls
 # give the timing phase's rows 9 and 9d
@@ -385,6 +430,9 @@ MOE_SERVE_PHASES = {"moe_serve": ("infercept", {}),
 # dense layer and 6 of the 27 MoE layers; rows 9 and 9d are per-layer
 # calls, whose shapes the cut keeps
 MOE_SERVE_PERIODS = (1, 6)
+# moe_unfused's depth, cut further for the 1200 s limit: the dense layer
+# and 2 MoE layers (rows 1, 2, 3-4, 5 and the MoE kernels still launch)
+MOE_UNFUSED_PERIODS = (1, 2)
 # moe_parity's depth: the dense layer and 3 MoE layers
 MOE_PARITY_PERIODS = (1, 3)
 # deepseek-v3 (MLA attention, 256 routed experts top-8): its serve phases
@@ -395,6 +443,9 @@ MLA_MODEL = "deepseek-v3-671b"
 MLA_SERVE_PHASES = {"mla_serve": ("infercept", {}),
                     "mla_unfused": ("infercept", {"fused": False})}
 MLA_SERVE_PERIODS = (3, 1)
+# mla_unfused's depth, cut for the 1200 s limit: one dense and the MoE
+# layer (rows 10, 2 and 9 still launch, rows 1 and 5 never)
+MLA_UNFUSED_PERIODS = (1, 1)
 # mla_parity's depth: the dense group alone (the MoE layer at full width
 # is moe_parity's)
 MLA_PARITY_PERIODS = (3, 0)
@@ -407,11 +458,21 @@ MLA_PARITY_PERIODS = (3, 0)
 MUSICGEN_MODEL = "musicgen-large"
 MUSICGEN_SERVE_PHASES = {"musicgen_serve": ("infercept", {}),
                          "musicgen_unfused": ("infercept", {"fused": False})}
-MUSICGEN_SERVE_PERIODS = {"musicgen_serve": None, "musicgen_unfused": (8,)}
+MUSICGEN_SERVE_PERIODS = {"musicgen_serve": None, "musicgen_unfused": (4,)}
 # musicgen_parity's depth
 MUSICGEN_PARITY_PERIODS = (4,)
 # a sanitized phase and the phase whose streams and counters it repeats
 SANITIZED_OF = {"sanitize": "serve", "sanitize_quant": "quant"}
+# llama serve runs cut to 4 of the 16 layers for the 1200 s limit (PR
+# 29): the per-call runs, spec, gather and the sanitized runs. Their
+# checks hold at any depth: a sanitized run is held against an
+# unsanitized twin of its own depth run in the same phase; the calls
+# that the timing phase takes from the timed ones among them are
+# per-layer, with the uncut runs' shapes, and their swaps are smaller
+# than the uncut serve, swap and quant runs' (rows 3-4 take the largest)
+CUT_SERVE_PERIODS = {"unfused": (4,), "spec": (4,), "quant_unfused": (4,),
+                     "gather": (4,), "sanitize": (4,),
+                     "sanitize_quant": (4,)}
 # the rows of the kernels line: an attention kernel over int8 pools is a
 # row of its own beside its wrapper's, and so are the swap kernels over an
 # int8 pool tree (payload and scale leaves in one launch, rows 3q/4q),
@@ -451,15 +512,34 @@ PREFIX_SHARED_KERNELS = ("gla_scan_zamba2", "flash_attention_pixtral")
 # the codebook model's row: the ragged kernel at musicgen_serve's largest
 # call (1g: MHA, 32 kv heads x G 1 x 64); its launches are that run's
 MUSICGEN_KERNELS = ("ragged_paged_attention_musicgen",)
+# the gla backward's rows: its kernels at xlstm_train's first mLSTM call
+# (8b) and at zamba2_train's first mamba2 call (8zb); their launches are
+# those runs' own
+GLA_BWD_KERNELS = ("gla_scan_bwd", "gla_scan_bwd_zamba2")
 # every row of the kernels line
 ROWS = (KERNELS + WIDE_KERNELS + MOE_KERNELS + MLA_KERNELS
-        + PREFIX_SHARED_KERNELS + MUSICGEN_KERNELS)
+        + PREFIX_SHARED_KERNELS + MUSICGEN_KERNELS + GLA_BWD_KERNELS)
 # the TPU kernel of each flash row; the backward has none: the reference
 # differentiates its XLA blocked_attention
 FLASH_REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:97",
     "flash_attention_bwd": "src/repro/models/attention.py:54 (no TPU "
                            "kernel: XLA's autodiff of blocked_attention)"}
+
+# the SSM models' train phases: (model, batch, seq, warm-up steps, timed
+# steps), each at full width and depth (xlstm's sLSTM loop runs under
+# autograd, a step at a time, so its sequence is the shorter: 8 x 512,
+# two chunks of 256 a row, at half the loop's host time of 4 x 1024)
+SSM_TRAIN = {"xlstm_train": ("xlstm-350m", 8, 512, 2, 6),
+             "zamba2_train": ("zamba2-1.2b", 4, 2048, 2, 6)}
+# the sequence of the one profiled train step, where it is not the run's:
+# xlstm's sLSTM loop makes ~300k host ops a step at 8 x 512, whose parse
+# by the profiler would take minutes (as ssm_serve's profiled prefill)
+PROFILE_SEQ = {"xlstm_train": 64}
+# ssm_train_parity's depth per group: one xlstm period (7 mLSTM + 1
+# sLSTM), one zamba2 period (5 mamba2 + the shared block) and its 2-layer
+# tail
+SSM_TRAIN_PARITY = {"xlstm-350m": (1,), "zamba2-1.2b": (1, 2)}
 
 # NVIDIA H100 SXM data sheet peaks (dense), used for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -2005,7 +2085,7 @@ def kernel_wrappers() -> dict:
     from repro_torch.kernels import swap_pack as sp
     return {"flash_attention": fa.flash_attention_fwd,
             "flash_attention_bwd": fa.flash_attention_bwd,
-            "gla_scan": gs.gla_scan_fwd,
+            "gla_scan": gs.gla_scan_fwd, "gla_scan_bwd": gs.gla_scan_bwd,
             "ragged_paged_attention":
             ragged_paged_attention.ragged_paged_attention,
             "paged_attention": paged_attention.paged_attention,
@@ -3293,16 +3373,20 @@ def check_flash_kernels(gen, worst) -> None:
 # phase 5: one train step at the tiny config, card against CPU
 # ---------------------------------------------------------------------------
 def check_tiny_train(device: str = "cuda") -> None:
-    """One make_train_step of the tiny config in float32, remat on, on
-    ``device`` (the kernels) and on the CPU (the plain versions), from
-    the same weights and batch. Held on weights conditioned for soft
-    attention (as decode_parity): loss within 1e-4, every gradient within
-    1e-4 of its leaf's largest magnitude (float32 products summed in
-    another order), grad_norm within 1e-4 relative and lr equal. With the
-    reference's init, whose attention is close to a hard max even at the
-    tiny widths (float32 rounding alone moves its gradients ~5e-4 of a
+    """One make_train_step of each tiny config, llama3.2-1b, xlstm-350m
+    and zamba2-1.2b, in float32, remat on, on ``device`` (the kernels:
+    flash and its backward, gla_scan and gla_scan_bwd) and on the CPU (the
+    plain versions), from the same weights and batch. Held on weights
+    conditioned for soft attention (as decode_parity; xlstm has no
+    attention and is held on its init): loss within 1e-4, every gradient
+    within 1e-4 of its leaf's largest magnitude (float32 products summed
+    in another order), grad_norm within 1e-4 relative and lr equal. With
+    the reference's init, whose attention is close to a hard max even at
+    the tiny widths (float32 rounding alone moves its gradients ~5e-4 of a
     leaf's magnitude, tests/test_torch_training.py), the same comparison
-    is reported, not held."""
+    is reported, not held. On the card each model's steps launch each
+    kernel of its layers (``prefill_launches``) four times a forward
+    (two calls, remat) and twice a backward."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.model import LM
@@ -3311,39 +3395,54 @@ def check_tiny_train(device: str = "cuda") -> None:
     from repro_torch.training.train_loop import (loss_and_grads,
                                                  make_train_step)
     from repro_torch.utils.tree import tree_leaves, tree_map
-    cfg = get_config("llama3.2-1b", tiny=True)
-    lm = LM(cfg)
-    batch = [torch.as_tensor(a) for a in next(SyntheticLM(DataConfig(
-        vocab_size=cfg.vocab_size, seq_len=100, global_batch=4,
-        seed=0)).batches())]
     opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
-    for conditioned in (True, False):
-        params = lm.init(torch.Generator().manual_seed(0),
-                         dtype=torch.float32, device="cpu")
-        if conditioned:
-            condition_attention(params)
-        res = {}
-        for where in ("cpu", device):
-            p = tree_map(lambda t: t.to(where), params)
-            b = [t.to(where) for t in batch]
-            loss, _, grads = loss_and_grads(lm, p, *b)
-            _, _, met = make_train_step(lm, opt_cfg)(p, adamw_init(p), *b)
-            res[where] = (loss, tree_leaves(grads), met)
-        (lc, gc_, mc), (lg, gg, mg) = res["cpu"], res[device]
-        loss_err = abs(float(lg) - float(lc))
-        g_rel = max(max_err(a.cpu(), b) / max(float(b.abs().max()), 1e-30)
-                    for a, b in zip(gg, gc_))
-        norm_rel = abs(float(mg["grad_norm"]) / float(mc["grad_norm"]) - 1)
-        name = "conditioned" if conditioned else "reference"
-        log(f"  {name} init, train step on {device} vs cpu: loss "
-            f"{float(lg):.6f} vs {float(lc):.6f} (err {loss_err:.3g}), "
-            f"gradients {g_rel:.3g} of each leaf's max, grad_norm "
-            f"{float(mg['grad_norm']):.6f} vs {float(mc['grad_norm']):.6f} "
-            f"({norm_rel:.3g} relative), lr {float(mg['lr']):.3g}"
-            f"{' (held: 1e-4 each)' if conditioned else ' (reported)'}")
-        assert math.isfinite(float(lg)) and float(mg["lr"]) == float(mc["lr"])
-        if conditioned:
-            assert loss_err <= 1e-4 and g_rel <= 1e-4 and norm_rel <= 1e-4
+    for model in ("llama3.2-1b", "xlstm-350m", "zamba2-1.2b"):
+        cfg = get_config(model, tiny=True)
+        lm = LM(cfg)
+        batch = [torch.as_tensor(a) for a in next(SyntheticLM(DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=100, global_batch=4,
+            seed=0)).batches())]
+        expected = prefill_launches(cfg)
+        attention = "flash_attention" in expected
+        for conditioned in (True, False) if attention else (False,):
+            params = lm.init(torch.Generator().manual_seed(0),
+                             dtype=torch.float32, device="cpu")
+            if conditioned:
+                condition_attention(params)
+            res = {}
+            for where in ("cpu", device):
+                p = tree_map(lambda t: t.to(where), params)
+                b = [t.to(where) for t in batch]
+                reset_counts()
+                loss, _, grads = loss_and_grads(lm, p, *b)
+                _, _, met = make_train_step(lm, opt_cfg)(p, adamw_init(p),
+                                                         *b)
+                res[where] = (loss, tree_leaves(grads), met, launch_counts())
+            (lc, gc_, mc, _), (lg, gg, mg, counts) = res["cpu"], res[device]
+            loss_err = abs(float(lg) - float(lc))
+            g_rel = max(max_err(a.cpu(), b) / max(float(b.abs().max()),
+                                                  1e-30)
+                        for a, b in zip(gg, gc_))
+            norm_rel = abs(float(mg["grad_norm"]) / float(mc["grad_norm"])
+                           - 1)
+            held = conditioned or not attention
+            name = ("conditioned" if conditioned else "reference") + " init"
+            log(f"  {model} tiny, {name}, train step on {device} vs cpu: "
+                f"loss {float(lg):.6f} vs {float(lc):.6f} (err "
+                f"{loss_err:.3g}), gradients {g_rel:.3g} of each leaf's "
+                f"max, grad_norm {float(mg['grad_norm']):.6f} vs "
+                f"{float(mc['grad_norm']):.6f} ({norm_rel:.3g} relative), "
+                f"lr {float(mg['lr']):.3g}"
+                f"{' (held: 1e-4 each)' if held else ' (reported)'}")
+            assert math.isfinite(float(lg)) and \
+                float(mg["lr"]) == float(mc["lr"])
+            if held:
+                assert loss_err <= 1e-4 and g_rel <= 1e-4 and \
+                    norm_rel <= 1e-4, model
+            if device == "cuda":
+                for kernel, n in expected.items():
+                    assert counts[kernel] == 4 * n, (model, counts)
+                    assert counts[f"{kernel}_bwd"] == 2 * n, (model, counts)
 
 
 # ---------------------------------------------------------------------------
@@ -3360,18 +3459,31 @@ def plain_attention():
     return op
 
 
+def plain_gla():
+    """A stand-in for ``ops.gla_scan_op`` that runs the plain chunked GLA
+    under autograd on any device (in float64 where log_a is float64): the
+    oracle of the SSM train path."""
+    from repro_torch.kernels.gla_scan import chunked_gla_ref
+
+    def op(q, k, v, log_a, *, chunk=128, initial_state=None):
+        return chunked_gla_ref(q, k, v, log_a, chunk, initial_state)
+    return op
+
+
 def train_grads(lm, params, batch, *, plain: bool):
-    """loss_and_grads with the kernels, or with the plain attention put in
-    their place for the call."""
+    """loss_and_grads with the kernels, or with the plain attention and the
+    plain GLA put in their places for the call."""
+    import repro_torch.kernels.ops as ops
     import repro_torch.models.attention as attention
     from repro_torch.training.train_loop import loss_and_grads
-    orig = attention.flash_attention_op
+    orig = attention.flash_attention_op, ops.gla_scan_op
     if plain:
         attention.flash_attention_op = plain_attention()
+        ops.gla_scan_op = plain_gla()
     try:
         return loss_and_grads(lm, params, *batch)
     finally:
-        attention.flash_attention_op = orig
+        attention.flash_attention_op, ops.gla_scan_op = orig
 
 
 def check_train_parity(*, tiny: bool = False, device: str = "cuda") -> None:
@@ -3422,6 +3534,81 @@ def check_train_parity(*, tiny: bool = False, device: str = "cuda") -> None:
             torch.cuda.empty_cache()
 
 
+def check_ssm_train_parity(*, tiny: bool = False,
+                           device: str = "cuda") -> None:
+    """Full-width xlstm-350m cut to one period (7 mLSTM + 1 sLSTM) and
+    zamba2-1.2b cut to one period (5 mamba2 + the shared block) and its
+    2-layer tail (SSM_TRAIN_PARITY), in float32 (seed-0 port init), B 1 x
+    T 512, remat on: the loss and every gradient with the kernels
+    (gla_scan and gla_scan_bwd; zamba2's flash forward and backward)
+    against the plain path (chunked_gla_ref and the plain attention under
+    autograd, ``train_grads``) on the same device. Held as train_parity
+    holds llama: loss within 1e-4, each gradient within 1e-3 of its leaf's
+    largest magnitude. For zamba2 alone, where a leaf misses 1e-3, the
+    plain path on float64 params (its GLA and attention in float64)
+    decides, as in zamba2_parity: the kernel path's gradient must lie
+    within max(1e-3, twice the float32 plain path's distance) of it, each
+    over the leaf's largest magnitude (mamba2's chunk decays reach ~-1e4,
+    where a float32 unit in the last place of the cumulative log decay is
+    ~1e-3: the two float32 paths' sums in other orders part by that much
+    before any kernel rounds). On the card the kernel path launches
+    ``prefill_launches`` of each model twice (remat) and each backward
+    once. ``tiny`` and ``device="cpu"`` rehearse it."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    dev = torch.device(device)
+    for model, periods in SSM_TRAIN_PARITY.items():
+        cfg = cut_config(get_config(model, tiny=tiny), periods=periods)
+        lm = LM(cfg)
+        batch = [torch.as_tensor(a, device=dev) for a in next(SyntheticLM(
+            DataConfig(vocab_size=cfg.vocab_size, seq_len=512,
+                       global_batch=1, seed=1)).batches())]
+        params = lm.init(torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.float32, device=dev)
+        reset_counts()
+        lk, _, gk = train_grads(lm, params, batch, plain=False)
+        counts = launch_counts()
+        lp, _, gp = train_grads(lm, params, batch, plain=True)
+        gk, gp = tree_leaves(gk), tree_leaves(gp)
+        loss_err = abs(float(lk) - float(lp))
+        scales = [max(float(b.abs().max()), 1e-30) for b in gp]
+        errs = [max_err(a, b) / sc for a, b, sc in zip(gk, gp, scales)]
+        finite = all(bool(torch.isfinite(g).all()) for g in gk)
+        worst, held = max(errs), "kernels vs plain, tol 1e-3"
+        if model == "zamba2-1.2b" and worst > 1e-3:
+            p64 = tree_map(lambda t: t.double(), params)
+            _, _, g64 = train_grads(lm, p64, batch, plain=True)
+            g64 = tree_leaves(g64)
+            del p64
+            errs = [max_err(a, w) / sc / max(1e-3, 2 * max_err(b, w) / sc)
+                    for a, b, w, sc in zip(gk, gp, g64, scales)]
+            log(f"  {cfg.name}: kernels vs plain misses 1e-3 ({worst:.3g}); "
+                "against the float64 plain path, the kernels' distance over "
+                "max(1e-3, twice the float32 plain path's), leaves past 0.1:"
+                " " + ", ".join(f"{i} {e:.3g}" for i, e in enumerate(errs)
+                                if e > 0.1))
+            worst, held = max(errs), "the float64 witness, over its allowance"
+            del g64
+        log(f"  {cfg.name} f32 B 1 x T 512: loss kernel {float(lk):.6f} vs "
+            f"plain {float(lp):.6f} (err {loss_err:.3g}, tol 1e-4); "
+            f"gradients: the worst of {len(gk)} leaves {worst:.3g} ({held})"
+            f"; launches {({k: v for k, v in counts.items() if v})}")
+        assert finite and math.isfinite(float(lk)), model
+        assert loss_err <= 1e-4 and worst <= (1e-3 if held.startswith(
+            "kernels") else 1), model
+        if dev.type == "cuda":
+            for kernel, n in prefill_launches(cfg).items():
+                assert counts[kernel] == 2 * n, (model, counts)
+                assert counts[f"{kernel}_bwd"] == n, (model, counts)
+        del params, gk, gp
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # phase 14: full-width training steps
 # ---------------------------------------------------------------------------
@@ -3464,11 +3651,12 @@ class FlashRecorder:
         self.launches += launch_counts()["flash_attention"] - self._start
 
 
-def train(recorder: FlashRecorder, *, tiny: bool = False,
+def train(recorder, *, model: str = "llama3.2-1b", tiny: bool = False,
           device: str = "cuda", warm: int = 2, timed: int = 8,
           batch: int = 4, seq: int = 2048, lr: float = 3e-3,
-          profile: bool = False) -> dict:
-    """Full-width llama3.2-1b through make_train_step: bf16 params from
+          profile: bool = False, profile_seq: int = None) -> dict:
+    """Full-width ``model`` (llama3.2-1b; xlstm_train and zamba2_train: the
+    SSM models, SSM_TRAIN) through make_train_step: bf16 params from
     seed 0 (the reference's init), float32 AdamW state (peak lr 3e-3 after
     2 warm-up steps, cosine over the run: on the H100, 1e-3 moved the loss
     by ~0.1 in 8 steps, within the batch-to-batch spread, 3e-3 by ~2.7
@@ -3477,9 +3665,14 @@ def train(recorder: FlashRecorder, *, tiny: bool = False,
     warm-up steps, then ``timed`` timed ones, each ending in a
     synchronize. Fails unless every loss is finite and the last timed
     loss is below the first. Launch counts are set to 0 before the first
-    step and read after the last. ``profile`` adds one more step under
-    torch.profiler (not counted). ``tiny`` and ``device="cpu"`` rehearse
-    it in float32."""
+    step and read after the last: on the card every kernel of the model's
+    layers (``prefill_launches``: flash, gla_scan) launches twice a layer
+    a step (remat) and its backward once. ``recorder`` (a FlashRecorder,
+    or a GLARecorder keeping gradients) keeps the first call's inputs and
+    the gradient at its output for the timing phase. ``profile`` adds one
+    more step under torch.profiler (not counted), on a batch of
+    ``profile_seq`` tokens a row where given. ``tiny`` and
+    ``device="cpu"`` rehearse it in float32."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.model import LM
@@ -3489,7 +3682,7 @@ def train(recorder: FlashRecorder, *, tiny: bool = False,
     dev = torch.device(device)
     on_card = dev.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
-    cfg = get_config("llama3.2-1b", tiny=tiny)
+    cfg = get_config(model, tiny=tiny)
     lm = LM(cfg)
     gc.collect()
     if on_card:
@@ -3505,6 +3698,8 @@ def train(recorder: FlashRecorder, *, tiny: bool = False,
                                   global_batch=batch, seed=0)).batches()
     batches = [[torch.as_tensor(a, device=dev) for a in next(data)]
                for _ in range(steps + int(profile))]
+    if profile and profile_seq:
+        batches[-1] = [t[:, :profile_seq] for t in batches[-1]]
     sync()
     if on_card:
         torch.cuda.reset_peak_memory_stats()
@@ -3525,7 +3720,7 @@ def train(recorder: FlashRecorder, *, tiny: bool = False,
     counts = launch_counts()
     timed_rows = [r for r in log_rows if r["timed"]]
     ms = sum(r["step_ms"] for r in timed_rows) / len(timed_rows)
-    res = {"steps": steps, "batch": batch, "seq": seq,
+    res = {"model": cfg.name, "steps": steps, "batch": batch, "seq": seq,
            "losses": [r["loss"] for r in log_rows],
            "step_ms_mean": ms, "tokens_per_s": batch * seq / ms * 1e3,
            "max_memory_allocated":
@@ -3536,9 +3731,9 @@ def train(recorder: FlashRecorder, *, tiny: bool = False,
     assert timed_rows[-1]["loss"] < timed_rows[0]["loss"], res["losses"]
     if on_card:
         # remat: every layer's forward runs twice a step, its backward once
-        n_layers = sum(g.n_periods * len(g.period) for g in cfg.groups)
-        assert counts["flash_attention"] == 2 * n_layers * steps, counts
-        assert counts["flash_attention_bwd"] == n_layers * steps, counts
+        for kernel, n in prefill_launches(cfg).items():
+            assert counts[kernel] == 2 * n * steps, counts
+            assert counts[f"{kernel}_bwd"] == n * steps, counts
         assert recorder.args is not None and recorder.dout is not None
     if profile:
         from torch.profiler import ProfilerActivity, profile as prof_ctx
@@ -3548,10 +3743,13 @@ def train(recorder: FlashRecorder, *, tiny: bool = False,
             params, opt, met = step_fn(params, opt, *batches[steps])
             sync()
             wall = time.perf_counter() - t0
-        dev_us, total = log_device_time(prof, wall, "1 train step")
-        flash = sum(us for key, (us, _) in dev_us.items() if "flash_" in key)
-        log(f"  flash kernels: {flash / 1e3:.2f} ms = "
-            f"{flash / max(total, 1e-9):.3f} of device time")
+        dev_us, total = log_device_time(
+            prof, wall, f"1 train step of {model}, {batch} x "
+            f"{batches[steps][0].shape[1]}")
+        for kind in ("flash_", "gla_"):
+            us = sum(t for key, (t, _) in dev_us.items() if kind in key)
+            log(f"  {kind}* kernels: {us / 1e3:.2f} ms = "
+                f"{us / max(total, 1e-9):.3f} of device time")
     del params, opt, batches
     gc.collect()
     if on_card:
@@ -3850,6 +4048,9 @@ def time_prefill_flash(recorder: FlashRecorder, worst: dict,
 # the SSM slice: gla_scan, and xlstm-350m through prefill_step/serve_step
 # ---------------------------------------------------------------------------
 GLA_REPLACES = "src/repro/kernels/gla_scan.py:69"
+# the backward has no TPU kernel: the reference differentiates chunked_gla
+GLA_BWD_REPLACES = ("src/repro/models/ssm.py:32 (no TPU kernel: XLA's "
+                    "autodiff of chunked_gla)")
 
 
 def gla_inputs(gen, *, B, H, T, dk, dv, dtype, mixed=False,
@@ -3902,6 +4103,39 @@ def gla_rel_err(y, s, want_y, want_s):
             max_err(s, want_s) / max(float(want_s.abs().max()), 1e-30))
 
 
+def gla_bwd_errors(label, got, want, dtypes) -> float:
+    """The gla backward's gradients (dq, dk, dv, d log_a, the initial
+    state's) against the plain backward's, that rounded as the kernel's
+    output is, each over its largest magnitude: a bf16 gradient within
+    one bf16 unit in the last place (2^-7: each side rounds a float32
+    result once), a float32 one within 1e-4 (float32 sums in another
+    order); d log_a, float32 always, within 1e-4 with three terms (a
+    float32 v) and 5e-4 with two (a bf16 v: the reverse sum over T of
+    q . dq - k . dk from products ~1e-5 off); the initial state's within
+    1e-4. Logs them, fails past a tolerance or on a non-finite value, and
+    returns the largest absolute error. ``dtypes``: q's, k's and v's
+    names."""
+    import torch
+    two_terms = dtypes[2] == "bfloat16"
+    worst, parts = 0.0, []
+    for i, (name, g, w) in enumerate(zip(
+            ("dq", "dk", "dv", "dlog_a", "dinitial_state"), got, want)):
+        if w is None:
+            assert g is None, (label, name)
+            continue
+        w = w.to(g.dtype)
+        tol = (2.0 ** -7 if i < 3 and dtypes[i] == "bfloat16"
+               else 5e-4 if i == 3 and two_terms else 1e-4)
+        err = max_err(g, w)
+        rel = err / max(float(w.float().abs().max()), 1e-30)
+        parts.append(f"{name} {rel:.3g} (tol {tol:.3g})")
+        assert bool(torch.isfinite(g).all()) and rel <= tol, (label, name,
+                                                               rel)
+        worst = max(worst, err)
+    log(f"  {label}: " + ", ".join(parts))
+    return worst
+
+
 def check_gla_kernels(gen, worst) -> None:
     """gla_scan against chunked_gla_ref on the card: the reference grid
     (tests/test_kernels.py's shapes and chunks) in float32 and bf16, the
@@ -3914,9 +4148,15 @@ def check_gla_kernels(gen, worst) -> None:
     and dk 8 with chunks of 5. Held relative to the largest |y| and |S|:
     1e-4 for float32 results (float32 sums in another order), 2^-7 for a
     bf16 y (both round one float32 result once: a unit in the last
-    place)."""
+    place). Then the backward, gla_scan_bwd against chunked_gla_bwd_ref on
+    every case, with a final-state gradient where the case has an initial
+    state (and on mLSTM and Mamba2 cases at the train phases' widths with
+    one alone), at ``gla_bwd_errors``' tolerances: the operands as the
+    cases lay them out (mLSTM's strided q and k and padded v, Mamba2's
+    stride-0 q and k), bf16 and float32, T off the chunk, strong decay."""
     import torch
-    from repro_torch.kernels.gla_scan import (aligned, chunked_gla_ref,
+    from repro_torch.kernels.gla_scan import (aligned, chunked_gla_bwd_ref,
+                                              chunked_gla_ref, gla_scan_bwd,
                                               gla_scan_fwd)
     grid = [(2, 2, 64, 16, 16, 16), (1, 4, 128, 32, 64, 32),
             (2, 1, 256, 64, 64, 128), (1, 2, 96, 16, 16, 32)]
@@ -3946,10 +4186,21 @@ def check_gla_kernels(gen, worst) -> None:
          dict(mixed=True, strided=True, strong=256)),
         ("mLSTM full width T 2000, initial state", bf16,
          dict(B=2, H=4, T=2000, dk=512, dv=513), 256,
-         dict(mixed=True, strided=True, state=True))]
+         dict(mixed=True, strided=True, state=True)),
+        ("mLSTM as xlstm_train lays it out, final-state gradient", bf16,
+         dict(B=4, H=4, T=1024, dk=512, dv=513), 256,
+         dict(mixed=True, strided=True, dstate=True)),
+        ("Mamba2 zamba2 widths, T off the chunk, final-state gradient",
+         bf16, dict(B=2, H=8, T=2000, dk=64, dv=512), 256,
+         dict(broadcast=True, dstate=True)),
+        ("Mamba2 initial state", bf16, dict(B=2, H=8, T=700, dk=64,
+                                            dv=512), 256,
+         dict(broadcast=True, state=True))]
     cases += [("dk 8, chunk 5", dtype, dict(B=2, H=3, T=37, dk=8, dv=12), 5,
                {}) for dtype in (torch.float32, bf16)]
     for label, dtype, shape, c, kw in cases:
+        kw = dict(kw)
+        dstate = kw.pop("dstate", kw.get("state", False))
         q, k, v, la, s0 = gla_inputs(gen, dtype=dtype, **shape, **kw)
         if kw.get("strided"):
             assert all(aligned(t) for t in (q, k, v)), label
@@ -3965,7 +4216,25 @@ def check_gla_kernels(gen, worst) -> None:
         assert ey <= tol_y and es <= 1e-4, label
         worst["gla_scan"] = max(worst["gla_scan"], max_err(y, want_y),
                                 max_err(s, want_s))
-        del q, k, v, la, s0, y, s, want_y, want_s
+        del y, s, want_y, want_s
+        dy = torch.randn(v.shape, generator=gen, device=v.device).to(
+            v.dtype)
+        ds = torch.randn((*q.shape[:2], q.shape[-1], v.shape[-1]),
+                         generator=gen, device=v.device) if dstate else None
+        before = gla_scan_bwd.launches
+        got = gla_scan_bwd(q, k, v, la, dy, chunk=c, initial_state=s0,
+                           dstate=ds)
+        want = chunked_gla_bwd_ref(q, k, v, la, c, s0, dy, ds)
+        torch.cuda.synchronize()
+        assert gla_scan_bwd.launches == before + 1, label
+        assert [g.dtype for g in got[:3]] == [q.dtype, k.dtype, v.dtype]
+        row = "gla_scan_bwd_zamba2" if kw.get("broadcast") else \
+            "gla_scan_bwd"
+        worst[row] = max(worst[row], gla_bwd_errors(
+            f"gla_scan_bwd {label} ({str(dtype)[6:]}"
+            f"{', final-state gradient' if dstate else ''})", got, want,
+            [str(t.dtype)[6:] for t in (q, k, v)]))
+        del q, k, v, la, s0, dy, ds, got, want
     torch.cuda.empty_cache()
 
 
@@ -4197,30 +4466,57 @@ def check_prefill_parity(phase: str = "ssm_parity", *, tiny: bool = False,
 
 class GLARecorder:
     """Keeps, for the timing phase, the inputs of the first gla_scan call
-    of a prefill (the first mLSTM or mamba2 layer's): wraps the op the
-    model calls and adds nothing to the launch counts. The inputs are kept
-    by reference during the run (nothing writes them after the call) and
-    move to host memory on leaving, so later phases' peaks do not carry
-    them; a dimension of stride 0 (mamba2's q and k, views over the heads)
-    moves as one slice. ``operands()`` brings them back to their device
-    with those dimensions broadcast again."""
+    of a run (the first mLSTM or mamba2 layer's) and, with ``grad`` (a
+    train run), the gradients that reach its y and final state in the
+    backward (``dout``: (dy, dstate), None where none reached it): wraps
+    the op the model calls and adds nothing to the launch counts. The
+    tensors are kept by reference during the run (nothing writes them
+    after the call) and move to host memory on leaving, so later phases'
+    peaks do not carry them; a dimension of stride 0 (mamba2's q and k,
+    views over the heads) moves as one slice. ``operands()`` brings the
+    inputs back to their device with those dimensions broadcast again,
+    ``grads()`` the gradients."""
+
+    def __init__(self, grad: bool = False):
+        self.grad = grad
+        self.args = self.dout = None
 
     def __enter__(self):
         import repro_torch.kernels.ops as ops
-        self.args = None
+        self.args = self.dout = None
+        self._seen = {}
         self._orig = orig = ops.gla_scan_op
 
         def wrapped(q, k, v, log_a, **kw):
+            out = orig(q, k, v, log_a, **kw)
             if self.args is None:
                 self.args = (q, k, v, log_a, kw)
-            return orig(q, k, v, log_a, **kw)
+                if self.grad and out[0].requires_grad:
+                    self._hook(out)
+            return out
         ops.gla_scan_op = wrapped
         return self
+
+    def _hook(self, out):
+        """Keep the gradients that reach ``out`` (y, state) in the backward
+        through them (one: the hooks sit on the first step's graph); an
+        output that no gradient reached gets None."""
+        def keep(i):
+            def hook(g):
+                if g is not None and i not in self._seen:
+                    self._seen[i] = g.detach().clone()
+            return hook
+        for i, t in enumerate(out):
+            if t.requires_grad:
+                t.register_hook(keep(i))
 
     def __exit__(self, *exc):
         import repro_torch.kernels.ops as ops
         from repro_torch.utils.tree import tree_map
         ops.gla_scan_op = self._orig
+        if 0 in self._seen:
+            self.dout = (self._seen[0], self._seen.get(1))
+        self._seen = {}
 
         def to_host(t):
             if not hasattr(t, "stride"):
@@ -4229,18 +4525,27 @@ class GLARecorder:
             for dim, st in enumerate(t.stride()):
                 if st == 0:
                     slice_ = slice_.narrow(dim, 0, 1)
-            return slice_.cpu(), tuple(t.shape), t.device
+            return slice_.detach().cpu(), tuple(t.shape), t.device
         self.args = tree_map(to_host, self.args)
+        self.dout = tree_map(to_host, self.dout)
+
+    @staticmethod
+    def _back(t):
+        if isinstance(t, tuple):
+            slice_, shape, device = t
+            return slice_.to(device).expand(shape)
+        return t
 
     def operands(self):
         """(q, k, v, log_a, kw) as recorded, on their device."""
-        def back(t):
-            if isinstance(t, tuple):
-                slice_, shape, device = t
-                return slice_.to(device).expand(shape)
-            return t
         *ts, kw = self.args
-        return (*map(back, ts), {k: back(v) for k, v in kw.items()})
+        return (*map(self._back, ts),
+                {k: self._back(v) for k, v in kw.items()})
+
+    def grads(self):
+        """(dy, dstate or None) as recorded, on their device."""
+        return tuple(None if g is None else self._back(g)
+                     for g in self.dout)
 
 
 # the kernel that each block kind launches once a prefill (sLSTM's loop
@@ -4286,13 +4591,13 @@ def model_prefix(cfg, params, batch: int, gen):
 # launches its kernel once a prefill (``prefill_launches``); pixtral's
 # prompts follow its vision prefix (``model_prefix``)
 MODEL_SERVES = {
-    "ssm_serve": dict(model="xlstm-350m", seq=2000, steps=64, slots=False,
+    "ssm_serve": dict(model="xlstm-350m", seq=2000, steps=16, slots=False,
                       profile_steps=0, profile_seq=256),
     "dense_serve": dict(model="llama3.2-1b", seq=1024, steps=32, slots=True,
                         profile_steps=8),
     # gemma2's 42 layers alternate a local (window 4096) and a global
     # layer, both with softcap 50: one flash launch a layer a prefill
-    "wide_dense": dict(model="gemma2-9b", seq=1024, steps=32, slots=True,
+    "wide_dense": dict(model="gemma2-9b", seq=1024, steps=8, slots=True,
                        profile_steps=8),
     # zamba2: 32 mamba2 layers (gla_scan) and 6 occurrences of its one
     # shared attention block (flash), each with its own slotted cache
@@ -4592,6 +4897,104 @@ def time_gla(recorder: GLARecorder, worst: dict, launches: dict,
              "library_ms": None, "shape": shape, **row_,
              "host_ms": ms - row_["device_ms"],
              "float32_bound_ms": f32_bound}]
+
+
+def gla_bwd_tc_ops(shape, dv: int, chunk: int, with_state: bool,
+                   with_dstate: bool, dtypes: tuple) -> int:
+    """The gla backward's work as the kernels' bf16 tensor-core products,
+    per chunk of r real steps (pairs = r (r + 1) / 2): the chunk-entry
+    states again and the dS sweep (r dk dv each), P and dA (pairs dk and
+    pairs dv), dq's dA k (pairs dk) and dy S_n^T (r dk dv; none on the
+    first chunk from the zero state), dk's dA^T q (pairs dk) and v dS^T,
+    dv's P^T dy (pairs dv) and k dS (r dk dv each; none on the last chunk
+    without a final-state gradient), each times ``split_products`` of its
+    operands: dy in v's dtype, and P, dA, S_n, dS and the decayed q and k
+    held as the kernel's terms for v's dtype (``TERMS``); two operations
+    a multiply-add. ``dtypes``: q's, k's and v's."""
+    import torch
+    from repro_torch.kernels.gla_scan import TERMS
+    B, H, T, dk = shape
+    nt = TERMS[dtypes[2]]
+    tq, tk, tv = (1 if d == torch.bfloat16 else nt for d in dtypes)
+    sp = split_products
+    ops = 0
+    for t0 in range(0, T, chunk):
+        r = min(chunk, T - t0)
+        pairs = r * (r + 1) // 2
+        first = t0 == 0 and not with_state
+        last = t0 + chunk >= T and not with_dstate
+        ops += 2 * B * H * (
+            r * dk * dv * (sp(nt, tv, nt) + sp(nt, tv, nt))
+            + pairs * dk * (sp(tq, tk, nt) + sp(nt, tk, nt) + sp(nt, tq, nt))
+            + pairs * dv * (sp(tv, tv, nt) + sp(nt, tv, nt))
+            + (0 if first else r * dk * dv * sp(tv, nt, nt))
+            + (0 if last else r * dk * dv * (sp(tv, nt, nt)
+                                             + sp(tk, nt, nt))))
+    return ops
+
+
+def time_gla_bwd(recorder: GLARecorder, worst: dict, launches: dict,
+                 name: str = "gla_scan_bwd") -> list:
+    """A gla backward row, ``name``: gla_scan_bwd and the plain backward
+    (chunked_gla_bwd_ref) on the inputs and output gradients the train
+    run's recorder kept (row 8b: the first mLSTM call of xlstm_train's
+    first step; 8zb: the first mamba2 call of zamba2_train's), held at
+    check_gla_kernels' tolerances, then timed in turns (plain, kernel,
+    kernel, plain; ``ms`` launched from the host) and as device time by
+    CUDA graph replays. The bound: the split's bf16 tensor-core
+    operations (``gla_bwd_tc_ops``) at the bf16 peak or each input read
+    and each gradient written once, whichever is longer. No single
+    PyTorch call computes this gradient, so there is no library
+    yardstick."""
+    import torch
+    from repro_torch.kernels.gla_scan import (chunked_gla_bwd_ref,
+                                              gla_scan_bwd)
+    q, k, v, la, kw = recorder.operands()
+    dy, ds = recorder.grads()
+    chunk, s0 = kw["chunk"], kw.get("initial_state")
+
+    def kernel():
+        return gla_scan_bwd(q, k, v, la, dy, chunk=chunk, initial_state=s0,
+                            dstate=ds)
+
+    def plain():
+        return chunked_gla_bwd_ref(q, k, v, la, chunk, s0, dy, ds)
+    err = gla_bwd_errors(f"{name} main-path call", kernel(), plain(),
+                         [str(t.dtype)[6:] for t in (q, k, v)])
+    err = max(worst[name], err)
+    ms, plain_ms = in_turns(plain, kernel, 3)
+    device_ms = graph_ms(kernel, 3)
+    B, H, T, dk = q.shape
+    dv = v.shape[-1]
+    c = min(chunk, T)
+    # each input read once in its dtype (a broadcast view's storage once),
+    # the gradients written densely per head in their operands' dtypes
+    nbytes = sum(stored_bytes(t) for t in (q, k, v, la, dy)) \
+        + B * H * T * (dk * (q.element_size() + k.element_size())
+                       + dv * v.element_size() + 4) \
+        + sum(2 * t.numel() * 4 for t in (s0,) if t is not None) \
+        + (0 if ds is None else ds.numel() * 4)
+    ops = gla_bwd_tc_ops(tuple(q.shape), dv, c, s0 is not None,
+                         ds is not None, tuple(t.dtype for t in (q, k, v)))
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_OPS["bfloat16"] * 1e3
+    bound = max(by_bytes, by_ops)
+    shape = list(q.shape) + [dv, f"chunk {chunk}",
+                             " ".join(str(t.dtype)[6:] for t in (q, k, v))]
+    log(f"  {name} {shape}: kernel {ms:.4f} ms (device {device_ms:.4f}, "
+        f"{device_ms / bound:.1f}x bound), plain {plain_ms:.4f} ms, library "
+        f"none, bound {bound:.4f} ms ({nbytes} B, {ops} bf16 tensor-core "
+        f"operations), {launches[name]} launches, main-path max_abs_err "
+        f"{err:.3g}")
+    torch.cuda.empty_cache()
+    return [{"name": name, "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/gla_scan.cu",
+             "replaces": GLA_BWD_REPLACES, "launches": launches[name],
+             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bound,
+             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+             "library_ms": None, "shape": shape, "device_ms": device_ms,
+             "host_ms": ms - device_ms}]
 
 
 # ---------------------------------------------------------------------------
@@ -5406,7 +5809,9 @@ def main() -> int:
                     help=f"comma list of {PHASES} (card and build always "
                          "run; timing needs every serve phase for rows "
                          "1-6 (and 3q, 4q), the train phase for the flash "
-                         "rows and ssm_serve for the gla_scan row)")
+                         "rows, ssm_serve for the gla_scan row and "
+                         "xlstm_train and zamba2_train for the gla "
+                         "backward's rows)")
     ap.add_argument("--parent", default=None,
                     help="another checkout of the port (the parent "
                          "commit's): its attention, append, gla_scan, "
@@ -5495,6 +5900,12 @@ def main() -> int:
         log("[train_parity] full width f32, B 1 x T 512: loss and gradients "
             "of the flash kernels vs the plain attention on the card")
         check_train_parity()
+    if "ssm_train_parity" in phases:
+        log("[ssm_train_parity] xlstm-350m (one period, 8 layers) and "
+            "zamba2-1.2b (one period and its 2-layer tail) full width f32, "
+            "B 1 x T 512: loss and gradients of the gla (and flash) kernels "
+            "vs the plain GLA and attention on the card")
+        check_ssm_train_parity()
     if "ssm_parity" in phases:
         log("[ssm_parity] xlstm-350m full width f32, B 2 x T 520: prefill "
             "with gla_scan vs the plain chunked_gla_ref on the card, and "
@@ -5573,11 +5984,14 @@ def main() -> int:
         # timed phases' own, as the kernels line's totals are
         probe = SamplerProbe(on_card=True) if phase == "sample" \
             else contextlib.nullcontext()
+        periods = CUT_SERVE_PERIODS.get(phase)
+        if periods is not None:
+            log(f"  cut to {layers('llama3.2-1b', periods)} layers")
         with probe:
             res = results[phase] = serve(
                 policy,
                 recorder if phase in TIMED_SERVE_PHASES else Recorder(),
-                **engine_kw)
+                periods=periods, **engine_kw)
         if phase in TIMED_SERVE_PHASES:
             for k, v in res["launches"].items():
                 total[row_key(k, res["kv_dtype"])] += v
@@ -5612,15 +6026,18 @@ def main() -> int:
                     f"{bf16['run_peak_bytes']}), max_memory_allocated "
                     f"{res['max_memory_allocated']} (bf16 serve "
                     f"{bf16['max_memory_allocated']})")
-        if phase in SANITIZED_OF and SANITIZED_OF[phase] in results:
+        if phase in SANITIZED_OF:
             # the sanitizer only observes: the same streams and counters
-            # as the unsanitized run of this process
-            plain = results[SANITIZED_OF[phase]]
+            # as an unsanitized run of the same depth in this process
+            twin_kw = {k: v for k, v in engine_kw.items() if k != "sanitize"}
+            plain = serve(policy, Recorder(), periods=periods, **twin_kw)
             assert res["streams"] == plain["streams"], phase
             assert res["counters"] == plain["counters"], phase
-            log(f"  no findings; streams and counters equal to the "
-                f"{SANITIZED_OF[phase]} run's")
-        if phase in ("unfused", "spec", "gather") and "serve" in results:
+            log(f"  no findings; streams and counters equal to an "
+                f"unsanitized {SANITIZED_OF[phase]} run's at "
+                f"{plain['model']}")
+        if phase in ("unfused", "spec", "gather") and "serve" in results \
+                and periods is None:
             # bf16 at full width with random weights: the paths can part
             # at a near-tie of the argmax, so the share is reported, and
             # correctness rests on decode_parity and the kernel checks
@@ -5635,7 +6052,7 @@ def main() -> int:
     for phase, (model, policy, engine_kw) in WIDE_SERVE_PHASES.items():
         if phase not in phases:
             continue
-        periods = WIDE_SERVE_PERIODS.get(model)
+        periods = WIDE_CUT_PERIODS.get(phase, WIDE_SERVE_PERIODS.get(model))
         log(f"[{phase}] {model} full width, "
             f"{layers(model, periods)} layers, bf16, policy {policy}"
             f"{''.join(f', {k}={v}' for k, v in engine_kw.items())}")
@@ -5673,14 +6090,15 @@ def main() -> int:
     for phase, (policy, engine_kw) in MOE_SERVE_PHASES.items():
         if phase not in phases:
             continue
+        periods = MOE_SERVE_PERIODS if phase == "moe_serve" \
+            else MOE_UNFUSED_PERIODS
         log(f"[{phase}] {MOE_MODEL} full width, "
-            f"{layers(MOE_MODEL, MOE_SERVE_PERIODS)} layers, bf16, policy "
+            f"{layers(MOE_MODEL, periods)} layers, bf16, policy "
             f"{policy}"
             f"{''.join(f', {k}={v}' for k, v in engine_kw.items())}")
         with moe_rec if phase == "moe_serve" else contextlib.nullcontext():
             res = moe_runs[phase] = serve(policy, model=MOE_MODEL,
-                                          periods=MOE_SERVE_PERIODS,
-                                          **engine_kw)
+                                          periods=periods, **engine_kw)
         log(f"  launches (not in the kernels line): "
             f"{json.dumps(res['launches'])}")
         log(f"  {smi}: {res['tokens_per_s']:.2f} tok/s over "
@@ -5708,13 +6126,14 @@ def main() -> int:
     for phase, (policy, engine_kw) in MLA_SERVE_PHASES.items():
         if phase not in phases:
             continue
-        log(f"[{phase}] {MLA_MODEL} full width, {MLA_SERVE_PERIODS[0]} dense"
-            f" + {MLA_SERVE_PERIODS[1]} MoE layers, bf16, policy {policy}"
+        periods = MLA_SERVE_PERIODS if phase == "mla_serve" \
+            else MLA_UNFUSED_PERIODS
+        log(f"[{phase}] {MLA_MODEL} full width, {periods[0]} dense"
+            f" + {periods[1]} MoE layers, bf16, policy {policy}"
             f"{''.join(f', {k}={v}' for k, v in engine_kw.items())}")
         with mla_rec if phase == "mla_serve" else contextlib.nullcontext():
             res = mla_runs[phase] = serve(policy, model=MLA_MODEL,
-                                          periods=MLA_SERVE_PERIODS,
-                                          **engine_kw)
+                                          periods=periods, **engine_kw)
         log(f"  launches (not in the kernels line): "
             f"{json.dumps(res['launches'])}")
         log(f"  {smi}: {res['tokens_per_s']:.2f} tok/s over "
@@ -5783,6 +6202,29 @@ def main() -> int:
         res = train(flash_rec, profile="profile" in phases)
         for k in ("flash_attention", "flash_attention_bwd"):
             total[k] += res["launches"][k]
+    # the SSM models' train runs: the first GLA call of each, with the
+    # gradients that reached it, gives the timing phase's rows 8b and 8zb
+    ssm_train_recs = {phase: GLARecorder(grad=True) for phase in SSM_TRAIN}
+    ssm_train_rows = {"xlstm_train": "gla_scan_bwd",
+                      "zamba2_train": "gla_scan_bwd_zamba2"}
+    for phase, (model, batch, seq, warm, timed) in SSM_TRAIN.items():
+        if phase not in phases:
+            continue
+        log(f"[{phase}] {model} full width and depth "
+            f"({layers(model)} layers), bf16 params, f32 AdamW, remat, "
+            f"SyntheticLM B {batch} x T {seq}, {warm} warm-up and {timed} "
+            "timed steps")
+        res = train(ssm_train_recs[phase], model=model, batch=batch,
+                    seq=seq, warm=warm, timed=timed,
+                    profile="profile" in phases,
+                    profile_seq=PROFILE_SEQ.get(phase))
+        total[ssm_train_rows[phase]] = res["launches"]["gla_scan_bwd"]
+        log(f"  (its gla_scan_bwd launches are row {ssm_train_rows[phase]}"
+            f"'s in the kernels line; the rest are logged apart: "
+            f"{json.dumps({k: v for k, v in res['launches'].items() if v})})")
+        log(f"  {smi}: {res['step_ms_mean']:.1f} ms a step, "
+            f"{res['tokens_per_s']:.1f} tokens/s, max_memory_allocated "
+            f"{res['max_memory_allocated']} B")
     # the first call of each serve-step run that a timing row takes
     serve_recs = {"ssm_serve": GLARecorder(), "wide_dense": FlashRecorder(),
                   "zamba2_serve": GLARecorder(),
@@ -5879,6 +6321,12 @@ def main() -> int:
             "prefill (row 8z)")
         rows += time_gla(serve_recs["zamba2_serve"], worst, total,
                          name="gla_scan_zamba2")
+    for phase, row_name in ssm_train_rows.items():
+        if "timing" in phases and phase in phases:
+            log(f"[timing] the gla backward on the first GLA call of "
+                f"{phase} (row {row_name})")
+            rows += time_gla_bwd(ssm_train_recs[phase], worst, total,
+                                 row_name)
     if "timing" in phases and "pixtral_serve" in phases:
         log("[timing] flash attention on the first attention call of the "
             "pixtral prefill (row 7p)")
@@ -5896,7 +6344,7 @@ def main() -> int:
             "train", "ssm_serve", "gemma2_serve", "gemma2_unfused",
             "gemma2_quant", "wide_dense", "moe_serve", "mla_serve",
             "mla_parity", "zamba2_serve", "pixtral_serve",
-            "musicgen_serve"} <= phases:
+            "musicgen_serve", *SSM_TRAIN} <= phases:
         assert sorted(r["name"] for r in rows) == sorted(ROWS), rows
         # every kernel of the main path launched; page_requant is the
         # reference's standalone op, which the fused append replaced there

@@ -61,6 +61,38 @@
 //     state), scales its rows by exp(lb_i), adds P V over the j <= i tiles
 //     (a warp stops at its last row) and writes y. The i tiles of one dv
 //     tile are neighbouring blocks, so S_n, V and P are read from L2.
+//
+// The backward (gla_scan_bwd_launch) replaces no Pallas kernel: the TPU
+// kernel is forward only, and the reference's gradient is XLA's autodiff of
+// src/repro/models/ssm.py:32 chunked_gla. It is the same chunk form run
+// right to left (the formulas above the backward's kernels), on the same
+// tiles, loaders, products and operand split (NT by v's type), the float32
+// gradients dY and dS split as P and S are. Nothing is saved from the
+// forward but its inputs (a model under remat runs every forward twice);
+// nine kernels on the stream:
+//  a. gla_lb_kernel and gla_states_kernel again: lb and the chunk-entry
+//     states S_n (and the final state, for d la) into scratch;
+//  b. gla_dstates_kernel: a block per (dv tile, dk tile, row) carries dS in
+//     registers from the final state's gradient, chunks right to left,
+//     writing the dS that leaves each chunk as its terms, then dS =
+//     exp(lb_last) dS + (Q exp(lb))^T dY; what is left is the initial
+//     state's gradient;
+//  c. gla_scores_kernel twice: P = D * (Q K^T), and dA = D * (dY V^T) (the
+//     same kernel over dy and v, reduced over dv);
+//  d. gla_grad_kernel, the output kernel's shape three times: dQ = exp(lb_i)
+//     dY S_n^T + dA K over j <= i; dK = exp(lb_last - lb_j) V dS^T + dA^T Q
+//     and dV = exp(lb_last - lb_j) K dS + P^T dY over i >= j (the scores
+//     read transposed). Each is written in its operand's type, densely per
+//     head (a stride-0 q or k gets one gradient per head; autograd sums
+//     them). dQ and dK also leave q . dq and k . dk by 64-column slice;
+//  e. gla_dla_kernel: d la is the reverse cumulative sum over T of
+//     q . dq - k . dk, plus <dS_T, S_T> at the last step (the decay's
+//     gradient without a c x c matrix of its own), in float32.
+// Bound: operations, as the forward's: ten products a chunk against its
+// four (the states and P among them again); chip_smoke.py's gla_bwd_tc_ops
+// counts the split's bf16 products. A simple form first: every product is
+// its own pass over its operands, and P, dA, S_n and dS go through device
+// memory as their terms.
 #include <type_traits>
 
 #include "mma.cuh"
@@ -637,6 +669,403 @@ __global__ void __launch_bounds__(kThreads) gla_outputs_kernel(Params p) {
     }
 }
 
+// ===========================================================================
+// The backward (no Pallas kernel: the reference differentiates chunked_gla
+// through XLA). Per chunk, with S_n the state entering it, dS the gradient
+// of the state leaving it and D_ij = exp(lb_i - lb_j) for j <= i:
+//   dA = D * (dY V^T),  P = D * (Q K^T)
+//   dQ = dA K + exp(lb_i) dY S_n^T
+//   dK = dA^T Q + exp(lb_last - lb_j) V dS^T
+//   dV = P^T dY + exp(lb_last - lb_j) K dS
+//   dS <- exp(lb_last) dS + (Q exp(lb_i))^T dY
+// and d la is the reverse cumulative sum over T of q_t . dq_t - k_t . dk_t
+// (plus <dS_T, S_T> at the last step): the decay's gradient needs no c x c
+// matrix of its own.
+// ===========================================================================
+
+// an operand read in place: its base and (B, H, T) strides in elements
+struct Operand {
+  const void* p;
+  long long s[3];
+};
+
+template <typename T>
+__device__ __forceinline__ const T* rows_of(const Operand& o, int r, int H) {
+  return static_cast<const T*>(o.p) + (r / H) * o.s[0] + (r % H) * o.s[1];
+}
+
+struct Grad {
+  Operand q, k, v, dy;   // dy in v's type
+  const float* ds;       // (R, dk, dv): the final state's gradient, or null
+  const float* s;        // (R, dk, dv): the final state, recomputed
+  const float* lb;       // (R, n, cpad)
+  const bf16* st;        // (NT, R, n, dk, dvp): the chunk-entry states' terms
+  bf16* dst;             // (NT, R, n, dk, dvp): dS leaving each chunk, terms
+  const bf16* pp;        // (NT, R, n, cpad, cpad): P's terms
+  const bf16* pa;        // (NT, R, n, cpad, cpad): dA's terms
+  void* gq;              // (R, T, dkp) in q's type: dQ
+  void* gk;              // (R, T, dkp) in k's type: dK
+  void* gv;              // (R, T, dvp) in v's type: dV
+  float* ds0;            // (R, dk, dv): the initial state's gradient, or null
+  float* part;           // (2, ndk, R, T): q . dq and k . dk by 64-wide slice
+  float* dla;            // (R, T)
+  int R, H, T, dk, dv, c, n, cpad, dvp, dkp;
+  int s0;                // whether the forward started from a given state
+};
+
+// ---------------------------------------------------------------------------
+// b. dS, right to left: block per (dv tile, dk tile, row), its 64 x 64 slice
+//    of dS in registers, as gla_states_kernel carries S
+// ---------------------------------------------------------------------------
+template <typename TQ, typename TV>
+struct DStates {
+  static constexpr int NT = kTermsOf<TV>;
+  using LQ = Split<TQ, true, NT, kDepth, kTile, kPN>;   // Q exp(lb), i x d
+  using LY = Plain<TV, NT, kDepth, kTile, kPN>;         // dY, i x v
+  static constexpr int kA = 2 * LQ::kPlanes * kDeep;
+  static constexpr int kB = 2 * LY::kPlanes * kDeep;
+  static constexpr size_t kSmem = 2 * (kA + kB) + kMaxChunk * sizeof(float);
+};
+
+template <typename TQ, typename TV>
+__global__ void __launch_bounds__(kThreads) gla_dstates_kernel(Grad g) {
+  using K = DStates<TQ, TV>;
+  constexpr int NT = K::NT;
+  using LQ = typename K::LQ;
+  using LY = typename K::LY;
+  bf16* sa = reinterpret_cast<bf16*>(gla_smem);
+  bf16* sb = sa + K::kA;
+  float* eb = reinterpret_cast<float*>(sb + K::kB);   // exp(lb_i)
+  const int v0 = blockIdx.x * kTile, d0 = blockIdx.y * kTile, r = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int m0 = warp * 16, gr = lane / 4, cc = 2 * (lane % 4);
+  const int rows_d = min(kTile, g.dk - d0);
+  const int n16 = (min(kTile, g.dv - v0) + 15) / 16;
+  const TQ* qr = rows_of<TQ>(g.q, r, g.H);
+  const TV* yr = rows_of<TV>(g.dy, r, g.H);
+  const long long sq = g.q.s[2], sy = g.dy.s[2];
+
+  // the warp's 16 x 64 slice of dS, from the final state's gradient or 0
+  float s[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int d = d0 + m0 + gr + 8 * (x / 2), v = v0 + 8 * n + cc + x % 2;
+      s[n][x] = g.ds != nullptr && d < g.dk && v < g.dv
+                    ? g.ds[((long long)r * g.dk + d) * g.dv + v]
+                    : 0.f;
+    }
+  const long long plane = (long long)g.R * g.n * g.dk * g.dvp;
+  LQ lq{reinterpret_cast<const bf16*>(qr), 0};
+  LY ly{reinterpret_cast<const bf16*>(yr), 0};
+  for (int chunk = g.n - 1; chunk >= 0; --chunk) {
+    const int t0 = chunk * g.c;
+    const int live = min(g.c, g.T - t0);
+    const long long rc = (long long)r * g.n + chunk;
+    // the dS leaving the chunk, as its bf16 terms (columns up to dvp)
+    bf16* out = g.dst + rc * g.dk * g.dvp;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int d = d0 + m0 + gr + 8 * h, v = v0 + 8 * n + cc;
+        if (d >= g.dk || v >= g.dvp) continue;
+        float a[NT], b[NT];
+        split(s[n][2 * h], a);
+        split(s[n][2 * h + 1], b);
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+          *reinterpret_cast<uint32_t*>(out + t * plane +
+                                       (long long)d * g.dvp + v) =
+              pack_bf16(a[t], b[t]);
+      }
+    const float* lbr = g.lb + rc * g.cpad;
+    for (int j = threadIdx.x; j < kMaxChunk; j += kThreads)
+      eb[j] = j < g.c ? expf(lbr[j]) : 0.f;
+    const float decay = expf(lbr[g.c - 1]);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) s[n][x] *= decay;
+    __syncthreads();  // eb is written
+    // dS += (Q * exp(lb))^T dY over the chunk's live steps
+    const TQ* qc = qr + t0 * sq + d0;
+    const TV* yc = yr + t0 * sy + v0;
+    sweep<NT, LQ, LY, true, false>(
+        s, sa, sb, (live + kDepth - 1) / kDepth, m0, n16,
+        m0 < rows_d ? 1 << 30 : -1,
+        [&](int st, bf16* a, bf16* b) {
+          const int j = st * kDepth;
+          lq.issue(a, qc + j * sq, sq, live - j, g.dk - d0);
+          ly.issue(b, yc + j * sy, sy, live - j, g.dv - v0);
+        },
+        [&](int st, bf16* a, bf16* b) {
+          lq.commit(a, eb + st * kDepth);
+          ly.commit(b, nullptr);
+        });
+  }
+  if (g.ds0 == nullptr) return;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int d = d0 + m0 + gr + 8 * (x / 2), v = v0 + 8 * n + cc + x % 2;
+      if (d < g.dk && v < g.dv)
+        g.ds0[((long long)r * g.dk + d) * g.dv + v] = s[n][x];
+    }
+}
+
+// ---------------------------------------------------------------------------
+// d. the gradients: block per (64-row tile of the chunk, 64-column tile of
+//    the output, chunk, row), in the shape of gla_outputs_kernel:
+//      MODE 0, dQ (i x d) = exp(lb_i) (dY S_n^T) + dA K,        j <= i
+//      MODE 1, dK (j x d) = exp(lb_last - lb_j) (V dS^T) + dA^T Q, i >= j
+//      MODE 2, dV (j x v) = exp(lb_last - lb_j) (K dS) + P^T dY,   i >= j
+//    the state's product first (skipped while that state is zero), its rows
+//    scaled, then the scores' product. dQ and dK also write q . dq and
+//    k . dk over their 64 columns, for d la.
+// ---------------------------------------------------------------------------
+template <int MODE, typename TQ, typename TK, typename TV>
+struct GradOut {
+  static constexpr int NT = kTermsOf<TV>;
+  // X: the state product's A operand; Y: the scores product's B operand;
+  // TO: the output's (and its operand's) type
+  using TX = typename std::conditional<MODE == 2, TK, TV>::type;
+  using TY = typename std::conditional<
+      MODE == 0, TK, typename std::conditional<MODE == 1, TQ, TV>::type>::type;
+  using TO = typename std::conditional<
+      MODE == 0, TQ, typename std::conditional<MODE == 1, TK, TV>::type>::type;
+  static constexpr bool kStateT = MODE != 2;   // the state's terms as S^T
+  static constexpr bool kScoresT = MODE != 0;  // the scores as M^T
+  using LX = Plain<TX, NT, kTile, kDepth, kPM>;
+  using LS = typename std::conditional<kStateT, Copy<NT, kTile, kDepth, kPM>,
+                                       Copy<NT, kDepth, kTile, kPN>>::type;
+  using LM = typename std::conditional<kScoresT, Copy<NT, kDepth, kTile, kPN>,
+                                       Copy<NT, kTile, kDepth, kPM>>::type;
+  using LY = Plain<TY, NT, kDepth, kTile, kPN>;
+  static_assert(kWide >= kDeep, "a 64 x 32 plane holds a 32 x 64 one");
+  static constexpr int kA = 2 * NT * kWide;   // the larger of X and M
+  static constexpr int kB = 2 * NT * kWide;   // the larger of S and Y
+  static constexpr size_t kSmem = 2 * (kA + kB) + kTile * sizeof(float);
+};
+
+template <int MODE, typename TQ, typename TK, typename TV>
+__global__ void __launch_bounds__(kThreads) gla_grad_kernel(Grad g) {
+  using K = GradOut<MODE, TQ, TK, TV>;
+  constexpr int NT = K::NT;
+  using TX = typename K::TX;
+  using TY = typename K::TY;
+  using TO = typename K::TO;
+  using LX = typename K::LX;
+  using LS = typename K::LS;
+  using LM = typename K::LM;
+  using LY = typename K::LY;
+  bf16* sa = reinterpret_cast<bf16*>(gla_smem);
+  bf16* sb = sa + K::kA;
+  float* eb = reinterpret_cast<float*>(sb + K::kB);   // the rows' scales
+  const int W = MODE == 2 ? g.dv : g.dk;              // output columns
+  const int KS = MODE == 2 ? g.dk : g.dv;             // the state's depth
+  const int nt = g.cpad / kTile;
+  const int ti = blockIdx.x % nt, wt = blockIdx.x / nt;
+  const int chunk = blockIdx.y, r = blockIdx.z;
+  const int t0 = chunk * g.c;
+  const int live = min(g.c, g.T - t0);
+  const int i0 = ti * kTile, w0 = wt * kTile;
+  if (i0 >= live) return;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int m0 = warp * 16, gr = lane / 4, cc = 2 * (lane % 4);
+  const int rows = min(kTile, live - i0);
+  const int n16 = (min(kTile, W - w0) + 15) / 16;
+  const long long rc = (long long)r * g.n + chunk;
+  const float* lbr = g.lb + rc * g.cpad;
+  const float last = lbr[g.c - 1];
+  for (int x = threadIdx.x; x < kTile; x += kThreads)
+    eb[x] = i0 + x < live
+                ? expf(MODE == 0 ? lbr[i0 + x] : last - lbr[i0 + x])
+                : 0.f;
+  const Operand& xo = MODE == 0 ? g.dy : MODE == 1 ? g.v : g.k;
+  const Operand& yo = MODE == 0 ? g.k : MODE == 1 ? g.q : g.dy;
+  const TX* xr = rows_of<TX>(xo, r, g.H) + (t0 + i0) * xo.s[2];
+  const TY* yr = rows_of<TY>(yo, r, g.H) + t0 * yo.s[2] + w0;
+  float acc[8][4];
+  zero_acc(acc);
+
+  const bool zero_state = MODE == 0 ? chunk == 0 && !g.s0
+                                    : chunk == g.n - 1 && g.ds == nullptr;
+  if (!zero_state) {
+    const long long plane = (long long)g.R * g.n * g.dk * g.dvp;
+    const bf16* sn = (MODE == 0 ? g.st : g.dst) + rc * g.dk * g.dvp;
+    LX lx{reinterpret_cast<const bf16*>(xr), 0};
+    LS ls{sn, plane};
+    sweep<NT, LX, LS, false, K::kStateT>(
+        acc, sa, sb, (KS + kDepth - 1) / kDepth, m0, n16,
+        m0 < rows ? 1 << 30 : -1,
+        [&](int s, bf16* a, bf16* b) {
+          const int kk = s * kDepth;
+          lx.issue(a, xr + kk, xo.s[2], rows, KS - kk);
+          if constexpr (K::kStateT)   // S^T: rows d (the output's), cols v
+            ls.issue(b, sn + (long long)w0 * g.dvp + kk, g.dvp, g.dk - w0,
+                     g.dvp - kk);
+          else                        // S: rows d (the depth), cols v
+            ls.issue(b, sn + (long long)kk * g.dvp + w0, g.dvp, g.dk - kk,
+                     g.dvp - w0);
+        },
+        [&](int, bf16* a, bf16* b) {
+          lx.commit(a, nullptr);
+          ls.commit(b, nullptr);
+        });
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) acc[n][x] *= eb[m0 + gr + 8 * (x / 2)];
+  }
+
+  const long long mplane = (long long)g.R * g.n * g.cpad * g.cpad;
+  const bf16* mr = (MODE == 2 ? g.pp : g.pa) + rc * g.cpad * g.cpad;
+  LM lm{mr, mplane};
+  LY ly{reinterpret_cast<const bf16*>(yr), 0};
+  const long long sy = yo.s[2];
+  if constexpr (!K::kScoresT) {
+    // + dA K over j < min(i0 + 64, live); a warp takes j up to its last row
+    const int jend = min(i0 + kTile, live);
+    sweep<NT, LM, LY, false, false>(
+        acc, sa, sb, (jend + kDepth - 1) / kDepth, m0, n16,
+        m0 < rows ? min(i0 + m0 + 15, live - 1) : -1,
+        [&](int s, bf16* a, bf16* b) {
+          const int j = s * kDepth;
+          lm.issue(a, mr + (long long)i0 * g.cpad + j, g.cpad, kTile,
+                   g.cpad - j);
+          ly.issue(b, yr + j * sy, sy, live - j, W - w0);
+        },
+        [&](int, bf16* a, bf16* b) {
+          lm.commit(a, nullptr);
+          ly.commit(b, nullptr);
+        });
+  } else {
+    // + M^T Y over i from i0 (tiles on or below the diagonal) to live
+    sweep<NT, LM, LY, true, false>(
+        acc, sa, sb, (live - i0 + kDepth - 1) / kDepth, m0, n16,
+        m0 < rows ? 1 << 30 : -1,
+        [&](int s, bf16* a, bf16* b) {
+          const int i = i0 + s * kDepth;
+          lm.issue(a, mr + (long long)i * g.cpad + i0, g.cpad, live - i,
+                   kTile);
+          ly.issue(b, yr + i * sy, sy, live - i, W - w0);
+        },
+        [&](int, bf16* a, bf16* b) {
+          lm.commit(a, nullptr);
+          ly.commit(b, nullptr);
+        });
+  }
+
+  // the output in its operand's type, two neighbouring columns a store
+  // where both are live
+  const int pitch = MODE == 2 ? g.dvp : g.dkp;
+  TO* out = static_cast<TO*>(MODE == 0 ? g.gq : MODE == 1 ? g.gk : g.gv) +
+            ((long long)r * g.T + t0 + i0) * pitch;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int il = m0 + gr + 8 * h, w = w0 + 8 * n + cc;
+      if (il >= rows || w >= W) continue;
+      TO* dst = out + (long long)il * pitch + w;
+      const float a = acc[n][2 * h], b = acc[n][2 * h + 1];
+      if (w + 1 >= W) {
+        *dst = from_float<TO>(a);
+      } else if constexpr (std::is_same<TO, float>::value) {
+        *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+      } else {
+        *reinterpret_cast<uint32_t*>(dst) = pack_bf16(a, b);
+      }
+    }
+  if constexpr (MODE != 2) {
+    // q . dq (k . dk) over the tile's columns, a quad of lanes a row; the
+    // float32 products, before the output's rounding
+    const TO* src = rows_of<TO>(MODE == 0 ? g.q : g.k, r, g.H);
+    const long long ss = (MODE == 0 ? g.q : g.k).s[2];
+    float* part = g.part + ((long long)MODE * ((g.dk + kTile - 1) / kTile) +
+                            wt) * g.R * g.T + (long long)r * g.T + t0 + i0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int il = m0 + gr + 8 * h;
+      float sum = 0.f;
+      if (il < rows) {
+        const TO* row = src + (t0 + i0 + il) * ss;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            const int w = w0 + 8 * n + cc + x;
+            if (w < W) sum += acc[n][2 * h + x] * to_float(row[w]);
+          }
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      if (lane % 4 == 0 && il < rows) part[il] = sum;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// e. d la: a block per row. delta_t = q_t . dq_t - k_t . dk_t (the slices'
+//    sums in order), plus <dS_T, S_T> at the last step; d la_t is the sum of
+//    delta over steps t and later, in float32: each thread sums a segment
+//    of steps, the segments' sums are scanned right to left, then each
+//    thread walks its segment back
+// ---------------------------------------------------------------------------
+constexpr int kScan = 256;
+
+__global__ void __launch_bounds__(kScan) gla_dla_kernel(Grad g) {
+  __shared__ float red[kScan];
+  const int r = blockIdx.x, tid = threadIdx.x;
+  float dot = 0.f;
+  if (g.ds != nullptr) {
+    const long long base = (long long)r * g.dk * g.dv;
+    for (int e = tid; e < g.dk * g.dv; e += kScan)
+      dot += g.ds[base + e] * g.s[base + e];
+  }
+  red[tid] = dot;
+  __syncthreads();
+  for (int w = kScan / 2; w > 0; w /= 2) {
+    if (tid < w) red[tid] += red[tid + w];
+    __syncthreads();
+  }
+  dot = red[0];
+  __syncthreads();
+  const int ndk = (g.dk + kTile - 1) / kTile;
+  const long long plane = (long long)g.R * g.T;
+  const float* p = g.part + (long long)r * g.T;
+  auto delta = [&](int t) {
+    float x = 0.f;
+    for (int s = 0; s < ndk; ++s)
+      x += p[s * plane + t] - p[(ndk + s) * plane + t];
+    return t == g.T - 1 ? x + dot : x;
+  };
+  const int seg = (g.T + kScan - 1) / kScan;
+  const int lo = min(g.T, tid * seg), hi = min(g.T, lo + seg);
+  float sum = 0.f;
+  for (int t = lo; t < hi; ++t) sum += delta(t);
+  red[tid] = sum;
+  __syncthreads();
+  if (tid == 0) {   // each segment's sum becomes the sum of those after it
+    float acc = 0.f;
+    for (int s = kScan - 1; s >= 0; --s) {
+      const float x = red[s];
+      red[s] = acc;
+      acc += x;
+    }
+  }
+  __syncthreads();
+  float acc = red[tid];
+  float* out = g.dla + (long long)r * g.T;
+  for (int t = hi - 1; t >= lo; --t) {
+    acc += delta(t);
+    out[t] = acc;
+  }
+}
+
 // the dynamic shared memory of a kernel, allowed past 48 KB where needed
 template <typename F>
 int allow(F* kernel, size_t bytes) {
@@ -679,6 +1108,62 @@ int launch_kv(const Params& p, int tk, int tv, cudaStream_t s) {
   return tk ? launch_v<TQ, bf16>(p, tv, s) : launch_v<TQ, float>(p, tv, s);
 }
 
+// the backward's kernels on the stream, each launch checked: a: lb and the
+// chunk-entry states again (nothing but the forward's inputs is saved); b:
+// dS right to left; c: P and dA; d: dQ, dK, dV; e: d la
+template <typename TQ, typename TK, typename TV>
+int launch_bwd(const Params& p, const Params& pa, const Grad& g,
+               cudaStream_t s) {
+  constexpr int NT = kTermsOf<TV>;
+  using KS = Scores<TQ, TK, NT>;
+  using KA = Scores<TV, TV, NT>;
+  using KU = States<TK, TV>;
+  using KD = DStates<TQ, TV>;
+  using G0 = GradOut<0, TQ, TK, TV>;
+  using G1 = GradOut<1, TQ, TK, TV>;
+  using G2 = GradOut<2, TQ, TK, TV>;
+  const int nt = p.cpad / kTile;
+  const int ndk = (p.dk + kTile - 1) / kTile, ndv = (p.dv + kTile - 1) / kTile;
+  int err = allow(gla_scores_kernel<TQ, TK, NT>, KS::kSmem);
+  if (!err) err = allow(gla_scores_kernel<TV, TV, NT>, KA::kSmem);
+  if (!err) err = allow(gla_states_kernel<TK, TV>, KU::kSmem);
+  if (!err) err = allow(gla_dstates_kernel<TQ, TV>, KD::kSmem);
+  if (!err) err = allow(gla_grad_kernel<0, TQ, TK, TV>, G0::kSmem);
+  if (!err) err = allow(gla_grad_kernel<1, TQ, TK, TV>, G1::kSmem);
+  if (!err) err = allow(gla_grad_kernel<2, TQ, TK, TV>, G2::kSmem);
+  if (err) return err;
+#define GLA_CHECK_LAUNCH()                                   \
+  if ((err = static_cast<int>(cudaGetLastError())) != 0) return err
+  gla_lb_kernel<<<dim3(p.n, p.R), 32, 0, s>>>(p);
+  GLA_CHECK_LAUNCH();
+  gla_states_kernel<TK, TV>
+      <<<dim3(ndv, ndk, p.R), kThreads, KU::kSmem, s>>>(p);
+  GLA_CHECK_LAUNCH();
+  gla_dstates_kernel<TQ, TV>
+      <<<dim3(ndv, ndk, p.R), kThreads, KD::kSmem, s>>>(g);
+  GLA_CHECK_LAUNCH();
+  gla_scores_kernel<TQ, TK, NT>
+      <<<dim3(nt * nt, p.n, p.R), kThreads, KS::kSmem, s>>>(p);
+  GLA_CHECK_LAUNCH();
+  gla_scores_kernel<TV, TV, NT>
+      <<<dim3(nt * nt, p.n, p.R), kThreads, KA::kSmem, s>>>(pa);
+  GLA_CHECK_LAUNCH();
+  gla_grad_kernel<0, TQ, TK, TV>
+      <<<dim3(nt * ndk, p.n, p.R), kThreads, G0::kSmem, s>>>(g);
+  GLA_CHECK_LAUNCH();
+  gla_grad_kernel<1, TQ, TK, TV>
+      <<<dim3(nt * ndk, p.n, p.R), kThreads, G1::kSmem, s>>>(g);
+  GLA_CHECK_LAUNCH();
+  gla_grad_kernel<2, TQ, TK, TV>
+      <<<dim3(nt * ndv, p.n, p.R), kThreads, G2::kSmem, s>>>(g);
+  GLA_CHECK_LAUNCH();
+  gla_dla_kernel<<<p.R, kScan, 0, s>>>(g);
+  GLA_CHECK_LAUNCH();
+#undef GLA_CHECK_LAUNCH
+  return 0;
+}
+
+
 }  // namespace
 
 // q, k (B, H, T, dk) and v (B, H, T, dv), each float32 or bfloat16 (codes
@@ -713,4 +1198,60 @@ extern "C" int gla_scan_launch(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return q_t ? launch_kv<bf16>(p, k_t, v_t, st)
              : launch_kv<float>(p, k_t, v_t, st);
+}
+
+// The backward. q, k, v as gla_scan_launch takes them; dy (B, H, T, dv) in
+// v's type, read in place through its (B, H, T) strides; ds (B * H, dk, dv)
+// float32, the final state's gradient, or null (zero). Writes gq, gk
+// (B * H, T, dkp) in q's and k's types and gv (B * H, T, dvp) in v's (their
+// first dk, dv columns), dla (B * H, T) float32 and, where not null, ds0
+// (B * H, dk, dv) float32, the initial state's gradient. Scratch: s
+// (B * H, dk, dv) float32, lb as the forward's, st and dst (terms, B * H,
+// n, dk, dvp) and pp and pa (terms, B * H, n, cpad, cpad) bfloat16, part
+// (2, ceil(dk / 64), B * H, T) float32. The operand types the models hand
+// it: all float32, all bfloat16, the mLSTM's (bf16 q and v, float32 k) and
+// mamba2's (bf16 q and k, float32 v); others are refused (the builds of
+// the other four of the forward's eight would only lengthen the compile).
+// Nine kernels on the stream. Returns the cudaError_t of the first launch
+// that fails, else 0.
+extern "C" int gla_scan_bwd_launch(
+    const void* q, const void* k, const void* v, const void* dy,
+    const float* la, const float* s0, const float* ds, float* s, float* lb,
+    void* st, void* dst, void* pp, void* pa, void* gq, void* gk, void* gv,
+    float* ds0, float* part, float* dla, long long q_sb, long long q_sh,
+    long long q_st, long long k_sb, long long k_sh, long long k_st,
+    long long v_sb, long long v_sh, long long v_st, long long y_sb,
+    long long y_sh, long long y_st, int B, int H, int T, int dk, int dv,
+    int c, int dvp, int dkp, int q_t, int k_t, int v_t, int terms,
+    void* stream) {
+  const int R = B * H;
+  if (R == 0 || T == 0 || dv == 0) return 0;
+  const int n = (T + c - 1) / c;
+  if (c < 1 || c > kMaxChunk || dk < 1 || dvp < dv || dvp % 8 != 0 ||
+      dkp < dk || dkp % 8 != 0 || R > 65535 || n > 65535 ||
+      (q_t | k_t | v_t) & ~1 ||
+      terms != (v_t ? kTermsOf<bf16> : kTermsOf<float>))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int cpad = (c + kTile - 1) / kTile * kTile;
+  Params p{q, k, v, la, s0, nullptr, s, lb, static_cast<bf16*>(pp),
+           static_cast<bf16*>(st), {q_sb, q_sh, q_st}, {k_sb, k_sh, k_st},
+           {v_sb, v_sh, v_st}, R, H, T, dk, dv, c, n, cpad, dvp};
+  // dA's scores: P's kernel over (dy, v), reduced over dv
+  Params pA{dy, v, v, la, s0, nullptr, s, lb, static_cast<bf16*>(pa),
+            static_cast<bf16*>(st), {y_sb, y_sh, y_st}, {v_sb, v_sh, v_st},
+            {v_sb, v_sh, v_st}, R, H, T, dv, dv, c, n, cpad, dvp};
+  Grad g{{q, {q_sb, q_sh, q_st}}, {k, {k_sb, k_sh, k_st}},
+         {v, {v_sb, v_sh, v_st}}, {dy, {y_sb, y_sh, y_st}}, ds, s, lb,
+         static_cast<const bf16*>(st), static_cast<bf16*>(dst),
+         static_cast<const bf16*>(pp), static_cast<const bf16*>(pa), gq, gk,
+         gv, ds0, part, dla, R, H, T, dk, dv, c, n, cpad, dvp, dkp,
+         s0 != nullptr};
+  cudaStream_t sm = static_cast<cudaStream_t>(stream);
+  switch (q_t << 2 | k_t << 1 | v_t) {
+    case 0: return launch_bwd<float, float, float>(p, pA, g, sm);
+    case 7: return launch_bwd<bf16, bf16, bf16>(p, pA, g, sm);
+    case 5: return launch_bwd<bf16, float, bf16>(p, pA, g, sm);
+    case 6: return launch_bwd<bf16, bf16, float>(p, pA, g, sm);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

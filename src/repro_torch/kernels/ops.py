@@ -46,8 +46,8 @@ def gla_scan_op(q, k, v, log_a, *, chunk=128, initial_state=None):
     (B, H, T, dk), v (B, H, T, dv), log_a (B, H, T), optional initial
     state (B, H, dk, dv). Returns (y like v, final state float32). The
     plain version (differentiable by autograd) for CPU tensors; the
-    kernel for CUDA tensors, whose backward raises: there is no gradient
-    kernel yet."""
+    kernel for CUDA tensors, whose backward is the gradient kernels
+    (``gla_scan_bwd``)."""
     if _on_cpu(q):
         return chunked_gla_ref(q, k, v, log_a, chunk, initial_state)
     return gla_scan(q, k, v, log_a, chunk=chunk, initial_state=initial_state)

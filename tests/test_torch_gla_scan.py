@@ -23,13 +23,22 @@
 * Operands read in place: the mLSTM's (transposed q and k, v padded by
   ``aligned_empty``) and Mamba2's broadcast q and k need no copy; a row
   that is not 16-byte aligned is copied in its own dtype.
+* The backward: ``chunked_gla_bwd_ref`` (the plain backward written out)
+  against ``jax.vjp`` of the reference's ``chunked_gla`` over the grid, T
+  off the chunk, with and without an initial state and a final-state
+  gradient, and the tiny mLSTM's and mamba2's calls; at log_a's clamp,
+  where the reference's own gradient is NaN, against float64 autograd of
+  ``chunked_gla_ref``; the d log_a identity against autograd; and
+  ``_emulate_bwd``, the backward kernels' order and operand split in plain
+  torch, at the card's tolerances (one term misses them).
 * The dispatch: ``ops.gla_scan_op`` is the plain version on the CPU, and
-  differentiable there; the launcher refuses a CPU tensor.
+  differentiable there; the launchers refuse a CPU tensor.
 * On a CUDA card (``-m gpu``), the kernel against the plain version,
   within 1e-4 (float32) or 2^-7 (a bfloat16 unit in the last place) of
   the largest |y| and |S| (also on the mLSTM's operands read in place,
-  with and without log_a at the clamp), and the backward of the kernel
-  raising. These
+  with and without log_a at the clamp); the backward kernels against the
+  plain backward over the same cases, on the mLSTM's and mamba2's
+  operand layouts, and through ``ops.gla_scan_op`` under autograd. These
   skip when no card is present. The card's machine has no JAX, so the
   reference is imported inside the CPU tests only and the card runs this
   file with ``PYTHONPATH=src python -m pytest -q --noconftest -m gpu
@@ -45,9 +54,10 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.gla_scan import (TERMS, aligned, aligned_empty,
+                                          chunked_gla_bwd_ref,
                                           chunked_gla_ref, gla_scan,
-                                          gla_scan_fwd, gla_step_ref,
-                                          in_place)
+                                          gla_scan_bwd, gla_scan_fwd,
+                                          gla_step_ref, in_place)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -374,6 +384,315 @@ def test_one_term_does_not_hold_the_tolerances():
 
 
 # ---------------------------------------------------------------------------
+# the backward: the plain version against the reference's gradient, and the
+# kernels' numerical design emulated on the CPU
+# ---------------------------------------------------------------------------
+def _bwd_inputs(seed, B, H, T, dk, dv, *, state, dstate, k_scale=1.0):
+    """_inputs' q, k, v, log_a and initial state (or None), then dy and
+    the final state's gradient (or None), all float32 numpy."""
+    arrays = _inputs(seed, B, H, T, dk, dv, k_scale=k_scale, state=state)
+    if not state:
+        arrays.append(None)
+    rng = np.random.default_rng(seed + 1)
+    arrays.append(rng.normal(size=(B, H, T, dv)).astype(np.float32))
+    arrays.append(rng.normal(size=(B, H, dk, dv)).astype(np.float32)
+                  if dstate else None)
+    return arrays
+
+
+def _jax_vjp(arrays, c, dtypes):
+    """jax.vjp of the reference's chunked_gla on (q, k, v, log_a[, initial
+    state]) in ``dtypes`` (q's, k's, v's), at (dy in v's dtype, the final
+    state's gradient, zero where None); float32 numpy."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models.ssm import chunked_gla
+    q, k, v, la, s0, dy, ds = arrays
+    args = [jnp.asarray(a).astype(getattr(jnp, d))
+            for a, d in zip((q, k, v, la), (*dtypes, "float32"))]
+    if s0 is None:
+        (_, s), vjp = jax.vjp(lambda *a: chunked_gla(*a, c), *args)
+    else:
+        (_, s), vjp = jax.vjp(lambda *a: chunked_gla(*a[:4], c, a[4]),
+                              *args, jnp.asarray(s0))
+    ct = (jnp.asarray(dy).astype(getattr(jnp, dtypes[2])),
+          jnp.zeros_like(s) if ds is None else jnp.asarray(ds))
+    return [np.asarray(g, np.float32) for g in vjp(ct)]
+
+
+def _torch_bwd_args(arrays, dtypes):
+    """(q, k, v, log_a, initial state, dy, dstate) as torch tensors, q, k,
+    v and dy in ``dtypes`` (dy in v's)."""
+    q, k, v, la, s0, dy, ds = arrays
+    t = lambda a, d="float32": None if a is None else \
+        torch.from_numpy(a).to(getattr(torch, d))      # noqa: E731
+    return (t(q, dtypes[0]), t(k, dtypes[1]), t(v, dtypes[2]), t(la), t(s0),
+            t(dy, dtypes[2]), t(ds))
+
+
+def _rel(got, want):
+    """The largest error over the reference's largest magnitude."""
+    want = np.asarray(want, np.float32)
+    return float(np.abs(got.float().numpy() - want).max()
+                 / max(np.abs(want).max(), 1e-30))
+
+
+@pytest.mark.parametrize("B,H,T,dk,dv,c", GRID + [(2, 2, 100, 16, 24, 32)])
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("dstate", [False, True])
+def test_plain_bwd_matches_jax_vjp(B, H, T, dk, dv, c, state, dstate):
+    """chunked_gla_bwd_ref against jax.vjp of the reference's chunked_gla
+    on the same numpy inputs, float32, the grid and T off the chunk, with
+    and without an initial state and a final-state gradient: every
+    gradient within 1e-5 of its largest magnitude (float32 sums of up to
+    256 products in another order; measured ~1e-6)."""
+    arrays = _bwd_inputs(B * 100 + T, B, H, T, dk, dv, state=state,
+                         dstate=dstate, k_scale=1 / math.sqrt(dk))
+    want = _jax_vjp(arrays, c, ["float32"] * 3)
+    q, k, v, la, s0, dy, ds = _torch_bwd_args(arrays, ["float32"] * 3)
+    got = chunked_gla_bwd_ref(q, k, v, la, c, s0, dy, ds)
+    assert (got[4] is not None) == state
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and tuple(g.shape) == w.shape
+        assert _rel(g, w) <= 1e-5
+
+
+@pytest.mark.parametrize("kind", ["mlstm", "mamba2"])
+def test_plain_bwd_tiny_ssm_shapes_match_jax_vjp(kind):
+    """The tiny models' calls: the mLSTM's (dk 256, dv 257, chunk 64, q and
+    v bf16 beside a float32 k, T off the chunk, an initial state and a
+    final-state gradient) and mamba2's (q and k bf16 broadcast over 4
+    heads, dk 16, v float32 of 64, chunk 256 over T 40). The reference's
+    gradients come back in their operands' dtypes, its bf16 ones rounded
+    once from float32: the plain backward, rounded alike, within one bf16
+    unit in the last place (2^-7) of each bf16 gradient's largest
+    magnitude and 1e-5 of each float32 one."""
+    if kind == "mlstm":
+        arrays = _bwd_inputs(8, 2, 2, 130, 256, 257, state=True, dstate=True,
+                             k_scale=1 / 16)
+        arrays[2][..., -1] = 1.0
+        dtypes, c = ["bfloat16", "float32", "bfloat16"], 64
+    else:
+        arrays = _bwd_inputs(9, 2, 1, 40, 16, 64, state=False, dstate=True,
+                             k_scale=1 / 4)
+        arrays[:2] = [np.broadcast_to(a, (2, 4, 40, 16)).copy()
+                      for a in arrays[:2]]
+        rng = np.random.default_rng(10)
+        arrays[2:4] = [rng.normal(size=(2, 4, 40, 64)).astype(np.float32),
+                       (-np.abs(rng.normal(size=(2, 4, 40)))).astype(
+                           np.float32)]
+        arrays[5] = rng.normal(size=(2, 4, 40, 64)).astype(np.float32)
+        arrays[6] = rng.normal(size=(2, 4, 16, 64)).astype(np.float32)
+        dtypes, c = ["bfloat16", "bfloat16", "float32"], 256
+    want = _jax_vjp(arrays, c, dtypes)
+    args = _torch_bwd_args(arrays, dtypes)
+    got = chunked_gla_bwd_ref(*args[:4], c, *args[4:])
+    for g, w, d in zip(got, want, dtypes + ["float32"] * 2):
+        rel = 2.0 ** -7 if d == "bfloat16" else 1e-5
+        assert _rel(g.to(getattr(torch, d)), w) <= rel
+
+
+def test_plain_bwd_strong_decay_against_float64_autograd():
+    """log_a at mLSTM's clamp (-30) over whole chunks: the reference's own
+    gradient is NaN there (it forms exp(lb_i - lb_j) above the diagonal
+    too, where it overflows, and masks after: 0 x inf; ROADMAP queue 3),
+    so the plain backward is held against float64 autograd of
+    chunked_gla_ref instead: within 1e-5 of each gradient's largest
+    magnitude, and finite."""
+    arrays = _bwd_inputs(13, 1, 2, 600, 64, 40, state=True, dstate=True,
+                         k_scale=1 / 8)
+    _strong_decay(arrays[3], 128)
+    want = _jax_vjp(arrays, 128, ["float32"] * 3)
+    assert not all(np.isfinite(w).all() for w in want)
+    q, k, v, la, s0, dy, ds = _torch_bwd_args(arrays, ["float32"] * 3)
+    got = chunked_gla_bwd_ref(q, k, v, la, 128, s0, dy, ds)
+    leaves = [t.double().requires_grad_(True) for t in (q, k, v, la, s0)]
+    y, s = chunked_gla_ref(*leaves[:4], 128, leaves[4])
+    want64 = torch.autograd.grad((y * dy.double()).sum()
+                                 + (s * ds.double()).sum(), leaves)
+    for g, w in zip(got, want64):
+        assert torch.isfinite(g).all()
+        assert _rel(g, w.numpy()) <= 1e-5
+
+
+def test_plain_bwd_log_decay_identity_against_autograd():
+    """The d log_a identity in float64: the reverse cumulative sum of
+    q . dq - k . dk, plus <dstate, S_T> at the last step, equals autograd
+    of chunked_gla_ref to 1e-10 of its largest magnitude (B 2, H 3, T 70,
+    off the chunk of 16, with an initial state and a final-state
+    gradient); and so do the other gradients."""
+    arrays = _bwd_inputs(5, 2, 3, 70, 8, 6, state=True, dstate=True)
+    args = [None if a is None else torch.from_numpy(a).double()
+            for a in arrays]
+    q, k, v, la, s0, dy, ds = args
+    got = chunked_gla_bwd_ref(q, k, v, la, 16, s0, dy, ds)
+    assert all(g.dtype == torch.float64 for g in got)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v, la, s0)]
+    y, s = chunked_gla_ref(*leaves[:4], 16, leaves[4])
+    want = torch.autograd.grad((y * dy).sum() + (s * ds).sum(), leaves)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max() / w.abs().max()) <= 1e-10
+
+
+def _emulate_bwd(q, k, v, log_a, chunk, initial_state, dy, dstate,
+                 terms=None):
+    """The backward kernels' order and products in plain torch, as
+    ``_emulate`` is the forward's: lb per chunk; the chunk-entry states as
+    the forward forms them; dS right to left from the final state's
+    gradient, dS <- exp(lb_last) dS + (q exp(lb))^T dy, keeping the dS
+    that leaves each chunk; then per chunk P = (q k^T) D and dA = (dy v^T)
+    D, masked after the product, and dq = dA k + exp(lb_i) dy S_n^T (no
+    state term while S_n is the zero state), dk = dA^T q + exp(lb_last -
+    lb_j) v dS^T, dv = P^T dy + exp(lb_last - lb_j) k dS (no dS term while
+    dS is zero). P, dA, S_n, dS and the decayed q and k are float32
+    operands, so split (``_tc``); dq, dk and dv are rounded to their
+    operands' dtypes, and d log_a is the reverse cumulative sum of q . dq
+    - k . dk from the float32 products (plus <dstate, S_T> at the last
+    step)."""
+    B, H, T, dk = q.shape
+    dv = v.shape[-1]
+    terms = terms or TERMS[v.dtype]
+    c = min(chunk, T)
+    n = -(-T // c)
+    pad = n * c - T
+    q0, k0, v0 = q, k, v
+    if pad:
+        q, k, v, dy = (F.pad(t, (0, 0, 0, pad)) for t in (q, k, v, dy))
+        log_a = F.pad(log_a, (0, pad))
+    qc, kc, vc, yc = (t.reshape(B, H, n, c, -1) for t in (q, k, v, dy))
+    lb = torch.cumsum(log_a.float().reshape(B, H, n, c), dim=-1)
+    S = torch.zeros((B, H, dk, dv)) if initial_state is None \
+        else initial_state.float()
+    states = []
+    for i in range(n):
+        states.append(S)
+        last = lb[:, :, i, -1:]
+        S = torch.exp(last)[..., None] * S + _tc(
+            "bhjd,bhjv->bhdv",
+            kc[:, :, i].float() * torch.exp(last - lb[:, :, i])[..., None],
+            vc[:, :, i], terms)
+    dS = torch.zeros((B, H, dk, dv)) if dstate is None else dstate.float()
+    leaving = [None] * n
+    for i in reversed(range(n)):
+        leaving[i] = dS
+        li = lb[:, :, i]
+        dS = torch.exp(li[..., -1])[..., None, None] * dS + _tc(
+            "bhid,bhiv->bhdv", qc[:, :, i].float() * torch.exp(li)[..., None],
+            yc[:, :, i], terms)
+    causal = torch.tril(torch.ones((c, c), dtype=torch.bool))
+    grads = ([], [], [])
+    for i in range(n):
+        li = lb[:, :, i]
+        D = torch.exp(torch.where(causal, li[..., :, None] - li[..., None, :],
+                                  -torch.inf))
+        P = _tc("bhid,bhjd->bhij", qc[:, :, i], kc[:, :, i], terms) * D
+        dA = _tc("bhiv,bhjv->bhij", yc[:, :, i], vc[:, :, i], terms) * D
+        dec = torch.exp(li[..., -1:] - li)[..., None]
+        gq = _tc("bhij,bhjd->bhid", dA, kc[:, :, i], terms)
+        gk = _tc("bhij,bhid->bhjd", dA, qc[:, :, i], terms)
+        gv = _tc("bhij,bhiv->bhjv", P, yc[:, :, i], terms)
+        if i > 0 or initial_state is not None:
+            gq = gq + torch.exp(li)[..., None] * _tc(
+                "bhiv,bhdv->bhid", yc[:, :, i], states[i], terms)
+        if i < n - 1 or dstate is not None:
+            gk = gk + dec * _tc("bhjv,bhdv->bhjd", vc[:, :, i], leaving[i],
+                                terms)
+            gv = gv + dec * _tc("bhjd,bhdv->bhjv", kc[:, :, i], leaving[i],
+                                terms)
+        for out, g in zip(grads, (gq, gk, gv)):
+            out.append(g)
+    gq, gk, gv = (torch.cat(g, dim=2)[:, :, :T] for g in grads)
+    delta = (q0.float() * gq).sum(-1) - (k0.float() * gk).sum(-1)
+    if dstate is not None:
+        delta[..., -1] += (dstate.float() * S).sum((-2, -1))
+    dla = torch.flip(torch.cumsum(torch.flip(delta, (-1,)), -1), (-1,))
+    return (gq.to(q0.dtype), gk.to(k0.dtype), gv.to(v0.dtype), dla,
+            None if initial_state is None else dS)
+
+
+def _bwd_card_tol(got, want, dtypes):
+    """The backward's card tolerances, relative to each gradient's largest
+    magnitude: 1e-4 for a float32 gradient (float32 sums in another
+    order; the emulation measures ~1e-6 with three terms), one bf16 unit
+    in the last place (2^-7) for a bf16 one (each side rounds a float32
+    result once), and 1e-4 for d log_a and the initial state's gradient,
+    float32 always (the emulation: ~1e-5 with two terms, ~1e-6 with
+    three)."""
+    for g, w, d in zip(got, want, list(dtypes) + ["float32"] * 2):
+        if g is None:
+            assert w is None
+            continue
+        rel = 2.0 ** -7 if d == "bfloat16" else 1e-4
+        assert _rel(g, w) <= rel
+
+
+@pytest.mark.parametrize("B,H,T,dk,dv,c", GRID + [(2, 2, 100, 16, 24, 32)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("state", [False, True])
+def test_split_emulation_bwd_matches_jax_vjp(B, H, T, dk, dv, c, dtype,
+                                             state):
+    """The backward's order and operand split against jax.vjp of the
+    reference's chunked_gla (whose bf16 gradients are rounded once from
+    float32), at the card's tolerances: the grid and T off the chunk,
+    float32 and bf16 operands, an initial state and a final-state
+    gradient or neither."""
+    arrays = _bwd_inputs(B * 100 + T, B, H, T, dk, dv, state=state,
+                         dstate=state, k_scale=1 / math.sqrt(dk))
+    dtypes = [dtype] * 3
+    want = _jax_vjp(arrays, c, dtypes)
+    args = _torch_bwd_args(arrays, dtypes)
+    got = _emulate_bwd(*args[:4], c, *args[4:])
+    _bwd_card_tol(got, want + [None] * (5 - len(want)), dtypes)
+
+
+@pytest.mark.parametrize("state", [False, True])
+def test_split_emulation_bwd_tiny_mlstm_shape(state):
+    """The tiny mLSTM's call (dk 256, dv 257 with the ones column, chunk
+    64, T off the chunk; q and v bf16, k float32, two terms) against the
+    plain backward at the card's tolerances."""
+    arrays = _bwd_inputs(8, 2, 2, 130, 256, 257, state=state, dstate=state,
+                         k_scale=1 / 16)
+    arrays[2][..., -1] = 1.0
+    dtypes = ["bfloat16", "float32", "bfloat16"]
+    args = _torch_bwd_args(arrays, dtypes)
+    got = _emulate_bwd(*args[:4], 64, *args[4:])
+    want = chunked_gla_bwd_ref(*args[:4], 64, *args[4:])
+    want = [None if w is None else w.to(g.dtype).float().numpy()
+            for g, w in zip(got, want)]
+    _bwd_card_tol(got, want, dtypes)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_emulation_bwd_strong_decay(dtype):
+    """log_a at mLSTM's clamp over whole chunks beside ordinary chunks:
+    every gradient finite, and within the card's tolerances of the plain
+    backward (the reference's own gradient is NaN there)."""
+    arrays = _bwd_inputs(13, 1, 2, 600, 64, 40, state=True, dstate=True,
+                         k_scale=1 / 8)
+    _strong_decay(arrays[3], 128)
+    dtypes = [dtype] * 3
+    args = _torch_bwd_args(arrays, dtypes)
+    got = _emulate_bwd(*args[:4], 128, *args[4:])
+    assert all(torch.isfinite(g.float()).all() for g in got)
+    want = chunked_gla_bwd_ref(*args[:4], 128, *args[4:])
+    _bwd_card_tol(got, [w.to(g.dtype).float().numpy()
+                        for g, w in zip(got, want)], dtypes)
+
+
+def test_one_term_does_not_hold_the_bwd_tolerances():
+    """As for the forward: one bf16 term of each float32 operand misses
+    1e-4 of the float32 gradients; the kernel's three hold it."""
+    arrays = _bwd_inputs(21, 1, 4, 128, 32, 64, state=True, dstate=True,
+                         k_scale=1 / math.sqrt(32))
+    args = _torch_bwd_args(arrays, ["float32"] * 3)
+    want = chunked_gla_bwd_ref(*args[:4], 32, *args[4:])
+    for terms, holds in ((1, False), (3, True)):
+        got = _emulate_bwd(*args[:4], 32, *args[4:], terms=terms)
+        err = max(_rel(g, w.numpy()) for g, w in zip(got, want))
+        assert (err <= 1e-4) == holds, (terms, err)
+
+
+# ---------------------------------------------------------------------------
 # operands read in place
 # ---------------------------------------------------------------------------
 def test_mlstm_and_mamba2_operands_are_read_in_place():
@@ -458,12 +777,74 @@ def test_chip_smoke_gla_bound_counts_the_split_products():
         6 * cs.gla_ops(shape, 513, 256, True)
 
 
+def test_chip_smoke_gla_bwd_bound_counts_the_split_products():
+    """chip_smoke's row-8b bound: per chunk, two state products (the
+    chunk-entry states again and the dS sweep), P and dA, dq's, dk's and
+    dv's products over the pairs, and the three state terms (dq's none on
+    the first chunk from the zero state, dk's and dv's none on the last
+    without a final-state gradient), each times its operands' term pairs:
+    six for every product when all three operands are float32; at the
+    mLSTM call (bf16 q and v, float32 k, two terms) 2 and 2 for the state
+    products, 2, 3 and 2 for the dk-wide pair products (P, dA k, dA^T q),
+    1 and 2 for the dv-wide ones (dA, P^T dy), 2, 2 and 3 for the state
+    terms (dy S^T, v dS^T, k dS)."""
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    try:
+        import chip_smoke as cs
+    finally:
+        sys.path.pop(0)
+
+    def count(shape, dv, c, state, dstate, w):
+        B, H, T, dk = shape
+        ops = 0
+        for t0 in range(0, T, c):
+            r = min(c, T - t0)
+            pairs = r * (r + 1) // 2
+            first = t0 == 0 and not state
+            last = t0 + c >= T and not dstate
+            ops += 2 * B * H * (
+                r * dk * dv * w["states"] + pairs * dk * w["pairs_dk"]
+                + pairs * dv * w["pairs_dv"]
+                + (0 if first else r * dk * dv * w["dq"])
+                + (0 if last else r * dk * dv * w["dkdv"]))
+        return ops
+    f32 = dict(states=12, pairs_dk=18, pairs_dv=12, dq=6, dkdv=12)
+    mlstm = dict(states=4, pairs_dk=7, pairs_dv=3, dq=2, dkdv=5)
+    for shape, dv, c in (((4, 4, 1024, 512), 513, 256),
+                         ((2, 3, 333, 64), 40, 128)):
+        for state, dstate in ((False, False), (True, True), (False, True)):
+            assert cs.gla_bwd_tc_ops(shape, dv, c, state, dstate,
+                                     (torch.float32,) * 3) == count(
+                shape, dv, c, state, dstate, f32)
+            assert cs.gla_bwd_tc_ops(
+                shape, dv, c, state, dstate,
+                (torch.bfloat16, torch.float32, torch.bfloat16)) == count(
+                shape, dv, c, state, dstate, mlstm)
+
+
 def test_launcher_refuses_cpu_tensors():
     q, k, v, la = _torch(_inputs(1, 1, 1, 8, 4, 4), ["float32"] * 4)
     with pytest.raises(ValueError, match="CUDA"):
         gla_scan_fwd(q, k, v, la, chunk=4)
     with pytest.raises(ValueError, match="CUDA"):
+        gla_scan_bwd(q, k, v, la, torch.zeros_like(v), chunk=4)
+    with pytest.raises(ValueError, match="CUDA"):
         gla_scan(q, k, v, la, chunk=4)
+
+
+def test_bwd_refuses_dtype_combinations_no_model_hands_it():
+    """The backward is built for the models' operand dtypes (all float32,
+    all bf16, the mLSTM's and mamba2's) and refuses the forward's other
+    four, before anything else."""
+    q, k, v, la = _torch(_inputs(1, 1, 1, 8, 4, 4), ["float32"] * 4)
+    bf = torch.bfloat16
+    for a, b, c in ((q, k.to(bf), v), (q.to(bf), k, v), (q, k, v.to(bf)),
+                    (q, k.to(bf), v.to(bf))):
+        with pytest.raises(TypeError, match="gla_scan_bwd takes"):
+            gla_scan_bwd(a, b, c, la, torch.zeros_like(c), chunk=4)
 
 
 def test_op_on_cpu_is_the_plain_version_and_differentiable():
@@ -552,15 +933,116 @@ def test_gpu_mamba2_broadcast_operands(cuda):
 
 
 @pytest.mark.gpu
-def test_gpu_op_launches_the_kernel_and_its_backward_raises(cuda):
+def test_gpu_op_launches_the_kernel_and_its_backward(cuda):
+    """Through ``ops.gla_scan_op``, the forward launches gla_scan and the
+    backward gla_scan_bwd, once each, and the gradients of a loss on y
+    and the final state match the plain backward (float32: 1e-4 of each
+    gradient's largest magnitude)."""
     q, k, v, la = (t.requires_grad_(True) for t in _torch(
         _inputs(9, 1, 2, 70, 16, 8), ["float32"] * 4, cuda))
-    before = gla_scan_fwd.launches
+    before, before_bwd = gla_scan_fwd.launches, gla_scan_bwd.launches
     y, s = ops.gla_scan_op(q, k, v, la, chunk=32)
     assert gla_scan_fwd.launches == before + 1
     assert y.requires_grad
-    with pytest.raises(NotImplementedError, match="gla backward"):
-        (y.sum() + s.sum()).backward()
+    dy = torch.randn(y.shape, device=cuda, generator=torch.Generator(
+        cuda).manual_seed(1))
+    (y * dy).sum().backward(retain_graph=True)
+    assert gla_scan_bwd.launches == before_bwd + 1
+    want = chunked_gla_bwd_ref(q.detach(), k.detach(), v.detach(),
+                               la.detach(), 32, None, dy)
+    for leaf, w in zip((q, k, v, la), want):
+        torch.testing.assert_close(leaf.grad, w, rtol=0,
+                                   atol=1e-4 * float(w.abs().max()))
+    for leaf in (q, k, v, la):
+        leaf.grad = None
+    s.sum().backward()
+    want = chunked_gla_bwd_ref(q.detach(), k.detach(), v.detach(),
+                               la.detach(), 32, None, torch.zeros_like(dy),
+                               torch.ones_like(s))
+    assert gla_scan_bwd.launches == before_bwd + 2
+    for leaf, w in zip((q, k, v, la), want):
+        torch.testing.assert_close(leaf.grad, w, rtol=0,
+                                   atol=1e-4 * float(w.abs().max()))
+
+
+def _gpu_bwd_close(got, want, dtypes):
+    """The card's backward tolerances, relative to each gradient's largest
+    magnitude: a bf16 gradient within one bf16 unit in the last place
+    (2^-7; each side rounds a float32 result once), a float32 one within
+    1e-4 (float32 sums in another order); d log_a, float32 always, within
+    1e-4 with three terms (a float32 v) and 5e-4 with two (a bf16 v: the
+    reverse sum over T of q . dq - k . dk from products ~1e-5 off), and
+    the initial state's gradient within 1e-4."""
+    two_terms = dtypes[2] == "bfloat16"
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g is None:
+            assert w is None
+            continue
+        rel = (2.0 ** -7 if i < 3 and dtypes[i] == "bfloat16"
+               else 5e-4 if i == 3 and two_terms else 1e-4)
+        scale = float(w.float().abs().max())
+        torch.testing.assert_close(g.float(), w.float().to(g.device), rtol=0,
+                                   atol=rel * scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("label,B,H,T,dk,dv,c,mix", GPU_CASES,
+                         ids=[f"{c[0]}-T{c[3]}-dk{c[4]}" for c in GPU_CASES])
+def test_gpu_bwd_matches_plain(cuda, dtype, state, label, B, H, T, dk, dv,
+                               c, mix):
+    """gla_scan_bwd against chunked_gla_bwd_ref over the forward's card
+    cases, with an initial state and a final-state gradient or neither:
+    one launch, each gradient in its operand's dtype."""
+    arrays = _bwd_inputs(T + dk, B, H, T, dk, dv, state=state, dstate=state,
+                         k_scale=1 / math.sqrt(dk))
+    dtypes = [dtype, "float32" if mix else dtype, dtype]
+    q, k, v, la, s0, dy, ds = (None if t is None else t.to(cuda)
+                               for t in _torch_bwd_args(arrays, dtypes))
+    before = gla_scan_bwd.launches
+    got = gla_scan_bwd(q, k, v, la, dy, chunk=c, initial_state=s0,
+                       dstate=ds)
+    want = chunked_gla_bwd_ref(q, k, v, la, c, s0, dy, ds)
+    torch.cuda.synchronize()
+    assert gla_scan_bwd.launches == before + 1
+    assert [g.dtype for g in got[:3]] == [q.dtype, k.dtype, v.dtype]
+    want = [None if w is None else w.to(g.dtype)
+            for g, w in zip(got, want)]
+    _gpu_bwd_close(got, want, dtypes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dstate", [False, True])
+def test_gpu_bwd_mamba2_broadcast_operands(cuda, dstate):
+    """Mamba2's layout: q and k bf16 broadcast over the heads (stride 0),
+    v float32 (three terms); dq and dk come back dense per head, and
+    autograd's expand sums them over the heads."""
+    rng = np.random.default_rng(6)
+    B, H, T, dk, dv = 2, 4, 300, 64, 96
+    C, Bm = (torch.from_numpy(rng.normal(size=(B, T, dk)).astype(
+        np.float32)).to(cuda, torch.bfloat16) for _ in range(2))
+    q, k = C[:, None].expand(B, H, T, dk), Bm[:, None].expand(B, H, T, dk)
+    v, la, dy = _torch([rng.normal(size=(B, H, T, dv)).astype(np.float32),
+                        (-np.abs(rng.normal(size=(B, H, T)))).astype(
+                            np.float32),
+                        rng.normal(size=(B, H, T, dv)).astype(np.float32)],
+                       ["float32"] * 3, cuda)
+    ds = torch.from_numpy(rng.normal(size=(B, H, dk, dv)).astype(
+        np.float32)).to(cuda) if dstate else None
+    got = gla_scan_bwd(q, k, v, la, dy, chunk=256, dstate=ds)
+    assert got[0].shape == (B, H, T, dk) and got[0].stride(1) != 0
+    want = chunked_gla_bwd_ref(q, k, v, la, 256, None, dy, ds)
+    _gpu_bwd_close(got, [w.to(g.dtype) for g, w in zip(got[:4], want)]
+                   + [None], ["bfloat16", "bfloat16", "float32"])
+    C.requires_grad_(True)
+    y, _ = ops.gla_scan_op(C[:, None].expand(B, H, T, dk), k, v, la,
+                           chunk=256)
+    (y * dy).sum().backward()
+    torch.testing.assert_close(C.grad.float(),
+                               want[0].sum(1).to(torch.bfloat16).float(),
+                               rtol=0, atol=2.0 ** -6 * float(
+                                   want[0].sum(1).abs().max()))
 
 
 def _mlstm_operands(seed, B, H, T, hd, device):
@@ -585,8 +1067,10 @@ def _mlstm_operands(seed, B, H, T, hd, device):
 def test_gpu_mlstm_operands_in_place(cuda, strong, state):
     """The full-width mLSTM call's operands as the model lays them out
     (strided q and k, v of pitch 520), read without a copy, with log_a at
-    the clamp over whole chunks or not, with an initial state or not:
-    within 2^-7 of the largest |y| and 1e-4 of the largest |S|."""
+    the clamp over whole chunks or not, with an initial state (and a
+    final-state gradient) or not: within 2^-7 of the largest |y| and 1e-4
+    of the largest |S|; the backward on the same operands at
+    ``_gpu_bwd_close``'s tolerances."""
     B, H, T, hd, c = 1, 4, 700, 512, 256
     q, k, v = _mlstm_operands(T + hd, B, H, T, hd, cuda)
     assert all(aligned(t) for t in (q, k, v))
@@ -604,3 +1088,14 @@ def test_gpu_mlstm_operands_in_place(cuda, strong, state):
     for got, want, rel in ((y, want_y, 2.0 ** -7), (s, want_s, 1e-4)):
         torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                    atol=rel * float(want.float().abs().max()))
+    dy = torch.from_numpy(rng.normal(size=(B, H, T, hd + 1)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    ds = torch.from_numpy(rng.normal(size=(B, H, hd, hd + 1)).astype(
+        np.float32)).to(cuda) if state else None
+    before = gla_scan_bwd.launches
+    got = gla_scan_bwd(q, k, v, la, dy, chunk=c, initial_state=s0, dstate=ds)
+    assert gla_scan_bwd.launches == before + 1
+    want = chunked_gla_bwd_ref(q, k, v, la, c, s0, dy, ds)
+    _gpu_bwd_close(got, [None if w is None else w.to(g.dtype)
+                         for g, w in zip(got, want)],
+                   ["bfloat16", "float32", "bfloat16"])
