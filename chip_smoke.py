@@ -51,9 +51,10 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      edges, windows 7 and 40, softcap 50), kv_append and
                      kv_append_quant at Hkv {8, 16}, the tree swap over
                      gemma2's and GPT-J's own bf16 and int8 pool trees,
-                     the flash forward (causal, windows, softcap 50,
-                     Tq < Tk, no causal mask), and the flash backward's
-                     refusal; the MoE experts (moe_experts) at
+                     the flash forward and backward (causal, windows
+                     33, 100 and gemma2's 4096 at T 4097, softcap 50,
+                     Tq < Tk, no causal mask, G 1, 2 and 16); the MoE
+                     experts (moe_experts) at
                      deepseek-moe-16b's tiny and full widths in bf16
                      and float32: a decode (8 groups of one token), a
                      fused prefill (512 groups of one) and an extend
@@ -71,9 +72,10 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      full widths on the tensor-core form, the rest on
                      the CUDA-core form), kv_append at the latent widths,
                      the flash forward at head_dim 192 (B 2 x 128 heads x
-                     T 1024 causal among others) and its backward's
-                     refusal, and the tree swap over deepseek-v3's latent
-                     pool tree
+                     T 1024 causal, T 65 and 129 among others) and its
+                     backward on the same calls (v zero-padded past 128,
+                     scale 1/sqrt(192)), and the tree swap over
+                     deepseek-v3's latent pool tree
   4. tiny          — tiny-config f32 forward_mixed_paged, decode_step_paged
                      and extend_step_paged, kernels on the card against
                      plain versions on the CPU, same weights and pools,
@@ -111,6 +113,16 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      GLA and attention under autograd on the card, held
                      as train_parity (zamba2 by a float64 witness where
                      a leaf misses 1e-3)
+  8c. wide_train_parity
+                   — full width in f32, B 1, on conditioned weights:
+                     loss and gradients with the flash kernels (the
+                     backward at head_dim 256 and 192) against the plain
+                     attention under autograd on the card, held as
+                     train_parity: gemma2-9b at 2 local/global pairs and
+                     T 4608 (past its window), GPT-J-6B at 2 layers and T
+                     512, deepseek-v3's first dense layer at T 512
+                     (mla_forward's padded 192); the reference's init
+                     reported
   9. ssm_parity    — full-width xlstm-350m in f32, B 2 x T 520: prefill
                      logits and final states with gla_scan against the
                      plain chunked_gla_ref on the card, and serve_step at
@@ -229,8 +241,8 @@ Phases; any failure ends the run with a non-zero exit and no result line:
  18e. musicgen_serve, musicgen_unfused
                    — the serve run's workload and checks on full-width
                      musicgen-large (K 4 codebooks; MHA, 32 kv heads x
-                     64: 393,216 KV bytes a token), bf16, uncut (48
-                     layers; fused) and cut to 4 layers (fused=False):
+                     64: 393,216 KV bytes a token), bf16, cut to 24 of
+                     its 48 layers (fused) and to 4 (fused=False):
                      tok/s, step ms, construction and run peaks, the
                      pools' bytes, swapped tokens, InferCept's choices
                      and the waste ledger's causes beside llama's serve
@@ -243,7 +255,7 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      timed steps; finite, falling loss
  19b. xlstm_train, zamba2_train
                    — the train run on full-width, full-depth xlstm-350m
-                     (24 layers; B 8 x T 512, 2 warm-up and 6 timed
+                     (24 layers; B 8 x T 512, 2 warm-up and 4 timed
                      steps: its sLSTM loop runs a step at a time under
                      autograd; its profiled step 8 x 64) and zamba2-1.2b
                      (38 layers; B 4 x T 2048, 2 + 6 steps): finite,
@@ -251,6 +263,15 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      and gla_scan_bwd once a GLA layer a step (zamba2:
                      flash and its backward likewise a shared-block
                      occurrence); step ms, tokens/s, peak memory
+ 19c. gemma2_train, gptj_train
+                   — the train run on full-width gemma2-9b cut to 2 of
+                     its 21 local/global pairs (4 layers) at B 1 x T
+                     8192 (the 4096-token window bites) and GPT-J-6B cut
+                     to 8 of its 28 layers at B 4 x T 2048, 2 warm-up
+                     and 6 timed steps each: finite, falling loss; flash
+                     twice and its backward (head_dim 256) once a layer
+                     a step; step ms, tokens/s, peak memory; gemma2's
+                     profiled step prints flash's share
  20. ssm_serve     — full-width xlstm-350m in bf16 (seed-0 port init)
                      through prefill_step of 8 x 2000 random tokens and 16
                      greedy serve_step calls (64 before the cuts of
@@ -273,7 +294,7 @@ Phases; any failure ends the run with a non-zero exit and no result line:
  21c. zamba2_serve — the same for zamba2-1.2b, uncut (38 layers):
                      prefill_step of 8 x 2000 (32 gla_scan and 6 flash
                      launches, one per occurrence of the shared block) and
-                     64 greedy serve_step calls
+                     32 greedy serve_step calls
  21d. pixtral_serve
                    — the same for pixtral-12b, uncut (40 layers, ~24.5 GB
                      of bf16 weights): prefill_step of an (8, 1024, 5120)
@@ -328,12 +349,18 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      gradient that reached it: against the plain
                      backward, device time, the split's bf16 products as
                      the bound, no library call; their launches those
-                     runs')
+                     runs'); rows 7wb, 7jb and 7mb (the flash backward on
+                     the first attention call of gemma2_train and of
+                     gptj_train, and on wide_train_parity's deepseek-v3
+                     call, with the gradient that reached it: against the
+                     plain backward, device time, 10 hd operations a
+                     visible pair as the bound, SDPA's backward as the
+                     library column; their launches those runs')
  23. profile       — torch.profiler over 10 serve steps after 10 (bf16 and
                      int8 pools, deepseek-moe-16b's with the MoE kernels'
                      share, and deepseek-v3's with row 10's), over one
-                     train step of each train run (the flash and gla
-                     kernels' shares), and over one
+                     train step of each train run but gptj_train (the
+                     flash and gla kernels' shares), and over one
                      prefill and one window of serve steps of each of
                      xlstm (its prefill 8 x 256), llama, gemma2 and zamba2
                      (8 steps): device busy share, device time by kernel
@@ -351,7 +378,9 @@ head_dim-256 runs, the MoE, MLA and musicgen runs are logged apart (rows
 9 and 9d take moe_serve's, rows 10, 10d and 2m mla_serve's, row 7m
 mla_parity's flash launches, 8z zamba2_serve's gla_scan and 7p
 pixtral_serve's flash launches, 1g musicgen_serve's ragged launches, 8b
-and 8zb xlstm_train's and zamba2_train's gla_scan_bwd launches).
+and 8zb xlstm_train's and zamba2_train's gla_scan_bwd launches, 7wb and
+7jb gemma2_train's and gptj_train's flash_attention_bwd launches, 7mb
+wide_train_parity's deepseek-v3 ones).
 The last three lines are the kernels JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}.
 """
@@ -370,7 +399,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 T_START = time.perf_counter()
 PHASES = ("kernels", "tiny", "tiny_train", "tiny_ssm", "decode_parity",
-          "train_parity", "ssm_train_parity", "ssm_parity", "wide_parity",
+          "train_parity", "ssm_train_parity", "wide_train_parity",
+          "ssm_parity", "wide_parity",
           "moe_parity",
           "mla_parity", "zamba2_parity", "pixtral_parity", "musicgen_parity",
           "serve", "swap", "unfused", "spec", "quant", "quant_unfused",
@@ -378,7 +408,7 @@ PHASES = ("kernels", "tiny", "tiny_train", "tiny_ssm", "decode_parity",
           "gemma2_unfused", "gemma2_quant", "gptj_serve", "moe_serve",
           "moe_unfused", "mla_serve", "mla_unfused", "musicgen_serve",
           "musicgen_unfused", "train", "xlstm_train", "zamba2_train",
-          "ssm_serve", "dense_serve",
+          "gemma2_train", "gptj_train", "ssm_serve", "dense_serve",
           "wide_dense", "zamba2_serve", "pixtral_serve", "timing",
           "profile")
 SERVE_PHASES = {"serve": ("infercept", {}), "swap": ("swap", {}),
@@ -450,15 +480,16 @@ MLA_UNFUSED_PERIODS = (1, 1)
 # is moe_parity's)
 MLA_PARITY_PERIODS = (3, 0)
 # musicgen-large (K 4 codebooks, 48 layers of MHA 32 x 64, GELU FFN): its
-# serve phases (policy, engine options) and depths, musicgen_serve uncut,
-# musicgen_unfused cut to 8 layers for the 1200 s limit (row 5 at Hkv 32
-# without a second 48-layer run); musicgen_serve's ragged calls give the
-# timing phase's row 1g and its largest swap the stager's host times at
-# these widths
+# serve phases (policy, engine options) and depths, cut for the 1200 s
+# limit: musicgen_serve to 24 layers, musicgen_unfused to 4 (row 5 at Hkv
+# 32 without a second deep run); musicgen_serve's ragged calls (per-layer:
+# the cut keeps their shapes) give the timing phase's row 1g and its
+# largest swap the stager's host times at these widths
 MUSICGEN_MODEL = "musicgen-large"
 MUSICGEN_SERVE_PHASES = {"musicgen_serve": ("infercept", {}),
                          "musicgen_unfused": ("infercept", {"fused": False})}
-MUSICGEN_SERVE_PERIODS = {"musicgen_serve": None, "musicgen_unfused": (4,)}
+MUSICGEN_SERVE_PERIODS = {"musicgen_serve": (24,),
+                          "musicgen_unfused": (4,)}
 # musicgen_parity's depth
 MUSICGEN_PARITY_PERIODS = (4,)
 # a sanitized phase and the phase whose streams and counters it repeats
@@ -516,9 +547,16 @@ MUSICGEN_KERNELS = ("ragged_paged_attention_musicgen",)
 # (8b) and at zamba2_train's first mamba2 call (8zb); their launches are
 # those runs' own
 GLA_BWD_KERNELS = ("gla_scan_bwd", "gla_scan_bwd_zamba2")
+# the flash backward at head_dim 256 and 192: its kernels at
+# gemma2_train's first call (7wb), at gptj_train's first call (7jb) and at
+# wide_train_parity's deepseek-v3 call (7mb); their launches are those
+# runs' own
+WIDE_BWD_KERNELS = ("flash_attention_bwd_hd256", "flash_attention_bwd_gptj",
+                    "flash_attention_bwd_hd192")
 # every row of the kernels line
 ROWS = (KERNELS + WIDE_KERNELS + MOE_KERNELS + MLA_KERNELS
-        + PREFIX_SHARED_KERNELS + MUSICGEN_KERNELS + GLA_BWD_KERNELS)
+        + PREFIX_SHARED_KERNELS + MUSICGEN_KERNELS + GLA_BWD_KERNELS
+        + WIDE_BWD_KERNELS)
 # the TPU kernel of each flash row; the backward has none: the reference
 # differentiates its XLA blocked_attention
 FLASH_REPLACES = {
@@ -529,8 +567,9 @@ FLASH_REPLACES = {
 # the SSM models' train phases: (model, batch, seq, warm-up steps, timed
 # steps), each at full width and depth (xlstm's sLSTM loop runs under
 # autograd, a step at a time, so its sequence is the shorter: 8 x 512,
-# two chunks of 256 a row, at half the loop's host time of 4 x 1024)
-SSM_TRAIN = {"xlstm_train": ("xlstm-350m", 8, 512, 2, 6),
+# two chunks of 256 a row, at half the loop's host time of 4 x 1024; its
+# timed steps cut to 4 for the 1200 s limit)
+SSM_TRAIN = {"xlstm_train": ("xlstm-350m", 8, 512, 2, 4),
              "zamba2_train": ("zamba2-1.2b", 4, 2048, 2, 6)}
 # the sequence of the one profiled train step, where it is not the run's:
 # xlstm's sLSTM loop makes ~300k host ops a step at 8 x 512, whose parse
@@ -540,6 +579,27 @@ PROFILE_SEQ = {"xlstm_train": 64}
 # sLSTM), one zamba2 period (5 mamba2 + the shared block) and its 2-layer
 # tail
 SSM_TRAIN_PARITY = {"xlstm-350m": (1,), "zamba2-1.2b": (1, 2)}
+# the head_dim-256 models' train phases: (model, periods, batch, seq,
+# warm-up steps, timed steps), at full width, cut in depth to fit one
+# card: gemma2-9b to 2 of its 21 local/global pairs (4 of 42 layers) at 1
+# x 8192, Gemma 2's pretraining context (arXiv:2408.00118), so that the
+# 4096-token window bites; GPT-J-6B to 8 of its 28 layers at 4 x 2048.
+# A step holds the bf16 params and gradients, the float32 AdamW moments
+# and, while AdamW runs, the new params and moments beside the old (~22 B
+# a param); gemma2's loss keeps its (8192, 256000) logits unchunked, as
+# the reference does under a final softcap (7.8 GiB each in float32). On
+# the H100's 80 GB gemma2 ran out of memory at 8 and at 4 pairs.
+WIDE_TRAIN = {"gemma2_train": ("gemma2-9b", (2,), 1, 8192, 2, 6),
+              "gptj_train": ("gpt-j-6b", (8,), 4, 2048, 2, 6)}
+# the kernels-line row of each one's flash backward
+WIDE_TRAIN_ROWS = {"gemma2_train": "flash_attention_bwd_hd256",
+                   "gptj_train": "flash_attention_bwd_gptj"}
+# wide_train_parity's models: (periods, sequence length), float32, B 1:
+# gemma2-9b at 2 local/global pairs past its 4096-token window, GPT-J-6B
+# at 2 layers, deepseek-v3's first dense layer alone (MLA: the backward at
+# head_dim 192 through mla_forward)
+WIDE_TRAIN_PARITY = {"gemma2-9b": ((2,), 4608), "gpt-j-6b": ((2,), 512),
+                     "deepseek-v3-671b": ((1, 0), 512)}
 
 # NVIDIA H100 SXM data sheet peaks (dense), used for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -946,14 +1006,15 @@ def check_wide_kernels(gen, worst) -> None:
     (``check_append_quant``) at Hkv {8, 16} x hd 256; the tree swap
     (``swap_tree_case``) over gemma2's and GPT-J's own pool trees, bf16
     and int8 (payload rows of 64 and 128 KB, float32 scale leaves), n {1,
-    7, 34}; the flash forward (out and lse) causal, with windows 33 and
-    100, softcap 50, Tq < Tk and no causal mask; and the flash backward's
-    refusal of head_dim 256. Tolerances as the narrower cases':
-    ``attention_tol``, lse 1e-4; appends and swaps bit for bit."""
+    7, 34}; the flash forward (out and lse) and backward (dq, dk, dv,
+    ``check_flash_bwd``) causal, with windows 33 and 100, softcap 50, Tq <
+    Tk, no causal mask, G 1, 2 and 16, T 1 and 129, and gemma2's window
+    4096 at T 4097. Tolerances as the narrower cases': ``attention_tol``,
+    lse 1e-4, gradients ``check_flash_bwd``'s; appends and swaps bit for
+    bit."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
-                                                     flash_attention_fwd,
+    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
                                                      flash_attention_fwd_ref)
     from repro_torch.kernels.kv_quant import KV_QUANT_DTYPES
     from repro_torch.models.model import LM
@@ -1018,7 +1079,7 @@ def check_wide_kernels(gen, worst) -> None:
                 "byte for byte against the plain versions")
             del leaves
 
-    # the flash forward at head_dim 256; its backward refuses it
+    # the flash forward and backward at head_dim 256
     cases = [
         ("gemma2 T=1", dict(B=2, Hkv=8, G=2, Tq=1, Tk=1), {}),
         ("gemma2 T=129", dict(B=2, Hkv=8, G=2, Tq=129, Tk=129), {}),
@@ -1032,7 +1093,11 @@ def check_wide_kernels(gen, worst) -> None:
         ("gptj G=1 T=200", dict(B=2, Hkv=16, G=1, Tq=200, Tk=200), {}),
         ("gptj G=1 non-causal", dict(B=1, Hkv=16, G=1, Tq=90, Tk=130),
          dict(causal=False)),
-        ("G=16 T=100", dict(B=1, Hkv=1, G=16, Tq=100, Tk=100), {})]
+        ("G=16 T=100", dict(B=1, Hkv=1, G=16, Tq=100, Tk=100), {}),
+        # gemma2's local layers: the 4096-token window bites at T 4097
+        ("gemma2 window=4096 softcap=50 T=4097",
+         dict(B=1, Hkv=8, G=2, Tq=4097, Tk=4097),
+         dict(window=4096, softcap=50.0))]
     for dtype in (torch.bfloat16, torch.float32):
         for label, shape, kw in cases:
             B, Hkv, G, Tq, Tk = (shape[k] for k in ("B", "Hkv", "G", "Tq",
@@ -1051,15 +1116,46 @@ def check_wide_kernels(gen, worst) -> None:
             assert err <= tol[dtype] and lse_err <= 1e-4, label
             worst["flash_attention_hd256"] = max(
                 worst["flash_attention_hd256"], err)
-        try:
-            flash_attention_bwd(q, k, v, out, lse, torch.ones_like(out),
-                                **kw)
-        except ValueError as e:
-            log(f"  flash_attention_bwd at hd 256 refused: {e}")
-        else:
-            raise AssertionError("flash_attention_bwd took head_dim 256")
-        del q, k, v, out, lse, want, want_lse
+            del want, want_lse
+            g_err = check_flash_bwd(gen, f"hd=256 {label}", q, k, v, out,
+                                    lse, kw)
+            for row in ("flash_attention_bwd_hd256",
+                        "flash_attention_bwd_gptj"):
+                worst[row] = max(worst[row], g_err)
+            del q, k, v, out, lse
     torch.cuda.empty_cache()
+
+
+def check_flash_bwd(gen, label, q, k, v, out, lse, kw, v_width=None
+                    ) -> float:
+    """The flash backward kernels (one launch: dQ, then dK/dV) against
+    ``flash_attention_bwd_ref`` on the forward's ``out`` and ``lse`` and
+    a random gradient at the output (zero past ``v_width`` columns, as it
+    reaches a zero-padded v): dq, dk and dv within 1e-4 (float32) or 2^-6
+    (bf16, two units in the last place) of the largest magnitude among
+    them, as ``check_flash_kernels``; dv exactly zero past ``v_width``.
+    Returns the largest absolute error."""
+    import torch
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_ref)
+    rel = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}[q.dtype]
+    do = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
+    if v_width is not None:
+        do[..., v_width:] = 0
+    before = flash_attention_bwd.launches
+    grads = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    want = flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1, label
+    g_abs = [max_err(g, w) for g, w in zip(grads, want)]
+    g_rel = max(g_abs) / max(float(w.float().abs().max()) for w in want)
+    log(f"  flash_attention_bwd {label} {str(q.dtype)[6:]}: dq/dk/dv "
+        f"max_abs_err {g_rel:.3g} of their max (tol {rel:.3g})"
+        f"{f'; dv zero past {v_width}' if v_width is not None else ''}")
+    assert g_rel <= rel, label
+    if v_width is not None:
+        assert bool((grads[2][..., v_width:] == 0).all()), label
+    return max(g_abs)
 
 
 def same_bytes(a, b) -> bool:
@@ -3453,9 +3549,9 @@ def plain_attention():
     under autograd on any device: the oracle of the train path."""
     from repro_torch.kernels.flash_attention import flash_attention_ref
 
-    def op(q, k, v, *, causal=True, window=None, softcap=None):
+    def op(q, k, v, *, causal=True, window=None, softcap=None, scale=None):
         return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   softcap=softcap)
+                                   softcap=softcap, scale=scale)
     return op
 
 
@@ -3609,6 +3705,78 @@ def check_ssm_train_parity(*, tiny: bool = False,
             torch.cuda.empty_cache()
 
 
+def check_wide_train_parity(*, tiny: bool = False, device: str = "cuda",
+                            recorder=None, seq: int = None) -> int:
+    """The flash backward at head_dim 256 and 192 on the train path:
+    gemma2-9b at 2 local/global pairs (T 4608, past its 4096-token
+    window), GPT-J-6B at 2 layers (T 512) and deepseek-v3's first dense
+    layer alone (T 512: ``mla_forward`` pads qk and v to 192)
+    (WIDE_TRAIN_PARITY), full width in float32, B 1, remat on: the loss
+    and every gradient with the flash kernels against the plain attention
+    under autograd on the same device (``train_grads``). Held on weights
+    conditioned for soft attention (``condition_attention``), as
+    train_parity: loss within 1e-4, each gradient within 1e-3 of its
+    leaf's largest magnitude; reported, not held, with the reference's
+    init. On the card the kernel path launches the flash forward twice a
+    layer (remat) and its backward once. ``recorder`` (a FlashRecorder)
+    keeps deepseek-v3's conditioned kernel call and the gradient at its
+    output (the timing phase's row 7mb). Returns deepseek-v3's kernel-path
+    backward launches. ``tiny`` and ``device="cpu"`` rehearse it, with
+    every sequence ``seq`` long where given."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.utils.tree import tree_leaves
+    dev = torch.device(device)
+    mla_launches = 0
+    for model, (periods, length) in WIDE_TRAIN_PARITY.items():
+        length = seq or length
+        cfg = cut_config(get_config(model, tiny=tiny), periods=periods)
+        lm = LM(cfg)
+        batch = [torch.as_tensor(a, device=dev) for a in next(SyntheticLM(
+            DataConfig(vocab_size=cfg.vocab_size, seq_len=length,
+                       global_batch=1, seed=1)).batches())]
+        n = prefill_launches(cfg)["flash_attention"]
+        for conditioned in (True, False):
+            params = lm.init(torch.Generator(device=dev).manual_seed(0),
+                             dtype=torch.float32, device=dev)
+            if conditioned:
+                condition_attention(params)
+            keep = recorder if conditioned and model == MLA_MODEL \
+                and recorder is not None else contextlib.nullcontext()
+            reset_counts()
+            with keep:
+                lk, _, gk = train_grads(lm, params, batch, plain=False)
+            counts = launch_counts()
+            lp, _, gp = train_grads(lm, params, batch, plain=True)
+            gk, gp = tree_leaves(gk), tree_leaves(gp)
+            loss_err = abs(float(lk) - float(lp))
+            g_rel = max(max_err(a, b) / max(float(b.abs().max()), 1e-30)
+                        for a, b in zip(gk, gp))
+            finite = all(bool(torch.isfinite(g).all()) for g in gk)
+            name = "conditioned" if conditioned else "reference"
+            log(f"  {cfg.name} f32 B 1 x T {length}, {name} init: loss kernel "
+                f"{float(lk):.6f} vs plain {float(lp):.6f} (err "
+                f"{loss_err:.3g}), gradients: the worst of {len(gk)} leaves "
+                f"{g_rel:.3g} of its max"
+                f"{' (held: 1e-4, 1e-3)' if conditioned else ' (reported)'}"
+                f"; launches {({k: v for k, v in counts.items() if v})}")
+            assert finite and math.isfinite(float(lk)), (model, name)
+            if conditioned:
+                assert loss_err <= 1e-4 and g_rel <= 1e-3, model
+            if dev.type == "cuda":
+                assert counts["flash_attention"] == 2 * n, (model, counts)
+                assert counts["flash_attention_bwd"] == n, (model, counts)
+                if model == MLA_MODEL:
+                    mla_launches += counts["flash_attention_bwd"]
+            del params, gk, gp
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    return mla_launches
+
+
 # ---------------------------------------------------------------------------
 # phase 14: full-width training steps
 # ---------------------------------------------------------------------------
@@ -3654,9 +3822,12 @@ class FlashRecorder:
 def train(recorder, *, model: str = "llama3.2-1b", tiny: bool = False,
           device: str = "cuda", warm: int = 2, timed: int = 8,
           batch: int = 4, seq: int = 2048, lr: float = 3e-3,
-          profile: bool = False, profile_seq: int = None) -> dict:
+          profile: bool = False, profile_seq: int = None,
+          periods=None) -> dict:
     """Full-width ``model`` (llama3.2-1b; xlstm_train and zamba2_train: the
-    SSM models, SSM_TRAIN) through make_train_step: bf16 params from
+    SSM models, SSM_TRAIN; gemma2_train and gptj_train: WIDE_TRAIN), each
+    group cut to ``periods`` where given (``cut_config``), through
+    make_train_step: bf16 params from
     seed 0 (the reference's init), float32 AdamW state (peak lr 3e-3 after
     2 warm-up steps, cosine over the run: on the H100, 1e-3 moved the loss
     by ~0.1 in 8 steps, within the batch-to-batch spread, 3e-3 by ~2.7
@@ -3682,7 +3853,7 @@ def train(recorder, *, model: str = "llama3.2-1b", tiny: bool = False,
     dev = torch.device(device)
     on_card = dev.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
-    cfg = get_config(model, tiny=tiny)
+    cfg = cut_config(get_config(model, tiny=tiny), periods=periods)
     lm = LM(cfg)
     gc.collect()
     if on_card:
@@ -3755,6 +3926,29 @@ def train(recorder, *, model: str = "llama3.2-1b", tiny: bool = False,
     if on_card:
         torch.cuda.empty_cache()
     return res
+
+
+@contextlib.contextmanager
+def expandable_segments():
+    """PyTorch's caching allocator with segments that grow in place
+    (``expandable_segments``) inside the block, its usual segments again
+    after it, the cache emptied on either side. The wide train runs need
+    it: gemma2's (8192, 256000) float32 logits (7.8 GiB a tensor) beside
+    AdamW's leaves split the usual segments so that at 4 layers a step
+    found no room for one of them with 29 GiB cached and free in pieces
+    (on an H100 80GB)."""
+    import torch
+    setting = getattr(torch._C, "_accelerator_setAllocatorSettings", None) \
+        or torch.cuda.memory._set_allocator_settings
+    gc.collect()
+    torch.cuda.empty_cache()
+    setting("expandable_segments:True")
+    try:
+        yield
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
+        setting("expandable_segments:False")
 
 
 def log_device_time(prof, wall: float, window: str) -> tuple:
@@ -4040,6 +4234,98 @@ def time_prefill_flash(recorder: FlashRecorder, worst: dict,
         f"{' (no softcap)' if kw.get('softcap') else ''} "
         f"{ms / lib_ms:.2f}x")
     del q4, out, lse
+    torch.cuda.empty_cache()
+    return [row]
+
+
+def time_flash_bwd(recorder: FlashRecorder, worst: dict, launches: dict,
+                   name: str, iters: int = 3) -> list:
+    """A flash backward row, ``name``, on the call the recorder kept and
+    the gradient that reached its output: 7wb gemma2_train's first call (1
+    x 8192, 8 kv heads x G 2 x 256, window 4096, softcap 50), 7jb
+    gptj_train's first call (4 x 2048, 16 kv heads x G 1 x 256), 7mb
+    wide_train_parity's deepseek-v3 call (1 x 512, 128 heads x G 1 x 192,
+    v zero-padded past 128, scale 1 / sqrt(192), float32). Against its
+    plain version (``check_flash_bwd``'s tolerance); ``ms`` launched from
+    the host in turns with the plain version, ``device_ms`` by CUDA graph
+    replays; the library yardstick, scaled_dot_product_attention's
+    backward with is_causal (and enable_gqa where G > 1, the call's
+    scale), timed here and never on the path: it has no window and no
+    softcap, so on such a call it computes the causal, uncapped function
+    on the same inputs. Bound: 10 hd operations a visible pair (five
+    products; at 192 the padded width the kernel runs) at the type's peak,
+    against each operand read and each gradient written once. A float32
+    call is also timed cast to bf16 (the tensor-core kernels), logged."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_ref, flash_attention_fwd)
+    q, k, v, kw = recorder.args
+    q, k, v, do = (t.cuda() for t in (q, k, v, recorder.dout))
+    B, Hkv, G, T, hd = q.shape
+    Tk = k.shape[2]
+    mask = torch.ones((T, Tk), dtype=torch.bool, device=q.device).tril(
+        Tk - T)
+    if kw.get("window") is not None:
+        mask &= ~torch.ones_like(mask).tril(Tk - T - kw["window"])
+    pairs = int(mask.sum()) * B * Hkv * G
+    extra = [f"window {kw['window']}"] if kw.get("window") else []
+    extra += [f"softcap {kw['softcap']}"] if kw.get("softcap") else []
+    extra += [f"scale {kw['scale']:.6g}"] if kw.get("scale") else []
+
+    def times(q, k, v, do):
+        out, lse = flash_attention_fwd(q, k, v, **kw)
+
+        def bwd():
+            return flash_attention_bwd(q, k, v, out, lse, do, **kw)
+
+        def bwd_plain():
+            return flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
+        rel = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}[q.dtype]
+        want = bwd_plain()
+        g_abs = [max_err(g, w) for g, w in zip(bwd(), want)]
+        scale = max(float(w.float().abs().max()) for w in want)
+        del want
+        log(f"  {name} {str(q.dtype)[6:]} main-path call: dq/dk/dv "
+            f"max_abs_err {max(g_abs) / scale:.3g} of their max (tol "
+            f"{rel:.3g})")
+        assert max(g_abs) <= rel * scale, name
+        ms, plain_ms = in_turns(bwd_plain, bwd, iters)
+        return bwd, max(g_abs), ms, plain_ms, lse
+
+    bwd, err, ms, plain_ms, lse = times(q, k, v, do)
+    q4r, kr, vr = (t.detach().clone().requires_grad_(True)
+                   for t in (q.reshape(B, Hkv * G, T, hd), k, v))
+    out4 = F.scaled_dot_product_attention(q4r, kr, vr, is_causal=True,
+                                          enable_gqa=G > 1,
+                                          scale=kw.get("scale"))
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(
+        out4, (q4r, kr, vr), do.reshape(out4.shape), retain_graph=True),
+        iters)
+    del out4, q4r, kr, vr
+    row = kernel_row(name, "src/repro_torch/kernels/csrc/flash_attention.cu",
+                     FLASH_REPLACES["flash_attention_bwd"], launches[name],
+                     max(worst[name], err), ms, plain_ms, lib_ms,
+                     (4 * q.numel() + 4 * k.numel()) * q.element_size()
+                     + lse.numel() * 4, 10 * hd * pairs, str(q.dtype)[6:],
+                     [B, Hkv, G, T, hd, "causal", *extra])
+    row["device_ms"] = graph_ms(bwd, iters)
+    uncapped = kw.get("window") or kw.get("softcap")
+    log(f"    device time {row['device_ms']:.4f} ms "
+        f"({row['device_ms'] / row['bound_ms']:.1f}x bound); kernel / "
+        f"library{' (no window or softcap)' if uncapped else ''} "
+        f"{ms / lib_ms:.2f}x")
+    if q.dtype == torch.float32:
+        # the same call on the tensor-core kernels
+        b16 = [t.to(torch.bfloat16) for t in (q, k, v, do)]
+        bwd16, _, ms16, plain16, _ = times(*b16)
+        dev16 = graph_ms(bwd16, iters)
+        bound16 = 10 * hd * pairs / PEAK_OPS["bfloat16"] * 1e3
+        log(f"    the same call cast to bf16: kernel {ms16:.4f} ms, device "
+            f"{dev16:.4f} ms ({dev16 / bound16:.1f}x its bf16 bound "
+            f"{bound16:.5f} ms), plain {plain16:.4f} ms")
+        del b16, bwd16
+    del q, k, v, do, lse, bwd
     torch.cuda.empty_cache()
     return [row]
 
@@ -4601,7 +4887,7 @@ MODEL_SERVES = {
                        profile_steps=8),
     # zamba2: 32 mamba2 layers (gla_scan) and 6 occurrences of its one
     # shared attention block (flash), each with its own slotted cache
-    "zamba2_serve": dict(model="zamba2-1.2b", seq=2000, steps=64,
+    "zamba2_serve": dict(model="zamba2-1.2b", seq=2000, steps=32,
                          slots=True, profile_steps=8),
     # pixtral: a (8, 1024, 5120) vision prefix, then the prompt's tokens;
     # not profiled
@@ -5396,15 +5682,16 @@ def check_mla_kernels(gen, worst) -> None:
     kv_append at the latent widths (``check_append``: c
     512 and kr 64 wide, and the tiny config's 32 and 16);
     the flash forward at head_dim 192 (out and lse) at B 1-2 x 128 heads x
-    G 1 x T 1024 causal, T 77, Tq < Tk and G 16 (the float32 kernel's
-    most heads at 192), ``attention_tol``, and the flash backward's
-    refusal of 192; the tree swap over deepseek-v3's latent pool tree
+    G 1 x T 1024 causal, T 65, 77 and 129, Tq < Tk and G 16 (the float32
+    kernel's most heads at 192), ``attention_tol``, and its backward
+    (``check_flash_bwd``) on the same calls with v zero-padded past 128
+    columns and scale 1 / sqrt(192), as ``mla_forward`` runs it; the tree
+    swap over deepseek-v3's latent pool tree
     (its int8 engine's is the same: latent pools stay in the model
     dtype), byte for byte (``swap_tree_case``)."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
-                                                     flash_attention_fwd,
+    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
                                                      flash_attention_fwd_ref)
     from repro_torch.kernels.mla_attention import (
         ragged_latent_attention, ragged_latent_attention_ref)
@@ -5460,6 +5747,10 @@ def check_mla_kernels(gen, worst) -> None:
     cases = [("B=2 H=128 T=1024", dict(B=2, Hkv=128, G=1, Tq=1024, Tk=1024),
               {}),
              ("B=1 H=128 T=77", dict(B=1, Hkv=128, G=1, Tq=77, Tk=77), {}),
+             # one past a 64-row tile, and one past two
+             ("B=1 H=128 T=65", dict(B=1, Hkv=128, G=1, Tq=65, Tk=65), {}),
+             ("B=1 H=128 T=129", dict(B=1, Hkv=128, G=1, Tq=129, Tk=129),
+              {}),
              ("Tq<Tk", dict(B=1, Hkv=8, G=1, Tq=100, Tk=300), {}),
              ("G=16", dict(B=1, Hkv=2, G=16, Tq=130, Tk=130), {})]
     scale = 1.0 / math.sqrt(192)
@@ -5482,14 +5773,16 @@ def check_mla_kernels(gen, worst) -> None:
             assert err <= tol[dtype] and lse_err <= 1e-4, label
             worst["flash_attention_hd192"] = max(
                 worst["flash_attention_hd192"], err)
-            del want, want_lse
-        try:
-            flash_attention_bwd(q, k, v, out, lse, torch.ones_like(out))
-        except ValueError as e:
-            log(f"  flash_attention_bwd at hd 192 refused: {e}")
-        else:
-            raise AssertionError("flash_attention_bwd took head_dim 192")
-        del q, k, v, out, lse
+            del want, want_lse, out, lse
+            # the backward as mla_forward runs it: v zero-padded past its
+            # 128 columns (so is the gradient reaching the output)
+            v[..., 128:] = 0
+            out, lse = flash_attention_fwd(q, k, v, scale=scale, **kw)
+            worst["flash_attention_bwd_hd192"] = max(
+                worst["flash_attention_bwd_hd192"],
+                check_flash_bwd(gen, f"hd=192 {label}", q, k, v, out, lse,
+                                dict(kw, scale=scale), v_width=128))
+            del q, k, v, out, lse
     torch.cuda.empty_cache()
     lm = LM(cut_config(get_config(MLA_MODEL), periods=MLA_SERVE_PERIODS))
     for kv_dtype in (None, "int8"):
@@ -5755,7 +6048,7 @@ def check_musicgen_parity(*, tiny: bool = False, device: str = "cuda",
 
 class MusicgenRecorder(Recorder):
     """musicgen_serve's Recorder: the ragged kernel's calls (row 1g) and
-    the stager's largest pack, whose two pool leaves (48 layers, 6.4 GB
+    the stager's largest pack, whose two pool leaves (24 layers, 3.2 GB
     each in bf16) it keeps as shapes on the meta device, which is all
     ``time_stager`` reads of them beside the page ids."""
 
@@ -5809,9 +6102,10 @@ def main() -> int:
                     help=f"comma list of {PHASES} (card and build always "
                          "run; timing needs every serve phase for rows "
                          "1-6 (and 3q, 4q), the train phase for the flash "
-                         "rows, ssm_serve for the gla_scan row and "
+                         "rows, ssm_serve for the gla_scan row, "
                          "xlstm_train and zamba2_train for the gla "
-                         "backward's rows)")
+                         "backward's rows, gemma2_train, gptj_train and "
+                         "wide_train_parity for rows 7wb, 7jb and 7mb)")
     ap.add_argument("--parent", default=None,
                     help="another checkout of the port (the parent "
                          "commit's): its attention, append, gla_scan, "
@@ -5865,6 +6159,16 @@ def main() -> int:
             f"form, {('float32', 'bf16')[code]} pools, L {L} R {R}: "
             f"{smem.value} B of dynamic shared memory, {n} blocks of 256 "
             "threads per SM")
+    # the bf16 flash backward's kernels (8 warps a block at 192 and 256)
+    for hd in (32, 64, 128, 192, 256):
+        for kernel, label in ((0, "dQ"), (1, "dK/dV")):
+            smem = ctypes.c_int(0)
+            n = _build.lib().flash_attention_bwd_occupancy(
+                hd, kernel, ctypes.byref(smem))
+            assert n > 0, (hd, label)
+            log(f"  flash backward {label} hd {hd}: {smem.value} B of dynamic "
+                f"shared memory, {n} blocks of {256 if hd > 128 else 128} "
+                "threads per SM")
 
     worst = {k: 0.0 for k in ROWS}
     if "kernels" in phases:
@@ -5906,6 +6210,16 @@ def main() -> int:
             "B 1 x T 512: loss and gradients of the gla (and flash) kernels "
             "vs the plain GLA and attention on the card")
         check_ssm_train_parity()
+    # the flash backward at head_dim 192 on wide_train_parity's deepseek-v3
+    # layer: the timing phase's row 7mb, its launches that model's
+    mla_bwd = FlashRecorder()
+    if "wide_train_parity" in phases:
+        log("[wide_train_parity] gemma2-9b (2 local/global pairs, T 4608), "
+            "GPT-J-6B (2 layers, T 512) and deepseek-v3's first dense layer "
+            "(T 512) full width f32, B 1: loss and gradients of the flash "
+            "kernels (backward at head_dim 256 and 192) vs the plain "
+            "attention on the card")
+        total_mla_bwd = check_wide_train_parity(recorder=mla_bwd)
     if "ssm_parity" in phases:
         log("[ssm_parity] xlstm-350m full width f32, B 2 x T 520: prefill "
             "with gla_scan vs the plain chunked_gla_ref on the card, and "
@@ -6225,6 +6539,30 @@ def main() -> int:
         log(f"  {smi}: {res['step_ms_mean']:.1f} ms a step, "
             f"{res['tokens_per_s']:.1f} tokens/s, max_memory_allocated "
             f"{res['max_memory_allocated']} B")
+    # the head_dim-256 models' train runs: the first attention call of
+    # each, with the gradient that reached it, gives the timing phase's rows
+    # 7wb and 7jb
+    wide_train_recs = {phase: FlashRecorder() for phase in WIDE_TRAIN}
+    for phase, (model, periods, batch, seq, warm, timed) in \
+            WIDE_TRAIN.items():
+        if phase not in phases:
+            continue
+        log(f"[{phase}] {model} full width, {layers(model, periods)} layers, "
+            f"bf16 params, f32 AdamW, remat, SyntheticLM B {batch} x T {seq}"
+            f", {warm} warm-up and {timed} timed steps")
+        with expandable_segments():
+            res = train(wide_train_recs[phase], model=model,
+                        periods=periods, batch=batch, seq=seq, warm=warm,
+                        timed=timed, profile="profile" in phases
+                        and phase == "gemma2_train")
+        total[WIDE_TRAIN_ROWS[phase]] = res["launches"]["flash_attention_bwd"]
+        log(f"  (its flash_attention_bwd launches are row "
+            f"{WIDE_TRAIN_ROWS[phase]}'s in the kernels line; the rest are "
+            f"logged apart: "
+            f"{json.dumps({k: v for k, v in res['launches'].items() if v})})")
+        log(f"  {smi}: {res['step_ms_mean']:.1f} ms a step, "
+            f"{res['tokens_per_s']:.1f} tokens/s, max_memory_allocated "
+            f"{res['max_memory_allocated']} B")
     # the first call of each serve-step run that a timing row takes
     serve_recs = {"ssm_serve": GLARecorder(), "wide_dense": FlashRecorder(),
                   "zamba2_serve": GLARecorder(),
@@ -6327,6 +6665,19 @@ def main() -> int:
                 f"{phase} (row {row_name})")
             rows += time_gla_bwd(ssm_train_recs[phase], worst, total,
                                  row_name)
+    for phase, row_name in WIDE_TRAIN_ROWS.items():
+        if "timing" in phases and phase in phases:
+            log(f"[timing] the flash backward on the first attention call of "
+                f"{phase} (row {row_name})")
+            rows += time_flash_bwd(wide_train_recs[phase], worst, total,
+                                   row_name)
+    if "timing" in phases and "wide_train_parity" in phases:
+        log("[timing] the flash backward at head_dim 192 on "
+            "wide_train_parity's deepseek-v3 call (row flash_attention_bwd_"
+            "hd192)")
+        total["flash_attention_bwd_hd192"] = total_mla_bwd
+        rows += time_flash_bwd(mla_bwd, worst, total,
+                               "flash_attention_bwd_hd192", iters=5)
     if "timing" in phases and "pixtral_serve" in phases:
         log("[timing] flash attention on the first attention call of the "
             "pixtral prefill (row 7p)")
@@ -6344,7 +6695,8 @@ def main() -> int:
             "train", "ssm_serve", "gemma2_serve", "gemma2_unfused",
             "gemma2_quant", "wide_dense", "moe_serve", "mla_serve",
             "mla_parity", "zamba2_serve", "pixtral_serve",
-            "musicgen_serve", *SSM_TRAIN} <= phases:
+            "musicgen_serve", *SSM_TRAIN, *WIDE_TRAIN,
+            "wide_train_parity"} <= phases:
         assert sorted(r["name"] for r in rows) == sorted(ROWS), rows
         # every kernel of the main path launched; page_requant is the
         # reference's standalone op, which the fused append replaced there

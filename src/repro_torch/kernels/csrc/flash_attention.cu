@@ -38,17 +38,19 @@
 //    its Q fragments in registers for the whole sweep, but at hd 192 (MLA's
 //    qk width) and 256, where a warp's 16 x 256 float32 accumulator alone
 //    takes 128 registers a thread, it reads them from shared memory at
-//    every key tile and scores each tile in two halves of 32 keys. The
-//    backward takes hd up to 128 (at 256 its dK/dV accumulators would be
-//    256 registers a thread: it needs its own design). The dQ kernel first
-//    forms delta for its rows and writes it for the dK/dV kernel, which
-//    runs after it on the same stream.
+//    every key tile and scores each tile in two halves of 32 keys. The dQ
+//    kernel first forms delta for its rows and writes it for the dK/dV
+//    kernel, which runs after it on the same stream.
 //  * dK/dV: one block per (b, kv head, 64-key tile), which loops over the G
 //    heads and the 64-query tiles (32 at hd 128, for registers) that see
 //    its keys, staged by cp.async with their lse and delta, and forms the
 //    transposed products directly, rows being keys: S^T = K Q^T,
 //    dP^T = V dO^T, then dV += P^T dO and dK += dS^T Q. No atomics: every
 //    output element has one owner, and the result is deterministic.
+//  * at hd 192 and 256 the backward's blocks are 8 warps, two groups over
+//    the same 64 rows, each holding one accumulator: dV or dK (dK/dV), a
+//    half of dQ's columns (dQ); see "The backward at head_dim 192 and 256"
+//    below.
 // P and dS are rounded to bf16 once before their products (relative 2^-9),
 // as the inputs of S and dP already are; nothing else is rounded before
 // the outputs.
@@ -56,8 +58,9 @@
 // float32 operands run the first, CUDA-core kernels, kept for float32's
 // tolerances: a row of q (or of k, in the dK/dV kernel) is owned by
 // TPR = hd / 32 neighbouring threads, 32 of its dims each (at hd 192, 8
-// threads of 24), held in registers as float4s interleaved across the TPR
-// threads; a dot product is one shuffle reduction over them. One block of
+// threads of 24, so that TPR is a power-of-two shuffle group), held in
+// registers as float4s interleaved across the TPR threads; a dot product
+// is one shuffle reduction over them. One block of
 // 128 threads per (b, kv head, q tile) holds the G query heads that share
 // one K/V stream, with K/V tiles of 4096 / hd keys (rounded down to whole
 // chunks of 8) staged as float32; the dK/dV kernel
@@ -70,7 +73,6 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kDS = 32;       // dims of a row held by one thread
-constexpr int kNM = kDS / 4;  // float4s of a row held by one thread
 
 // threads that own one row of a float32 block: hd / 32, but 8 at hd 192
 // (24 dims each), so that a row's threads are a power-of-two shuffle group
@@ -296,20 +298,22 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
   if (part == 0) p.lse[tl.row] = m_i + logf(l);
 }
 
+// (a minimum of one block an SM: without it ptxas held hd 192 to 128
+// registers and spilled 12 bytes)
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(
     const Params p) {
   using Tile = QTile<HD>;
-  constexpr int TPR = Tile::TPR, BK = Tile::BK;
+  constexpr int TPR = Tile::TPR, BK = Tile::BK, NM = Tile::NM;
   __shared__ __align__(16) float k_s[BK * HD];
   __shared__ __align__(16) float v_s[BK * HD];
   const Tile tl(p);
   const int part = tl.part;
   const long long ro = tl.row * HD;
-  float4 q[kNM], d_o[kNM], dq[kNM];
+  float4 q[NM], d_o[NM], dq[NM];
   float dl = 0.f;
 #pragma unroll
-  for (int m = 0; m < kNM; ++m) {
+  for (int m = 0; m < NM; ++m) {
     float4 o4 = zero4();
     q[m] = d_o[m] = zero4();
     if (tl.active) {
@@ -343,7 +347,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
         const float* vr = v_s + (j0 + u) * HD;
         float4 a = zero4(), c = zero4();
 #pragma unroll
-        for (int m = 0; m < kNM; ++m) {
+        for (int m = 0; m < NM; ++m) {
           fma4(a, q[m], slice4<TPR>(kr, part, m));
           fma4(c, d_o[m], slice4<TPR>(vr, part, m));
         }
@@ -363,22 +367,23 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
       for (int u = 0; u < kChunk; ++u) {
         const float* kr = k_s + (j0 + u) * HD;
 #pragma unroll
-        for (int m = 0; m < kNM; ++m) axpy4(dq[m], s[u], slice4<TPR>(kr, part, m));
+        for (int m = 0; m < NM; ++m) axpy4(dq[m], s[u], slice4<TPR>(kr, part, m));
       }
     }
   }
   if (!tl.active) return;
   T* dqrow = static_cast<T*>(p.dq) + ro;
 #pragma unroll
-  for (int m = 0; m < kNM; ++m) store4(dqrow + 4 * (part + TPR * m), dq[m]);
+  for (int m = 0; m < NM; ++m) store4(dqrow + 4 * (part + TPR * m), dq[m]);
 }
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     const Params p) {
-  constexpr int TPR = HD / kDS;
-  constexpr int R = kThreads / TPR;  // keys per block
-  constexpr int RS = 4096 / HD;      // q rows (heads x positions) per stage
+  constexpr int TPR = threads_per_row(HD);
+  constexpr int NM = HD / (4 * TPR);  // float4s a thread holds
+  constexpr int R = kThreads / TPR;   // keys per block
+  constexpr int RS = 4096 / HD;       // q rows (heads x positions) per stage
   __shared__ __align__(16) float q_s[RS * HD];
   __shared__ __align__(16) float do_s[RS * HD];
   __shared__ float lse_s[RS];
@@ -393,9 +398,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
   const int kpos = j0 + threadIdx.x / TPR;
   const bool active = kpos < Tk;
   const long long ko = (bh * Tk + kpos) * HD;
-  float4 k[kNM], v[kNM], dk[kNM], dv[kNM];
+  float4 k[NM], v[NM], dk[NM], dv[NM];
 #pragma unroll
-  for (int m = 0; m < kNM; ++m) {
+  for (int m = 0; m < NM; ++m) {
     k[m] = active ? load4(gslice<TPR>(static_cast<const T*>(p.k) + ko, part,
                                       m)) : zero4();
     v[m] = active ? load4(gslice<TPR>(static_cast<const T*>(p.v) + ko, part,
@@ -441,7 +446,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
         const int r2 = min(rr + u, NR - 1);
         float4 a = zero4(), c = zero4();
 #pragma unroll
-        for (int m = 0; m < kNM; ++m) {
+        for (int m = 0; m < NM; ++m) {
           fma4(a, k[m], slice4<TPR>(q_s + r2 * HD, part, m));
           fma4(c, v[m], slice4<TPR>(do_s + r2 * HD, part, m));
         }
@@ -460,7 +465,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
           ds = pr * (dp[u] - dl_s[r2]) * capped_grad(sc, p);
         }
 #pragma unroll
-        for (int m = 0; m < kNM; ++m) {
+        for (int m = 0; m < NM; ++m) {
           axpy4(dv[m], pr, slice4<TPR>(do_s + r2 * HD, part, m));
           axpy4(dk[m], ds, slice4<TPR>(q_s + r2 * HD, part, m));
         }
@@ -471,7 +476,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
   T* dkrow = static_cast<T*>(p.dk) + ko;
   T* dvrow = static_cast<T*>(p.dv) + ko;
 #pragma unroll
-  for (int m = 0; m < kNM; ++m) {
+  for (int m = 0; m < NM; ++m) {
     store4(dkrow + 4 * (part + TPR * m), dk[m]);
     store4(dvrow + 4 * (part + TPR * m), dv[m]);
   }
@@ -496,14 +501,14 @@ constexpr int kPitch = HD + 8;
 
 // rows [r0, r0 + ROWS) of a row-major (n, HD) bf16 matrix into a padded
 // shared-memory tile by 16-byte cp.async; zeros for rows at or past n
-template <int HD, int ROWS>
+template <int HD, int ROWS, int NTH = kThreads>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int r0,
                                           int n) {
   constexpr int kPieces = HD / 8;  // 16-byte pieces of a row
-  static_assert(ROWS * kPieces % kThreads == 0, "whole rounds of copies");
+  static_assert(ROWS * kPieces % NTH == 0, "whole rounds of copies");
 #pragma unroll
-  for (int u = 0; u < ROWS * kPieces / kThreads; ++u) {
-    const int c = threadIdx.x + u * kThreads;
+  for (int u = 0; u < ROWS * kPieces / NTH; ++u) {
+    const int c = threadIdx.x + u * NTH;
     const int r = c / kPieces, col = c % kPieces * 8;
     const bool in = r0 + r < n;
     cp_async16(dst + r * kPitch<HD> + col,
@@ -524,13 +529,13 @@ __device__ __forceinline__ float quad_sum(float x) {
 
 // K and V rows of key tile t into stage st of a two-stage K/V buffer
 // (stage st: K at 2 st kBK rows, V after it)
-template <int HD>
+template <int HD, int NTH = kThreads>
 __device__ __forceinline__ void load_kv(bf16* kv_s, const bf16* kg,
                                         const bf16* vg, int st, int t,
                                         int Tk) {
   bf16* k_s = kv_s + st * 2 * kBK * kPitch<HD>;
-  load_rows<HD, kBK>(k_s, kg, t * kBK, Tk);
-  load_rows<HD, kBK>(k_s + kBK * kPitch<HD>, vg, t * kBK, Tk);
+  load_rows<HD, kBK, NTH>(k_s, kg, t * kBK, Tk);
+  load_rows<HD, kBK, NTH>(k_s + kBK * kPitch<HD>, vg, t * kBK, Tk);
 }
 
 // row band h (the thread's row +0 or +8) of a warp's 16 x HD accumulator,
@@ -952,27 +957,378 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_tc_kernel(
   }
 }
 
-// above 48 KB a kernel must opt in to its dynamic shared memory
-template <typename K>
-int launch(K kernel, dim3 grid, int smem, const Params& p, cudaStream_t s) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<grid, kThreads, smem, s>>>(p);
-  return static_cast<int>(cudaGetLastError());
+// ---------------------------------------------------------------------------
+// The backward at head_dim 192 and 256: the accumulators split over two
+// warp groups. A warp's 16 x HD float32 accumulator is HD / 2 registers a
+// thread, so the narrower head dims' dK/dV block, whose warps hold both dK
+// and dV of their 16 keys, would need HD registers for them alone. Here a block is 8 warps,
+// two groups of 4 over the same 64 rows, 16 rows a warp (its band), and
+// each group holds one accumulator of its band:
+//  * dK/dV: group 0 forms S^T = K Q^T, P = exp(s - lse) and dV += P^T dO;
+//    group 1 forms dP^T = V dO^T, dS = P (dP - delta) d(capped)/d(dot) and
+//    dK += dS^T Q. Group 0 hands P d(capped)/d(dot), in float32, to the
+//    lane that holds the same fragment element in group 1, through shared
+//    memory laid out [band][n][e][lane], so that neither side's access has
+//    a bank conflict. No product is computed twice.
+//  * dQ: group 0 forms S and P d(capped)/d(dot) (handed over as above),
+//    group 1 forms dP, then dS, which it rounds to bf16 into a 64 x 64
+//    shared tile; each group then adds dS K into its half of dQ's columns.
+// Each thread holds HD / 2 (dK/dV) or HD / 4 (dQ) accumulators beside the
+// 16 x 64 score fragment; the two products of a stage run side by side on
+// the two groups, with three barriers a stage (four in dQ).
+// ---------------------------------------------------------------------------
+constexpr int kWide = 256;              // threads of a wide backward block
+constexpr int kHand = 4 * (kBK / 8) * 4 * 32;  // handed-over floats, 16 KB
+
+template <int HD>
+constexpr int dq_wide_smem() {
+  return 6 * kRows * kPitch<HD> * 2 + kRows * kPitch<kBK> * 2 + kHand * 4 +
+         2 * kRows * 4;
+}
+
+// query rows per staged tile of the wide dK/dV kernel
+constexpr int kDkvWideRows = 64;
+
+template <int HD>
+constexpr int dkv_wide_smem() {
+  return (2 * kRows + 4 * kDkvWideRows) * kPitch<HD> * 2 + kHand * 4 +
+         4 * kDkvWideRows * 4;
+}
+
+// the S (Q K^T, or K Q^T) or dP tile of a warp's 16 rows of a_s against the
+// NT * 8 rows of b_s, over HD
+template <int HD, int NT>
+__device__ __forceinline__ void band_scores(float (&s)[NT][4],
+                                            const bf16* a_s, const bf16* b_s,
+                                            int band) {
+  constexpr int P = kPitch<HD>;
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    uint32_t a[4];
+    ldsm_a<P>(a, a_s, band * 16, kk * 16);
+#pragma unroll
+    for (int n = 0; n < NT; n += 2) {
+      uint32_t f[4];
+      ldsm_b<P>(f, b_s, n * 8, kk * 16);
+      mma16816(s[n], a, f[0], f[1]);
+      mma16816(s[n + 1], a, f[2], f[3]);
+    }
+  }
 }
 
 template <int HD>
+__global__ void __launch_bounds__(kWide) flash_bwd_dq_wide_kernel(
+    const Params p) {
+  constexpr int P = kPitch<HD>, NT = kBK / 8, DH = HD / 16;
+  constexpr int PD = kPitch<kBK>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem);
+  bf16* do_s = q_s + kRows * P;
+  bf16* kv_s = do_s + kRows * P;
+  bf16* ds_s = kv_s + 4 * kBK * P;  // dS of the stage, rows x keys
+  float* hand = reinterpret_cast<float*>(ds_s + kRows * PD);
+  float* lse_s = hand + kHand;      // times log2 e
+  float* dl_s = lse_s + kRows;
+  const QBlock b(p);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int band = warp % 4;
+  const bool scorer = warp < 4;            // group 0
+  const int r_lo = band * 16 + lane / 4;   // this thread's rows: r_lo, +8
+  const int c0 = warp / 4 * (HD / 2);      // this group's dQ columns
+  const bf16* kg = static_cast<const bf16*>(p.k) + b.kv * p.Tk * HD;
+  const bf16* vg = static_cast<const bf16*>(p.v) + b.kv * p.Tk * HD;
+  const bf16* dog = static_cast<const bf16*>(p.dout) + b.row0 * HD;
+  load_rows<HD, kRows, kWide>(q_s, static_cast<const bf16*>(p.q) +
+                                       b.row0 * HD, b.i0, p.Tq);
+  load_rows<HD, kRows, kWide>(do_s, dog, b.i0, p.Tq);
+  load_kv<HD, kWide>(kv_s, kg, vg, 0, b.t_lo, p.Tk);
+  cp_async_commit();
+  {
+    // delta = rowsum(dO * O), four threads a row, while the tiles land
+    constexpr int TR = kWide / kRows, W = HD / TR;
+    const int r = threadIdx.x / TR, i = b.i0 + r;
+    const long long at = (long long)i * HD + threadIdx.x % TR * W;
+    float dl = 0.f;
+    if (i < p.Tq) {
+#pragma unroll
+      for (int c = 0; c < W / 8; ++c) {
+        const uint4 o4 = *reinterpret_cast<const uint4*>(
+            static_cast<const bf16*>(p.o) + b.row0 * HD + at + c * 8);
+        const uint4 d4 = *reinterpret_cast<const uint4*>(dog + at + c * 8);
+        const bf16* oe = reinterpret_cast<const bf16*>(&o4);
+        const bf16* de = reinterpret_cast<const bf16*>(&d4);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          dl = fmaf(__bfloat162float(de[j]), __bfloat162float(oe[j]), dl);
+      }
+    }
+    dl += __shfl_xor_sync(kAll, dl, 1);
+    dl += __shfl_xor_sync(kAll, dl, 2);
+    if (threadIdx.x % TR == 0) {
+      dl_s[r] = dl;
+      lse_s[r] = i < p.Tq ? p.lse[b.row0 + i] * kLog2e : 0.f;
+      if (i < p.Tq) p.delta[b.row0 + i] = dl;
+    }
+  }
+  float* h = hand + band * NT * 4 * 32 + lane;  // element (n, e) at 32 (4n + e)
+  float dq[DH][4] = {};
+  for (int t = b.t_lo; t <= b.t_hi; ++t) {
+    const int st = (t - b.t_lo) & 1;
+    if (t < b.t_hi) load_kv<HD, kWide>(kv_s, kg, vg, st ^ 1, t + 1, p.Tk);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* k_s = kv_s + st * 2 * kBK * P;
+    const bf16* v_s = k_s + kBK * P;
+    // group 0: S = Q K^T; group 1: dP = dO V^T
+    float s[NT][4];
+    band_scores<HD, NT>(s, scorer ? q_s : do_s, scorer ? k_s : v_s, band);
+    if (scorer) {
+      // P = exp(capped - lse), times d(capped)/d(dot), masked on edge tiles
+      const bool edge = b.edge(t, p);
+      const float lse2[2] = {lse_s[r_lo], lse_s[r_lo + 8]};
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float sc = capped(s[n][e], p);
+          float pg = 0.f;
+          if (!edge || visible(t * kBK + n * 8 + lane % 4 * 2 + (e & 1),
+                               b.q_first + r_lo + (e >> 1) * 8, p))
+            pg = exp2f(sc * kLog2e - lse2[e >> 1]) * capped_grad(sc, p);
+          h[(4 * n + e) * 32] = pg;
+        }
+      }
+    }
+    __syncthreads();
+    if (!scorer) {
+      // dS = P d(capped)/d(dot) (dP - delta), as bf16 into the dS tile
+      const float dl[2] = {dl_s[r_lo], dl_s[r_lo + 8]};
+      bf16* row = ds_s + r_lo * PD + lane % 4 * 2;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ds[e] = h[(4 * n + e) * 32] * (s[n][e] - dl[e >> 1]);
+        *reinterpret_cast<uint32_t*>(row + n * 8) = pack_bf16(ds[0], ds[1]);
+        *reinterpret_cast<uint32_t*>(row + 8 * PD + n * 8) =
+            pack_bf16(ds[2], ds[3]);
+      }
+    }
+    __syncthreads();
+    // dQ[:, c0 : c0 + HD / 2] += dS K, 16 keys a step
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk) {
+      uint32_t a[4];
+      ldsm_a<PD>(a, ds_s, band * 16, kk * 16);
+#pragma unroll
+      for (int d = 0; d < DH; d += 2) {
+        uint32_t f[4];
+        ldsm_bt<P>(f, k_s, kk * 16, c0 + d * 8);
+        mma16816(dq[d], a, f[0], f[1]);
+        mma16816(dq[d + 1], a, f[2], f[3]);
+      }
+    }
+    __syncthreads();
+  }
+  bf16* dqg = static_cast<bf16*>(p.dq) + b.row0 * HD + c0;
+#pragma unroll
+  for (int hb = 0; hb < 2; ++hb) {
+    const int i = b.i0 + r_lo + hb * 8;
+    if (i < p.Tq) store_band(dqg + (long long)i * HD, dq, hb, 1.f);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kWide) flash_bwd_dkv_wide_kernel(
+    const Params p) {
+  constexpr int P = kPitch<HD>, DT = HD / 8;
+  constexpr int BQ = kDkvWideRows, NT = BQ / 8;
+  static_assert(4 * NT * 4 * 32 == kHand, "a fragment element a lane");
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem);
+  bf16* v_s = k_s + kRows * P;
+  bf16* qd_s = v_s + kRows * P;  // stage s: q at 2 s BQ P, dO after it
+  float* hand = reinterpret_cast<float*>(qd_s + 4 * BQ * P);
+  float* lse_s = hand + kHand;   // 2 stages
+  float* dl_s = lse_s + 2 * BQ;
+  const int G = p.G, Tq = p.Tq, Tk = p.Tk, off = Tk - Tq;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int band = warp % 4;
+  const bool scorer = warp < 4;  // group 0: dV; group 1: dK
+  const long long bh = (long long)blockIdx.z * p.Hkv + blockIdx.y;
+  const int j0 = blockIdx.x * kRows, j1 = min(j0 + kRows, Tk);
+  const int key = j0 + band * 16 + lane / 4;  // this thread's keys: +0, +8
+  // the query rows that see a key of this tile, in tiles of BQ, per head
+  const int i_lo = p.causal ? max(0, j0 - off) : 0;
+  const int i_hi = p.window > 0 ? min(Tq - 1, j1 - 2 + p.window - off)
+                                : Tq - 1;
+  const int n_qt = i_hi >= i_lo ? (i_hi - i_lo) / BQ + 1 : 0;
+  const long long row0 = bh * G * Tq;  // lse row of (b, h, 0, 0)
+  const bf16* qg = static_cast<const bf16*>(p.q) + row0 * HD;
+  const bf16* dog = static_cast<const bf16*>(p.dout) + row0 * HD;
+  auto load_q = [&](int st, int it) {
+    const int g = it / n_qt, i0 = i_lo + (it - g * n_qt) * BQ;
+    bf16* qs = qd_s + st * 2 * BQ * P;
+    load_rows<HD, BQ, kWide>(qs, qg + (long long)g * Tq * HD, i0, Tq);
+    load_rows<HD, BQ, kWide>(qs + BQ * P, dog + (long long)g * Tq * HD, i0,
+                             Tq);
+    if (threadIdx.x < BQ) {
+      const int i = i0 + threadIdx.x;
+      const long long r = row0 + (long long)g * Tq + min(i, Tq - 1);
+      cp_async4(lse_s + st * BQ + threadIdx.x, p.lse + r, i < Tq);
+      cp_async4(dl_s + st * BQ + threadIdx.x, p.delta + r, i < Tq);
+    }
+  };
+  load_rows<HD, kRows, kWide>(
+      k_s, static_cast<const bf16*>(p.k) + bh * Tk * HD, j0, Tk);
+  load_rows<HD, kRows, kWide>(
+      v_s, static_cast<const bf16*>(p.v) + bh * Tk * HD, j0, Tk);
+  if (n_qt > 0) load_q(0, 0);
+  cp_async_commit();
+  float* h = hand + band * NT * 4 * 32 + lane;
+  float acc[DT][4] = {};  // group 0: dV; group 1: dK
+  for (int it = 0; it < G * n_qt; ++it) {
+    const int st = it & 1;
+    if (it + 1 < G * n_qt) load_q(st ^ 1, it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int i0 = i_lo + it % n_qt * BQ;
+    const bf16* q_s = qd_s + st * 2 * BQ * P;
+    const bf16* do_s = q_s + BQ * P;
+    const float* ls = lse_s + st * BQ;
+    const float* dls = dl_s + st * BQ;
+    // group 0: S^T = K Q^T; group 1: dP^T = V dO^T; rows are the band's keys
+    float s[NT][4];
+    band_scores<HD, NT>(s, scorer ? k_s : v_s, scorer ? q_s : do_s, band);
+    if (scorer) {
+      const bool edge = i0 + BQ > Tq || j0 + kRows > Tk ||
+                        (p.causal && j0 + kRows - 1 > i0 + off) ||
+                        (p.window > 0 &&
+                         j0 <= min(i0 + BQ, Tq) - 1 + off - p.window);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = n * 8 + lane % 4 * 2 + (e & 1);  // query row in tile
+          const float sc = capped(s[n][e], p);
+          float pr = 0.f, pg = 0.f;
+          if (!edge || (i0 + c < Tq &&
+                        visible(key + (e >> 1) * 8, i0 + c + off, p))) {
+            pr = exp2f((sc - ls[c]) * kLog2e);
+            pg = pr * capped_grad(sc, p);
+          }
+          s[n][e] = pr;
+          h[(4 * n + e) * 32] = pg;
+        }
+      }
+    }
+    __syncthreads();
+    if (!scorer) {
+      // dS^T = P d(capped)/d(dot) (dP^T - delta)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[n][e] = h[(4 * n + e) * 32] *
+                    (s[n][e] - dls[n * 8 + lane % 4 * 2 + (e & 1)]);
+    }
+    // group 0: dV += P^T dO; group 1: dK += dS^T Q; 16 query rows a step
+    const bf16* o_s = scorer ? do_s : q_s;
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk) {
+      uint32_t a[4];
+      c_to_a(a, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int d = 0; d < DT; d += 2) {
+        uint32_t f[4];
+        ldsm_bt<P>(f, o_s, kk * 16, d * 8);
+        mma16816(acc[d], a, f[0], f[1]);
+        mma16816(acc[d + 1], a, f[2], f[3]);
+      }
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();  // no copy outlives the block (n_qt may be 0)
+  bf16* og = static_cast<bf16*>(scorer ? p.dv : p.dk) + bh * Tk * HD;
+#pragma unroll
+  for (int hb = 0; hb < 2; ++hb) {
+    const int j = key + hb * 8;
+    if (j < Tk) store_band(og + (long long)j * HD, acc, hb, 1.f);
+  }
+}
+
+// above 48 KB a kernel must opt in to its dynamic shared memory
+template <typename K>
+int opt_in(K kernel, int smem) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+}
+
+template <typename K>
+int launch(K kernel, dim3 grid, int smem, const Params& p, cudaStream_t s,
+           int threads = kThreads) {
+  const int e = opt_in(kernel, smem);
+  if (e) return e;
+  kernel<<<grid, threads, smem, s>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the backward kernels of a head_dim: (dQ, dK/dV), their shared memory and
+// block size
+template <int HD>
+struct Bwd {
+  static constexpr bool kWideHd = HD > 128;
+  static constexpr int kThreadsBwd = kWideHd ? kWide : kThreads;
+  static constexpr int kDqSmem = kWideHd ? dq_wide_smem<HD>() : dq_smem<HD>();
+  static constexpr int kDkvSmem =
+      kWideHd ? dkv_wide_smem<HD>() : dkv_smem<HD>();
+  static auto dq() {
+    if constexpr (kWideHd) return flash_bwd_dq_wide_kernel<HD>;
+    else return flash_bwd_dq_tc_kernel<HD>;
+  }
+  static auto dkv() {
+    if constexpr (kWideHd) return flash_bwd_dkv_wide_kernel<HD>;
+    else return flash_bwd_dkv_tc_kernel<HD>;
+  }
+};
+
+template <int HD>
 int run(bool bwd, const Params& p, int B, cudaStream_t s) {
+  using K = Bwd<HD>;
   const dim3 qgrid((p.Tq + kRows - 1) / kRows, p.Hkv * p.G, B);
   if (!bwd)
     return launch(flash_fwd_tc_kernel<HD>, qgrid, fwd_smem<HD>(), p, s);
-  const int err = launch(flash_bwd_dq_tc_kernel<HD>, qgrid, dq_smem<HD>(), p,
-                         s);
+  const int err = launch(K::dq(), qgrid, K::kDqSmem, p, s, K::kThreadsBwd);
   if (err) return err;
   // after the dQ kernel on the same stream: delta is written
   const dim3 kgrid((p.Tk + kRows - 1) / kRows, p.Hkv, B);
-  return launch(flash_bwd_dkv_tc_kernel<HD>, kgrid, dkv_smem<HD>(), p, s);
+  return launch(K::dkv(), kgrid, K::kDkvSmem, p, s, K::kThreadsBwd);
+}
+
+// blocks of a backward kernel (0: dQ, 1: dK/dV) resident on one SM, and
+// its shared memory in *smem
+template <int HD>
+int occupancy(int kernel, int* smem) {
+  using K = Bwd<HD>;
+  int n = 0;
+  *smem = kernel ? K::kDkvSmem : K::kDqSmem;
+  if (kernel) {
+    if (opt_in(K::dkv(), *smem)) return 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, K::dkv(),
+                                                  K::kThreadsBwd, *smem);
+  } else {
+    if (opt_in(K::dq(), *smem)) return 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, K::dq(),
+                                                  K::kThreadsBwd, *smem);
+  }
+  return n;
 }
 
 int dispatch(bool bwd, int hd, const Params& p, int B, cudaStream_t s) {
@@ -980,16 +1336,8 @@ int dispatch(bool bwd, int hd, const Params& p, int B, cudaStream_t s) {
     case 32: return run<32>(bwd, p, B, s);
     case 64: return run<64>(bwd, p, B, s);
     case 128: return run<128>(bwd, p, B, s);
-    case 192:  // the forward only (MLA's qk head_dim)
-      if (bwd) return static_cast<int>(cudaErrorInvalidValue);
-      return launch(flash_fwd_tc_kernel<192>,
-                    dim3((p.Tq + kRows - 1) / kRows, p.Hkv * p.G, B),
-                    fwd_smem<192>(), p, s);
-    case 256:  // the forward only
-      if (bwd) return static_cast<int>(cudaErrorInvalidValue);
-      return launch(flash_fwd_tc_kernel<256>,
-                    dim3((p.Tq + kRows - 1) / kRows, p.Hkv * p.G, B),
-                    fwd_smem<256>(), p, s);
+    case 192: return run<192>(bwd, p, B, s);  // MLA's qk head_dim
+    case 256: return run<256>(bwd, p, B, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1021,18 +1369,19 @@ int launch_bwd(const Params& p, int B, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int HD>
+int launch_any(bool bwd, const Params& p, int B, cudaStream_t s) {
+  return bwd ? launch_bwd<T, HD>(p, B, s) : launch_fwd<T, HD>(p, B, s);
+}
+
 template <typename T>
 int dispatch(bool bwd, int hd, const Params& p, int B, cudaStream_t s) {
   switch (hd) {
-    case 32: return bwd ? launch_bwd<T, 32>(p, B, s) : launch_fwd<T, 32>(p, B, s);
-    case 64: return bwd ? launch_bwd<T, 64>(p, B, s) : launch_fwd<T, 64>(p, B, s);
-    case 128: return bwd ? launch_bwd<T, 128>(p, B, s) : launch_fwd<T, 128>(p, B, s);
-    case 192:  // the forward only (MLA's qk head_dim)
-      return bwd ? static_cast<int>(cudaErrorInvalidValue)
-                 : launch_fwd<T, 192>(p, B, s);
-    case 256:  // the forward only
-      return bwd ? static_cast<int>(cudaErrorInvalidValue)
-                 : launch_fwd<T, 256>(p, B, s);
+    case 32: return launch_any<T, 32>(bwd, p, B, s);
+    case 64: return launch_any<T, 64>(bwd, p, B, s);
+    case 128: return launch_any<T, 128>(bwd, p, B, s);
+    case 192: return launch_any<T, 192>(bwd, p, B, s);  // MLA's qk head_dim
+    case 256: return launch_any<T, 256>(bwd, p, B, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1052,9 +1401,9 @@ int run(bool bwd, const Params& p, int B, int hd, int dtype, void* stream) {
 }  // namespace
 
 // dtype (q, k, v, out): 0 = float32 (CUDA cores), 1 = bfloat16 (tensor
-// cores); hd in {32, 64, 128, 192, 256} (the backward: {32, 64, 128});
-// G at most 128 / (hd / 32), 16 at hd 192; Tq <= Tk. causal 0 or 1; window <= 0 and
-// softcap <= 0 mean none. Returns the cudaError_t of the launch.
+// cores); hd in {32, 64, 128, 192, 256}; G at most 128 / (hd / 32), 16 at
+// hd 192; Tq <= Tk. causal 0 or 1; window <= 0 and softcap <= 0 mean
+// none. Returns the cudaError_t of the launch.
 extern "C" int flash_attention_fwd_launch(
     const void* q, const void* k, const void* v, void* out, float* lse,
     int B, int Hkv, int G, int Tq, int Tk, int hd, int causal, int window,
@@ -1077,4 +1426,18 @@ extern "C" int flash_attention_bwd_launch(
                  const_cast<float*>(lse), delta, Hkv, G, Tq, Tk, causal,
                  window, softcap, scale};
   return run(true, p, B, hd, dtype, stream);
+}
+
+// The bf16 backward kernels' residency at head_dim hd: kernel 0 is dQ, 1
+// dK/dV; returns its blocks per SM (0 for a head_dim it does not take) and
+// writes its dynamic shared memory to *smem.
+extern "C" int flash_attention_bwd_occupancy(int hd, int kernel, int* smem) {
+  switch (hd) {
+    case 32: return tc::occupancy<32>(kernel, smem);
+    case 64: return tc::occupancy<64>(kernel, smem);
+    case 128: return tc::occupancy<128>(kernel, smem);
+    case 192: return tc::occupancy<192>(kernel, smem);
+    case 256: return tc::occupancy<256>(kernel, smem);
+    default: return 0;
+  }
 }

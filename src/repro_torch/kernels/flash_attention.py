@@ -16,8 +16,9 @@ forward also gives lse (B, Hkv, G, Tq), the per-row log-sum-exp the
 backward recomputes the probabilities from. The kernel source is
 ``csrc/flash_attention.cu``: bfloat16 operands run its tensor-core kernels
 (``mma.sync``, float32 accumulators, P and dS rounded to bf16 before their
-products), float32 operands its CUDA-core kernels, each shape on one route
-with no fallback between them.
+products; at head_dim 192 and 256 the backward's blocks split dK and dV, or
+dQ's columns, over two warp groups), float32 operands its CUDA-core
+kernels, each shape on one route with no fallback between them.
 """
 from __future__ import annotations
 
@@ -28,13 +29,9 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-# 192: MLA's qk width (128 + 64), deepseek-v3's full-sequence forward
+# 192: MLA's qk width (128 + 64), deepseek-v3's full-sequence forward;
+# the forward and the backward take the same head dims
 HEAD_DIMS = (32, 64, 128, 192, 256)
-# the backward kernels' head dims: at 256 their dK/dV accumulators would
-# take 256 registers a thread, so that head_dim waits for its own design
-# (ROADMAP.md queue 2, "row 7b at head_dim 256"), and so does MLA's 192
-# (queue 2, "the flash backward at head_dim 192")
-BWD_HEAD_DIMS = (32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -183,14 +180,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
     """Launch the backward kernels (dQ, which also forms delta, then
     dK/dV) on the current stream; returns (dq, dk, dv) like q, k and v.
     Raises on any operand the kernels do not take, a CPU tensor
-    included (the head_dim refusal comes first, on any device)."""
-    if q.shape[-1] not in BWD_HEAD_DIMS:
-        item = ("the flash backward at head_dim 192" if q.shape[-1] == 192
-                else "row 7b at head_dim 256")
-        raise ValueError(
-            f"flash_attention_bwd takes head_dim in {BWD_HEAD_DIMS}, got "
-            f"{q.shape[-1]}: it waits for the backward's own design "
-            f"(ROADMAP.md queue 2, {item})")
+    included."""
     _build.require_cuda("flash_attention_bwd", q)
     _check("flash_attention_bwd", q, k, v, o, do, lse)
     if o.shape != q.shape or do.shape != q.shape \

@@ -198,7 +198,14 @@ def cuda():
     (1, 129, 129, None, None, True, 64), (16, 130, 130, None, None, True, 64),
     (4, 129, 129, None, None, True, 32), (4, 100, 163, 65, None, True, 32),
     (4, 129, 129, None, None, True, 128), (2, 100, 163, None, 20.0, True, 128),
-    (4, 127, 129, None, None, False, 128)])
+    (4, 127, 129, None, None, False, 128),
+    # head_dim 192 (MLA's qk width) and 256 (gemma2, GPT-J): the backward's
+    # two warp groups, the float32 kernels' 8 threads a row
+    (1, 65, 65, None, None, True, 192), (1, 129, 129, None, None, True, 192),
+    (16, 100, 163, None, None, True, 192), (2, 200, 200, 65, 50.0, True, 192),
+    (2, 1, 1, None, None, True, 256), (2, 129, 129, None, 50.0, True, 256),
+    (1, 100, 163, 33, None, True, 256), (16, 100, 100, None, None, True, 256),
+    (1, 90, 130, None, None, False, 256), (2, 300, 300, 100, 50.0, True, 256)])
 def test_gpu_kernels_match_plain(cuda, dtype, G, Tq, Tk, window, softcap,
                                  causal, hd):
     arrays = _inputs(Tq, 2, 2, G, Tq, Tk, hd)

@@ -7,8 +7,9 @@
   padded rows), and the flash forward (causal, window, softcap, no causal
   mask). Then the wrappers' operand checks: ragged, paged and the flash
   forward take head_dim 256 (and still refuse 512, and a float32 G whose
-  CUDA-core tiles pass 48 KB); the flash backward refuses 256, on any
-  device, naming the ROADMAP item that will design it.
+  CUDA-core tiles pass 48 KB); the flash backward takes 192 and 256 (its
+  launcher refuses only CPU tensors, and autograd on the CPU runs the
+  plain backward at both widths).
 * On a CUDA card (``-m gpu``), each kernel at head_dim 256 against its
   plain version, one launch a call; these skip when no card is present.
   The card's machine has no JAX, so the reference is imported inside the
@@ -211,25 +212,31 @@ def test_flash_forward_takes_head_dim_256(dtype):
         fa.flash_attention_fwd(q, k, k)
 
 
-def test_flash_backward_refuses_head_dim_256():
-    """On any device, before the device check: the backward's design at
-    head_dim 256 is its own ROADMAP item. The CPU's autograd still runs
-    the plain backward at 256."""
-    assert fa.BWD_HEAD_DIMS == (32, 64, 128)
-    q = torch.zeros((1, 1, 1, 4, 256))
-    k = torch.zeros((1, 1, 4, 256))
-    lse = torch.zeros((1, 1, 1, 4))
-    with pytest.raises(ValueError, match="row 7b at head_dim 256"):
-        fa.flash_attention_bwd(q, k, k, q, lse, q)
-    q64, k64 = q[..., :64].contiguous(), k[..., :64].contiguous()
-    with pytest.raises(ValueError, match="CUDA"):
-        fa.flash_attention_bwd(q64, k64, k64, q64, lse, q64)
+def test_flash_backward_takes_head_dims_192_and_256():
+    """The backward kernels take head_dim 192 and 256 (no refusal left):
+    on the CPU the launcher refuses the tensors for lying on the CPU, as
+    at every head_dim, and the autograd Function runs the plain backward
+    at both widths, equal to ``flash_attention_bwd_ref`` on its saved
+    output and lse."""
     g = torch.Generator().manual_seed(0)
-    qr = torch.randn((1, 1, 2, 6, 256), generator=g, requires_grad=True)
-    kr = torch.randn((1, 1, 6, 256), generator=g, requires_grad=True)
-    out = fa.flash_attention(qr, kr, kr, softcap=50.0)
-    out.sum().backward()
-    assert torch.isfinite(qr.grad).all() and torch.isfinite(kr.grad).all()
+    for hd in (192, 256):
+        q = torch.zeros((1, 1, 1, 4, hd))
+        k = torch.zeros((1, 1, 4, hd))
+        lse = torch.zeros((1, 1, 1, 4))
+        with pytest.raises(ValueError, match="CUDA"):
+            fa.flash_attention_bwd(q, k, k, q, lse, q)
+        qr = torch.randn((1, 1, 2, 6, hd), generator=g, requires_grad=True)
+        kr = torch.randn((1, 1, 6, hd), generator=g, requires_grad=True)
+        vr = torch.randn((1, 1, 6, hd), generator=g, requires_grad=True)
+        do = torch.randn((1, 1, 2, 6, hd), generator=g)
+        kw = dict(softcap=50.0, window=4)
+        (fa.flash_attention(qr, kr, vr, **kw) * do).sum().backward()
+        q0, k0, v0 = (t.detach() for t in (qr, kr, vr))
+        out, lse = fa.flash_attention_fwd_ref(q0, k0, v0, **kw)
+        want = fa.flash_attention_bwd_ref(q0, k0, v0, out, lse, do, **kw)
+        for t, w in zip((qr, kr, vr), want):
+            assert torch.isfinite(t.grad).all()
+            torch.testing.assert_close(t.grad, w, rtol=0, atol=0)
 
 
 # ---------------------------------------------------------------------------
