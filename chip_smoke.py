@@ -2628,7 +2628,7 @@ def parent_kernels(parent: Path):
     """The kernel wrappers of another checkout of the port at ``parent``
     (the parent commit's, for timing both versions in one run): ragged and
     paged attention, kv_append, page_requant, the whole quantized append,
-    gla_scan's launcher, the flash forward, the tree swap_pack /
+    gla_scan's launcher, the flash forward and backward, the tree swap_pack /
     swap_unpack, the SwapStager and the ragged latent attention. Its
     ``repro_torch`` modules are imported from its own
     source tree, so its kernels build there by its own ``_build.py`` and
@@ -2684,6 +2684,7 @@ def parent_kernels(parent: Path):
                                  kv_append_quant=kq.kv_append_quant,
                                  gla_scan=gs.gla_scan_fwd,
                                  flash=fa.flash_attention_fwd,
+                                 flash_bwd=fa.flash_attention_bwd,
                                  swap_pack_tree=sp.swap_pack_tree,
                                  swap_unpack_tree=sp.swap_unpack_tree,
                                  SwapStager=sp.SwapStager,
@@ -3386,7 +3387,11 @@ def check_flash_kernels(gen, worst) -> None:
     G 4, hd 64) at T {1, 63, 64, 65, 127, 129, 1000, 2048}, Tq < Tk (an
     offset that is not a multiple of the bf16 kernels' 64-row tiles too),
     G {1, 4, 16} with a window (ending on and one past a tile boundary), a
-    softcap and no causal mask, hd 32 and 128, in float32 and bf16.
+    softcap and no causal mask, hd 32 and 128, in float32 and bf16; at hd
+    192 and 256 (the bf16 backward's TMA-fed kernels) B x Hkv up to 6 with
+    distinct heads and T past a 64-row tile (rows past T read as zeros),
+    Tq < Tk, G 2 and 16 (``max_heads``), a window of 70 with softcap 50, and
+    in bf16 a second backward bit for bit equal to the first (no atomics).
     Tolerances: out 1e-4 (float32) and 3e-2 (bf16: both round one
     float32 result once); lse 1e-4 (float32 sums in another order);
     gradients 1e-4 (float32) and 2^-6 (bf16, two units in the last place)
@@ -3435,6 +3440,23 @@ def check_flash_kernels(gen, worst) -> None:
          dict(softcap=20.0)),
         # dense_serve's prefill: llama's every layer at B 8 x T 1024
         ("B=8 T=1024", dict(B=8, Hkv=8, G=4, Tq=1024, Tk=1024, hd=64), {})]
+    for hd in (192, 256):
+        cases += [
+            (f"hd={hd} B=2 Hkv=3 T=200", dict(B=2, Hkv=3, G=2, Tq=200,
+                                              Tk=200, hd=hd), {}),
+            (f"hd={hd} B=3 T=129", dict(B=3, Hkv=1, G=1, Tq=129, Tk=129,
+                                        hd=hd), {}),
+            (f"hd={hd} Tq=100 Tk=300", dict(B=1, Hkv=3, G=2, Tq=100, Tk=300,
+                                            hd=hd), {}),
+            (f"hd={hd} G=16 Tq=77 Tk=200", dict(B=1, Hkv=3, G=16, Tq=77,
+                                                Tk=200, hd=hd), {}),
+            (f"hd={hd} window=70 softcap=50", dict(B=2, Hkv=2, G=2, Tq=300,
+                                                   Tk=300, hd=hd),
+             dict(window=70, softcap=50.0))]
+    # the wide rows' worst errors (row 7m's forward at 192)
+    fwd_row = {192: "flash_attention_hd192", 256: "flash_attention_hd256"}
+    bwd_rows = {192: ("flash_attention_bwd_hd192",),
+                256: ("flash_attention_bwd_hd256", "flash_attention_bwd_gptj")}
     for dtype in (torch.bfloat16, torch.float32):
         for label, shape, kw in cases:
             B, Hkv, G, Tq, Tk, hd = (shape[k] for k in ("B", "Hkv", "G",
@@ -3458,9 +3480,15 @@ def check_flash_kernels(gen, worst) -> None:
                 f"{g_rel:.3g} of their max (tol {rel[dtype]:.3g})")
             assert err <= tol[dtype] and lse_err <= 1e-4, label
             assert g_rel <= rel[dtype], label
-            worst["flash_attention"] = max(worst["flash_attention"], err)
-            worst["flash_attention_bwd"] = max(worst["flash_attention_bwd"],
-                                               *g_abs)
+            if hd > 128 and dtype == torch.bfloat16:
+                again = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+                assert all(torch.equal(a, b) for a, b in zip(grads, again)), \
+                    label
+                log("    the backward again: dq, dk, dv bit for bit equal")
+            f_row = fwd_row.get(hd, "flash_attention")
+            worst[f_row] = max(worst[f_row], err)
+            for b_row in bwd_rows.get(hd, ("flash_attention_bwd",)):
+                worst[b_row] = max(worst[b_row], *g_abs)
             del q, k, v, do, out, lse, want, want_lse, grads, want_grads
     torch.cuda.empty_cache()
 
@@ -4239,7 +4267,7 @@ def time_prefill_flash(recorder: FlashRecorder, worst: dict,
 
 
 def time_flash_bwd(recorder: FlashRecorder, worst: dict, launches: dict,
-                   name: str, iters: int = 3) -> list:
+                   name: str, iters: int = 3, parent=None) -> list:
     """A flash backward row, ``name``, on the call the recorder kept and
     the gradient that reached its output: 7wb gemma2_train's first call (1
     x 8192, 8 kv heads x G 2 x 256, window 4096, softcap 50), 7jb
@@ -4255,7 +4283,11 @@ def time_flash_bwd(recorder: FlashRecorder, worst: dict, launches: dict,
     on the same inputs. Bound: 10 hd operations a visible pair (five
     products; at 192 the padded width the kernel runs) at the type's peak,
     against each operand read and each gradient written once. A float32
-    call is also timed cast to bf16 (the tensor-core kernels), logged."""
+    call is also timed cast to bf16 (the tensor-core kernels), logged with
+    SDPA's bf16 backward on the same inputs as its library time. With
+    ``parent`` (``parent_kernels``), its ``flash_attention_bwd`` in turns
+    with this tree's by both measures (``device_time``), the bf16 cast
+    too."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
@@ -4279,6 +4311,9 @@ def time_flash_bwd(recorder: FlashRecorder, worst: dict, launches: dict,
         def bwd():
             return flash_attention_bwd(q, k, v, out, lse, do, **kw)
 
+        def old():
+            return parent.flash_bwd(q, k, v, out, lse, do, **kw)
+
         def bwd_plain():
             return flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
         rel = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}[q.dtype]
@@ -4291,25 +4326,27 @@ def time_flash_bwd(recorder: FlashRecorder, worst: dict, launches: dict,
             f"{rel:.3g})")
         assert max(g_abs) <= rel * scale, name
         ms, plain_ms = in_turns(bwd_plain, bwd, iters)
-        return bwd, max(g_abs), ms, plain_ms, lse
+        return bwd, old if parent else None, max(g_abs), ms, plain_ms, lse
 
-    bwd, err, ms, plain_ms, lse = times(q, k, v, do)
-    q4r, kr, vr = (t.detach().clone().requires_grad_(True)
-                   for t in (q.reshape(B, Hkv * G, T, hd), k, v))
-    out4 = F.scaled_dot_product_attention(q4r, kr, vr, is_causal=True,
-                                          enable_gqa=G > 1,
-                                          scale=kw.get("scale"))
-    lib_ms = cuda_ms(lambda: torch.autograd.grad(
-        out4, (q4r, kr, vr), do.reshape(out4.shape), retain_graph=True),
-        iters)
-    del out4, q4r, kr, vr
+    def sdpa_ms(q, k, v, do):
+        q4r, kr, vr = (t.detach().clone().requires_grad_(True)
+                       for t in (q.reshape(B, Hkv * G, T, hd), k, v))
+        out4 = F.scaled_dot_product_attention(q4r, kr, vr, is_causal=True,
+                                              enable_gqa=G > 1,
+                                              scale=kw.get("scale"))
+        return cuda_ms(lambda: torch.autograd.grad(
+            out4, (q4r, kr, vr), do.reshape(out4.shape), retain_graph=True),
+            iters)
+
+    bwd, old, err, ms, plain_ms, lse = times(q, k, v, do)
+    lib_ms = sdpa_ms(q, k, v, do)
     row = kernel_row(name, "src/repro_torch/kernels/csrc/flash_attention.cu",
                      FLASH_REPLACES["flash_attention_bwd"], launches[name],
                      max(worst[name], err), ms, plain_ms, lib_ms,
                      (4 * q.numel() + 4 * k.numel()) * q.element_size()
                      + lse.numel() * 4, 10 * hd * pairs, str(q.dtype)[6:],
                      [B, Hkv, G, T, hd, "causal", *extra])
-    row["device_ms"] = graph_ms(bwd, iters)
+    device_time(row, bwd, old, iters)
     uncapped = kw.get("window") or kw.get("softcap")
     log(f"    device time {row['device_ms']:.4f} ms "
         f"({row['device_ms'] / row['bound_ms']:.1f}x bound); kernel / "
@@ -4318,14 +4355,21 @@ def time_flash_bwd(recorder: FlashRecorder, worst: dict, launches: dict,
     if q.dtype == torch.float32:
         # the same call on the tensor-core kernels
         b16 = [t.to(torch.bfloat16) for t in (q, k, v, do)]
-        bwd16, _, ms16, plain16, _ = times(*b16)
-        dev16 = graph_ms(bwd16, iters)
+        bwd16, old16, _, ms16, plain16, _ = times(*b16)
+        row16 = {"ms": ms16}
+        device_time(row16, bwd16, old16, iters)
+        lib16 = sdpa_ms(*b16)
         bound16 = 10 * hd * pairs / PEAK_OPS["bfloat16"] * 1e3
+        dev16 = row16["device_ms"]
         log(f"    the same call cast to bf16: kernel {ms16:.4f} ms, device "
             f"{dev16:.4f} ms ({dev16 / bound16:.1f}x its bf16 bound "
-            f"{bound16:.5f} ms), plain {plain16:.4f} ms")
-        del b16, bwd16
-    del q, k, v, do, lse, bwd
+            f"{bound16:.5f} ms), plain {plain16:.4f} ms, library (SDPA's "
+            f"bf16 backward) {lib16:.4f} ms, kernel / library "
+            f"{ms16 / lib16:.2f}x")
+        row.update({f"bf16_{k}": v for k, v in row16.items()})
+        row["bf16_library_ms"] = lib16
+        del b16, bwd16, old16
+    del q, k, v, do, lse, bwd, old
     torch.cuda.empty_cache()
     return [row]
 
@@ -6109,7 +6153,8 @@ def main() -> int:
     ap.add_argument("--parent", default=None,
                     help="another checkout of the port (the parent "
                          "commit's): its attention, append, gla_scan, "
-                         "swap and latent-attention wrappers and its "
+                         "flash (forward and backward), swap and "
+                         "latent-attention wrappers and its "
                          "SwapStager are imported "
                          "from there, build their kernels there and are "
                          "timed in turns with these in the swap and "
@@ -6159,16 +6204,17 @@ def main() -> int:
             f"form, {('float32', 'bf16')[code]} pools, L {L} R {R}: "
             f"{smem.value} B of dynamic shared memory, {n} blocks of 256 "
             "threads per SM")
-    # the bf16 flash backward's kernels (8 warps a block at 192 and 256)
+    # the bf16 flash backward's kernels (at 192 and 256 a producer and two
+    # consumer warpgroups a block)
     for hd in (32, 64, 128, 192, 256):
         for kernel, label in ((0, "dQ"), (1, "dK/dV")):
-            smem = ctypes.c_int(0)
+            smem, threads = ctypes.c_int(0), ctypes.c_int(0)
             n = _build.lib().flash_attention_bwd_occupancy(
-                hd, kernel, ctypes.byref(smem))
+                hd, kernel, ctypes.byref(smem), ctypes.byref(threads))
             assert n > 0, (hd, label)
             log(f"  flash backward {label} hd {hd}: {smem.value} B of dynamic "
-                f"shared memory, {n} blocks of {256 if hd > 128 else 128} "
-                "threads per SM")
+                f"shared memory, {n} blocks of {threads.value} threads per "
+                "SM")
 
     worst = {k: 0.0 for k in ROWS}
     if "kernels" in phases:
@@ -6670,14 +6716,15 @@ def main() -> int:
             log(f"[timing] the flash backward on the first attention call of "
                 f"{phase} (row {row_name})")
             rows += time_flash_bwd(wide_train_recs[phase], worst, total,
-                                   row_name)
+                                   row_name, parent=parent)
     if "timing" in phases and "wide_train_parity" in phases:
         log("[timing] the flash backward at head_dim 192 on "
             "wide_train_parity's deepseek-v3 call (row flash_attention_bwd_"
             "hd192)")
         total["flash_attention_bwd_hd192"] = total_mla_bwd
         rows += time_flash_bwd(mla_bwd, worst, total,
-                               "flash_attention_bwd_hd192", iters=5)
+                               "flash_attention_bwd_hd192", iters=5,
+                               parent=parent)
     if "timing" in phases and "pixtral_serve" in phases:
         log("[timing] flash attention on the first attention call of the "
             "pixtral prefill (row 7p)")

@@ -21,9 +21,11 @@
 // must run on the tensor cores (989 TFLOP/s bf16) and not on the float32
 // CUDA cores (67).
 //
-// bfloat16 operands run the tensor-core kernels (FlashAttention-2 on
-// mma.sync m16n8k16, bf16 in, float32 accumulators; wgmma and TMA are later
-// work). A block is 4 warps and owns 64 rows, 16 a warp:
+// bfloat16 operands run the tensor-core kernels: at head_dim 32-128 the
+// forward and the backward on mma.sync m16n8k16 (FlashAttention-2: bf16
+// in, float32 accumulators), and the forward at 192 and 256 too; the
+// backward at 192 and 256 on Hopper's wgmma, fed by TMA (below). An
+// mma.sync block is 4 warps and owns 64 rows, 16 a warp:
 //  * forward and dQ: one block per (b, query head, 64-query tile), the last
 //    tiles first (they see the most keys). 64-key tiles of K and V come in
 //    by 16-byte cp.async into two shared-memory stages, so that tile j + 1
@@ -47,10 +49,10 @@
 //    transposed products directly, rows being keys: S^T = K Q^T,
 //    dP^T = V dO^T, then dV += P^T dO and dK += dS^T Q. No atomics: every
 //    output element has one owner, and the result is deterministic.
-//  * at hd 192 and 256 the backward's blocks are 8 warps, two groups over
-//    the same 64 rows, each holding one accumulator: dV or dK (dK/dV), a
-//    half of dQ's columns (dQ); see "The backward at head_dim 192 and 256"
-//    below.
+//  * at hd 192 and 256 the backward's blocks are a TMA producer and two
+//    wgmma consumer warpgroups over the same 64 rows, each consumer holding
+//    one accumulator: dV or dK (dK/dV), a part of dQ's columns (dQ); see
+//    "The backward at head_dim 192 and 256, for Hopper" below.
 // P and dS are rounded to bf16 once before their products (relative 2^-9),
 // as the inputs of S and dP already are; nothing else is rounded before
 // the outputs.
@@ -67,7 +69,7 @@
 // stages 4096 / hd rows of q and dO at a time.
 #include <math_constants.h>
 
-#include "mma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -501,14 +503,14 @@ constexpr int kPitch = HD + 8;
 
 // rows [r0, r0 + ROWS) of a row-major (n, HD) bf16 matrix into a padded
 // shared-memory tile by 16-byte cp.async; zeros for rows at or past n
-template <int HD, int ROWS, int NTH = kThreads>
+template <int HD, int ROWS>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int r0,
                                           int n) {
   constexpr int kPieces = HD / 8;  // 16-byte pieces of a row
-  static_assert(ROWS * kPieces % NTH == 0, "whole rounds of copies");
+  static_assert(ROWS * kPieces % kThreads == 0, "whole rounds of copies");
 #pragma unroll
-  for (int u = 0; u < ROWS * kPieces / NTH; ++u) {
-    const int c = threadIdx.x + u * NTH;
+  for (int u = 0; u < ROWS * kPieces / kThreads; ++u) {
+    const int c = threadIdx.x + u * kThreads;
     const int r = c / kPieces, col = c % kPieces * 8;
     const bool in = r0 + r < n;
     cp_async16(dst + r * kPitch<HD> + col,
@@ -529,13 +531,13 @@ __device__ __forceinline__ float quad_sum(float x) {
 
 // K and V rows of key tile t into stage st of a two-stage K/V buffer
 // (stage st: K at 2 st kBK rows, V after it)
-template <int HD, int NTH = kThreads>
+template <int HD>
 __device__ __forceinline__ void load_kv(bf16* kv_s, const bf16* kg,
                                         const bf16* vg, int st, int t,
                                         int Tk) {
   bf16* k_s = kv_s + st * 2 * kBK * kPitch<HD>;
-  load_rows<HD, kBK, NTH>(k_s, kg, t * kBK, Tk);
-  load_rows<HD, kBK, NTH>(k_s + kBK * kPitch<HD>, vg, t * kBK, Tk);
+  load_rows<HD, kBK>(k_s, kg, t * kBK, Tk);
+  load_rows<HD, kBK>(k_s + kBK * kPitch<HD>, vg, t * kBK, Tk);
 }
 
 // row band h (the thread's row +0 or +8) of a warp's 16 x HD accumulator,
@@ -958,309 +960,619 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_tc_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// The backward at head_dim 192 and 256: the accumulators split over two
-// warp groups. A warp's 16 x HD float32 accumulator is HD / 2 registers a
-// thread, so the narrower head dims' dK/dV block, whose warps hold both dK
-// and dV of their 16 keys, would need HD registers for them alone. Here a block is 8 warps,
-// two groups of 4 over the same 64 rows, 16 rows a warp (its band), and
-// each group holds one accumulator of its band:
-//  * dK/dV: group 0 forms S^T = K Q^T, P = exp(s - lse) and dV += P^T dO;
-//    group 1 forms dP^T = V dO^T, dS = P (dP - delta) d(capped)/d(dot) and
-//    dK += dS^T Q. Group 0 hands P d(capped)/d(dot), in float32, to the
-//    lane that holds the same fragment element in group 1, through shared
-//    memory laid out [band][n][e][lane], so that neither side's access has
-//    a bank conflict. No product is computed twice.
-//  * dQ: group 0 forms S and P d(capped)/d(dot) (handed over as above),
-//    group 1 forms dP, then dS, which it rounds to bf16 into a 64 x 64
-//    shared tile; each group then adds dS K into its half of dQ's columns.
-// Each thread holds HD / 2 (dK/dV) or HD / 4 (dQ) accumulators beside the
-// 16 x 64 score fragment; the two products of a stage run side by side on
-// the two groups, with three barriers a stage (four in dQ).
+// The backward at head_dim 192 and 256, for Hopper (hopper.cuh). A warp's
+// 16 x HD float32 accumulator is HD / 2 registers a thread, so a block
+// splits its two accumulators (dK and dV; or dQ's columns) over two
+// consumer warpgroups of 4 warps, each holding one, and a third
+// warpgroup, the producer, feeds both: 384 threads, one block an SM.
+//  * The producer drops to 24 registers a thread (setmaxnreg) and one of
+//    its threads issues the TMA loads of whole 64-row tiles (HD / 64 boxes
+//    of 64 x 64, 128-byte swizzle; rows past T read as zeros) into a ring
+//    of stages, each completing on an mbarrier (`full`); the consumers
+//    rise to 240 registers and give a stage back on another (`empty`), so
+//    the next tiles land while the present one is computed.
+//  * The products are wgmma over those tiles: a 64-row product reads each
+//    B tile from shared memory once (mma.sync's 16-row bands read it four
+//    times). P and dS go from the accumulators of S and dP, packed to
+//    bf16 in registers, into the next product as its A operand; dQ's dS
+//    through a bf16 tile in shared memory, which both consumers read.
+//  * dK/dV: one block per (b, kv head, 64-key tile), a kv head's tiles
+//    together (its Q and dO stay in L2), the first key tiles (which see the
+//    most queries) first. Its K and V tiles load once; each stage holds a
+//    64-row tile of Q and of dO, for each of the G heads in turn, with
+//    their lse and delta (stored by the producer warp's lanes, read before
+//    the stage is free, as rows of lse are not 16-byte aligned for TMA).
+//    Consumer 0: S^T = K Q^T, P = exp(s - lse) on the visible pairs,
+//    P d(capped)/d(dot) handed to consumer 1 in float32 through shared
+//    memory laid out [warp][n][e][lane] (no bank conflict on either side),
+//    dV += P^T dO. Consumer 1: dP^T = V dO^T, dS^T = P d(capped)/d(dot)
+//    (dP^T - delta), dK += dS^T Q. Named barriers (bar.arrive on one side,
+//    bar.sync on the other) order the hand-over.
+//  * dQ: one block per (b, query head, 64-query tile), a kv head's G query
+//    heads' tiles together, the last tiles first; its Q and dO tiles load
+//    once, and its consumers first form delta = rowsum(dO * O) for the
+//    dK/dV kernel, which runs after it on the stream. Each stage holds a 64-key tile of K and V. Consumer 0:
+//    S = Q K^T and P d(capped)/d(dot), handed over as above; consumer 1:
+//    dP = dO V^T, then dS, rounded to bf16 into one of two swizzled 64 x 64
+//    tiles; then each adds dS K into its columns of dQ (0-127, and the
+//    rest: 128-255 at 256, 128-191 at 192, whole 64-column chunks).
+// The two kernels do seven products a visible pair (S twice, dP twice,
+// dV, dK, dQ) where the bound counts five: the split keeps every output
+// element with one owner (no atomics, deterministic) at the cost of
+// recomputing S and dP. Bound: operations (the header's ~295 flop/byte);
+// what a stage is held by besides: consumer 0's elementwise pass between
+// its two products (branch-free, no division, its loads before the
+// hand-over's stores), and the 64 KB each stage loads (48 KB at 192), in
+// a ring two stages deep at 256 and three at 192.
 // ---------------------------------------------------------------------------
-constexpr int kWide = 256;              // threads of a wide backward block
+constexpr int kHopThreads = 384;  // a producer warpgroup and two consumers
+constexpr int kConsumers = 256;   // threads of the two consumer warpgroups
 constexpr int kHand = 4 * (kBK / 8) * 4 * 32;  // handed-over floats, 16 KB
+// named barriers of the consumers (0 is __syncthreads)
+constexpr int kBarHandFull = 1, kBarHandFree = 2, kBarDs = 3, kBarDelta = 4,
+              kBarEnd = 5;
+
+// the 4 operand and 3 gradient tensors as (hd, T, heads) maps of 64 x 64
+// boxes, and the call; passed by value into the kernel's parameter space
+// (TMA reads the maps there)
+struct HopArgs {
+  CUtensorMap q, k, v, dout, dq, dk, dv;
+  Params p;
+};
 
 template <int HD>
-constexpr int dq_wide_smem() {
-  return 6 * kRows * kPitch<HD> * 2 + kRows * kPitch<kBK> * 2 + kHand * 4 +
-         2 * kRows * 4;
-}
+struct HopTiles {
+  static constexpr int kTile = HD / kBox * kChunkBytes;  // 64 x HD bf16
+  static constexpr int kStages = HD == 256 ? 2 : 3;      // ring depth
+};
 
-// query rows per staged tile of the wide dK/dV kernel
-constexpr int kDkvWideRows = 64;
-
+// dK/dV shared memory, byte offsets from a 1024-aligned base: K, V, the
+// ring's stages (Q then dO), the hand-over, lse (times log2 e) and delta
+// of each stage, then the barriers (K/V, full[S], empty[S])
 template <int HD>
-constexpr int dkv_wide_smem() {
-  return (2 * kRows + 4 * kDkvWideRows) * kPitch<HD> * 2 + kHand * 4 +
-         4 * kDkvWideRows * 4;
+struct DkvSmem : HopTiles<HD> {
+  using H = HopTiles<HD>;
+  static constexpr int kK = 0, kV = H::kTile, kRing = 2 * H::kTile;
+  static constexpr int kHandAt = kRing + 2 * H::kStages * H::kTile;
+  static constexpr int kLse = kHandAt + kHand * 4;
+  static constexpr int kDl = kLse + H::kStages * kRows * 4;
+  static constexpr int kBars = kDl + H::kStages * kRows * 4;
+  static constexpr int kBytes = kBars + (1 + 2 * H::kStages) * 8 + 1024;
+};
+
+// dQ shared memory: Q, dO, the ring's stages (K then V), two dS tiles,
+// the hand-over, lse (times log2 e) and delta, then the barriers (Q/dO,
+// full[S], empty[S])
+template <int HD>
+struct DqSmem : HopTiles<HD> {
+  using H = HopTiles<HD>;
+  static constexpr int kQ = 0, kDo = H::kTile, kRing = 2 * H::kTile;
+  static constexpr int kDs = kRing + 2 * H::kStages * H::kTile;
+  static constexpr int kHandAt = kDs + 2 * kChunkBytes;
+  static constexpr int kLse = kHandAt + kHand * 4;
+  static constexpr int kDl = kLse + kRows * 4;
+  static constexpr int kBars = kDl + kRows * 4;
+  static constexpr int kBytes = kBars + (1 + 2 * H::kStages) * 8 + 1024;
+};
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + (1024 - smem_addr(p) % 1024) % 1024;
 }
 
-// the S (Q K^T, or K Q^T) or dP tile of a warp's 16 rows of a_s against the
-// NT * 8 rows of b_s, over HD
-template <int HD, int NT>
-__device__ __forceinline__ void band_scores(float (&s)[NT][4],
-                                            const bf16* a_s, const bf16* b_s,
-                                            int band) {
-  constexpr int P = kPitch<HD>;
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float rcp_approx(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A dot product's capped score and d(capped)/d(dot), with no division or
+// library call an element: the softcap's presence is a template argument,
+// chosen once a tile, and tanh(x) = 1 - 2 / (2^(2 x log2 e) + 1), which is
+// exact at both ends and within ~1e-7 of tanhf in between.
+struct Capper {
+  float scale, cap, t2;  // t2 = 2 log2(e) scale / cap
+  __device__ explicit Capper(const Params& p)
+      : scale(p.scale), cap(p.softcap),
+        t2(p.softcap > 0.f ? 2.f * kLog2e * p.scale / p.softcap : 0.f) {}
+
+  template <bool CAP>
+  __device__ __forceinline__ void apply(float dot, float& sc,
+                                        float& cg) const {
+    if constexpr (CAP) {
+      const float u = 1.f - 2.f * rcp_approx(ex2_approx(t2 * dot) + 1.f);
+      sc = cap * u;
+      cg = (1.f - u * u) * scale;
+    } else {
+      sc = dot * scale;
+      cg = scale;
+    }
+  }
+};
+
+// dK/dV's consumer 0 on its S^T tile (rows keys from `key`, columns the
+// queries from i0): P = exp(capped - lse) into s, P d(capped)/d(dot) into
+// the hand-over; MASK on a tile with a hidden pair
+template <bool CAP, bool MASK>
+__device__ __forceinline__ void dkv_probs(float (&s)[32], float* hand,
+                                          const float* ls, const Capper& cp,
+                                          const Params& p, int key, int i0,
+                                          int lane) {
+  const int off = p.Tk - p.Tq;
+  // the columns' lse first: read between the hand-over's stores, which
+  // the compiler cannot tell apart from them, each load would wait
+  float lsv[kBK / 8][2];
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
+  for (int n = 0; n < kBK / 8; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    for (int j = 0; j < 2; ++j) lsv[n][j] = ls[n * 8 + lane % 4 * 2 + j];
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    uint32_t a[4];
-    ldsm_a<P>(a, a_s, band * 16, kk * 16);
+  for (int n = 0; n < kBK / 8; ++n) {
 #pragma unroll
-    for (int n = 0; n < NT; n += 2) {
-      uint32_t f[4];
-      ldsm_b<P>(f, b_s, n * 8, kk * 16);
-      mma16816(s[n], a, f[0], f[1]);
-      mma16816(s[n + 1], a, f[2], f[3]);
+    for (int e = 0; e < 4; ++e) {
+      const int c = n * 8 + lane % 4 * 2 + (e & 1);  // query in tile
+      float sc, cg;
+      cp.apply<CAP>(s[4 * n + e], sc, cg);
+      float pr = ex2_approx(sc * kLog2e - lsv[n][e & 1]);
+      if (MASK && !(i0 + c < p.Tq &&
+                    visible(key + (e >> 1) * 8, i0 + c + off, p)))
+        pr = 0.f;
+      s[4 * n + e] = pr;
+      hand[(4 * n + e) * 32] = pr * cg;
     }
   }
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kWide) flash_bwd_dq_wide_kernel(
-    const Params p) {
-  constexpr int P = kPitch<HD>, NT = kBK / 8, DH = HD / 16;
-  constexpr int PD = kPitch<kBK>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* do_s = q_s + kRows * P;
-  bf16* kv_s = do_s + kRows * P;
-  bf16* ds_s = kv_s + 4 * kBK * P;  // dS of the stage, rows x keys
-  float* hand = reinterpret_cast<float*>(ds_s + kRows * PD);
-  float* lse_s = hand + kHand;      // times log2 e
-  float* dl_s = lse_s + kRows;
-  const QBlock b(p);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int band = warp % 4;
-  const bool scorer = warp < 4;            // group 0
-  const int r_lo = band * 16 + lane / 4;   // this thread's rows: r_lo, +8
-  const int c0 = warp / 4 * (HD / 2);      // this group's dQ columns
-  const bf16* kg = static_cast<const bf16*>(p.k) + b.kv * p.Tk * HD;
-  const bf16* vg = static_cast<const bf16*>(p.v) + b.kv * p.Tk * HD;
-  const bf16* dog = static_cast<const bf16*>(p.dout) + b.row0 * HD;
-  load_rows<HD, kRows, kWide>(q_s, static_cast<const bf16*>(p.q) +
-                                       b.row0 * HD, b.i0, p.Tq);
-  load_rows<HD, kRows, kWide>(do_s, dog, b.i0, p.Tq);
-  load_kv<HD, kWide>(kv_s, kg, vg, 0, b.t_lo, p.Tk);
-  cp_async_commit();
-  {
-    // delta = rowsum(dO * O), four threads a row, while the tiles land
-    constexpr int TR = kWide / kRows, W = HD / TR;
-    const int r = threadIdx.x / TR, i = b.i0 + r;
-    const long long at = (long long)i * HD + threadIdx.x % TR * W;
-    float dl = 0.f;
-    if (i < p.Tq) {
+// dQ's consumer 0 on its S tile (rows the queries at positions q0, q0 + 8,
+// columns the keys from k0): P d(capped)/d(dot) into the hand-over
+template <bool CAP, bool MASK>
+__device__ __forceinline__ void dq_probs(const float (&s)[32], float* hand,
+                                         const float (&lse2)[2],
+                                         const Capper& cp, const Params& p,
+                                         int k0, int q0, int lane) {
 #pragma unroll
-      for (int c = 0; c < W / 8; ++c) {
-        const uint4 o4 = *reinterpret_cast<const uint4*>(
-            static_cast<const bf16*>(p.o) + b.row0 * HD + at + c * 8);
-        const uint4 d4 = *reinterpret_cast<const uint4*>(dog + at + c * 8);
-        const bf16* oe = reinterpret_cast<const bf16*>(&o4);
-        const bf16* de = reinterpret_cast<const bf16*>(&d4);
+  for (int n = 0; n < kBK / 8; ++n) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          dl = fmaf(__bfloat162float(de[j]), __bfloat162float(oe[j]), dl);
-      }
-    }
-    dl += __shfl_xor_sync(kAll, dl, 1);
-    dl += __shfl_xor_sync(kAll, dl, 2);
-    if (threadIdx.x % TR == 0) {
-      dl_s[r] = dl;
-      lse_s[r] = i < p.Tq ? p.lse[b.row0 + i] * kLog2e : 0.f;
-      if (i < p.Tq) p.delta[b.row0 + i] = dl;
+    for (int e = 0; e < 4; ++e) {
+      float sc, cg;
+      cp.apply<CAP>(s[4 * n + e], sc, cg);
+      float pg = ex2_approx(sc * kLog2e - lse2[e >> 1]) * cg;
+      if (MASK && !visible(k0 + n * 8 + lane % 4 * 2 + (e & 1),
+                           q0 + (e >> 1) * 8, p))
+        pg = 0.f;
+      hand[(4 * n + e) * 32] = pg;
     }
   }
-  float* h = hand + band * NT * 4 * 32 + lane;  // element (n, e) at 32 (4n + e)
-  float dq[DH][4] = {};
-  for (int t = b.t_lo; t <= b.t_hi; ++t) {
-    const int st = (t - b.t_lo) & 1;
-    if (t < b.t_hi) load_kv<HD, kWide>(kv_s, kg, vg, st ^ 1, t + 1, p.Tk);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* k_s = kv_s + st * 2 * kBK * P;
-    const bf16* v_s = k_s + kBK * P;
-    // group 0: S = Q K^T; group 1: dP = dO V^T
-    float s[NT][4];
-    band_scores<HD, NT>(s, scorer ? q_s : do_s, scorer ? k_s : v_s, band);
-    if (scorer) {
-      // P = exp(capped - lse), times d(capped)/d(dot), masked on edge tiles
-      const bool edge = b.edge(t, p);
-      const float lse2[2] = {lse_s[r_lo], lse_s[r_lo + 8]};
+}
+
+// the 64 x 64 S or dP tile of 64 rows of a_tile against 64 of b_tile
+template <int HD>
+__device__ __forceinline__ void tile_scores(float (&s)[32],
+                                            const unsigned char* a_tile,
+                                            const unsigned char* b_tile) {
+  wgmma_fence();
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
+  for (int kk = 0; kk < HD / 16; ++kk)
+    wgmma_ss<0>(s, desc_k(a_tile, kk), desc_k(b_tile, kk), kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s);
+}
+
+// ROLE 0: S^T, P and dV; ROLE 1: dP^T, dS^T and dK; over n_it stages (G
+// heads x n_qt query tiles from i_lo)
+template <int HD, int ROLE>
+__device__ __forceinline__ void dkv_consumer(const Params p,
+                                             const CUtensorMap* out,
+                                             unsigned char* sm, int j0,
+                                             long long bh, int i_lo,
+                                             int n_qt, int n_it) {
+  using L = DkvSmem<HD>;
+  constexpr int S = L::kStages, T = L::kTile;
+  const int tid = threadIdx.x - 128 * (1 + ROLE);
+  const int warp = tid / 32, lane = tid % 32;
+  const int Tq = p.Tq, Tk = p.Tk, off = Tk - Tq;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L::kBars);
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + S;
+  float* hand = reinterpret_cast<float*>(sm + L::kHandAt) +
+                warp * (kBK / 8) * 4 * 32 + lane;
+  const unsigned char* a_tile = sm + (ROLE == 0 ? L::kK : L::kV);
+  const int key = j0 + warp * 16 + lane / 4;  // this thread's keys: +0, +8
+  float acc[HD / 2];                          // dV or dK
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float sc = capped(s[n][e], p);
-          float pg = 0.f;
-          if (!edge || visible(t * kBK + n * 8 + lane % 4 * 2 + (e & 1),
-                               b.q_first + r_lo + (e >> 1) * 8, p))
-            pg = exp2f(sc * kLog2e - lse2[e >> 1]) * capped_grad(sc, p);
-          h[(4 * n + e) * 32] = pg;
-        }
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  if (n_it > 0) mbar_wait(bars, 0);           // K and V
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % S;
+    mbar_wait(full + st, it / S & 1);
+    const unsigned char* q_s = sm + L::kRing + 2 * st * T;
+    const unsigned char* do_s = q_s + T;
+    const int i0 = i_lo + it % n_qt * kRows;
+    float s[32];  // S^T or dP^T: rows the warp's keys, columns queries
+    tile_scores<HD>(s, a_tile, ROLE == 0 ? q_s : do_s);
+    if constexpr (ROLE == 0) {
+      const Capper cp(p);
+      const float* ls = reinterpret_cast<const float*>(sm + L::kLse) +
+                        st * kRows;
+      const bool edge = i0 + kRows > Tq || j0 + kRows > Tk ||
+                        (p.causal && j0 + kRows - 1 > i0 + off) ||
+                        (p.window > 0 &&
+                         j0 <= min(i0 + kRows, Tq) - 1 + off - p.window);
+      if (it > 0) named_sync(kBarHandFree, kConsumers);  // hand was read
+      if (edge) {
+        if (cp.cap > 0.f)
+          dkv_probs<true, true>(s, hand, ls, cp, p, key, i0, lane);
+        else
+          dkv_probs<false, true>(s, hand, ls, cp, p, key, i0, lane);
+      } else {
+        if (cp.cap > 0.f)
+          dkv_probs<true, false>(s, hand, ls, cp, p, key, i0, lane);
+        else
+          dkv_probs<false, false>(s, hand, ls, cp, p, key, i0, lane);
       }
-    }
-    __syncthreads();
-    if (!scorer) {
-      // dS = P d(capped)/d(dot) (dP - delta), as bf16 into the dS tile
-      const float dl[2] = {dl_s[r_lo], dl_s[r_lo + 8]};
-      bf16* row = ds_s + r_lo * PD + lane % 4 * 2;
+      named_arrive(kBarHandFull, kConsumers);
+    } else {
+      const float* dls = reinterpret_cast<const float*>(sm + L::kDl) +
+                         st * kRows;
+      named_sync(kBarHandFull, kConsumers);
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        float ds[4];
+      for (int n = 0; n < kBK / 8; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          ds[e] = h[(4 * n + e) * 32] * (s[n][e] - dl[e >> 1]);
-        *reinterpret_cast<uint32_t*>(row + n * 8) = pack_bf16(ds[0], ds[1]);
-        *reinterpret_cast<uint32_t*>(row + 8 * PD + n * 8) =
-            pack_bf16(ds[2], ds[3]);
-      }
+          s[4 * n + e] = hand[(4 * n + e) * 32] *
+                         (s[4 * n + e] - dls[n * 8 + lane % 4 * 2 + (e & 1)]);
+      if (it + 1 < n_it) named_arrive(kBarHandFree, kConsumers);
     }
-    __syncthreads();
-    // dQ[:, c0 : c0 + HD / 2] += dS K, 16 keys a step
+    // dV += P^T dO or dK += dS^T Q, 16 query rows a step, A from registers
+    uint32_t fa[kBK / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < NT / 2; ++kk) {
-      uint32_t a[4];
-      ldsm_a<PD>(a, ds_s, band * 16, kk * 16);
+    for (int kk = 0; kk < kBK / 16; ++kk)
 #pragma unroll
-      for (int d = 0; d < DH; d += 2) {
-        uint32_t f[4];
-        ldsm_bt<P>(f, k_s, kk * 16, c0 + d * 8);
-        mma16816(dq[d], a, f[0], f[1]);
-        mma16816(dq[d + 1], a, f[2], f[3]);
-      }
-    }
-    __syncthreads();
+      for (int r = 0; r < 4; ++r)
+        fa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+    const unsigned char* o_tile = ROLE == 0 ? do_s : q_s;
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      wgmma_rs<1>(acc, fa[kk], desc_mn(o_tile, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + st);
   }
-  bf16* dqg = static_cast<bf16*>(p.dq) + b.row0 * HD + c0;
+  // the accumulator out through shared memory and TMA (rows past Tk are
+  // not written): once both consumers are done with every stage, stage
+  // 0's Q tile holds dV and its dO tile dK
+  named_sync(kBarEnd, kConsumers);
+  unsigned char* tile = sm + L::kRing + ROLE * T;
 #pragma unroll
-  for (int hb = 0; hb < 2; ++hb) {
-    const int i = b.i0 + r_lo + hb * 8;
-    if (i < p.Tq) store_band(dqg + (long long)i * HD, dq, hb, 1.f);
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      store_pair_sw128(tile, warp * 16 + lane / 4 + h * 8,
+                       n * 8 + lane % 4 * 2,
+                       pack_bf16(acc[4 * n + 2 * h], acc[4 * n + 2 * h + 1]));
+  fence_async_smem();
+  named_sync(kBarEnd, kConsumers);
+  if (tid == 0) {
+    for (int c = 0; c < HD / kBox; ++c)
+      tma_store_3d(out, tile + c * kChunkBytes, c * kBox, j0,
+                   static_cast<int>(bh));
+    bulk_commit_and_wait();
   }
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kWide) flash_bwd_dkv_wide_kernel(
-    const Params p) {
-  constexpr int P = kPitch<HD>, DT = HD / 8;
-  constexpr int BQ = kDkvWideRows, NT = BQ / 8;
-  static_assert(4 * NT * 4 * 32 == kHand, "a fragment element a lane");
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem);
-  bf16* v_s = k_s + kRows * P;
-  bf16* qd_s = v_s + kRows * P;  // stage s: q at 2 s BQ P, dO after it
-  float* hand = reinterpret_cast<float*>(qd_s + 4 * BQ * P);
-  float* lse_s = hand + kHand;   // 2 stages
-  float* dl_s = lse_s + 2 * BQ;
+__global__ void __launch_bounds__(kHopThreads, 1)
+    flash_bwd_dkv_hopper_kernel(const __grid_constant__ HopArgs a) {
+  using L = DkvSmem<HD>;
+  constexpr int S = L::kStages, T = L::kTile;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  // a copy in registers: read through a reference, the parameter space
+  // would be reloaded after every shared-memory store
+  const Params p = a.p;
   const int G = p.G, Tq = p.Tq, Tk = p.Tk, off = Tk - Tq;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int band = warp % 4;
-  const bool scorer = warp < 4;  // group 0: dV; group 1: dK
-  const long long bh = (long long)blockIdx.z * p.Hkv + blockIdx.y;
-  const int j0 = blockIdx.x * kRows, j1 = min(j0 + kRows, Tk);
-  const int key = j0 + band * 16 + lane / 4;  // this thread's keys: +0, +8
-  // the query rows that see a key of this tile, in tiles of BQ, per head
+  // a kv head's key tiles together (its Q and dO stay in L2), the first
+  // (the most queries under a causal mask) first
+  const int n_kt = (Tk + kRows - 1) / kRows;
+  const int j0 = blockIdx.x % n_kt * kRows, j1 = min(j0 + kRows, Tk);
+  const long long bh = blockIdx.x / n_kt;
+  // the query rows that see a key of this tile, in tiles of 64, per head
   const int i_lo = p.causal ? max(0, j0 - off) : 0;
   const int i_hi = p.window > 0 ? min(Tq - 1, j1 - 2 + p.window - off)
                                 : Tq - 1;
-  const int n_qt = i_hi >= i_lo ? (i_hi - i_lo) / BQ + 1 : 0;
-  const long long row0 = bh * G * Tq;  // lse row of (b, h, 0, 0)
-  const bf16* qg = static_cast<const bf16*>(p.q) + row0 * HD;
-  const bf16* dog = static_cast<const bf16*>(p.dout) + row0 * HD;
-  auto load_q = [&](int st, int it) {
-    const int g = it / n_qt, i0 = i_lo + (it - g * n_qt) * BQ;
-    bf16* qs = qd_s + st * 2 * BQ * P;
-    load_rows<HD, BQ, kWide>(qs, qg + (long long)g * Tq * HD, i0, Tq);
-    load_rows<HD, BQ, kWide>(qs + BQ * P, dog + (long long)g * Tq * HD, i0,
-                             Tq);
-    if (threadIdx.x < BQ) {
-      const int i = i0 + threadIdx.x;
-      const long long r = row0 + (long long)g * Tq + min(i, Tq - 1);
-      cp_async4(lse_s + st * BQ + threadIdx.x, p.lse + r, i < Tq);
-      cp_async4(dl_s + st * BQ + threadIdx.x, p.delta + r, i < Tq);
+  const int n_qt = i_hi >= i_lo ? (i_hi - i_lo) / kRows + 1 : 0;
+  const int n_it = G * n_qt;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L::kBars);
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(bars + 1 + s, 32);     // the producer warp's lanes
+      mbar_init(bars + 1 + S + s, 8);  // the consumers' warps
     }
-  };
-  load_rows<HD, kRows, kWide>(
-      k_s, static_cast<const bf16*>(p.k) + bh * Tk * HD, j0, Tk);
-  load_rows<HD, kRows, kWide>(
-      v_s, static_cast<const bf16*>(p.v) + bh * Tk * HD, j0, Tk);
-  if (n_qt > 0) load_q(0, 0);
-  cp_async_commit();
-  float* h = hand + band * NT * 4 * 32 + lane;
-  float acc[DT][4] = {};  // group 0: dV; group 1: dK
-  for (int it = 0; it < G * n_qt; ++it) {
-    const int st = it & 1;
-    if (it + 1 < G * n_qt) load_q(st ^ 1, it + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const int i0 = i_lo + it % n_qt * BQ;
-    const bf16* q_s = qd_s + st * 2 * BQ * P;
-    const bf16* do_s = q_s + BQ * P;
-    const float* ls = lse_s + st * BQ;
-    const float* dls = dl_s + st * BQ;
-    // group 0: S^T = K Q^T; group 1: dP^T = V dO^T; rows are the band's keys
-    float s[NT][4];
-    band_scores<HD, NT>(s, scorer ? k_s : v_s, scorer ? q_s : do_s, band);
-    if (scorer) {
-      const bool edge = i0 + BQ > Tq || j0 + kRows > Tk ||
-                        (p.causal && j0 + kRows - 1 > i0 + off) ||
-                        (p.window > 0 &&
-                         j0 <= min(i0 + BQ, Tq) - 1 + off - p.window);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x >= 32 || n_it == 0) return;
+    const int lane = threadIdx.x;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(bars, 2 * T);
+      for (int c = 0; c < HD / kBox; ++c) {
+        tma_load_3d(sm + L::kK + c * kChunkBytes, &a.k, bars, c * kBox, j0,
+                    static_cast<int>(bh));
+        tma_load_3d(sm + L::kV + c * kChunkBytes, &a.v, bars, c * kBox, j0,
+                    static_cast<int>(bh));
+      }
+    }
+    float* lse_s = reinterpret_cast<float*>(sm + L::kLse);
+    float* dl_s = reinterpret_cast<float*>(sm + L::kDl);
+    for (int it = 0; it < n_it; ++it) {
+      const int st = it % S;
+      const int head = static_cast<int>(bh) * G + it / n_qt;
+      const int i0 = i_lo + it % n_qt * kRows;
+      // the stage's lse and delta, read while the stage is still in use
+      float lv[kRows / 32], dv[kRows / 32];
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = n * 8 + lane % 4 * 2 + (e & 1);  // query row in tile
-          const float sc = capped(s[n][e], p);
-          float pr = 0.f, pg = 0.f;
-          if (!edge || (i0 + c < Tq &&
-                        visible(key + (e >> 1) * 8, i0 + c + off, p))) {
-            pr = exp2f((sc - ls[c]) * kLog2e);
-            pg = pr * capped_grad(sc, p);
-          }
-          s[n][e] = pr;
-          h[(4 * n + e) * 32] = pg;
+      for (int u = 0; u < kRows / 32; ++u) {
+        const int i = i0 + lane + 32 * u;
+        const long long row = (long long)head * Tq + i;
+        lv[u] = i < Tq ? p.lse[row] * kLog2e : 0.f;
+        dv[u] = i < Tq ? p.delta[row] : 0.f;
+      }
+      mbar_wait(bars + 1 + S + st, (it / S & 1) ^ 1);
+      if (lane == 0) {
+        mbar_expect_tx(bars + 1 + st, 2 * T);
+        unsigned char* q_s = sm + L::kRing + 2 * st * T;
+        for (int c = 0; c < HD / kBox; ++c) {
+          tma_load_3d(q_s + c * kChunkBytes, &a.q, bars + 1 + st, c * kBox,
+                      i0, head);
+          tma_load_3d(q_s + T + c * kChunkBytes, &a.dout, bars + 1 + st,
+                      c * kBox, i0, head);
         }
       }
-    }
-    __syncthreads();
-    if (!scorer) {
-      // dS^T = P d(capped)/d(dot) (dP^T - delta)
 #pragma unroll
-      for (int n = 0; n < NT; ++n)
+      for (int u = 0; u < kRows / 32; ++u) {
+        lse_s[st * kRows + lane + 32 * u] = lv[u];
+        dl_s[st * kRows + lane + 32 * u] = dv[u];
+      }
+      mbar_arrive(bars + 1 + st);
+    }
+  } else {
+    setmaxnreg_inc<240>();
+    if (threadIdx.x < 256)
+      dkv_consumer<HD, 0>(p, &a.dv, sm, j0, bh, i_lo, n_qt, n_it);
+    else
+      dkv_consumer<HD, 1>(p, &a.dk, sm, j0, bh, i_lo, n_qt, n_it);
+  }
+}
+
+// The 64-query tile of a dQ block and the key tiles it sees: a query
+// head's tiles together (the G heads of a kv head next to each other, so
+// its K and V stay in L2), the last (the most keys) first.
+struct HopQTile {
+  long long head;  // (B, Hkv, G) query head
+  int i0, q_first, q_last, t_lo, t_hi;
+
+  __device__ HopQTile(const Params& p) {
+    const int n_tiles = (p.Tq + kRows - 1) / kRows;
+    head = blockIdx.x / n_tiles;
+    i0 = (n_tiles - 1 - static_cast<int>(blockIdx.x % n_tiles)) * kRows;
+    const int off = p.Tk - p.Tq;
+    q_first = i0 + off;
+    q_last = min(i0 + kRows, p.Tq) - 1 + off;
+    const int k_hi = p.causal ? min(p.Tk - 1, q_last) : p.Tk - 1;
+    const int k_lo = p.window > 0 ? max(0, q_first - p.window + 1) : 0;
+    t_lo = k_lo / kBK;
+    t_hi = k_hi / kBK;
+  }
+
+  // whether some (row, key) pair of key tile t is masked
+  __device__ bool edge(int t, const Params& p) const {
+    const int k0 = t * kBK;
+    return k0 + kBK > p.Tk || (p.causal && k0 + kBK - 1 > q_first) ||
+           (p.window > 0 && k0 <= q_last - p.window);
+  }
+};
+
+// ROLE 0: S and P d(capped)/d(dot), then dQ's columns 0-127; ROLE 1: dP
+// and dS, then dQ's columns 128 .. HD - 1
+template <int HD, int ROLE>
+__device__ __forceinline__ void dq_consumer(const Params p,
+                                            const CUtensorMap* out,
+                                            unsigned char* sm,
+                                            const HopQTile& b) {
+  using L = DqSmem<HD>;
+  constexpr int S = L::kStages, T = L::kTile;
+  constexpr int C0 = ROLE == 0 ? 0 : 128, N = ROLE == 0 ? 128 : HD - 128;
+  const int tid = threadIdx.x - 128 * (1 + ROLE);
+  const int warp = tid / 32, lane = tid % 32;
+  const int r_lo = warp * 16 + lane / 4;  // this thread's rows: +0, +8
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L::kBars);
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + S;
+  float* hand = reinterpret_cast<float*>(sm + L::kHandAt) +
+                warp * (kBK / 8) * 4 * 32 + lane;
+  const float* lse_s = reinterpret_cast<const float*>(sm + L::kLse);
+  const float* dl_s = reinterpret_cast<const float*>(sm + L::kDl);
+  const float lse2[2] = {lse_s[r_lo], lse_s[r_lo + 8]};
+  const float dl[2] = {dl_s[r_lo], dl_s[r_lo + 8]};
+  float dq[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) dq[i] = 0.f;
+  mbar_wait(bars, 0);  // Q and dO
+  for (int t = b.t_lo; t <= b.t_hi; ++t) {
+    const int it = t - b.t_lo, st = it % S;
+    mbar_wait(full + st, it / S & 1);
+    const unsigned char* k_s = sm + L::kRing + 2 * st * T;
+    unsigned char* ds_s = sm + L::kDs + (it & 1) * kChunkBytes;
+    float s[32];  // S or dP: rows the warp's queries, columns keys
+    tile_scores<HD>(s, sm + (ROLE == 0 ? L::kQ : L::kDo),
+                    ROLE == 0 ? k_s : k_s + T);
+    if constexpr (ROLE == 0) {
+      const Capper cp(p);
+      const int k0 = t * kBK, q0 = b.q_first + r_lo;
+      if (b.edge(t, p)) {
+        if (cp.cap > 0.f)
+          dq_probs<true, true>(s, hand, lse2, cp, p, k0, q0, lane);
+        else
+          dq_probs<false, true>(s, hand, lse2, cp, p, k0, q0, lane);
+      } else {
+        if (cp.cap > 0.f)
+          dq_probs<true, false>(s, hand, lse2, cp, p, k0, q0, lane);
+        else
+          dq_probs<false, false>(s, hand, lse2, cp, p, k0, q0, lane);
+      }
+      named_arrive(kBarHandFull, kConsumers);
+    } else {
+      // dS = P d(capped)/d(dot) (dP - delta), as bf16 into the swizzled
+      // K-major dS tile: (r, c) at r * 128 + ((c / 8) ^ (r % 8)) * 16 + ...
+      named_sync(kBarHandFull, kConsumers);
+      float pg[32];  // all loads before the first store (see dkv_probs)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) pg[i] = hand[i * 32];
+#pragma unroll
+      for (int n = 0; n < kBK / 8; ++n) {
+        float ds[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          s[n][e] = h[(4 * n + e) * 32] *
-                    (s[n][e] - dls[n * 8 + lane % 4 * 2 + (e & 1)]);
+          ds[e] = pg[4 * n + e] * (s[4 * n + e] - dl[e >> 1]);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = r_lo + h * 8;
+          *reinterpret_cast<uint32_t*>(ds_s + r * 128 +
+                                       ((n ^ (r % 8)) << 4) + lane % 4 * 4) =
+              pack_bf16(ds[2 * h], ds[2 * h + 1]);
+        }
+      }
+      fence_async_smem();  // the stores, before wgmma reads the tile
     }
-    // group 0: dV += P^T dO; group 1: dK += dS^T Q; 16 query rows a step
-    const bf16* o_s = scorer ? do_s : q_s;
+    named_sync(kBarDs, kConsumers);  // dS is whole; the hand-over was read
+    // dQ[:, C0 : C0 + N] += dS K, 16 keys a step, K as the MN-major B
+    fence_regs(dq);
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < NT / 2; ++kk) {
-      uint32_t a[4];
-      c_to_a(a, s[2 * kk], s[2 * kk + 1]);
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      wgmma_ss<1>(dq, desc_k(ds_s, kk),
+                  desc_mn(k_s + C0 / kBox * kChunkBytes, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + st);
+  }
+  // dQ out through shared memory and TMA (rows past Tq are not written):
+  // once both consumers are done with every stage, the Q tile holds it
+  named_sync(kBarEnd, kConsumers);
+  unsigned char* tile = sm + L::kQ;
 #pragma unroll
-      for (int d = 0; d < DT; d += 2) {
-        uint32_t f[4];
-        ldsm_bt<P>(f, o_s, kk * 16, d * 8);
-        mma16816(acc[d], a, f[0], f[1]);
-        mma16816(acc[d + 1], a, f[2], f[3]);
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int n = 0; n < N / 8; ++n)
+      store_pair_sw128(tile, r_lo + h * 8, C0 + n * 8 + lane % 4 * 2,
+                       pack_bf16(dq[4 * n + 2 * h], dq[4 * n + 2 * h + 1]));
+  fence_async_smem();
+  named_sync(kBarEnd, kConsumers);
+  if (tid == 0) {
+    for (int c = C0 / kBox; c < (C0 + N) / kBox; ++c)
+      tma_store_3d(out, tile + c * kChunkBytes, c * kBox, b.i0,
+                   static_cast<int>(b.head));
+    bulk_commit_and_wait();
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kHopThreads, 1)
+    flash_bwd_dq_hopper_kernel(const __grid_constant__ HopArgs a) {
+  using L = DqSmem<HD>;
+  constexpr int S = L::kStages, T = L::kTile;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  // a copy in registers: read through a reference, the parameter space
+  // would be reloaded after every shared-memory store
+  const Params p = a.p;
+  const HopQTile b(p);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L::kBars);
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(bars + 1 + s, 1);      // the producer's TMA thread
+      mbar_init(bars + 1 + S + s, 8);  // the consumers' warps
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x != 0) return;
+    const int head = static_cast<int>(b.head);
+    const int kv = head / p.G;
+    mbar_arrive_expect_tx(bars, 2 * T);
+    for (int c = 0; c < HD / kBox; ++c) {
+      tma_load_3d(sm + L::kQ + c * kChunkBytes, &a.q, bars, c * kBox, b.i0,
+                  head);
+      tma_load_3d(sm + L::kDo + c * kChunkBytes, &a.dout, bars, c * kBox,
+                  b.i0, head);
+    }
+    for (int t = b.t_lo; t <= b.t_hi; ++t) {
+      const int it = t - b.t_lo, st = it % S;
+      mbar_wait(bars + 1 + S + st, (it / S & 1) ^ 1);
+      mbar_arrive_expect_tx(bars + 1 + st, 2 * T);
+      unsigned char* k_s = sm + L::kRing + 2 * st * T;
+      for (int c = 0; c < HD / kBox; ++c) {
+        tma_load_3d(k_s + c * kChunkBytes, &a.k, bars + 1 + st, c * kBox,
+                    t * kBK, kv);
+        tma_load_3d(k_s + T + c * kChunkBytes, &a.v, bars + 1 + st,
+                    c * kBox, t * kBK, kv);
       }
     }
-    __syncthreads();
-  }
-  cp_async_wait<0>();  // no copy outlives the block (n_qt may be 0)
-  bf16* og = static_cast<bf16*>(scorer ? p.dv : p.dk) + bh * Tk * HD;
+  } else {
+    setmaxnreg_inc<240>();
+    {
+      // delta = rowsum(dO * O), four threads a row, while the tiles land
+      constexpr int W = HD / 4;
+      const int tid = threadIdx.x - 128, r = tid / 4, i = b.i0 + r;
+      const long long row = b.head * p.Tq + i;
+      float d = 0.f;
+      if (i < p.Tq) {
+        const bf16* o = static_cast<const bf16*>(p.o) + row * HD + tid % 4 * W;
+        const bf16* g = static_cast<const bf16*>(p.dout) + row * HD +
+                        tid % 4 * W;
 #pragma unroll
-  for (int hb = 0; hb < 2; ++hb) {
-    const int j = key + hb * 8;
-    if (j < Tk) store_band(og + (long long)j * HD, acc, hb, 1.f);
+        for (int c = 0; c < W / 8; ++c) {
+          const uint4 o4 = *reinterpret_cast<const uint4*>(o + c * 8);
+          const uint4 d4 = *reinterpret_cast<const uint4*>(g + c * 8);
+          const bf16* oe = reinterpret_cast<const bf16*>(&o4);
+          const bf16* de = reinterpret_cast<const bf16*>(&d4);
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            d = fmaf(__bfloat162float(de[j]), __bfloat162float(oe[j]), d);
+        }
+      }
+      d += __shfl_xor_sync(kAll, d, 1);
+      d += __shfl_xor_sync(kAll, d, 2);
+      if (tid % 4 == 0) {
+        reinterpret_cast<float*>(sm + L::kDl)[r] = d;
+        reinterpret_cast<float*>(sm + L::kLse)[r] =
+            i < p.Tq ? p.lse[row] * kLog2e : 0.f;
+        if (i < p.Tq) p.delta[row] = d;
+      }
+      named_sync(kBarDelta, kConsumers);
+    }
+    if (threadIdx.x < 256)
+      dq_consumer<HD, 0>(p, &a.dq, sm, b);
+    else
+      dq_consumer<HD, 1>(p, &a.dq, sm, b);
   }
 }
 
@@ -1271,54 +1583,90 @@ int opt_in(K kernel, int smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
 }
 
-template <typename K>
-int launch(K kernel, dim3 grid, int smem, const Params& p, cudaStream_t s,
+template <typename K, typename A>
+int launch(K kernel, dim3 grid, int smem, const A& args, cudaStream_t s,
            int threads = kThreads) {
   const int e = opt_in(kernel, smem);
   if (e) return e;
-  kernel<<<grid, threads, smem, s>>>(p);
+  kernel<<<grid, threads, smem, s>>>(args);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the backward at head_dim 192 and 256: the tensor maps, then dQ (which
+// writes delta), then dK/dV, on the stream
+template <int HD>
+int run_hopper_bwd(const Params& p, int B, cudaStream_t s) {
+  HopArgs a;
+  a.p = p;
+  const long long n_q = (long long)B * p.Hkv * p.G, n_kv = (long long)B * p.Hkv;
+  int e = make_tile_map(&a.q, p.q, HD, p.Tq, n_q);
+  if (!e) e = make_tile_map(&a.dout, p.dout, HD, p.Tq, n_q);
+  if (!e) e = make_tile_map(&a.k, p.k, HD, p.Tk, n_kv);
+  if (!e) e = make_tile_map(&a.v, p.v, HD, p.Tk, n_kv);
+  if (!e) e = make_tile_map(&a.dq, p.dq, HD, p.Tq, n_q);
+  if (!e) e = make_tile_map(&a.dk, p.dk, HD, p.Tk, n_kv);
+  if (!e) e = make_tile_map(&a.dv, p.dv, HD, p.Tk, n_kv);
+  if (e) return e;
+  const long long q_blocks = (p.Tq + kRows - 1) / kRows * n_q;
+  const long long k_blocks = (p.Tk + kRows - 1) / kRows * n_kv;
+  if (q_blocks > 0x7fffffff || k_blocks > 0x7fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
+  e = launch(flash_bwd_dq_hopper_kernel<HD>, dim3(q_blocks),
+             DqSmem<HD>::kBytes, a, s, kHopThreads);
+  if (e) return e;
+  return launch(flash_bwd_dkv_hopper_kernel<HD>, dim3(k_blocks),
+                DkvSmem<HD>::kBytes, a, s, kHopThreads);
 }
 
 // the backward kernels of a head_dim: (dQ, dK/dV), their shared memory and
 // block size
 template <int HD>
 struct Bwd {
-  static constexpr bool kWideHd = HD > 128;
-  static constexpr int kThreadsBwd = kWideHd ? kWide : kThreads;
-  static constexpr int kDqSmem = kWideHd ? dq_wide_smem<HD>() : dq_smem<HD>();
-  static constexpr int kDkvSmem =
-      kWideHd ? dkv_wide_smem<HD>() : dkv_smem<HD>();
+  static constexpr bool kHopper = HD > 128;
+  static constexpr int kThreadsBwd = kHopper ? kHopThreads : kThreads;
+  static int dq_bytes() {
+    if constexpr (kHopper) return DqSmem<HD>::kBytes;
+    else return dq_smem<HD>();
+  }
+  static int dkv_bytes() {
+    if constexpr (kHopper) return DkvSmem<HD>::kBytes;
+    else return dkv_smem<HD>();
+  }
   static auto dq() {
-    if constexpr (kWideHd) return flash_bwd_dq_wide_kernel<HD>;
+    if constexpr (kHopper) return flash_bwd_dq_hopper_kernel<HD>;
     else return flash_bwd_dq_tc_kernel<HD>;
   }
   static auto dkv() {
-    if constexpr (kWideHd) return flash_bwd_dkv_wide_kernel<HD>;
+    if constexpr (kHopper) return flash_bwd_dkv_hopper_kernel<HD>;
     else return flash_bwd_dkv_tc_kernel<HD>;
   }
 };
 
 template <int HD>
 int run(bool bwd, const Params& p, int B, cudaStream_t s) {
-  using K = Bwd<HD>;
   const dim3 qgrid((p.Tq + kRows - 1) / kRows, p.Hkv * p.G, B);
   if (!bwd)
     return launch(flash_fwd_tc_kernel<HD>, qgrid, fwd_smem<HD>(), p, s);
-  const int err = launch(K::dq(), qgrid, K::kDqSmem, p, s, K::kThreadsBwd);
-  if (err) return err;
-  // after the dQ kernel on the same stream: delta is written
-  const dim3 kgrid((p.Tk + kRows - 1) / kRows, p.Hkv, B);
-  return launch(K::dkv(), kgrid, K::kDkvSmem, p, s, K::kThreadsBwd);
+  if constexpr (HD > 128) {
+    return run_hopper_bwd<HD>(p, B, s);
+  } else {
+    const int err = launch(flash_bwd_dq_tc_kernel<HD>, qgrid, dq_smem<HD>(),
+                           p, s);
+    if (err) return err;
+    // after the dQ kernel on the same stream: delta is written
+    const dim3 kgrid((p.Tk + kRows - 1) / kRows, p.Hkv, B);
+    return launch(flash_bwd_dkv_tc_kernel<HD>, kgrid, dkv_smem<HD>(), p, s);
+  }
 }
 
-// blocks of a backward kernel (0: dQ, 1: dK/dV) resident on one SM, and
-// its shared memory in *smem
+// blocks of a backward kernel (0: dQ, 1: dK/dV) resident on one SM, its
+// shared memory in *smem and its threads in *threads
 template <int HD>
-int occupancy(int kernel, int* smem) {
+int occupancy(int kernel, int* smem, int* threads) {
   using K = Bwd<HD>;
   int n = 0;
-  *smem = kernel ? K::kDkvSmem : K::kDqSmem;
+  *smem = kernel ? K::dkv_bytes() : K::dq_bytes();
+  *threads = K::kThreadsBwd;
   if (kernel) {
     if (opt_in(K::dkv(), *smem)) return 0;
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, K::dkv(),
@@ -1430,14 +1778,15 @@ extern "C" int flash_attention_bwd_launch(
 
 // The bf16 backward kernels' residency at head_dim hd: kernel 0 is dQ, 1
 // dK/dV; returns its blocks per SM (0 for a head_dim it does not take) and
-// writes its dynamic shared memory to *smem.
-extern "C" int flash_attention_bwd_occupancy(int hd, int kernel, int* smem) {
+// writes its dynamic shared memory to *smem and its block size to *threads.
+extern "C" int flash_attention_bwd_occupancy(int hd, int kernel, int* smem,
+                                             int* threads) {
   switch (hd) {
-    case 32: return tc::occupancy<32>(kernel, smem);
-    case 64: return tc::occupancy<64>(kernel, smem);
-    case 128: return tc::occupancy<128>(kernel, smem);
-    case 192: return tc::occupancy<192>(kernel, smem);
-    case 256: return tc::occupancy<256>(kernel, smem);
+    case 32: return tc::occupancy<32>(kernel, smem, threads);
+    case 64: return tc::occupancy<64>(kernel, smem, threads);
+    case 128: return tc::occupancy<128>(kernel, smem, threads);
+    case 192: return tc::occupancy<192>(kernel, smem, threads);
+    case 256: return tc::occupancy<256>(kernel, smem, threads);
     default: return 0;
   }
 }

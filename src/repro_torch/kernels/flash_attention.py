@@ -15,10 +15,16 @@ Layout: q (B, Hkv, G, Tq, hd); k, v (B, Hkv, Tk, hd); out like q; the
 forward also gives lse (B, Hkv, G, Tq), the per-row log-sum-exp the
 backward recomputes the probabilities from. The kernel source is
 ``csrc/flash_attention.cu``: bfloat16 operands run its tensor-core kernels
-(``mma.sync``, float32 accumulators, P and dS rounded to bf16 before their
-products; at head_dim 192 and 256 the backward's blocks split dK and dV, or
-dQ's columns, over two warp groups), float32 operands its CUDA-core
-kernels, each shape on one route with no fallback between them.
+(float32 accumulators, P and dS rounded to bf16 before their products):
+``mma.sync`` for the forward and for the backward up to head_dim 128; at
+head_dim 192 and 256 the backward runs on Hopper's ``wgmma`` (the building
+blocks in ``csrc/hopper.cuh``), each block a producer warpgroup that feeds
+64-row tiles by TMA into a ring of shared-memory stages and two consumer
+warpgroups that hold dK and dV, or parts of dQ's columns, one each.
+float32 operands run its CUDA-core kernels. Each shape takes one route,
+with no fallback between them. The TMA tensor maps need every operand on
+a 16-byte boundary and rows of a multiple of 16 bytes, which ``_check``
+and ``HEAD_DIMS`` guarantee.
 """
 from __future__ import annotations
 
@@ -139,7 +145,7 @@ def _check(kernel, *tensors):
         if t.dtype not in (q.dtype, torch.float32):
             raise TypeError(f"{kernel}: operand of type {t.dtype} with q "
                             f"{q.dtype}")
-        # rows are read with 8- and 16-byte loads
+        # rows are read with 8- and 16-byte loads, and by TMA
         if t.data_ptr() % 16:
             raise ValueError("operands must start on a 16-byte boundary")
 

@@ -11,7 +11,8 @@
   another order, on gradients of magnitude ~1), and the autograd Function
   by ``torch.autograd.gradcheck`` in float64.
 * On a CUDA card (``-m gpu``), the kernels against the plain versions,
-  forward and backward; these skip when no card is present. The card's
+  forward and backward, and two backward launches at head_dim 192 and
+  256 bit for bit equal; these skip when no card is present. The card's
   machine has no JAX, so the reference is imported inside the CPU tests
   only and the card runs this file with
   ``PYTHONPATH=src python -m pytest -q --noconftest -m gpu
@@ -199,13 +200,20 @@ def cuda():
     (4, 129, 129, None, None, True, 32), (4, 100, 163, 65, None, True, 32),
     (4, 129, 129, None, None, True, 128), (2, 100, 163, None, 20.0, True, 128),
     (4, 127, 129, None, None, False, 128),
-    # head_dim 192 (MLA's qk width) and 256 (gemma2, GPT-J): the backward's
-    # two warp groups, the float32 kernels' 8 threads a row
+    # head_dim 192 (MLA's qk width) and 256 (gemma2, GPT-J): the bf16
+    # backward's TMA-fed wgmma kernels, the float32 kernels' 8 threads a row
     (1, 65, 65, None, None, True, 192), (1, 129, 129, None, None, True, 192),
     (16, 100, 163, None, None, True, 192), (2, 200, 200, 65, 50.0, True, 192),
     (2, 1, 1, None, None, True, 256), (2, 129, 129, None, 50.0, True, 256),
     (1, 100, 163, 33, None, True, 256), (16, 100, 100, None, None, True, 256),
-    (1, 90, 130, None, None, False, 256), (2, 300, 300, 100, 50.0, True, 256)])
+    (1, 90, 130, None, None, False, 256), (2, 300, 300, 100, 50.0, True, 256),
+    # their edges: T past a 64-row tile over B x Hkv = 4 distinct heads
+    # (a tile's rows past T read as zeros), Tq < Tk, G 2 and
+    # max_heads(hd) = 16, a window of 70 (no tile multiple) with softcap
+    (2, 77, 77, None, None, True, 192), (2, 77, 77, None, None, True, 256),
+    (2, 100, 300, None, None, True, 192), (2, 100, 300, None, None, True, 256),
+    (16, 77, 200, None, None, True, 192), (16, 77, 200, None, None, True, 256),
+    (2, 257, 257, 70, 50.0, True, 192), (2, 257, 257, 70, 50.0, True, 256)])
 def test_gpu_kernels_match_plain(cuda, dtype, G, Tq, Tk, window, softcap,
                                  causal, hd):
     arrays = _inputs(Tq, 2, 2, G, Tq, Tk, hd)
@@ -247,3 +255,43 @@ def test_gpu_autograd_function_launches_kernels(cuda):
     flash_attention(qc, kc, vc).sum().backward()
     for a, b in ((q, qc), (k, kc), (v, vc)):
         torch.testing.assert_close(a.grad.cpu(), b.grad, atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [192, 256])
+def test_gpu_wide_backward_is_deterministic(cuda, hd):
+    """Every dq, dk and dv element has one owner (no atomics): two launches
+    on the same inputs give the same bits."""
+    arrays = _inputs(hd, 2, 2, 2, 200, 300, hd)
+    q, k, v = _torch(arrays, "bfloat16", cuda)
+    do = torch.randn(q.shape, generator=torch.Generator(cuda).manual_seed(2),
+                     device=cuda).to(q.dtype)
+    kw = dict(window=70, softcap=50.0)
+    out, lse = flash_attention_fwd(q, k, v, **kw)
+    first = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    second = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_chip_smoke_parent_kernels_carry_the_flash_backward():
+    """``chip_smoke.py --parent`` times the parent's flash backward in turns
+    with this tree's: ``parent_kernels`` gives it through the other tree's
+    own module, which launches a CUDA kernel or raises."""
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.pop(0)
+    ns = chip_smoke.parent_kernels(root)
+    assert ns.flash_bwd is not flash_attention_bwd
+    assert ns.flash_bwd.__name__ == "flash_attention_bwd"
+    q = torch.zeros((1, 1, 1, 4, 256), dtype=torch.bfloat16)
+    k = torch.zeros((1, 1, 4, 256), dtype=torch.bfloat16)
+    lse = torch.zeros((1, 1, 1, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        ns.flash_bwd(q, k, k, q, lse, q)
