@@ -5,6 +5,7 @@ versions, and serves.
 
     python3 chip_smoke.py                 # every phase, one card
     python3 chip_smoke.py --phases kernels
+    python3 chip_smoke.py --split-tiles   # the float32 flash tiles' sweep
 
 Phases; any failure ends the run with a non-zero exit and no result line:
   1. card          — name and power limit from nvidia-smi; no CUDA card:
@@ -253,6 +254,13 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      make_train_step: bf16 params, f32 AdamW, remat,
                      SyntheticLM batches of 4 x 2048, 2 warm-up and 8
                      timed steps; finite, falling loss
+ 19a. train_f32    — the same in float32 (the train launcher's default
+                     dtype: the float32 flash kernels, which split each
+                     operand into three bf16 terms), 2 warm-up and 4
+                     timed steps and one profiled (flash's share); every
+                     flash launch float32; then python -m
+                     repro_torch.launch.train once with its defaults
+                     (llama3.2-1b, float32, 8 x 64, 3 steps)
  19b. xlstm_train, zamba2_train
                    — the train run on full-width, full-depth xlstm-350m
                      (24 layers; B 8 x T 512, 2 warm-up and 4 timed
@@ -355,7 +363,16 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                      call, with the gradient that reached it: against the
                      plain backward, device time, 10 hd operations a
                      visible pair as the bound, SDPA's backward as the
-                     library column; their launches those runs')
+                     library column; their launches those runs'); rows
+                     7f and 7bf (the float32 forward and backward on
+                     train_f32's first attention call) and 7mf (the
+                     float32 forward on row 7m's call in float32): their
+                     bound the split's bf16 products, the float32-rate
+                     figure beside it, SDPA's float32 call as the
+                     library column, with --parent the parent's kernels
+                     in turns; their launches train_f32's and
+                     mla_parity's float32 legs' (7mb's float32 bound is
+                     the split's too)
  23. profile       — torch.profiler over 10 serve steps after 10 (bf16 and
                      int8 pools, deepseek-moe-16b's with the MoE kernels'
                      share, and deepseek-v3's with row 10's), over one
@@ -380,7 +397,8 @@ mla_parity's flash launches, 8z zamba2_serve's gla_scan and 7p
 pixtral_serve's flash launches, 1g musicgen_serve's ragged launches, 8b
 and 8zb xlstm_train's and zamba2_train's gla_scan_bwd launches, 7wb and
 7jb gemma2_train's and gptj_train's flash_attention_bwd launches, 7mb
-wide_train_parity's deepseek-v3 ones).
+wide_train_parity's deepseek-v3 ones, 7f and 7bf train_f32's float32
+flash launches, 7mf mla_parity's float32 flash launches at 192).
 The last three lines are the kernels JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}.
 """
@@ -407,7 +425,8 @@ PHASES = ("kernels", "tiny", "tiny_train", "tiny_ssm", "decode_parity",
           "gather", "sanitize", "sanitize_quant", "sample", "gemma2_serve",
           "gemma2_unfused", "gemma2_quant", "gptj_serve", "moe_serve",
           "moe_unfused", "mla_serve", "mla_unfused", "musicgen_serve",
-          "musicgen_unfused", "train", "xlstm_train", "zamba2_train",
+          "musicgen_unfused", "train", "train_f32", "xlstm_train",
+          "zamba2_train",
           "gemma2_train", "gptj_train", "ssm_serve", "dense_serve",
           "wide_dense", "zamba2_serve", "pixtral_serve", "timing",
           "profile")
@@ -553,10 +572,16 @@ GLA_BWD_KERNELS = ("gla_scan_bwd", "gla_scan_bwd_zamba2")
 # runs' own
 WIDE_BWD_KERNELS = ("flash_attention_bwd_hd256", "flash_attention_bwd_gptj",
                     "flash_attention_bwd_hd192")
+# the float32 flash rows (the split kernels): the forward (7f) and the
+# backward (7bf) at train_f32's first call, their launches that run's; the
+# forward at 192 (7mf) at row 7m's call in float32, its launches
+# mla_parity's float32 legs'
+F32_FLASH_KERNELS = ("flash_attention_f32", "flash_attention_bwd_f32",
+                     "flash_attention_hd192_f32")
 # every row of the kernels line
 ROWS = (KERNELS + WIDE_KERNELS + MOE_KERNELS + MLA_KERNELS
         + PREFIX_SHARED_KERNELS + MUSICGEN_KERNELS + GLA_BWD_KERNELS
-        + WIDE_BWD_KERNELS)
+        + WIDE_BWD_KERNELS + F32_FLASH_KERNELS)
 # the TPU kernel of each flash row; the backward has none: the reference
 # differentiates its XLA blocked_attention
 FLASH_REPLACES = {
@@ -2196,10 +2221,13 @@ def kernel_wrappers() -> dict:
 def kernel_counters() -> dict:
     """Each launch count: a wrapper and the attribute that carries it (the
     latent-attention wrapper counts all its launches and, apart, its
-    tensor-core form's)."""
+    tensor-core form's; the flash wrappers all theirs and, apart, their
+    float32 ones)."""
     counters = {k: (fn, "launches") for k, fn in kernel_wrappers().items()}
     counters["mla_attention_tc"] = (counters["mla_attention"][0],
                                     "tc_launches")
+    for k in ("flash_attention", "flash_attention_bwd"):
+        counters[f"{k}_f32"] = (counters[k][0], "f32_launches")
     return counters
 
 
@@ -3391,7 +3419,8 @@ def check_flash_kernels(gen, worst) -> None:
     192 and 256 (the bf16 backward's TMA-fed kernels) B x Hkv up to 6 with
     distinct heads and T past a 64-row tile (rows past T read as zeros),
     Tq < Tk, G 2 and 16 (``max_heads``), a window of 70 with softcap 50, and
-    in bf16 a second backward bit for bit equal to the first (no atomics).
+    a second backward bit for bit equal to the first (no atomics) in every
+    float32 case and in bf16 at 192 and 256.
     Tolerances: out 1e-4 (float32) and 3e-2 (bf16: both round one
     float32 result once); lse 1e-4 (float32 sums in another order);
     gradients 1e-4 (float32) and 2^-6 (bf16, two units in the last place)
@@ -3480,14 +3509,22 @@ def check_flash_kernels(gen, worst) -> None:
                 f"{g_rel:.3g} of their max (tol {rel[dtype]:.3g})")
             assert err <= tol[dtype] and lse_err <= 1e-4, label
             assert g_rel <= rel[dtype], label
-            if hd > 128 and dtype == torch.bfloat16:
+            if hd > 128 or dtype == torch.float32:
                 again = flash_attention_bwd(q, k, v, out, lse, do, **kw)
                 assert all(torch.equal(a, b) for a, b in zip(grads, again)), \
                     label
                 log("    the backward again: dq, dk, dv bit for bit equal")
-            f_row = fwd_row.get(hd, "flash_attention")
+            if dtype == torch.float32:
+                # the float32 rows: 7mf and 7mb at 192, 7f and 7bf else
+                f_row = ("flash_attention_hd192_f32" if hd == 192
+                         else "flash_attention_f32")
+                b_rows = (("flash_attention_bwd_hd192",) if hd == 192
+                          else ("flash_attention_bwd_f32",))
+            else:
+                f_row = fwd_row.get(hd, "flash_attention")
+                b_rows = bwd_rows.get(hd, ("flash_attention_bwd",))
             worst[f_row] = max(worst[f_row], err)
-            for b_row in bwd_rows.get(hd, ("flash_attention_bwd",)):
+            for b_row in b_rows:
                 worst[b_row] = max(worst[b_row], *g_abs)
             del q, k, v, do, out, lse, want, want_lse, grads, want_grads
     torch.cuda.empty_cache()
@@ -3851,11 +3888,12 @@ def train(recorder, *, model: str = "llama3.2-1b", tiny: bool = False,
           device: str = "cuda", warm: int = 2, timed: int = 8,
           batch: int = 4, seq: int = 2048, lr: float = 3e-3,
           profile: bool = False, profile_seq: int = None,
-          periods=None) -> dict:
+          periods=None, dtype=None) -> dict:
     """Full-width ``model`` (llama3.2-1b; xlstm_train and zamba2_train: the
     SSM models, SSM_TRAIN; gemma2_train and gptj_train: WIDE_TRAIN), each
     group cut to ``periods`` where given (``cut_config``), through
-    make_train_step: bf16 params from
+    make_train_step: params of ``dtype`` (bf16 on the card unless given:
+    train_f32 gives float32) from
     seed 0 (the reference's init), float32 AdamW state (peak lr 3e-3 after
     2 warm-up steps, cosine over the run: on the H100, 1e-3 moved the loss
     by ~0.1 in 8 steps, within the batch-to-batch spread, 3e-3 by ~2.7
@@ -3886,9 +3924,10 @@ def train(recorder, *, model: str = "llama3.2-1b", tiny: bool = False,
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
+    if dtype is None:
+        dtype = torch.bfloat16 if on_card else torch.float32
     params = lm.init(torch.Generator(device=dev).manual_seed(0),
-                     dtype=torch.bfloat16 if on_card else torch.float32,
-                     device=dev)
+                     dtype=dtype, device=dev)
     opt = adamw_init(params)
     steps = warm + timed
     step_fn = make_train_step(lm, AdamWConfig(lr=lr, warmup_steps=2,
@@ -3919,7 +3958,8 @@ def train(recorder, *, model: str = "llama3.2-1b", tiny: bool = False,
     counts = launch_counts()
     timed_rows = [r for r in log_rows if r["timed"]]
     ms = sum(r["step_ms"] for r in timed_rows) / len(timed_rows)
-    res = {"model": cfg.name, "steps": steps, "batch": batch, "seq": seq,
+    res = {"model": cfg.name, "dtype": str(dtype)[6:], "steps": steps,
+           "batch": batch, "seq": seq,
            "losses": [r["loss"] for r in log_rows],
            "step_ms_mean": ms, "tokens_per_s": batch * seq / ms * 1e3,
            "max_memory_allocated":
@@ -3950,6 +3990,60 @@ def train(recorder, *, model: str = "llama3.2-1b", tiny: bool = False,
             log(f"  {kind}* kernels: {us / 1e3:.2f} ms = "
                 f"{us / max(total, 1e-9):.3f} of device time")
     del params, opt, batches
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return res
+
+
+def train_f32(recorder, *, tiny: bool = False, device: str = "cuda",
+              seq: int = 2048) -> dict:
+    """The float32 train path, the train launcher's default dtype:
+    llama3.2-1b at full width in float32 through ``train`` (4 x ``seq``,
+    remat, lr 3e-3, 2 warm-up and 4 timed steps, one more profiled on the
+    card), its checks (finite, falling losses; flash twice a layer a step,
+    its backward once), every flash launch a float32 one (the split
+    kernels); then ``repro_torch.launch.train.main`` once with its own
+    defaults (llama3.2-1b, float32, 8 x 64) for 3 steps, its flash
+    launches float32 too. ``recorder`` keeps the first call for rows 7f
+    and 7bf. ``tiny`` and ``device="cpu"`` rehearse both (the launcher
+    with ``--tiny --device cpu``). Returns train's result, with the
+    launcher's launches and seconds."""
+    import torch
+    from repro_torch.launch import train as launcher
+    on_card = device == "cuda"
+    res = train(recorder, tiny=tiny, device=device, warm=2, timed=4,
+                seq=seq, dtype=torch.float32, profile=on_card)
+    counts = res["launches"]
+    log(f"  {res['model']} float32: {res['step_ms_mean']:.1f} ms a step, "
+        f"{res['tokens_per_s']:.1f} tokens/s, max_memory_allocated "
+        f"{res['max_memory_allocated']} B; flash launches "
+        f"{counts['flash_attention']} (float32 {counts['flash_attention_f32']}"
+        f"), backward {counts['flash_attention_bwd']} (float32 "
+        f"{counts['flash_attention_bwd_f32']})")
+    if on_card:
+        assert counts["flash_attention_f32"] == counts["flash_attention"] > 0
+        assert counts["flash_attention_bwd_f32"] == \
+            counts["flash_attention_bwd"] > 0
+    argv = ["--steps", "3"] + (["--tiny", "--device", "cpu"]
+                               if not on_card else [])
+    before = launch_counts()
+    t0 = time.perf_counter()
+    launcher.main(argv)
+    if on_card:
+        torch.cuda.synchronize()
+    res["launcher_s"] = time.perf_counter() - t0
+    res["launcher_launches"] = {k: v - before[k] for k, v in
+                                launch_counts().items() if v != before[k]}
+    log(f"  python -m repro_torch.launch.train {' '.join(argv)}: "
+        f"{res['launcher_s']:.1f} s, launches "
+        f"{json.dumps(res['launcher_launches'])}")
+    if on_card:
+        got = res["launcher_launches"]
+        assert got.get("flash_attention_f32", 0) == got.get(
+            "flash_attention", 0) > 0, got
+        assert got.get("flash_attention_bwd_f32", 0) == got.get(
+            "flash_attention_bwd", 0) > 0, got
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
@@ -3999,17 +4093,119 @@ def log_device_time(prof, wall: float, window: str) -> tuple:
     return dev_us, total
 
 
+FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
+
+
+def flash_row(name, replaces, launches, err, ms, plain_ms, lib_ms, nbytes,
+              ops, dtype, shape) -> dict:
+    """kernel_row of a flash row. A float32 call's bound counts the split
+    kernels' bf16 products (``F32_TERMS`` terms an operand:
+    ``split_products`` of each float32 product) at the bf16 peak, with the
+    float32-rate figure beside it (``float32_bound_ms``), as row 8's."""
+    from repro_torch.kernels.flash_attention import F32_TERMS
+    if dtype != "float32":
+        return kernel_row(name, FLASH_SRC, replaces, launches, err, ms,
+                          plain_ms, lib_ms, nbytes, ops, dtype, shape)
+    split = split_products(F32_TERMS, F32_TERMS, F32_TERMS) * ops
+    row = kernel_row(name, FLASH_SRC, replaces, launches, err, ms, plain_ms,
+                     lib_ms, nbytes, split, "bfloat16", shape)
+    row["float32_bound_ms"] = max(nbytes / HBM_BYTES_PER_S,
+                                  ops / PEAK_OPS["float32"]) * 1e3
+    log(f"    the split's {split} bf16 products; float32-rate figure "
+        f"{row['float32_bound_ms']:.5f} ms ({ops} float32 operations)")
+    return row
+
+
+def flash_fwd_err(name, out, want) -> float:
+    """A flash forward's main-path error against its plain version: held
+    to one unit in the last place in bf16 (``ulp_err``); in float32
+    logged, and held against float64 by ``f64_witness``."""
+    import torch
+    if out.dtype != torch.float32:
+        return ulp_err(name, out, want)
+    err = max_err(out, want)
+    log(f"  {name} main-path call: max_abs_err {err:.3g} against the plain "
+        f"version (max |out| {float(want.abs().max()):.4g})")
+    return err
+
+
+def flash_bwd_err(name, grads, want) -> float:
+    """A flash backward's main-path error, the largest of dq, dk and dv:
+    held by ``ulp_err`` each in bf16; in float32 logged, and held against
+    float64 by ``f64_witness``."""
+    import torch
+    if grads[0].dtype != torch.float32:
+        return max(ulp_err(name, g, w) for g, w in zip(grads, want))
+    err = max(max_err(g, w) for g, w in zip(grads, want))
+    scale = max(float(w.abs().max()) for w in want)
+    log(f"  {name} main-path call: dq/dk/dv max_abs_err {err / scale:.3g} "
+        "of their max against the plain version")
+    return err
+
+
+def f64_witness(name, q, k, v, kw, out, lse, do=None, grads=None) -> None:
+    """A float32 flash row's main-path call (a bf16 one returns at once:
+    ``ulp_err`` holds it) held against a float64 evaluation of the plain
+    version on a slice of it (the first batch row and at most two kv
+    heads, for memory), as zamba2's parity phases hold theirs: the
+    kernels' distance from it (out and lse; or dq, dk and dv over their
+    largest magnitude, where ``grads`` are given) within twice the plain
+    float32 version's, or within ``check_flash_kernels``' float32
+    tolerance, 1e-4, where that is larger. On the reference init's
+    hard-max scores (|s| in the hundreds) the plain float32 version lies
+    farther from float64 than 1e-4, and the kernels may lie no farther
+    than twice that: three bf16 terms an operand, not two."""
+    import torch
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_ref, flash_attention_fwd_ref)
+    if q.dtype != torch.float32:
+        return
+    cut = (slice(0, 1), slice(0, 2))
+    qs, ks, vs = (t[cut].contiguous() for t in (q, k, v))
+    o64, l64 = flash_attention_fwd_ref(*(t.double() for t in (qs, ks, vs)),
+                                       **kw)
+
+    def dist(a, b):
+        return float((a.double() - b).abs().max())
+    o32, l32 = flash_attention_fwd_ref(qs, ks, vs, **kw)
+    if grads is None:
+        got = (dist(out[cut], o64), dist(lse[cut], l64))
+        plain = (dist(o32, o64), dist(l32, l64))
+        what = "out, lse"
+    else:
+        dos = do[cut].contiguous()
+        g64 = flash_attention_bwd_ref(*(t.double() for t in (
+            qs, ks, vs, o64, l64, dos)), **kw)
+        sc = max(float(w.abs().max()) for w in g64)
+        g32 = flash_attention_bwd_ref(qs, ks, vs, o32, l32, dos, **kw)
+        got = (max(dist(g[cut], w) for g, w in zip(grads, g64)) / sc,)
+        plain = (max(dist(g, w) for g, w in zip(g32, g64)) / sc,)
+        what = "dq/dk/dv over their max"
+    allowed = tuple(max(2 * e, 1e-4) for e in plain)
+    log(f"  {name} against float64 on batch row 0, kv heads 0-1 ({what}): "
+        f"kernel {', '.join(f'{x:.3g}' for x in got)}, plain float32 "
+        f"{', '.join(f'{x:.3g}' for x in plain)}; held within "
+        f"{', '.join(f'{x:.3g}' for x in allowed)} (twice plain float32's,"
+        " at least 1e-4): "
+        f"{', '.join(f'{g / a:.3g}' for g, a in zip(got, allowed))} of it")
+    assert all(g <= a for g, a in zip(got, allowed)), (name, got, allowed)
+    torch.cuda.empty_cache()
+
+
 def time_flash(recorder: FlashRecorder, worst: dict, launches: dict,
-               parent=None) -> list:
-    """The flash rows: forward and backward kernels, their plain versions
-    and the library yardstick (scaled_dot_product_attention with
+               parent=None, names=("flash_attention", "flash_attention_bwd")
+               ) -> list:
+    """The flash rows ``names`` (7 and 7b: train's bf16 call; 7f and 7bf:
+    train_f32's float32 one): forward and backward kernels, their plain
+    versions and the library yardstick (scaled_dot_product_attention with
     is_causal and enable_gqa, forward, and its backward; timed here and
     never on the path), on the inputs of the train step's first attention
     call and the gradient that reached its output. Bound: the visible
     (query, key) pairs' operations (4 hd per pair forward, 10 hd
-    backward: five products) at the bf16 tensor-core peak, against each
-    operand read and each result written once. With ``parent``, its
-    forward in turns with this one (``device_time``)."""
+    backward: five products) at the bf16 tensor-core peak (float32:
+    ``flash_row``), against each operand read and each result written
+    once. Device time by CUDA graph replays (``device_time``), with
+    ``parent`` its forward and backward in turns with these."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
@@ -4027,38 +4223,39 @@ def time_flash(recorder: FlashRecorder, worst: dict, launches: dict,
         mask &= ~torch.ones_like(mask).tril(Tk - T - window)
     pairs = int(mask.sum()) * B * Hkv * G
     esz = q.element_size()
+    shape = [B, Hkv, G, T, hd] + ([dtype] if dtype == "float32" else [])
     rows = []
 
-    def row(name, ms, plain_ms, lib_ms, nbytes, ops, err):
-        rows.append(kernel_row(
-            name, "src/repro_torch/kernels/csrc/flash_attention.cu",
-            FLASH_REPLACES[name], launches[name], err, ms, plain_ms, lib_ms,
-            nbytes, ops, dtype, [B, Hkv, G, T, hd]))
+    def row(name, replaces, ms, plain_ms, lib_ms, nbytes, ops, err):
+        rows.append(flash_row(name, FLASH_REPLACES[replaces],
+                              launches[name], err, ms, plain_ms, lib_ms,
+                              nbytes, ops, dtype, shape))
         log(f"    kernel / library {ms / lib_ms:.2f}x")
 
     fwd = lambda: flash_attention_fwd(q, k, v, **kw)          # noqa: E731
     fwd_plain = lambda: flash_attention_fwd_ref(q, k, v, **kw)  # noqa: E731
     out, lse = fwd()
-    err = max(worst["flash_attention"],
-              ulp_err("flash_attention", out, fwd_plain()[0]))
+    err = max(worst[names[0]], flash_fwd_err(names[0], out, fwd_plain()[0]))
+    f64_witness(names[0], q, k, v, kw, out, lse)
     ms, plain_ms = in_turns(fwd_plain, fwd, 3)
     q4 = q.reshape(B, Hkv * G, T, hd)
     assert kw.get("window") is None and kw.get("softcap") is None
     lib = lambda: F.scaled_dot_product_attention(              # noqa: E731
         q4, k, v, is_causal=True, enable_gqa=True)
     lib_ms = cuda_ms(lib, 3)
-    row("flash_attention", ms, plain_ms, lib_ms,
+    row(names[0], "flash_attention", ms, plain_ms, lib_ms,
         (2 * q.numel() + 2 * k.numel()) * esz + lse.numel() * 4,
         4 * hd * pairs, err)
-    if parent is not None:
-        device_time(rows[-1], fwd, lambda: parent.flash(q, k, v, **kw), 20)
+    device_time(rows[-1], fwd, parent and (
+        lambda: parent.flash(q, k, v, **kw)), 20)
 
     bwd = lambda: flash_attention_bwd(q, k, v, out, lse, do, **kw)  # noqa
     bwd_plain = lambda: flash_attention_bwd_ref(                 # noqa: E731
         q, k, v, out, lse, do, **kw)
-    err = max(worst["flash_attention_bwd"],
-              *(ulp_err("flash_attention_bwd", g, w)
-                for g, w in zip(bwd(), bwd_plain())))
+    grads = bwd()
+    err = max(worst[names[1]], flash_bwd_err(names[1], grads, bwd_plain()))
+    f64_witness(names[1], q, k, v, kw, out, lse, do, grads)
+    del grads
     ms, plain_ms = in_turns(bwd_plain, bwd, 3)
     q4r, kr, vr = (t.detach().clone().requires_grad_(True)
                    for t in (q4, k, v))
@@ -4067,9 +4264,11 @@ def time_flash(recorder: FlashRecorder, worst: dict, launches: dict,
     do4 = do.reshape(out4.shape)
     lib_ms = cuda_ms(lambda: torch.autograd.grad(
         out4, (q4r, kr, vr), do4, retain_graph=True), 3)
-    row("flash_attention_bwd", ms, plain_ms, lib_ms,
+    row(names[1], "flash_attention_bwd", ms, plain_ms, lib_ms,
         (4 * q.numel() + 4 * k.numel()) * esz + lse.numel() * 4,
         10 * hd * pairs, err)
+    device_time(rows[-1], bwd, parent and (
+        lambda: parent.flash_bwd(q, k, v, out, lse, do, **kw)), 3)
     del out4, q4r, kr, vr
     torch.cuda.empty_cache()
     return rows
@@ -4209,7 +4408,8 @@ def time_wide(recorder: Recorder, worst: dict, launches: dict) -> list:
 
 
 def time_prefill_flash(recorder: FlashRecorder, worst: dict,
-                       launches: dict, name: str, iters: int = 3) -> list:
+                       launches: dict, name: str, iters: int = 3,
+                       dtype=None, parent=None) -> list:
     """A flash forward row, ``name``, on the call the recorder kept: 7w
     wide_dense's first gemma2 prefill call (8 x 1024, 8 kv heads x G 2 x
     256, window 4096, softcap 50), 7m the largest call of mla_parity's
@@ -4221,15 +4421,17 @@ def time_prefill_flash(recorder: FlashRecorder, worst: dict,
     1, the call's scale), timed here and never on the path; it has no
     softcap, so on a softcapped call it computes the uncapped function on
     the same inputs. ``ms`` launched from the host, ``device_ms`` by CUDA
-    graph replays. Bound: 4 hd operations per visible pair at the bf16
-    peak, against each operand read and the output and lse written
-    once."""
+    graph replays (``device_time``: with ``parent``, its forward in turns
+    with this one). Bound: 4 hd operations per visible pair at the bf16
+    peak (float32: ``flash_row``), against each operand read and the
+    output and lse written once. ``dtype`` casts the kept call's inputs:
+    7mf is row 7m's call in float32."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention_fwd,
                                                      flash_attention_fwd_ref)
     q, k, v, kw = recorder.args
-    q, k, v = (t.cuda() for t in (q, k, v))
+    q, k, v = (t.to("cuda", dtype) for t in (q, k, v))
     B, Hkv, G, T, hd = q.shape
     Tk = k.shape[2]
     mask = torch.ones((T, Tk), dtype=torch.bool, device=q.device).tril(
@@ -4244,7 +4446,8 @@ def time_prefill_flash(recorder: FlashRecorder, worst: dict,
     def fwd_plain():
         return flash_attention_fwd_ref(q, k, v, **kw)
     out, lse = fwd()
-    err = max(worst[name], ulp_err(name, out, fwd_plain()[0]))
+    err = max(worst[name], flash_fwd_err(name, out, fwd_plain()[0]))
+    f64_witness(name, q, k, v, kw, out, lse)
     ms, plain_ms = in_turns(fwd_plain, fwd, iters)
     q4 = q.reshape(B, Hkv * G, T, hd)
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -4252,15 +4455,16 @@ def time_prefill_flash(recorder: FlashRecorder, worst: dict,
         iters)
     extra = [f"window {kw['window']}"] if kw.get("window") else []
     extra += [f"softcap {kw['softcap']}"] if kw.get("softcap") else []
-    row = kernel_row(name, "src/repro_torch/kernels/csrc/flash_attention.cu",
-                     FLASH_REPLACES["flash_attention"], launches[name], err,
-                     ms, plain_ms, lib_ms, (2 * q.numel() + 2 * k.numel())
-                     * q.element_size() + lse.numel() * 4, 4 * hd * pairs,
-                     str(q.dtype)[6:], [B, Hkv, G, T, hd, "causal", *extra])
-    row["device_ms"] = graph_ms(fwd, iters)
-    log(f"    device time {row['device_ms']:.4f} ms; kernel / library"
-        f"{' (no softcap)' if kw.get('softcap') else ''} "
-        f"{ms / lib_ms:.2f}x")
+    tname = str(q.dtype)[6:]
+    extra += [tname] if tname == "float32" else []
+    row = flash_row(name, FLASH_REPLACES["flash_attention"], launches[name],
+                    err, ms, plain_ms, lib_ms, (2 * q.numel() + 2 * k.numel())
+                    * q.element_size() + lse.numel() * 4, 4 * hd * pairs,
+                    tname, [B, Hkv, G, T, hd, "causal", *extra])
+    device_time(row, fwd, parent and (
+        lambda: parent.flash(q, k, v, **kw)), iters)
+    log(f"    kernel / library{' (no softcap)' if kw.get('softcap') else ''}"
+        f" {ms / lib_ms:.2f}x")
     del q4, out, lse
     torch.cuda.empty_cache()
     return [row]
@@ -4281,9 +4485,10 @@ def time_flash_bwd(recorder: FlashRecorder, worst: dict, launches: dict,
     scale), timed here and never on the path: it has no window and no
     softcap, so on such a call it computes the causal, uncapped function
     on the same inputs. Bound: 10 hd operations a visible pair (five
-    products; at 192 the padded width the kernel runs) at the type's peak,
-    against each operand read and each gradient written once. A float32
-    call is also timed cast to bf16 (the tensor-core kernels), logged with
+    products; at 192 the padded width the kernel runs) at the bf16 peak
+    (a float32 call: the split's bf16 products, ``flash_row``), against
+    each operand read and each gradient written once. A float32 call is
+    also timed cast to bf16 (the bf16 kernels), logged with
     SDPA's bf16 backward on the same inputs as its library time. With
     ``parent`` (``parent_kernels``), its ``flash_attention_bwd`` in turns
     with this tree's by both measures (``device_time``), the bf16 cast
@@ -4340,12 +4545,13 @@ def time_flash_bwd(recorder: FlashRecorder, worst: dict, launches: dict,
 
     bwd, old, err, ms, plain_ms, lse = times(q, k, v, do)
     lib_ms = sdpa_ms(q, k, v, do)
-    row = kernel_row(name, "src/repro_torch/kernels/csrc/flash_attention.cu",
-                     FLASH_REPLACES["flash_attention_bwd"], launches[name],
-                     max(worst[name], err), ms, plain_ms, lib_ms,
-                     (4 * q.numel() + 4 * k.numel()) * q.element_size()
-                     + lse.numel() * 4, 10 * hd * pairs, str(q.dtype)[6:],
-                     [B, Hkv, G, T, hd, "causal", *extra])
+    dtype = str(q.dtype)[6:]
+    row = flash_row(name, FLASH_REPLACES["flash_attention_bwd"],
+                    launches[name], max(worst[name], err), ms, plain_ms,
+                    lib_ms, (4 * q.numel() + 4 * k.numel())
+                    * q.element_size() + lse.numel() * 4, 10 * hd * pairs,
+                    dtype, [B, Hkv, G, T, hd, "causal", *extra]
+                    + ([dtype] if dtype == "float32" else []))
     device_time(row, bwd, old, iters)
     uncapped = kw.get("window") or kw.get("softcap")
     log(f"    device time {row['device_ms']:.4f} ms "
@@ -4787,6 +4993,9 @@ def check_prefill_parity(phase: str = "ssm_parity", *, tiny: bool = False,
         f"{prefill_launches(cfg)})")
     assert finite and c_gap <= 1e-3 and worst[1] <= limit, worst
     if dev.type == "cuda":
+        # a float32 prefill: every flash launch a float32 one
+        f32 = launches.pop("flash_attention_f32", 0)
+        assert f32 == launches.get("flash_attention", 0), (f32, launches)
         assert launches == prefill_launches(cfg), launches
     del params, kern, plain, ck, prefix
     gc.collect()
@@ -6140,6 +6349,174 @@ def log_scheduler(res: dict, beside: dict = None) -> None:
         log(f"  beside {beside['model']}'s serve run: {line(beside)}")
 
 
+# the float32 flash kernels by the occupancy exports' kernel code (2 is
+# the forward), as their names appear in the build's ptxas report
+FLASH_F32_KERNELS = {2: "flash_fwd_split_kernel",
+                     0: "flash_bwd_dq_split_kernel",
+                     1: "flash_bwd_dkv_split_kernel"}
+
+
+def log_flash_occupancy(lib, ptxas: list) -> None:
+    """Each flash kernel's dynamic shared memory, block size and blocks
+    per SM from the library's occupancy exports, and for the float32
+    (split) kernels their registers and spills from the ptxas report."""
+    import ctypes
+    for dtype, tname in ((0, "float32"), (1, "bf16")):
+        for hd in (32, 64, 128, 192, 256):
+            for kernel, label in ((2, "forward"), (0, "dQ"), (1, "dK/dV")):
+                smem, threads = ctypes.c_int(0), ctypes.c_int(0)
+                if kernel == 2:
+                    n = lib.flash_attention_fwd_occupancy(
+                        hd, dtype, ctypes.byref(smem), ctypes.byref(threads))
+                else:
+                    n = lib.flash_attention_bwd_occupancy(
+                        hd, dtype, kernel, ctypes.byref(smem),
+                        ctypes.byref(threads))
+                assert n > 0, (tname, hd, label)
+                regs = ""
+                if dtype == 0:
+                    mangled = f"{FLASH_F32_KERNELS[kernel]}ILi{hd}E"
+                    found = [x.split(": ", 1)[1] for x in ptxas
+                             if mangled in x.split(": ", 1)[0]]
+                    regs = f"; ptxas: {found[0] if found else 'not found'}"
+                log(f"  flash {tname} {label} hd {hd}: {smem.value} B of "
+                    f"dynamic shared memory, {n} blocks of {threads.value} "
+                    f"threads per SM{regs}")
+
+
+# --split-tiles: variants of the float32 flash kernels' tiles, each the
+# SplitTiles lines of csrc/flash_attention.cu that it names rewritten (an
+# expression in HD each; "tree" is the source as it stands), and the
+# calls they are timed on: rows 7f / 7bf, 7mf / 7mb and one call at each
+# other head dim
+SPLIT_TILE_VARIANTS = {
+    "tree": {},
+    "fwd16": {"kFwdBK": "16"},
+    "fwd32": {"kFwdBK": "HD == 256 ? 16 : 32"},
+    "dq16": {"kDqBK": "16"},
+    "dq32": {"kDqBK": "HD <= 128 ? 32 : 16"},
+    "dkv16": {"kDkvBQ": "HD == 32 ? 32 : 16"},
+    "dkv32": {"kDkvBQ": "HD <= 128 ? 32 : 16"},
+    "own_f32": {"kOwnF32": "true"},
+}
+SPLIT_TILE_CASES = (
+    ("hd32", (4, 8, 4, 2048, 32), {}),
+    ("7f/7bf hd64", (4, 8, 4, 2048, 64), {}),
+    ("hd128", (2, 8, 4, 2048, 128), {}),
+    ("7mf/7mb hd192", (1, 128, 1, 512, 192), {"scale": 192 ** -0.5}),
+    ("hd256 window 1024 softcap 50", (1, 8, 2, 4096, 256),
+     {"window": 1024, "softcap": 50.0}),
+)
+
+
+def split_tiles_sweep() -> None:
+    """``--split-tiles``: build csrc/flash_attention.cu once for each of
+    SPLIT_TILE_VARIANTS (one nvcc each, all started together, into
+    build/kernels/split_tiles/), log each variant's float32 kernels'
+    ptxas registers and spills, shared memory and blocks per SM, check
+    each against the plain versions (out 1e-4, gradients 1e-4 of their
+    largest magnitude) and time each variant's float32 forward and
+    backward at SPLIT_TILE_CASES in turns by CUDA graph replays
+    (``graph_ms``, the least of two turns), through this tree's wrappers
+    with the variant's library in place of the tree's."""
+    import contextlib
+    import ctypes
+    import re
+    import subprocess
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    src = (ROOT / FLASH_SRC).read_text()
+    out_dir = _build.BUILD_DIR / "split_tiles"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, lines in SPLIT_TILE_VARIANTS.items():
+        text = src
+        for key, expr in lines.items():
+            text, n = re.subn(rf"({key} = )[^;]*;", rf"\g<1>{expr};", text)
+            assert n == 1, (name, key)
+        cu = out_dir / f"{name}.cu"
+        cu.write_text(text)
+        procs[name] = subprocess.Popen(
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
+             str(_build.CSRC), str(cu), "-o", str(out_dir / f"{name}.so")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            log(f"  {name}: does not build: {text[-600:]}")
+            continue
+        lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
+        for fn_name, argtypes in _build.SIGNATURES.items():
+            if fn_name.startswith("flash_attention"):
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+        libs[name] = lib
+        ptxas = [x for x in ptxas_report(text) if "split_kernel" in x]
+        for kernel, kname in FLASH_F32_KERNELS.items():
+            for hd in (32, 64, 128, 192, 256):
+                smem, threads = ctypes.c_int(0), ctypes.c_int(0)
+                n = (lib.flash_attention_fwd_occupancy(
+                    hd, 0, ctypes.byref(smem), ctypes.byref(threads))
+                    if kernel == 2 else lib.flash_attention_bwd_occupancy(
+                        hd, 0, kernel, ctypes.byref(smem),
+                        ctypes.byref(threads)))
+                found = [x.split(": ", 1)[1] for x in ptxas
+                         if f"{kname}ILi{hd}E" in x.split(": ", 1)[0]]
+                log(f"  {name} {kname} hd {hd}: {smem.value} B, {n} blocks "
+                    f"of {threads.value} an SM; "
+                    f"{found[0] if found else 'no ptxas line'}")
+
+    @contextlib.contextmanager
+    def using(lib):
+        saved = fa._lib
+        fa._lib = lambda: lib
+        try:
+            yield
+        finally:
+            fa._lib = saved
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for label, (B, Hkv, G, T, hd), kw in SPLIT_TILE_CASES:
+        q = torch.randn((B, Hkv, G, T, hd), generator=gen, device="cuda")
+        k, v = (torch.randn((B, Hkv, T, hd), generator=gen, device="cuda")
+                for _ in range(2))
+        do = torch.randn(q.shape, generator=gen, device="cuda")
+        want, lse = fa.flash_attention_fwd_ref(q, k, v, **kw)
+        want_g = fa.flash_attention_bwd_ref(q, k, v, want, lse, do, **kw)
+        scale = max(float(w.abs().max()) for w in want_g)
+        names = list(libs)
+        for name in names:
+            with using(libs[name]):
+                out, _ = fa.flash_attention_fwd(q, k, v, **kw)
+                grads = fa.flash_attention_bwd(q, k, v, want, lse, do, **kw)
+            e_out = max_err(out, want)
+            e_g = max(max_err(g, w) for g, w in zip(grads, want_g)) / scale
+            ok = e_out <= 1e-4 and e_g <= 1e-4
+            log(f"  {label} {name}: out {e_out:.3g}, gradients {e_g:.3g} of "
+                f"their max{'' if ok else ' -- misses 1e-4, not timed'}")
+            if not ok:
+                names.remove(name)
+            del out, grads
+        del want_g
+        ms = {name: [math.inf, math.inf] for name in names}
+        for order in (names, names[::-1]):
+            for name in order:
+                with using(libs[name]):
+                    f = graph_ms(lambda: fa.flash_attention_fwd(
+                        q, k, v, **kw), 5)
+                    b = graph_ms(lambda: fa.flash_attention_bwd(
+                        q, k, v, want, lse, do, **kw), 3)
+                ms[name] = [min(ms[name][0], f), min(ms[name][1], b)]
+        log(f"  {label}: " + "; ".join(
+            f"{name} fwd {f:.4f} bwd {b:.4f} ms" for name, (f, b)
+            in ms.items()))
+        del q, k, v, do, want, lse
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -6159,6 +6536,10 @@ def main() -> int:
                          "from there, build their kernels there and are "
                          "timed in turns with these in the swap and "
                          "timing phases")
+    ap.add_argument("--split-tiles", action="store_true",
+                    help="instead of the phases: build and time the "
+                         "float32 flash kernels' tile variants "
+                         "(SPLIT_TILE_VARIANTS)")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     t_start = time.perf_counter()
@@ -6175,14 +6556,19 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log(f"[card] {name}; nvidia-smi: {smi}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
+    if args.split_tiles:
+        log("[split_tiles] the float32 flash kernels' tile variants")
+        split_tiles_sweep()
+        log(f"[done] in {time.perf_counter() - t_start:.1f} s")
+        return 0
 
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.lib()
     log(f"[build] {lib_path.name} in {time.perf_counter() - t0:.1f} s")
     build_log = _build.BUILD_DIR / "build.log"
-    for line in ptxas_report(build_log.read_text()
-                             if build_log.exists() else ""):
+    ptxas = ptxas_report(build_log.read_text() if build_log.exists() else "")
+    for line in ptxas:
         log(f"  {line}")
     import ctypes
     for hd in (32, 64, 128, 256):
@@ -6204,17 +6590,7 @@ def main() -> int:
             f"form, {('float32', 'bf16')[code]} pools, L {L} R {R}: "
             f"{smem.value} B of dynamic shared memory, {n} blocks of 256 "
             "threads per SM")
-    # the bf16 flash backward's kernels (at 192 and 256 a producer and two
-    # consumer warpgroups a block)
-    for hd in (32, 64, 128, 192, 256):
-        for kernel, label in ((0, "dQ"), (1, "dK/dV")):
-            smem, threads = ctypes.c_int(0), ctypes.c_int(0)
-            n = _build.lib().flash_attention_bwd_occupancy(
-                hd, kernel, ctypes.byref(smem), ctypes.byref(threads))
-            assert n > 0, (hd, label)
-            log(f"  flash backward {label} hd {hd}: {smem.value} B of dynamic "
-                f"shared memory, {n} blocks of {threads.value} threads per "
-                "SM")
+    log_flash_occupancy(_build.lib(), ptxas)
 
     worst = {k: 0.0 for k in ROWS}
     if "kernels" in phases:
@@ -6306,6 +6682,11 @@ def main() -> int:
         assert tc > 0 and cc > 0, after
         log(f"  the latent kernel launched {cc} times in its CUDA-core form "
             f"(float32 pools), {tc} in its tensor-core form (bf16)")
+        # the float32 legs' flash forwards at 192: row 7mf's launches
+        mla_f32 = after["flash_attention_f32"] - before["flash_attention_f32"]
+        assert mla_f32 > 0, after
+        log(f"  the flash forward at 192 launched {mla_f32} times in float32 "
+            f"(the split kernel), {mla_flash.launches} in bf16 (row 7m's)")
     if "zamba2_parity" in phases:
         log("[zamba2_parity] zamba2-1.2b full width f32, 2 x (5 mamba2 + "
             "the shared block) + 1 mamba2, B 2 x T 520: prefill with "
@@ -6562,6 +6943,16 @@ def main() -> int:
         res = train(flash_rec, profile="profile" in phases)
         for k in ("flash_attention", "flash_attention_bwd"):
             total[k] += res["launches"][k]
+    # the float32 train path: its first attention call gives rows 7f, 7bf
+    flash_f32 = FlashRecorder()
+    if "train_f32" in phases:
+        log("[train_f32] llama3.2-1b full width in float32 (the train "
+            "launcher's default dtype), f32 AdamW, remat, SyntheticLM B 4 x "
+            "T 2048, 2 warm-up and 4 timed steps, one profiled; then "
+            "python -m repro_torch.launch.train with its defaults")
+        res = train_f32(flash_f32)
+        for k in ("flash_attention_f32", "flash_attention_bwd_f32"):
+            total[k] += res["launches"][k]
     # the SSM models' train runs: the first GLA call of each, with the
     # gradients that reached it, gives the timing phase's rows 8b and 8zb
     ssm_train_recs = {phase: GLARecorder(grad=True) for phase in SSM_TRAIN}
@@ -6649,6 +7040,12 @@ def main() -> int:
         log("[timing] flash attention on the train step's first attention "
             "call")
         rows += time_flash(flash_rec, worst, total, parent)
+    if "timing" in phases and "train_f32" in phases:
+        log("[timing] the float32 flash (the split kernels) on train_f32's "
+            "first attention call (rows 7f, 7bf)")
+        rows += time_flash(flash_f32, worst, total, parent,
+                           names=("flash_attention_f32",
+                                  "flash_attention_bwd_f32"))
     if parent and "timing" in phases and "train" in phases and \
             set(TIMED_SERVE_PHASES) <= phases:
         log("[timing] rows 1, 1d, 5 and 7 at head_dim 128, in turns with "
@@ -6700,6 +7097,12 @@ def main() -> int:
         total["flash_attention_hd192"] = mla_flash.launches
         rows += time_prefill_flash(mla_flash, worst, total,
                                    "flash_attention_hd192", iters=5)
+        log("[timing] the float32 flash forward at head_dim 192 on the same "
+            "call in float32 (row 7mf)")
+        total["flash_attention_hd192_f32"] = mla_f32
+        rows += time_prefill_flash(mla_flash, worst, total,
+                                   "flash_attention_hd192_f32", iters=5,
+                                   dtype=torch.float32, parent=parent)
     if "timing" in phases and "zamba2_serve" in phases:
         log("[timing] gla_scan on the first mamba2 call of the zamba2 "
             "prefill (row 8z)")
@@ -6739,9 +7142,9 @@ def main() -> int:
             musicgen_rec, worst, total, "ragged_paged_attention_musicgen",
             "ragged_paged_attention", head_dim=64))
     if "timing" in phases and set(TIMED_SERVE_PHASES) | {
-            "train", "ssm_serve", "gemma2_serve", "gemma2_unfused",
-            "gemma2_quant", "wide_dense", "moe_serve", "mla_serve",
-            "mla_parity", "zamba2_serve", "pixtral_serve",
+            "train", "train_f32", "ssm_serve", "gemma2_serve",
+            "gemma2_unfused", "gemma2_quant", "wide_dense", "moe_serve",
+            "mla_serve", "mla_parity", "zamba2_serve", "pixtral_serve",
             "musicgen_serve", *SSM_TRAIN, *WIDE_TRAIN,
             "wide_train_parity"} <= phases:
         assert sorted(r["name"] for r in rows) == sorted(ROWS), rows

@@ -35,7 +35,9 @@ SIGNATURES = {
     "page_requant_launch": [_P] * 5 + [_I] * 6 + [_P],
     "flash_attention_fwd_launch": [_P] * 5 + [_I] * 8 + [_F, _F, _I, _P],
     "flash_attention_bwd_launch": [_P] * 10 + [_I] * 8 + [_F, _F, _I, _P],
-    "flash_attention_bwd_occupancy": [_I, _I, _P, _P],
+    "flash_attention_bwd_occupancy": [_I, _I, _I, _P, _P],
+    "flash_attention_fwd_occupancy": [_I, _I, _P, _P],
+    "flash_attention_f32_terms": [],
     "gla_scan_launch": [_P] * 10 + [_LL] * 9 + [_I] * 11 + [_P],
     "gla_scan_bwd_launch": [_P] * 19 + [_LL] * 12 + [_I] * 12 + [_P],
     "kv_append_launch": [_P] * 7 + [_I] * 3 + [_LL, _LL, _P],

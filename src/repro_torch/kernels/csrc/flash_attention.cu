@@ -19,7 +19,9 @@
 // of the visible (query, key) pairs) and ~172 backward (five), against
 // ~0.1 GB of operands: far above the ~295 flop/byte ridge, so the products
 // must run on the tensor cores (989 TFLOP/s bf16) and not on the float32
-// CUDA cores (67).
+// CUDA cores (67), in float32 too: there each product becomes six bf16
+// products (below), six times the bf16 work and still 2.5x under the CUDA
+// cores' time for the same products.
 //
 // bfloat16 operands run the tensor-core kernels: at head_dim 32-128 the
 // forward and the backward on mma.sync m16n8k16 (FlashAttention-2: bf16
@@ -57,16 +59,39 @@
 // as the inputs of S and dP already are; nothing else is rounded before
 // the outputs.
 //
-// float32 operands run the first, CUDA-core kernels, kept for float32's
-// tolerances: a row of q (or of k, in the dK/dV kernel) is owned by
-// TPR = hd / 32 neighbouring threads, 32 of its dims each (at hd 192, 8
-// threads of 24, so that TPR is a power-of-two shuffle group), held in
-// registers as float4s interleaved across the TPR threads; a dot product
-// is one shuffle reduction over them. One block of
-// 128 threads per (b, kv head, q tile) holds the G query heads that share
-// one K/V stream, with K/V tiles of 4096 / hd keys (rounded down to whole
-// chunks of 8) staged as float32; the dK/dV kernel
-// stages 4096 / hd rows of q and dO at a time.
+// float32 operands run the same products on the same tensor cores, each
+// operand split into three bf16 terms, hi = bf16(x), mid = bf16(x - hi)
+// and lo = bf16(x - hi - mid) (split<3>, mma.cuh; together within 2^-24
+// of x): Q, K, V and dO when they reach shared memory, P and dS in
+// registers. Of the nine term products a product keeps the six whose term
+// indexes sum below three (hi hi, hi mid, mid hi, hi lo, mid mid, lo hi)
+// and drops those below 2^-24 of it, all summed in float32 accumulators.
+// Three terms, not two, measured against a float64 evaluation: with two
+// (2^-16) the split's arithmetic in plain PyTorch
+// (flash_attention_split_fwd_ref / _bwd_ref in kernels/flash_attention.py)
+// holds the card's float32 tolerances (1e-4) on unit-scale scores, but on
+// scores in the hundreds, as on the reference init's hard-max attention,
+// it parts from float64 by more than twice plain float32's distance, and
+// three terms stay within it (tests/test_torch_flash_f32_split.py). On the
+// H100, at the reference init's first float32 train call (llama3.2-1b,
+// |out| up to 67), the kernels lie 0.0008 from float64 (plain float32
+// 0.0027) and their gradients 2.3e-5 of their largest (plain float32
+// 4.8e-5), by chip_smoke.py's f64_witness. Three terms cost twice two's
+// products and 1.5x their term tiles. The term products of each 16-deep
+// step are summed in zeroed accumulators and then added to the running
+// sums in float32 (mma_split): the tensor cores truncate every sum they
+// form, and a running sum kept in their accumulators put the kernels ~20x
+// farther from the plain versions (train_parity's 3.2e-5 of a gradient's
+// largest, against 1.2e-6 summed apart; PERF.md). The float32 kernels ("The float32
+// split kernels" below) are mma.sync blocks like the bf16 ones up to hd
+// 128, at every head dim: float32 tiles take twice the bf16 bytes, so a
+// block stages its streamed tiles as float32 by cp.async and splits each
+// landed tile once into its bf16 term tiles, from which ldmatrix reads as
+// in the bf16 kernels; the key (forward, dQ) or query (dK/dV) tiles are
+// 16-32 rows, so that terms and staging fit, dK/dV puts dV and dK in
+// separate warps, and at head_dim 256, where the backward's own rows do
+// not fit as three terms, it keeps them float32 and splits their
+// fragments in registers.
 #include <math_constants.h>
 
 #include "hopper.cuh"
@@ -74,15 +99,6 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kDS = 32;       // dims of a row held by one thread
-
-// threads that own one row of a float32 block: hd / 32, but 8 at hd 192
-// (24 dims each), so that a row's threads are a power-of-two shuffle group
-constexpr __host__ __device__ int threads_per_row(int hd) {
-  return hd == 192 ? 8 : hd / kDS;
-}
-constexpr int kChunk = 8;     // keys scored together in forward and dQ
-constexpr float kNegInf = -1e30f;
 
 struct Params {
   const void* q;       // (B, Hkv, G, Tq, HD), T
@@ -100,64 +116,6 @@ struct Params {
   float softcap, scale;
 };
 
-__device__ __forceinline__ float4 zero4() {
-  return make_float4(0.f, 0.f, 0.f, 0.f);
-}
-
-template <typename T>
-__device__ __forceinline__ float4 load4(const T* p);
-template <>
-__device__ __forceinline__ float4 load4<float>(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-template <typename T>
-__device__ __forceinline__ void store4(T* p, float4 v);
-template <>
-__device__ __forceinline__ void store4<float>(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ void fma4(float4& a, float4 x, float4 y) {
-  a.x = fmaf(x.x, y.x, a.x);
-  a.y = fmaf(x.y, y.y, a.y);
-  a.z = fmaf(x.z, y.z, a.z);
-  a.w = fmaf(x.w, y.w, a.w);
-}
-
-__device__ __forceinline__ void axpy4(float4& a, float s, float4 y) {
-  a.x = fmaf(s, y.x, a.x);
-  a.y = fmaf(s, y.y, a.y);
-  a.z = fmaf(s, y.z, a.z);
-  a.w = fmaf(s, y.w, a.w);
-}
-
-__device__ __forceinline__ float sum4(float4 a) {
-  return (a.x + a.y) + (a.z + a.w);
-}
-
-// the sum of x over the TPR neighbouring threads that own one row; every
-// thread of the warp takes part, so callers keep their loops uniform
-template <int TPR>
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = TPR / 2; o > 0; o >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// the float4 of a row's shared-memory copy that thread `part` holds as its
-// m-th (dims 4 * (part + TPR * m) ...)
-template <int TPR>
-__device__ __forceinline__ float4 slice4(const float* row, int part, int m) {
-  return *reinterpret_cast<const float4*>(row + 4 * (part + TPR * m));
-}
-
-template <int TPR, typename T>
-__device__ __forceinline__ const T* gslice(const T* row, int part, int m) {
-  return row + 4 * (part + TPR * m);
-}
-
 __device__ __forceinline__ bool visible(int kpos, int qpos, const Params& p) {
   return kpos < p.Tk && (!p.causal || kpos <= qpos) &&
          (p.window <= 0 || kpos > qpos - p.window);
@@ -173,315 +131,6 @@ __device__ __forceinline__ float capped_grad(float sc, const Params& p) {
   if (p.softcap <= 0.f) return p.scale;
   const float t = sc / p.softcap;
   return (1.f - t * t) * p.scale;
-}
-
-// rows [0, n_rows) of a (rows, HD) tile into float32 shared memory, zeros
-// past the end of the tensor
-template <typename T, int HD, int ROWS>
-__device__ __forceinline__ void stage(float* dst, const T* src, int n_rows) {
-  for (int i = threadIdx.x; i < ROWS * HD / 4; i += kThreads) {
-    const int r = i / (HD / 4);
-    reinterpret_cast<float4*>(dst)[i] =
-        r < n_rows ? load4(src + 4LL * i) : zero4();
-  }
-}
-
-// The q tile of a forward or dQ block and one thread's place in it.
-template <int HD>
-struct QTile {
-  static constexpr int TPR = threads_per_row(HD);
-  static constexpr int NM = HD / (4 * TPR);  // float4s a thread holds
-  static constexpr int R = kThreads / TPR;   // rows (heads x positions)
-  // keys per staged K/V tile: 16 KB of float32, whole chunks of kChunk
-  static constexpr int BK = 4096 / HD / kChunk * kChunk;
-  int BQ, part, g, i, qpos, k_lo, k_hi;
-  bool active;
-  long long bh, row;
-
-  __device__ QTile(const Params& p) {
-    BQ = R / p.G;
-    // the tiles near the end of q see the most keys: start them first
-    const int qt = gridDim.x - 1 - blockIdx.x;
-    bh = (long long)blockIdx.z * p.Hkv + blockIdx.y;
-    part = threadIdx.x % TPR;
-    const int r = threadIdx.x / TPR;
-    g = r / BQ;
-    i = qt * BQ + (r - g * BQ);
-    active = r < p.G * BQ && i < p.Tq;
-    const int off = p.Tk - p.Tq;
-    qpos = i + off;
-    row = (bh * p.G + g) * p.Tq + i;
-    const int q_first = qt * BQ + off;
-    const int q_last = min(qt * BQ + BQ, p.Tq) - 1 + off;
-    k_hi = p.causal ? min(p.Tk - 1, q_last) : p.Tk - 1;
-    k_lo = p.window > 0 ? max(0, q_first - p.window + 1) : 0;
-  }
-};
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
-  using Tile = QTile<HD>;
-  constexpr int TPR = Tile::TPR, BK = Tile::BK, NM = Tile::NM;
-  __shared__ __align__(16) float k_s[BK * HD];
-  __shared__ __align__(16) float v_s[BK * HD];
-  const Tile tl(p);
-  const int part = tl.part;
-  const T* qrow = static_cast<const T*>(p.q) + tl.row * HD;
-  float4 q[NM], acc[NM];
-#pragma unroll
-  for (int m = 0; m < NM; ++m) {
-    q[m] = tl.active ? load4(gslice<TPR>(qrow, part, m)) : zero4();
-    acc[m] = zero4();
-  }
-  float m_i = kNegInf, l_i = 0.f;
-  const T* kb = static_cast<const T*>(p.k) + tl.bh * p.Tk * HD;
-  const T* vb = static_cast<const T*>(p.v) + tl.bh * p.Tk * HD;
-  for (int kt = tl.k_lo / BK; kt <= tl.k_hi / BK; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile is consumed
-    stage<T, HD, BK>(k_s, kb + (long long)k0 * HD, p.Tk - k0);
-    stage<T, HD, BK>(v_s, vb + (long long)k0 * HD, p.Tk - k0);
-    __syncthreads();
-    const int jb = max(0, tl.k_lo - k0) & ~(kChunk - 1);
-    const int je = min(BK, tl.k_hi - k0 + 1);
-    for (int j0 = jb; j0 < je; j0 += kChunk) {
-      float s[kChunk];
-#pragma unroll
-      for (int u = 0; u < kChunk; ++u) {
-        const float* kr = k_s + (j0 + u) * HD;
-        float4 a = zero4();
-#pragma unroll
-        for (int m = 0; m < NM; ++m) fma4(a, q[m], slice4<TPR>(kr, part, m));
-        s[u] = row_sum<TPR>(sum4(a));
-      }
-      unsigned vis = 0;
-      float cmax = kNegInf;
-#pragma unroll
-      for (int u = 0; u < kChunk; ++u) {
-        if (visible(k0 + j0 + u, tl.qpos, p)) {
-          vis |= 1u << u;
-          s[u] = capped(s[u], p);
-          cmax = fmaxf(cmax, s[u]);
-        }
-      }
-      const float m_new = fmaxf(m_i, cmax);
-      const float corr = expf(m_i - m_new);
-      l_i *= corr;
-#pragma unroll
-      for (int m = 0; m < NM; ++m) {
-        acc[m].x *= corr;
-        acc[m].y *= corr;
-        acc[m].z *= corr;
-        acc[m].w *= corr;
-      }
-#pragma unroll
-      for (int u = 0; u < kChunk; ++u) {
-        s[u] = (vis >> u) & 1u ? expf(s[u] - m_new) : 0.f;
-        l_i += s[u];
-      }
-#pragma unroll
-      for (int u = 0; u < kChunk; ++u) {
-        const float* vr = v_s + (j0 + u) * HD;
-#pragma unroll
-        for (int m = 0; m < NM; ++m) axpy4(acc[m], s[u], slice4<TPR>(vr, part, m));
-      }
-      m_i = m_new;
-    }
-  }
-  if (!tl.active) return;
-  const float l = fmaxf(l_i, 1e-37f);
-  T* orow = static_cast<T*>(p.out) + tl.row * HD;
-#pragma unroll
-  for (int m = 0; m < NM; ++m) {
-    const float4 a = acc[m];
-    store4(orow + 4 * (part + TPR * m),
-           make_float4(a.x / l, a.y / l, a.z / l, a.w / l));
-  }
-  if (part == 0) p.lse[tl.row] = m_i + logf(l);
-}
-
-// (a minimum of one block an SM: without it ptxas held hd 192 to 128
-// registers and spilled 12 bytes)
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(
-    const Params p) {
-  using Tile = QTile<HD>;
-  constexpr int TPR = Tile::TPR, BK = Tile::BK, NM = Tile::NM;
-  __shared__ __align__(16) float k_s[BK * HD];
-  __shared__ __align__(16) float v_s[BK * HD];
-  const Tile tl(p);
-  const int part = tl.part;
-  const long long ro = tl.row * HD;
-  float4 q[NM], d_o[NM], dq[NM];
-  float dl = 0.f;
-#pragma unroll
-  for (int m = 0; m < NM; ++m) {
-    float4 o4 = zero4();
-    q[m] = d_o[m] = zero4();
-    if (tl.active) {
-      q[m] = load4(gslice<TPR>(static_cast<const T*>(p.q) + ro, part, m));
-      d_o[m] = load4(gslice<TPR>(static_cast<const T*>(p.dout) + ro, part,
-                                 m));
-      o4 = load4(gslice<TPR>(static_cast<const T*>(p.o) + ro, part, m));
-    }
-    dl += sum4(make_float4(d_o[m].x * o4.x, d_o[m].y * o4.y,
-                           d_o[m].z * o4.z, d_o[m].w * o4.w));
-    dq[m] = zero4();
-  }
-  dl = row_sum<TPR>(dl);  // delta = rowsum(dO * O)
-  const float lse = tl.active ? p.lse[tl.row] : 0.f;
-  if (tl.active && part == 0) p.delta[tl.row] = dl;
-  const T* kb = static_cast<const T*>(p.k) + tl.bh * p.Tk * HD;
-  const T* vb = static_cast<const T*>(p.v) + tl.bh * p.Tk * HD;
-  for (int kt = tl.k_lo / BK; kt <= tl.k_hi / BK; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();
-    stage<T, HD, BK>(k_s, kb + (long long)k0 * HD, p.Tk - k0);
-    stage<T, HD, BK>(v_s, vb + (long long)k0 * HD, p.Tk - k0);
-    __syncthreads();
-    const int jb = max(0, tl.k_lo - k0) & ~(kChunk - 1);
-    const int je = min(BK, tl.k_hi - k0 + 1);
-    for (int j0 = jb; j0 < je; j0 += kChunk) {
-      float s[kChunk], dp[kChunk];
-#pragma unroll
-      for (int u = 0; u < kChunk; ++u) {
-        const float* kr = k_s + (j0 + u) * HD;
-        const float* vr = v_s + (j0 + u) * HD;
-        float4 a = zero4(), c = zero4();
-#pragma unroll
-        for (int m = 0; m < NM; ++m) {
-          fma4(a, q[m], slice4<TPR>(kr, part, m));
-          fma4(c, d_o[m], slice4<TPR>(vr, part, m));
-        }
-        s[u] = row_sum<TPR>(sum4(a));
-        dp[u] = row_sum<TPR>(sum4(c));
-      }
-#pragma unroll
-      for (int u = 0; u < kChunk; ++u) {
-        float ds = 0.f;
-        if (visible(k0 + j0 + u, tl.qpos, p)) {
-          const float sc = capped(s[u], p);
-          ds = expf(sc - lse) * (dp[u] - dl) * capped_grad(sc, p);
-        }
-        s[u] = ds;
-      }
-#pragma unroll
-      for (int u = 0; u < kChunk; ++u) {
-        const float* kr = k_s + (j0 + u) * HD;
-#pragma unroll
-        for (int m = 0; m < NM; ++m) axpy4(dq[m], s[u], slice4<TPR>(kr, part, m));
-      }
-    }
-  }
-  if (!tl.active) return;
-  T* dqrow = static_cast<T*>(p.dq) + ro;
-#pragma unroll
-  for (int m = 0; m < NM; ++m) store4(dqrow + 4 * (part + TPR * m), dq[m]);
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
-    const Params p) {
-  constexpr int TPR = threads_per_row(HD);
-  constexpr int NM = HD / (4 * TPR);  // float4s a thread holds
-  constexpr int R = kThreads / TPR;   // keys per block
-  constexpr int RS = 4096 / HD;       // q rows (heads x positions) per stage
-  __shared__ __align__(16) float q_s[RS * HD];
-  __shared__ __align__(16) float do_s[RS * HD];
-  __shared__ float lse_s[RS];
-  __shared__ float dl_s[RS];
-  const int G = p.G, Tq = p.Tq, Tk = p.Tk;
-  const int BQS = RS / G;     // positions per stage
-  const int NR = G * BQS;     // staged rows
-  const int off = Tk - Tq;
-  const long long bh = (long long)blockIdx.z * p.Hkv + blockIdx.y;
-  const int part = threadIdx.x % TPR;
-  const int j0 = blockIdx.x * R;
-  const int kpos = j0 + threadIdx.x / TPR;
-  const bool active = kpos < Tk;
-  const long long ko = (bh * Tk + kpos) * HD;
-  float4 k[NM], v[NM], dk[NM], dv[NM];
-#pragma unroll
-  for (int m = 0; m < NM; ++m) {
-    k[m] = active ? load4(gslice<TPR>(static_cast<const T*>(p.k) + ko, part,
-                                      m)) : zero4();
-    v[m] = active ? load4(gslice<TPR>(static_cast<const T*>(p.v) + ko, part,
-                                      m)) : zero4();
-    dk[m] = dv[m] = zero4();
-  }
-  // the q positions that see a key of this tile
-  const int j1 = min(j0 + R, Tk);
-  const int i_lo = p.causal ? max(0, j0 - off) : 0;
-  const int i_hi = p.window > 0 ? min(Tq - 1, j1 - 2 + p.window - off)
-                                : Tq - 1;
-  const T* qb = static_cast<const T*>(p.q) + bh * G * Tq * HD;
-  const T* dob = static_cast<const T*>(p.dout) + bh * G * Tq * HD;
-  for (int i0 = i_lo; i0 <= i_hi; i0 += BQS) {
-    __syncthreads();  // the previous stage is consumed
-    for (int e = threadIdx.x; e < NR * HD / 4; e += kThreads) {
-      const int rr = e / (HD / 4);
-      const int c = e - rr * (HD / 4);
-      const int g = rr / BQS;
-      const int i = i0 + rr - g * BQS;
-      float4 a = zero4(), b = zero4();
-      if (i < Tq) {
-        const long long src = ((long long)g * Tq + i) * HD + 4 * c;
-        a = load4(qb + src);
-        b = load4(dob + src);
-      }
-      reinterpret_cast<float4*>(q_s)[e] = a;
-      reinterpret_cast<float4*>(do_s)[e] = b;
-    }
-    for (int rr = threadIdx.x; rr < NR; rr += kThreads) {
-      const int g = rr / BQS;
-      const int i = i0 + rr - g * BQS;
-      const long long row = (bh * G + g) * Tq + i;
-      lse_s[rr] = i < Tq ? p.lse[row] : 0.f;
-      dl_s[rr] = i < Tq ? p.delta[row] : 0.f;
-    }
-    __syncthreads();
-    for (int rr = 0; rr < NR; rr += 2) {
-      // two rows at a time, for independent work between the shuffles
-      float s[2], dp[2];
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int r2 = min(rr + u, NR - 1);
-        float4 a = zero4(), c = zero4();
-#pragma unroll
-        for (int m = 0; m < NM; ++m) {
-          fma4(a, k[m], slice4<TPR>(q_s + r2 * HD, part, m));
-          fma4(c, v[m], slice4<TPR>(do_s + r2 * HD, part, m));
-        }
-        s[u] = row_sum<TPR>(sum4(a));
-        dp[u] = row_sum<TPR>(sum4(c));
-      }
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int r2 = rr + u;
-        if (r2 >= NR) break;
-        const int i = i0 + r2 - (r2 / BQS) * BQS;
-        float pr = 0.f, ds = 0.f;
-        if (active && i < Tq && visible(kpos, i + off, p)) {
-          const float sc = capped(s[u], p);
-          pr = expf(sc - lse_s[r2]);
-          ds = pr * (dp[u] - dl_s[r2]) * capped_grad(sc, p);
-        }
-#pragma unroll
-        for (int m = 0; m < NM; ++m) {
-          axpy4(dv[m], pr, slice4<TPR>(do_s + r2 * HD, part, m));
-          axpy4(dk[m], ds, slice4<TPR>(q_s + r2 * HD, part, m));
-        }
-      }
-    }
-  }
-  if (!active) return;
-  T* dkrow = static_cast<T*>(p.dk) + ko;
-  T* dvrow = static_cast<T*>(p.dv) + ko;
-#pragma unroll
-  for (int m = 0; m < NM; ++m) {
-    store4(dkrow + 4 * (part + TPR * m), dk[m]);
-    store4(dvrow + 4 * (part + TPR * m), dv[m]);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -553,13 +202,27 @@ __device__ __forceinline__ void store_band(bf16* dst,
         pack_bf16(c[d][2 * h] * mul, c[d][2 * h + 1] * mul);
 }
 
+// the same as float32
+template <int DT>
+__device__ __forceinline__ void store_band(float* dst,
+                                           const float (&c)[DT][4], int h,
+                                           float mul) {
+  const int col = threadIdx.x % 4 * 2;
+#pragma unroll
+  for (int d = 0; d < DT; ++d)
+    *reinterpret_cast<float2*>(dst + d * 8 + col) =
+        make_float2(c[d][2 * h] * mul, c[d][2 * h + 1] * mul);
+}
+
 // The 64-query tile of a forward or dQ block and the keys it sees.
-struct QBlock {
+// (BK: keys a staged tile, kBK in the bf16 kernels)
+template <int BK = kBK>
+struct QBlockOf {
   long long row0;  // (B, Hkv, G, Tq) row of the block's (b, h, g, 0)
   long long kv;    // (B, Hkv) stream of its K and V
   int i0, off, q_first, q_last, t_lo, t_hi;
 
-  __device__ QBlock(const Params& p) {
+  __device__ QBlockOf(const Params& p) {
     const int qt = gridDim.x - 1 - blockIdx.x;  // the last tiles first
     row0 = ((long long)blockIdx.z * p.Hkv * p.G + blockIdx.y) * p.Tq;
     kv = (long long)blockIdx.z * p.Hkv + blockIdx.y / p.G;
@@ -569,17 +232,94 @@ struct QBlock {
     q_last = min(i0 + kRows, p.Tq) - 1 + off;
     const int k_hi = p.causal ? min(p.Tk - 1, q_last) : p.Tk - 1;
     const int k_lo = p.window > 0 ? max(0, q_first - p.window + 1) : 0;
-    t_lo = k_lo / kBK;
-    t_hi = k_hi / kBK;
+    t_lo = k_lo / BK;
+    t_hi = k_hi / BK;
   }
 
   // whether some (row, key) pair of key tile t is masked
   __device__ bool edge(int t, const Params& p) const {
-    const int k0 = t * kBK;
-    return k0 + kBK > p.Tk || (p.causal && k0 + kBK - 1 > q_first) ||
+    const int k0 = t * BK;
+    return k0 + BK > p.Tk || (p.causal && k0 + BK - 1 > q_first) ||
            (p.window > 0 && k0 <= q_last - p.window);
   }
 };
+using QBlock = QBlockOf<>;
+
+// The forward's online softmax, shared by its bf16 and float32 kernels.
+// A score tile s of NP 8-key tiles (keys key0 + 8 n + ..., the thread's
+// rows at positions q0 and q0 + 8) into the log2 domain, capped under a
+// softcap and masked to -inf on an edge tile; mx gets each row's maximum.
+template <int NP>
+__device__ __forceinline__ void log2_scores(float (&s)[NP][4],
+                                            float (&mx)[2], int key0, int q0,
+                                            bool edge, const Params& p) {
+  const int lane = threadIdx.x % 32;
+  const float mul = p.scale * kLog2e;  // without a softcap
+  mx[0] = mx[1] = -CUDART_INF_F;
+#pragma unroll
+  for (int n = 0; n < NP; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = p.softcap > 0.f ? capped(s[n][e], p) * kLog2e
+                                : s[n][e] * mul;
+      const int key = key0 + n * 8 + lane % 4 * 2 + (e & 1);
+      if (edge && !visible(key, q0 + (e >> 1) * 8, p)) x = -CUDART_INF_F;
+      s[n][e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  }
+}
+
+// the running maximum m and sum l of each row and the accumulator acc
+// moved to the new maximum, and s to P = exp2(s - maximum), added to l
+template <int NP, int DT>
+__device__ __forceinline__ void online_softmax(float (&s)[NP][4],
+                                               const float (&mx)[2],
+                                               float (&m)[2], float (&l)[2],
+                                               float (&acc)[DT][4]) {
+  float base[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float m_new = fmaxf(m[h], quad_max(mx[h]));
+    base[h] = m_new == -CUDART_INF_F ? 0.f : m_new;  // no key seen yet
+    const float corr = exp2f(m[h] - base[h]);
+    m[h] = m_new;
+    l[h] *= corr;
+#pragma unroll
+    for (int d = 0; d < DT; ++d) {
+      acc[d][2 * h] *= corr;
+      acc[d][2 * h + 1] *= corr;
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < NP; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[n][e] = exp2f(s[n][e] - base[e >> 1]);
+      l[e >> 1] += s[n][e];
+    }
+  }
+}
+
+// the forward's end: the thread's rows i and i + 8 of the (b, h, g)
+// stream at lse row row0, those below Tq, get acc over their sum, in T,
+// and their lse
+template <typename T, int DT>
+__device__ __forceinline__ void finish_fwd(const Params& p, long long row0,
+                                           int i, const float (&acc)[DT][4],
+                                           const float (&m)[2],
+                                           const float (&l)[2]) {
+  constexpr int HD = DT * 8;
+  T* og = static_cast<T*>(p.out) + row0 * HD;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float sum = quad_sum(l[h]);
+    if (i + h * 8 >= p.Tq) continue;
+    store_band(og + (long long)(i + h * 8) * HD, acc, h, 1.f / sum);
+    if (threadIdx.x % 4 == 0)
+      p.lse[row0 + i + h * 8] = m[h] * kLn2 + logf(sum);
+  }
+}
 
 template <int HD>
 constexpr int fwd_smem() { return 5 * kRows * kPitch<HD> * 2; }
@@ -600,7 +340,6 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_tc_kernel(
                        b.i0, p.Tq);
   load_kv<HD>(kv_s, kg, vg, 0, b.t_lo, p.Tk);
   cp_async_commit();
-  const float mul = p.scale * kLog2e;  // without a softcap
   constexpr bool kLean = HD > 128;     // Q fragments read at every tile
   uint32_t qf[KS][4];
   float acc[DT][4] = {};
@@ -643,43 +382,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_tc_kernel(
           mma16816(s[n + 1], qa, f[2], f[3]);
         }
       }
-      // scores in the log2 domain, masked to -inf on edge tiles
-      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
-#pragma unroll
-      for (int n = 0; n < NP; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = p.softcap > 0.f ? capped(s[n][e], p) * kLog2e
-                                    : s[n][e] * mul;
-          const int key = t * kBK + kb + n * 8 + lane % 4 * 2 + (e & 1);
-          if (edge && !visible(key, b.q_first + r_lo + (e >> 1) * 8, p))
-            x = -CUDART_INF_F;
-          s[n][e] = x;
-          mx[e >> 1] = fmaxf(mx[e >> 1], x);
-        }
-      }
-      float base[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float m_new = fmaxf(m[h], quad_max(mx[h]));
-        base[h] = m_new == -CUDART_INF_F ? 0.f : m_new;  // no key seen yet
-        const float corr = exp2f(m[h] - base[h]);
-        m[h] = m_new;
-        l[h] *= corr;
-#pragma unroll
-        for (int d = 0; d < DT; ++d) {
-          acc[d][2 * h] *= corr;
-          acc[d][2 * h + 1] *= corr;
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < NP; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[n][e] = exp2f(s[n][e] - base[e >> 1]);
-          l[e >> 1] += s[n][e];
-        }
-      }
+      float mx[2];
+      log2_scores(s, mx, t * kBK + kb, b.q_first + r_lo, edge, p);
+      online_softmax(s, mx, m, l, acc);
       // O += P V, P from registers, 16 keys a step
 #pragma unroll
       for (int kk = 0; kk < NP / 2; ++kk) {
@@ -696,15 +401,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_tc_kernel(
     }
     __syncthreads();  // stage st is consumed before tile t + 2 refills it
   }
-  bf16* og = static_cast<bf16*>(p.out) + b.row0 * HD;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const float sum = quad_sum(l[h]);
-    const int i = b.i0 + r_lo + h * 8;
-    if (i >= p.Tq) continue;
-    store_band(og + (long long)i * HD, acc, h, 1.f / sum);
-    if (lane % 4 == 0) p.lse[b.row0 + i] = m[h] * kLn2 + logf(sum);
-  }
+  finish_fwd<bf16>(p, b.row0, b.i0 + r_lo, acc, m, l);
 }
 
 template <int HD>
@@ -1576,6 +1273,613 @@ __global__ void __launch_bounds__(kHopThreads, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The float32 split kernels, on mma.sync as the bf16 kernels up to
+// head_dim 128 (see the header for the split and why three terms). Each
+// block stages its streamed tiles as float32 by 16-byte cp.async (one
+// stage: the next tile lands while the present one is computed) and,
+// after a barrier, splits the landed tile into kTerms bf16 term tiles in
+// shared memory, padded as kPitch, so that every fragment comes from
+// ldmatrix as in the bf16 kernels, each term once a block and not once a
+// warp. Its own rows (Q, and dO; K and V in dK/dV), which are only ever A
+// operands, it splits once, straight from device memory, into term tiles
+// (OwnRows); where three terms of them do not fit beside the streamed
+// tiles (the backward at head_dim 256), it keeps them as float32 and
+// splits each A fragment in registers as it forms it.
+//  * forward and dQ: 4 warps, one block per (b, query head, 64-query
+//    tile), as the bf16 kernels; key tiles of BK keys (SplitFwd,
+//    SplitDq). The kernels are latency-bound (their time is several
+//    times their bound), so BK and dK/dV's BQ, 16 or 32 rows, are those
+//    that timed best on the H100 at each head dim (SplitTiles): small
+//    tiles keep blocks resident, which hides more than longer sweeps
+//    between barriers do.
+//  * dK/dV: 8 warps over one 64-key tile. A warp's dK or dV accumulator
+//    is 16 x HD float32 (HD / 2 registers a thread), so warps 0-3 hold dV
+//    and warps 4-7 dK, 16 keys each: the first form S^T = K Q^T, P and
+//    P d(capped)/d(dot), hand the last to their partner through shared
+//    memory laid out [warp][n][e][lane] (one named barrier), and add
+//    P^T dO; the others form dP^T = V dO^T, then dS^T, and add dS^T Q. So
+//    the two groups do two products each a tile, as the bf16 kernel's
+//    warps do four, and at every head dim the accumulators fit.
+// P and dS are split in registers into the A fragments of the next
+// product (c_to_a_split). No atomics: every output element has one owner.
+// ---------------------------------------------------------------------------
+constexpr int kTerms = 3;              // bf16 terms a float32 operand takes
+constexpr int kSplitDkvThreads = 256;  // dV's 4 warps, then dK's
+constexpr int kBarSplitHand = 1;       // dK/dV's hand-over (0: syncthreads)
+constexpr int kSmemMax = 227 * 1024;   // a block's shared memory on the H100
+
+// The split kernels' tiles at each head dim: keys a forward and a dQ
+// tile, queries a dK/dV tile, and whether the backward keeps its own rows
+// as float32 (OwnRows). Timed on the H100 by chip_smoke.py --split-tiles,
+// which rewrites these four lines (PERF.md); a layout past kSmemMax does
+// not compile.
+template <int HD>
+struct SplitTiles {
+  static constexpr int kFwdBK = HD <= 64 || HD == 192 ? 32 : 16;
+  static constexpr int kDqBK = HD <= 64 ? 32 : 16;
+  static constexpr int kDkvBQ = HD == 32 || HD == 128 ? 32 : 16;
+  static constexpr bool kOwnF32 = HD == 256;
+};
+
+// four float32 values as kTerms bf16 terms, term i at dst + i * TS
+template <int TS>
+__device__ __forceinline__ void split_store(bf16* dst, float4 x) {
+  float a[kTerms], b[kTerms], c[kTerms], d[kTerms];
+  split<kTerms>(x.x, a);
+  split<kTerms>(x.y, b);
+  split<kTerms>(x.z, c);
+  split<kTerms>(x.w, d);
+#pragma unroll
+  for (int i = 0; i < kTerms; ++i)
+    *reinterpret_cast<uint2*>(dst + i * TS) =
+        make_uint2(pack_bf16(a[i], b[i]), pack_bf16(c[i], d[i]));
+}
+
+// rows [r0, r0 + ROWS) of a row-major (n, HD) float32 matrix into the
+// term tiles at dst (ROWS x kPitch apart), read straight from device
+// memory; zeros for rows at or past n
+template <int HD, int ROWS, int THREADS>
+__device__ __forceinline__ void split_rows(bf16* dst, const float* src,
+                                           int r0, int n) {
+  constexpr int kPieces = HD / 4;  // float4s a row
+  static_assert(ROWS * kPieces % THREADS == 0, "whole rounds of loads");
+#pragma unroll 8
+  for (int u = 0; u < ROWS * kPieces / THREADS; ++u) {
+    const int c = threadIdx.x + u * THREADS;
+    const int r = c / kPieces, col = c % kPieces * 4;
+    const float4 x = r0 + r < n
+        ? __ldg(reinterpret_cast<const float4*>(
+              src + (long long)(r0 + r) * HD + col))
+        : make_float4(0.f, 0.f, 0.f, 0.f);
+    split_store<ROWS * kPitch<HD>>(dst + r * kPitch<HD> + col, x);
+  }
+}
+
+// rows [r0, r0 + ROWS) of a row-major (n, HD) float32 matrix into a
+// float32 tile of PITCH floats a row by 16-byte cp.async; zeros past n
+template <int HD, int ROWS, int THREADS, int PITCH = HD>
+__device__ __forceinline__ void load_rows_f32(float* dst, const float* src,
+                                              int r0, int n) {
+  constexpr int kPieces = HD / 4;
+  static_assert(ROWS * kPieces % THREADS == 0, "whole rounds of copies");
+#pragma unroll
+  for (int u = 0; u < ROWS * kPieces / THREADS; ++u) {
+    const int c = threadIdx.x + u * THREADS;
+    const int r = c / kPieces, col = c % kPieces * 4;
+    const bool in = r0 + r < n;
+    cp_async16(dst + r * PITCH + col,
+               src + (long long)(in ? r0 + r : 0) * HD + col, in);
+  }
+}
+
+// a landed float32 staging tile of ROWS rows into its term tiles
+template <int HD, int ROWS, int THREADS>
+__device__ __forceinline__ void split_tile(bf16* dst, const float* src) {
+  constexpr int kPieces = HD / 4;
+  static_assert(ROWS * kPieces % THREADS == 0, "whole rounds");
+#pragma unroll 4
+  for (int u = 0; u < ROWS * kPieces / THREADS; ++u) {
+    const int c = threadIdx.x + u * THREADS;
+    split_store<ROWS * kPitch<HD>>(
+        dst + c / kPieces * kPitch<HD> + c % kPieces * 4,
+        reinterpret_cast<const float4*>(src)[c]);
+  }
+}
+
+// c0 += a b0 and c1 += a b1 over the kept term products (those whose term
+// indexes sum below kTerms), the smallest first; b holds, per term, the B
+// fragments of two neighbouring 8-column tiles as ldsm_b gives them. The
+// products of one call (16 deep) are summed in zeroed accumulators and
+// then added to c0 and c1 in float32, rounded to nearest: the tensor cores
+// truncate each sum they form, so a running sum kept in their accumulator
+// over a long sweep drifts by up to 2^-23 of itself a product; this way
+// the truncation is of a 16-deep partial sum only.
+__device__ __forceinline__ void mma_split(float (&c0)[4], float (&c1)[4],
+                                          const uint32_t (&a)[kTerms][4],
+                                          const uint32_t (&b)[kTerms][4]) {
+  float t0[4] = {}, t1[4] = {};
+#pragma unroll
+  for (int i = kTerms - 1; i >= 0; --i) {
+#pragma unroll
+    for (int j = kTerms - 1 - i; j >= 0; --j) {
+      mma16816(t0, a[i], b[j][0], b[j][1]);
+      mma16816(t1, a[i], b[j][2], b[j][3]);
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    c0[e] += t0[e];
+    c1[e] += t1[e];
+  }
+}
+
+// an A fragment's eight float32 values, in c_to_a's order, as kTerms A
+// fragments, one a term
+__device__ __forceinline__ void split_a(uint32_t (&a)[kTerms][4],
+                                        const float (&x)[8]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    float lo[kTerms], hi[kTerms];
+    split<kTerms>(x[2 * e], lo);
+    split<kTerms>(x[2 * e + 1], hi);
+#pragma unroll
+    for (int i = 0; i < kTerms; ++i) a[i][e] = pack_bf16(lo[i], hi[i]);
+  }
+}
+
+// c_to_a of float32 values as kTerms A fragments
+__device__ __forceinline__ void c_to_a_split(uint32_t (&a)[kTerms][4],
+                                             const float (&c0)[4],
+                                             const float (&c1)[4]) {
+  const float x[8] = {c0[0], c0[1], c0[2], c0[3], c1[0], c1[1], c1[2], c1[3]};
+  split_a(a, x);
+}
+
+// A block's own rows of one operand: kRows rows, only ever read as A
+// fragments. As kTerms bf16 term tiles (split once, read by ldmatrix), or
+// with F32 as one float32 tile of kPitch floats a row, 8 words past a
+// multiple of 32, so that each half warp's 8-byte loads of a fragment are
+// free of bank conflicts, split at every fragment.
+template <int HD, bool F32>
+struct OwnRows {
+  static constexpr int P = kPitch<HD>;
+  static constexpr int kBytes = F32 ? kRows * P * 4 : kTerms * kRows * P * 2;
+
+  // rows [r0, r0 + kRows) of a row-major (n, HD) float32 matrix (zeros
+  // past n); with F32 by cp.async, into the caller's next commit group
+  template <int THREADS>
+  __device__ __forceinline__ static void load(unsigned char* at,
+                                              const float* src, int r0,
+                                              int n) {
+    if constexpr (F32)
+      load_rows_f32<HD, kRows, THREADS, P>(reinterpret_cast<float*>(at), src,
+                                           r0, n);
+    else
+      split_rows<HD, kRows, THREADS>(reinterpret_cast<bf16*>(at), src, r0,
+                                     n);
+  }
+
+  // the kTerms A fragments of rows r0..r0+15, columns c0..c0+15
+  __device__ __forceinline__ static void frag(uint32_t (&a)[kTerms][4],
+                                              const unsigned char* at,
+                                              int r0, int c0) {
+    if constexpr (F32) {
+      const float* t = reinterpret_cast<const float*>(at) +
+                       (r0 + threadIdx.x % 32 / 4) * P + c0 +
+                       threadIdx.x % 4 * 2;
+      const float2 x0 = *reinterpret_cast<const float2*>(t);
+      const float2 x1 = *reinterpret_cast<const float2*>(t + 8 * P);
+      const float2 x2 = *reinterpret_cast<const float2*>(t + 8);
+      const float2 x3 = *reinterpret_cast<const float2*>(t + 8 * P + 8);
+      const float x[8] = {x0.x, x0.y, x1.x, x1.y, x2.x, x2.y, x3.x, x3.y};
+      split_a(a, x);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kTerms; ++i)
+        ldsm_a<P>(a[i], reinterpret_cast<const bf16*>(at) + i * kRows * P,
+                  r0, c0);
+    }
+  }
+};
+
+// bytes of the term tiles of ROWS streamed rows
+template <int HD, int ROWS>
+constexpr int kTermBytes = kTerms * ROWS * kPitch<HD> * 2;
+
+// the float32 forward's shared memory, in bytes from the base: Q's own
+// rows, K's then V's terms (BK rows each), then the next K and V tiles as
+// float32 (BK rows each)
+template <int HD>
+struct SplitFwd {
+  static constexpr int BK = SplitTiles<HD>::kFwdBK;  // keys a tile
+  using Own = OwnRows<HD, false>;
+  static constexpr int kK = Own::kBytes;
+  static constexpr int kV = kK + kTermBytes<HD, BK>;
+  static constexpr int kKf = kV + kTermBytes<HD, BK>;
+  static constexpr int kBytes = kKf + 2 * BK * HD * 4;
+  static_assert(kBytes <= kSmemMax, "the forward's tiles do not fit");
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads) flash_fwd_split_kernel(
+    const Params p) {
+  using L = SplitFwd<HD>;
+  constexpr int P = kPitch<HD>, BK = L::BK, KS = HD / 16, DT = HD / 8;
+  constexpr int NT = BK / 8, KT = BK * P;  // KT: a term tile's stride
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem + L::kK);
+  bf16* v_s = reinterpret_cast<bf16*>(smem + L::kV);
+  float* kf = reinterpret_cast<float*>(smem + L::kKf);
+  float* vf = kf + BK * HD;
+  const QBlockOf<BK> b(p);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r_lo = warp * 16 + lane / 4;  // this thread's rows: r_lo, +8
+  const float* kg = static_cast<const float*>(p.k) + b.kv * p.Tk * HD;
+  const float* vg = static_cast<const float*>(p.v) + b.kv * p.Tk * HD;
+  load_rows_f32<HD, BK, kThreads>(kf, kg, b.t_lo * BK, p.Tk);
+  load_rows_f32<HD, BK, kThreads>(vf, vg, b.t_lo * BK, p.Tk);
+  cp_async_commit();
+  L::Own::template load<kThreads>(
+      smem, static_cast<const float*>(p.q) + b.row0 * HD, b.i0, p.Tq);
+  float acc[DT][4] = {};
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+  for (int t = b.t_lo; t <= b.t_hi; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile t has landed; the last tile's terms are read
+    split_tile<HD, BK, kThreads>(k_s, kf);
+    split_tile<HD, BK, kThreads>(v_s, vf);
+    __syncthreads();  // its terms are ready and the staging is free
+    if (t < b.t_hi) {
+      load_rows_f32<HD, BK, kThreads>(kf, kg, (t + 1) * BK, p.Tk);
+      load_rows_f32<HD, BK, kThreads>(vf, vg, (t + 1) * BK, p.Tk);
+    }
+    cp_async_commit();
+    float s[NT][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t qa[kTerms][4];
+      L::Own::frag(qa, smem, warp * 16, kk * 16);
+#pragma unroll
+      for (int n = 0; n < NT; n += 2) {
+        uint32_t f[kTerms][4];
+#pragma unroll
+        for (int i = 0; i < kTerms; ++i)
+          ldsm_b<P>(f[i], k_s + i * KT, n * 8, kk * 16);
+        mma_split(s[n], s[n + 1], qa, f);
+      }
+    }
+    float mx[2];
+    log2_scores(s, mx, t * BK, b.q_first + r_lo, b.edge(t, p), p);
+    online_softmax(s, mx, m, l, acc);
+    // O += P V, P split in registers, 16 keys a step
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk) {
+      uint32_t a[kTerms][4];
+      c_to_a_split(a, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int d = 0; d < DT; d += 2) {
+        uint32_t f[kTerms][4];
+#pragma unroll
+        for (int i = 0; i < kTerms; ++i)
+          ldsm_bt<P>(f[i], v_s + i * KT, kk * 16, d * 8);
+        mma_split(acc[d], acc[d + 1], a, f);
+      }
+    }
+  }
+  finish_fwd<float>(p, b.row0, b.i0 + r_lo, acc, m, l);
+}
+
+// dQ's shared memory, in bytes from the base: Q's own rows, dO's, K's and
+// V's terms (BK rows each), the next K and V tiles as float32, then lse
+// (times log2 e) and delta of the block's rows
+template <int HD>
+struct SplitDq {
+  static constexpr int BK = SplitTiles<HD>::kDqBK;
+  using Own = OwnRows<HD, SplitTiles<HD>::kOwnF32>;
+  static constexpr int kDo = Own::kBytes;
+  static constexpr int kK = 2 * Own::kBytes;
+  static constexpr int kV = kK + kTermBytes<HD, BK>;
+  static constexpr int kKf = kV + kTermBytes<HD, BK>;
+  static constexpr int kLse = kKf + 2 * BK * HD * 4;
+  static constexpr int kBytes = kLse + 2 * kRows * 4;
+  static_assert(kBytes <= kSmemMax, "dQ's tiles do not fit");
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_split_kernel(
+    const Params p) {
+  using L = SplitDq<HD>;
+  constexpr int P = kPitch<HD>, BK = L::BK, KS = HD / 16, DT = HD / 8;
+  constexpr int NT = BK / 8, KT = BK * P;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem + L::kK);
+  bf16* v_s = reinterpret_cast<bf16*>(smem + L::kV);
+  float* kf = reinterpret_cast<float*>(smem + L::kKf);
+  float* vf = kf + BK * HD;
+  float* lse_s = reinterpret_cast<float*>(smem + L::kLse);
+  float* dl_s = lse_s + kRows;
+  const QBlockOf<BK> b(p);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r_lo = warp * 16 + lane / 4;
+  const float* kg = static_cast<const float*>(p.k) + b.kv * p.Tk * HD;
+  const float* vg = static_cast<const float*>(p.v) + b.kv * p.Tk * HD;
+  const float* dog = static_cast<const float*>(p.dout) + b.row0 * HD;
+  load_rows_f32<HD, BK, kThreads>(kf, kg, b.t_lo * BK, p.Tk);
+  load_rows_f32<HD, BK, kThreads>(vf, vg, b.t_lo * BK, p.Tk);
+  L::Own::template load<kThreads>(
+      smem, static_cast<const float*>(p.q) + b.row0 * HD, b.i0, p.Tq);
+  L::Own::template load<kThreads>(smem + L::kDo, dog, b.i0, p.Tq);
+  cp_async_commit();
+  {
+    // delta = rowsum(dO * O), two threads a row
+    const int r = threadIdx.x / 2, i = b.i0 + r;
+    const long long at = (long long)i * HD + threadIdx.x % 2 * (HD / 2);
+    const float* og = static_cast<const float*>(p.o) + b.row0 * HD;
+    float dl = 0.f;
+    if (i < p.Tq) {
+#pragma unroll 8
+      for (int c = 0; c < HD / 8; ++c) {
+        const float4 o4 = __ldg(reinterpret_cast<const float4*>(
+            og + at + c * 4));
+        const float4 d4 = __ldg(reinterpret_cast<const float4*>(
+            dog + at + c * 4));
+        dl = fmaf(d4.x, o4.x, dl);
+        dl = fmaf(d4.y, o4.y, dl);
+        dl = fmaf(d4.z, o4.z, dl);
+        dl = fmaf(d4.w, o4.w, dl);
+      }
+    }
+    dl += __shfl_xor_sync(kAll, dl, 1);
+    if (threadIdx.x % 2 == 0) {
+      dl_s[r] = dl;
+      lse_s[r] = i < p.Tq ? p.lse[b.row0 + i] * kLog2e : 0.f;
+      if (i < p.Tq) p.delta[b.row0 + i] = dl;
+    }
+  }
+  float dq[DT][4] = {};
+  for (int t = b.t_lo; t <= b.t_hi; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();
+    split_tile<HD, BK, kThreads>(k_s, kf);
+    split_tile<HD, BK, kThreads>(v_s, vf);
+    __syncthreads();
+    if (t < b.t_hi) {
+      load_rows_f32<HD, BK, kThreads>(kf, kg, (t + 1) * BK, p.Tk);
+      load_rows_f32<HD, BK, kThreads>(vf, vg, (t + 1) * BK, p.Tk);
+    }
+    cp_async_commit();
+    // S = Q K^T, then dP = dO V^T (one operand's fragments live at once)
+    float s[NT][4] = {}, dp[NT][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t qa[kTerms][4];
+      L::Own::frag(qa, smem, warp * 16, kk * 16);
+#pragma unroll
+      for (int n = 0; n < NT; n += 2) {
+        uint32_t f[kTerms][4];
+#pragma unroll
+        for (int i = 0; i < kTerms; ++i)
+          ldsm_b<P>(f[i], k_s + i * KT, n * 8, kk * 16);
+        mma_split(s[n], s[n + 1], qa, f);
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t da[kTerms][4];
+      L::Own::frag(da, smem + L::kDo, warp * 16, kk * 16);
+#pragma unroll
+      for (int n = 0; n < NT; n += 2) {
+        uint32_t f[kTerms][4];
+#pragma unroll
+        for (int i = 0; i < kTerms; ++i)
+          ldsm_b<P>(f[i], v_s + i * KT, n * 8, kk * 16);
+        mma_split(dp[n], dp[n + 1], da, f);
+      }
+    }
+    // dS = P * (dP - delta) * d(capped)/d(dot), P = exp(capped - lse)
+    const bool edge = b.edge(t, p);
+    const float lse2[2] = {lse_s[r_lo], lse_s[r_lo + 8]};
+    const float dl[2] = {dl_s[r_lo], dl_s[r_lo + 8]};
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const float sc = capped(s[n][e], p);
+        float ds = 0.f;
+        if (!edge || visible(t * BK + n * 8 + lane % 4 * 2 + (e & 1),
+                             b.q_first + r_lo + h * 8, p))
+          ds = exp2f(sc * kLog2e - lse2[h]) * (dp[n][e] - dl[h]) *
+               capped_grad(sc, p);
+        s[n][e] = ds;
+      }
+    }
+    // dQ += dS K, dS split in registers, 16 keys a step
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk) {
+      uint32_t a[kTerms][4];
+      c_to_a_split(a, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int d = 0; d < DT; d += 2) {
+        uint32_t f[kTerms][4];
+#pragma unroll
+        for (int i = 0; i < kTerms; ++i)
+          ldsm_bt<P>(f[i], k_s + i * KT, kk * 16, d * 8);
+        mma_split(dq[d], dq[d + 1], a, f);
+      }
+    }
+  }
+  float* dqg = static_cast<float*>(p.dq) + b.row0 * HD;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = b.i0 + r_lo + h * 8;
+    if (i < p.Tq) store_band(dqg + (long long)i * HD, dq, h, 1.f);
+  }
+}
+
+// dK/dV's shared memory, in bytes from the base: K's own rows, V's, the
+// query tile's Q terms and dO terms (BQ rows each), then the next tile's
+// Q, dO (float32), lse and delta; the present tile's lse and delta, and
+// the hand-over (64 x BQ floats)
+template <int HD>
+struct SplitDkv {
+  static constexpr int BQ = SplitTiles<HD>::kDkvBQ;
+  using Own = OwnRows<HD, SplitTiles<HD>::kOwnF32>;
+  static constexpr int kV = Own::kBytes;
+  static constexpr int kQ = 2 * Own::kBytes;
+  static constexpr int kDo = kQ + kTermBytes<HD, BQ>;
+  static constexpr int kQf = kDo + kTermBytes<HD, BQ>;
+  static constexpr int kLse = kQf + 2 * BQ * HD * 4 + 2 * BQ * 4;
+  static constexpr int kHand = kLse + 2 * BQ * 4;
+  static constexpr int kBytes = kHand + kRows * BQ * 4;
+  static_assert(kBytes <= kSmemMax, "dK/dV's tiles do not fit");
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kSplitDkvThreads)
+    flash_bwd_dkv_split_kernel(const Params p) {
+  using L = SplitDkv<HD>;
+  constexpr int P = kPitch<HD>, BQ = L::BQ, KS = HD / 16, DT = HD / 8;
+  constexpr int NT = BQ / 8, QT = BQ * P;
+  constexpr int kN = kSplitDkvThreads;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem + L::kQ);
+  bf16* do_s = reinterpret_cast<bf16*>(smem + L::kDo);
+  float* qf = reinterpret_cast<float*>(smem + L::kQf);
+  float* dof = qf + BQ * HD;
+  float* lsef = dof + BQ * HD;
+  float* dlf = lsef + BQ;
+  float* ls = reinterpret_cast<float*>(smem + L::kLse);
+  float* dls = ls + BQ;
+  const int G = p.G, Tq = p.Tq, Tk = p.Tk, off = Tk - Tq;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int grp = warp / 4, w = warp % 4;  // 0: P and dV; 1: dS and dK
+  const long long bh = (long long)blockIdx.z * p.Hkv + blockIdx.y;
+  const int j0 = blockIdx.x * kRows, j1 = min(j0 + kRows, Tk);
+  const int key = j0 + w * 16 + lane / 4;  // this thread's keys: +0, +8
+  // the query rows that see a key of this tile, in tiles of BQ, per head
+  const int i_lo = p.causal ? max(0, j0 - off) : 0;
+  const int i_hi = p.window > 0 ? min(Tq - 1, j1 - 2 + p.window - off)
+                                : Tq - 1;
+  const int n_qt = i_hi >= i_lo ? (i_hi - i_lo) / BQ + 1 : 0;
+  const long long row0 = bh * G * Tq;  // lse row of (b, h, 0, 0)
+  const float* qg = static_cast<const float*>(p.q) + row0 * HD;
+  const float* dog = static_cast<const float*>(p.dout) + row0 * HD;
+  // query tile it (Q, dO, lse, delta) into the staging, a commit group
+  auto load_q = [&](int it) {
+    if (it < G * n_qt) {
+      const int g = it / n_qt, i0 = i_lo + (it - g * n_qt) * BQ;
+      load_rows_f32<HD, BQ, kN>(qf, qg + (long long)g * Tq * HD, i0, Tq);
+      load_rows_f32<HD, BQ, kN>(dof, dog + (long long)g * Tq * HD, i0, Tq);
+      if (threadIdx.x < BQ) {
+        const int i = i0 + threadIdx.x;
+        const long long r = row0 + (long long)g * Tq + min(i, Tq - 1);
+        cp_async4(lsef + threadIdx.x, p.lse + r, i < Tq);
+        cp_async4(dlf + threadIdx.x, p.delta + r, i < Tq);
+      }
+    }
+    cp_async_commit();
+  };
+  // the own rows first, in load_q(0)'s commit group
+  L::Own::template load<kN>(
+      smem, static_cast<const float*>(p.k) + bh * Tk * HD, j0, Tk);
+  L::Own::template load<kN>(
+      smem + L::kV, static_cast<const float*>(p.v) + bh * Tk * HD, j0, Tk);
+  load_q(0);
+  // S^T = K Q^T (group 0) or dP^T = V dO^T (group 1), rows this warp's
+  // keys; then dV += P^T dO or dK += dS^T Q
+  const unsigned char* a_own = smem + (grp ? L::kV : 0);
+  const bf16* b_s = grp ? do_s : q_s;
+  const bf16* o_s = grp ? q_s : do_s;
+  float* hand = reinterpret_cast<float*>(smem + L::kHand) + w * NT * 128;
+  float acc[DT][4] = {};
+  for (int it = 0; it < G * n_qt; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile it has landed; the last one's terms are read
+    split_tile<HD, BQ, kN>(q_s, qf);
+    split_tile<HD, BQ, kN>(do_s, dof);
+    if (threadIdx.x < BQ) {
+      ls[threadIdx.x] = lsef[threadIdx.x];
+      dls[threadIdx.x] = dlf[threadIdx.x];
+    }
+    __syncthreads();
+    load_q(it + 1);  // into the staging, now free
+    const int i0 = i_lo + it % n_qt * BQ;
+    float s[NT][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t ka[kTerms][4];
+      L::Own::frag(ka, a_own, w * 16, kk * 16);
+#pragma unroll
+      for (int n = 0; n < NT; n += 2) {
+        uint32_t f[kTerms][4];
+#pragma unroll
+        for (int i = 0; i < kTerms; ++i)
+          ldsm_b<P>(f[i], b_s + i * QT, n * 8, kk * 16);
+        mma_split(s[n], s[n + 1], ka, f);
+      }
+    }
+    if (grp == 0) {
+      // P = exp(capped - lse) on the visible pairs; P d(capped)/d(dot)
+      // to the partner warp
+      const bool edge = i0 + BQ > Tq || j0 + kRows > Tk ||
+                        (p.causal && j0 + kRows - 1 > i0 + off) ||
+                        (p.window > 0 &&
+                         j0 <= min(i0 + BQ, Tq) - 1 + off - p.window);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = n * 8 + lane % 4 * 2 + (e & 1);  // query row in tile
+          const float sc = capped(s[n][e], p);
+          float pr = 0.f, pg = 0.f;
+          if (!edge || (i0 + c < Tq &&
+                        visible(key + (e >> 1) * 8, i0 + c + off, p))) {
+            pr = exp2f((sc - ls[c]) * kLog2e);
+            pg = pr * capped_grad(sc, p);
+          }
+          s[n][e] = pr;
+          hand[(n * 4 + e) * 32 + lane] = pg;
+        }
+      }
+      named_arrive(kBarSplitHand, kN);
+    } else {
+      // dS^T = P d(capped)/d(dot) (dP^T - delta)
+      named_sync(kBarSplitHand, kN);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = n * 8 + lane % 4 * 2 + (e & 1);
+          s[n][e] = hand[(n * 4 + e) * 32 + lane] * (s[n][e] - dls[c]);
+        }
+      }
+    }
+    // 16 query rows a step, P or dS split in registers
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk) {
+      uint32_t a[kTerms][4];
+      c_to_a_split(a, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int d = 0; d < DT; d += 2) {
+        uint32_t f[kTerms][4];
+#pragma unroll
+        for (int i = 0; i < kTerms; ++i)
+          ldsm_bt<P>(f[i], o_s + i * QT, kk * 16, d * 8);
+        mma_split(acc[d], acc[d + 1], a, f);
+      }
+    }
+  }
+  cp_async_wait<0>();  // no copy outlives the block (n_qt may be 0)
+  float* dst = static_cast<float*>(grp ? p.dk : p.dv) + bh * Tk * HD;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = key + h * 8;
+    if (j < Tk) store_band(dst + (long long)j * HD, acc, h, 1.f);
+  }
+}
+
 // above 48 KB a kernel must opt in to its dynamic shared memory
 template <typename K>
 int opt_in(K kernel, int smem) {
@@ -1618,8 +1922,8 @@ int run_hopper_bwd(const Params& p, int B, cudaStream_t s) {
                 DkvSmem<HD>::kBytes, a, s, kHopThreads);
 }
 
-// the backward kernels of a head_dim: (dQ, dK/dV), their shared memory and
-// block size
+// the bf16 backward kernels of a head_dim: (dQ, dK/dV), their shared
+// memory and block size
 template <int HD>
 struct Bwd {
   static constexpr bool kHopper = HD > 128;
@@ -1642,9 +1946,22 @@ struct Bwd {
   }
 };
 
+// dtype 0: float32 (the split kernels), 1: bf16
 template <int HD>
-int run(bool bwd, const Params& p, int B, cudaStream_t s) {
+int run(bool bwd, int dtype, const Params& p, int B, cudaStream_t s) {
   const dim3 qgrid((p.Tq + kRows - 1) / kRows, p.Hkv * p.G, B);
+  const dim3 kgrid((p.Tk + kRows - 1) / kRows, p.Hkv, B);
+  if (dtype == 0) {
+    if (!bwd)
+      return launch(flash_fwd_split_kernel<HD>, qgrid, SplitFwd<HD>::kBytes,
+                    p, s);
+    const int err = launch(flash_bwd_dq_split_kernel<HD>, qgrid,
+                           SplitDq<HD>::kBytes, p, s);
+    if (err) return err;
+    // after the dQ kernel on the same stream: delta is written
+    return launch(flash_bwd_dkv_split_kernel<HD>, kgrid,
+                  SplitDkv<HD>::kBytes, p, s, kSplitDkvThreads);
+  }
   if (!bwd)
     return launch(flash_fwd_tc_kernel<HD>, qgrid, fwd_smem<HD>(), p, s);
   if constexpr (HD > 128) {
@@ -1653,105 +1970,96 @@ int run(bool bwd, const Params& p, int B, cudaStream_t s) {
     const int err = launch(flash_bwd_dq_tc_kernel<HD>, qgrid, dq_smem<HD>(),
                            p, s);
     if (err) return err;
-    // after the dQ kernel on the same stream: delta is written
-    const dim3 kgrid((p.Tk + kRows - 1) / kRows, p.Hkv, B);
     return launch(flash_bwd_dkv_tc_kernel<HD>, kgrid, dkv_smem<HD>(), p, s);
   }
 }
 
-// blocks of a backward kernel (0: dQ, 1: dK/dV) resident on one SM, its
-// shared memory in *smem and its threads in *threads
-template <int HD>
-int occupancy(int kernel, int* smem, int* threads) {
-  using K = Bwd<HD>;
+// blocks of `kernel` resident on one SM with smem bytes of dynamic shared
+// memory and `threads` a block (0 if it cannot opt in to that much)
+template <typename K>
+int resident(K kernel, int smem, int threads) {
   int n = 0;
-  *smem = kernel ? K::dkv_bytes() : K::dq_bytes();
-  *threads = K::kThreadsBwd;
-  if (kernel) {
-    if (opt_in(K::dkv(), *smem)) return 0;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, K::dkv(),
-                                                  K::kThreadsBwd, *smem);
-  } else {
-    if (opt_in(K::dq(), *smem)) return 0;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, K::dq(),
-                                                  K::kThreadsBwd, *smem);
-  }
+  if (opt_in(kernel, smem)) return 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem);
   return n;
 }
 
-int dispatch(bool bwd, int hd, const Params& p, int B, cudaStream_t s) {
-  switch (hd) {
-    case 32: return run<32>(bwd, p, B, s);
-    case 64: return run<64>(bwd, p, B, s);
-    case 128: return run<128>(bwd, p, B, s);
-    case 192: return run<192>(bwd, p, B, s);  // MLA's qk head_dim
-    case 256: return run<256>(bwd, p, B, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+// blocks of a kernel (0: dQ, 1: dK/dV, 2: the forward) of dtype resident
+// on one SM, its shared memory in *smem and its threads in *threads
+template <int HD>
+int occupancy(int dtype, int kernel, int* smem, int* threads) {
+  *threads = kThreads;
+  if (dtype == 0) {
+    switch (kernel) {
+      case 0:
+        *smem = SplitDq<HD>::kBytes;
+        return resident(flash_bwd_dq_split_kernel<HD>, *smem, *threads);
+      case 1:
+        *smem = SplitDkv<HD>::kBytes;
+        *threads = kSplitDkvThreads;
+        return resident(flash_bwd_dkv_split_kernel<HD>, *smem, *threads);
+      default:
+        *smem = SplitFwd<HD>::kBytes;
+        return resident(flash_fwd_split_kernel<HD>, *smem, *threads);
+    }
+  }
+  using K = Bwd<HD>;
+  switch (kernel) {
+    case 0:
+      *smem = K::dq_bytes();
+      *threads = K::kThreadsBwd;
+      return resident(K::dq(), *smem, *threads);
+    case 1:
+      *smem = K::dkv_bytes();
+      *threads = K::kThreadsBwd;
+      return resident(K::dkv(), *smem, *threads);
+    default:
+      *smem = fwd_smem<HD>();
+      return resident(flash_fwd_tc_kernel<HD>, *smem, *threads);
   }
 }
 
 }  // namespace tc
 
-template <int HD>
-constexpr int q_rows() { return kThreads / threads_per_row(HD); }
+// the most query heads a kv head may have, as kernels/flash_attention.py
+// max_heads: the range the checks on the card cover
+constexpr int max_heads(int hd) { return 128 / (hd == 192 ? 8 : hd / 32); }
 
-template <typename T, int HD>
-int launch_fwd(const Params& p, int B, cudaStream_t s) {
-  const int bq = q_rows<HD>() / p.G;
-  const dim3 grid((p.Tq + bq - 1) / bq, p.Hkv, B);
-  flash_fwd_kernel<T, HD><<<grid, kThreads, 0, s>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, int HD>
-int launch_bwd(const Params& p, int B, cudaStream_t s) {
-  const int bq = q_rows<HD>() / p.G;
-  const dim3 qgrid((p.Tq + bq - 1) / bq, p.Hkv, B);
-  flash_bwd_dq_kernel<T, HD><<<qgrid, kThreads, 0, s>>>(p);
-  int err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  // after the dQ kernel on the same stream: delta is written
-  const int bk = q_rows<HD>();
-  const dim3 kgrid((p.Tk + bk - 1) / bk, p.Hkv, B);
-  flash_bwd_dkv_kernel<T, HD><<<kgrid, kThreads, 0, s>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, int HD>
-int launch_any(bool bwd, const Params& p, int B, cudaStream_t s) {
-  return bwd ? launch_bwd<T, HD>(p, B, s) : launch_fwd<T, HD>(p, B, s);
-}
-
-template <typename T>
-int dispatch(bool bwd, int hd, const Params& p, int B, cudaStream_t s) {
+int run(bool bwd, const Params& p, int B, int hd, int dtype, void* stream) {
+  if (B == 0 || p.Hkv == 0 || p.G == 0 || p.Tq == 0) return 0;
+  // every row must see a key
+  if (p.Tq > p.Tk || (dtype != 0 && dtype != 1) || hd < 32 ||
+      p.G > max_heads(hd))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 32: return launch_any<T, 32>(bwd, p, B, s);
-    case 64: return launch_any<T, 64>(bwd, p, B, s);
-    case 128: return launch_any<T, 128>(bwd, p, B, s);
-    case 192: return launch_any<T, 192>(bwd, p, B, s);  // MLA's qk head_dim
-    case 256: return launch_any<T, 256>(bwd, p, B, s);
+    case 32: return tc::run<32>(bwd, dtype, p, B, s);
+    case 64: return tc::run<64>(bwd, dtype, p, B, s);
+    case 128: return tc::run<128>(bwd, dtype, p, B, s);
+    case 192: return tc::run<192>(bwd, dtype, p, B, s);  // MLA's qk width
+    case 256: return tc::run<256>(bwd, dtype, p, B, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-int run(bool bwd, const Params& p, int B, int hd, int dtype, void* stream) {
-  if (B == 0 || p.Hkv == 0 || p.G == 0 || p.Tq == 0) return 0;
-  // every row must see a key; a float32 tile holds all G heads of a
-  // position, and both routes take the same shapes
-  if (p.Tq > p.Tk || hd < kDS || p.G > kThreads / threads_per_row(hd))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(bwd, hd, p, B, s);
-  if (dtype == 1) return tc::dispatch(bwd, hd, p, B, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+int occupancy(int hd, int dtype, int kernel, int* smem, int* threads) {
+  if (dtype != 0 && dtype != 1) return 0;
+  switch (hd) {
+    case 32: return tc::occupancy<32>(dtype, kernel, smem, threads);
+    case 64: return tc::occupancy<64>(dtype, kernel, smem, threads);
+    case 128: return tc::occupancy<128>(dtype, kernel, smem, threads);
+    case 192: return tc::occupancy<192>(dtype, kernel, smem, threads);
+    case 256: return tc::occupancy<256>(dtype, kernel, smem, threads);
+    default: return 0;
+  }
 }
 
 }  // namespace
 
-// dtype (q, k, v, out): 0 = float32 (CUDA cores), 1 = bfloat16 (tensor
-// cores); hd in {32, 64, 128, 192, 256}; G at most 128 / (hd / 32), 16 at
-// hd 192; Tq <= Tk. causal 0 or 1; window <= 0 and softcap <= 0 mean
-// none. Returns the cudaError_t of the launch.
+// dtype (q, k, v, out): 0 = float32 (split into bf16 terms), 1 = bfloat16;
+// both on the tensor cores. hd in {32, 64, 128, 192, 256}; G at most
+// 128 / (hd / 32), 16 at hd 192; Tq <= Tk. causal 0 or 1; window <= 0 and
+// softcap <= 0 mean none. Returns the cudaError_t of the launch.
 extern "C" int flash_attention_fwd_launch(
     const void* q, const void* k, const void* v, void* out, float* lse,
     int B, int Hkv, int G, int Tq, int Tk, int hd, int causal, int window,
@@ -1776,17 +2084,21 @@ extern "C" int flash_attention_bwd_launch(
   return run(true, p, B, hd, dtype, stream);
 }
 
-// The bf16 backward kernels' residency at head_dim hd: kernel 0 is dQ, 1
-// dK/dV; returns its blocks per SM (0 for a head_dim it does not take) and
-// writes its dynamic shared memory to *smem and its block size to *threads.
-extern "C" int flash_attention_bwd_occupancy(int hd, int kernel, int* smem,
-                                             int* threads) {
-  switch (hd) {
-    case 32: return tc::occupancy<32>(kernel, smem, threads);
-    case 64: return tc::occupancy<64>(kernel, smem, threads);
-    case 128: return tc::occupancy<128>(kernel, smem, threads);
-    case 192: return tc::occupancy<192>(kernel, smem, threads);
-    case 256: return tc::occupancy<256>(kernel, smem, threads);
-    default: return 0;
-  }
+// The backward kernels' residency at head_dim hd and dtype (as the
+// launchers'): kernel 0 is dQ, 1 dK/dV; returns its blocks per SM (0 for a
+// head_dim or dtype it does not take) and writes its dynamic shared memory
+// to *smem and its block size to *threads.
+extern "C" int flash_attention_bwd_occupancy(int hd, int dtype, int kernel,
+                                             int* smem, int* threads) {
+  return occupancy(hd, dtype, kernel != 0, smem, threads);
 }
+
+// The forward kernel's residency, as flash_attention_bwd_occupancy's.
+extern "C" int flash_attention_fwd_occupancy(int hd, int dtype, int* smem,
+                                             int* threads) {
+  return occupancy(hd, dtype, 2, smem, threads);
+}
+
+// The bf16 terms a float32 operand takes in the float32 kernels, as
+// kernels/flash_attention.py's F32_TERMS, which the wrapper checks.
+extern "C" int flash_attention_f32_terms() { return tc::kTerms; }

@@ -14,17 +14,24 @@ versions disagree.
 Layout: q (B, Hkv, G, Tq, hd); k, v (B, Hkv, Tk, hd); out like q; the
 forward also gives lse (B, Hkv, G, Tq), the per-row log-sum-exp the
 backward recomputes the probabilities from. The kernel source is
-``csrc/flash_attention.cu``: bfloat16 operands run its tensor-core kernels
-(float32 accumulators, P and dS rounded to bf16 before their products):
-``mma.sync`` for the forward and for the backward up to head_dim 128; at
-head_dim 192 and 256 the backward runs on Hopper's ``wgmma`` (the building
-blocks in ``csrc/hopper.cuh``), each block a producer warpgroup that feeds
-64-row tiles by TMA into a ring of shared-memory stages and two consumer
-warpgroups that hold dK and dV, or parts of dQ's columns, one each.
-float32 operands run its CUDA-core kernels. Each shape takes one route,
-with no fallback between them. The TMA tensor maps need every operand on
-a 16-byte boundary and rows of a multiple of 16 bytes, which ``_check``
-and ``HEAD_DIMS`` guarantee.
+``csrc/flash_attention.cu``, and every product runs on the tensor cores
+(float32 accumulators). bfloat16 operands, with P and dS rounded to bf16
+before their products: ``mma.sync`` for the forward and for the backward
+up to head_dim 128; at head_dim 192 and 256 the backward runs on Hopper's
+``wgmma`` (the building blocks in ``csrc/hopper.cuh``), each block a
+producer warpgroup that feeds 64-row tiles by TMA into a ring of
+shared-memory stages and two consumer warpgroups that hold dK and dV, or
+parts of dQ's columns, one each. float32 operands: the split kernels on
+``mma.sync`` at every head_dim, each float32 operand (Q, K, V, dO, and P
+and dS in registers) split into ``F32_TERMS`` (three) bf16 terms, and each
+product summed over the six term products whose indexes sum below three
+(those dropped are below 2^-24 of it): as near float32 as plain float32
+arithmetic gets, also on the large scores where two terms (2^-16) are
+not. Each shape takes one route, with no fallback between them.
+The TMA tensor maps need every operand on a 16-byte boundary and rows of
+a multiple of 16 bytes, which ``_check`` and ``HEAD_DIMS`` guarantee.
+Each launcher counts its launches in ``.launches`` and, apart, its
+float32 launches in ``.f32_launches``.
 """
 from __future__ import annotations
 
@@ -39,12 +46,18 @@ NEG_INF = -1e30
 # the forward and the backward take the same head dims
 HEAD_DIMS = (32, 64, 128, 192, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the bf16 terms a float32 operand is split into by the float32 kernels
+# (kTerms in csrc/flash_attention.cu, which the library reports and
+# ``_lib`` checks); a product keeps the term pairs whose indexes sum below
+# it
+F32_TERMS = 3
 
 
 def max_heads(hd: int) -> int:
-    """The most query heads G a kv head may have: a float32 kernel block
-    holds all G heads of a position in its 128 threads, hd / 32 threads a
-    row (8 at hd 192); the bf16 kernels take the same shapes."""
+    """The most query heads G a kv head may have: 128 / (hd / 32), 16 at
+    hd 192. The kernels take the heads through their grid, not through a
+    block's threads; this is the range the checks on the card cover, and
+    every model of the port lies well inside it."""
     return 128 // (8 if hd == 192 else hd // 32)
 
 
@@ -122,6 +135,71 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal=True,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def split_terms(x, terms):
+    """x as ``terms`` bf16 values (as float32) that sum to it, largest
+    first: hi = bf16(x), then bf16 of what is left (``split`` in
+    csrc/mma.cuh)."""
+    out = []
+    for _ in range(terms):
+        t = x.to(torch.bfloat16).float()
+        out.append(t)
+        x = x - t
+    return out
+
+
+def split_einsum(eq, a, b, terms=F32_TERMS):
+    """einsum of float32 a and b as the float32 kernels run it on the bf16
+    tensor cores: each operand as ``terms`` bf16 terms, the term pairs
+    whose indexes sum below ``terms`` kept, summed in float32."""
+    ta, tb = split_terms(a.float(), terms), split_terms(b.float(), terms)
+    return sum(torch.einsum(eq, ta[i], tb[j]) for i in range(terms)
+               for j in range(terms) if i + j < terms)
+
+
+def _split_scores(q, k, terms, causal, window, softcap, scale):
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    d = split_einsum("bhgqd,bhkd->bhgqk", q, k, terms) * scale
+    s = softcap * torch.tanh(d / softcap) if softcap is not None else d
+    return s, _mask(q.shape[3], k.shape[2], causal, window, q.device), scale
+
+
+def flash_attention_split_fwd_ref(q, k, v, *, terms=F32_TERMS, causal=True,
+                                  window=None, softcap=None, scale=None):
+    """The float32 kernels' forward arithmetic in plain PyTorch: S and
+    P V through ``split_einsum``, P (against the row's maximum: its split
+    is relative, as the kernel's against its running maximum) split too.
+    Returns (out, lse) in float32; ``terms=1`` is plain bf16 operands."""
+    _check_lengths(q, k)
+    s, mask, _ = _split_scores(q, k, terms, causal, window, softcap, scale)
+    s = s.masked_fill(~mask, -math.inf)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    ell = p.sum(-1)
+    out = split_einsum("bhgqk,bhkd->bhgqd", p, v, terms) / ell[..., None]
+    return out, m[..., 0] + torch.log(ell)
+
+
+def flash_attention_split_bwd_ref(q, k, v, o, lse, do, *, terms=F32_TERMS,
+                                  causal=True, window=None, softcap=None,
+                                  scale=None):
+    """The float32 kernels' backward arithmetic in plain PyTorch, as
+    ``flash_attention_bwd_ref`` with every product through
+    ``split_einsum`` (P and dS split too). Returns (dq, dk, dv) in
+    float32."""
+    _check_lengths(q, k)
+    s, mask, scale = _split_scores(q, k, terms, causal, window, softcap,
+                                   scale)
+    p = torch.exp(s - lse.float()[..., None]).masked_fill(~mask, 0.0)
+    dof = do.float()
+    dp = split_einsum("bhgqd,bhkd->bhgqk", dof, v, terms)
+    grad = (1 - (s / softcap) ** 2) * scale if softcap is not None \
+        else scale
+    ds = p * grad * (dp - (dof * o.float()).sum(-1)[..., None])
+    return (split_einsum("bhgqk,bhkd->bhgqd", ds, k, terms),
+            split_einsum("bhgqk,bhgqd->bhkd", ds, q, terms),
+            split_einsum("bhgqk,bhgqd->bhkd", p, dof, terms))
+
+
 def _check(kernel, *tensors):
     """Raise on any operand the kernels do not take (the device is checked
     by the launchers)."""
@@ -150,6 +228,22 @@ def _check(kernel, *tensors):
             raise ValueError("operands must start on a 16-byte boundary")
 
 
+def _lib():
+    """The kernel library, once checked to split float32 operands into
+    ``F32_TERMS`` terms, as the split references here do."""
+    lib = _build.lib()
+    if not _lib.checked:
+        terms = lib.flash_attention_f32_terms()
+        if terms != F32_TERMS:
+            raise RuntimeError(f"the flash kernels split float32 into {terms}"
+                               f" terms, F32_TERMS is {F32_TERMS}")
+        _lib.checked = True
+    return lib
+
+
+_lib.checked = False
+
+
 def _opts(q, causal, window, softcap, scale):
     if window is not None and window < 1:
         raise ValueError(f"window {window} must be at least 1")
@@ -169,16 +263,18 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=None, softcap=None,
     B, Hkv, G, Tq, hd = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((B, Hkv, G, Tq), dtype=torch.float32, device=q.device)
-    err = _build.lib().flash_attention_fwd_launch(
+    err = _lib().flash_attention_fwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), B, Hkv, G, Tq, k.shape[2], hd, *opts,
         DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention")
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.f32_launches += int(q.dtype == torch.float32)
     return out, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.f32_launches = 0
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
@@ -200,7 +296,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     delta = torch.empty_like(lse)
-    err = _build.lib().flash_attention_bwd_launch(
+    err = _lib().flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), delta.data_ptr(), B, Hkv, G, Tq, k.shape[2], hd,
@@ -208,10 +304,12 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.f32_launches += int(q.dtype == torch.float32)
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.f32_launches = 0
 
 
 class FlashAttention(torch.autograd.Function):

@@ -12,7 +12,8 @@
   by ``torch.autograd.gradcheck`` in float64.
 * On a CUDA card (``-m gpu``), the kernels against the plain versions,
   forward and backward, and two backward launches at head_dim 192 and
-  256 bit for bit equal; these skip when no card is present. The card's
+  256 bit for bit equal in bf16 and float32; these skip when no card is
+  present. The card's
   machine has no JAX, so the reference is imported inside the CPU tests
   only and the card runs this file with
   ``PYTHONPATH=src python -m pytest -q --noconftest -m gpu
@@ -201,7 +202,8 @@ def cuda():
     (4, 129, 129, None, None, True, 128), (2, 100, 163, None, 20.0, True, 128),
     (4, 127, 129, None, None, False, 128),
     # head_dim 192 (MLA's qk width) and 256 (gemma2, GPT-J): the bf16
-    # backward's TMA-fed wgmma kernels, the float32 kernels' 8 threads a row
+    # backward's TMA-fed wgmma kernels, the float32 split kernels' 16- and
+    # 32-row tiles
     (1, 65, 65, None, None, True, 192), (1, 129, 129, None, None, True, 192),
     (16, 100, 163, None, None, True, 192), (2, 200, 200, 65, 50.0, True, 192),
     (2, 1, 1, None, None, True, 256), (2, 129, 129, None, 50.0, True, 256),
@@ -258,12 +260,14 @@ def test_gpu_autograd_function_launches_kernels(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("hd", [192, 256])
-def test_gpu_wide_backward_is_deterministic(cuda, hd):
+def test_gpu_wide_backward_is_deterministic(cuda, hd, dtype):
     """Every dq, dk and dv element has one owner (no atomics): two launches
-    on the same inputs give the same bits."""
+    on the same inputs give the same bits, in bf16 and in float32 (the
+    split kernels)."""
     arrays = _inputs(hd, 2, 2, 2, 200, 300, hd)
-    q, k, v = _torch(arrays, "bfloat16", cuda)
+    q, k, v = _torch(arrays, dtype, cuda)
     do = torch.randn(q.shape, generator=torch.Generator(cuda).manual_seed(2),
                      device=cuda).to(q.dtype)
     kw = dict(window=70, softcap=50.0)
